@@ -1,0 +1,265 @@
+"""Strict, typed configuration schema for the PyTorch port.
+
+Same field names, defaults and validation as ``mas_tpu/utils/config.py``
+(``CodebookConfig``, ``VQModelConfig``, ``TransformerConfig``), so the JAX
+package's JSON configs (``configs/sample_256.json``) load unchanged.  The
+port cannot import that module: importing anything under ``mas_tpu`` pulls
+in jax (``mas_tpu/__init__.py`` -> ``mas_tpu/eval.py``).
+
+Fields that exist only as TPU/XLA ablations or workarounds raise
+``NotImplementedError`` when set away from their default, naming the
+ROADMAP item that would port them; they are never silently ignored.
+Fields read only by the JAX package's dispatch (``attention_impl``,
+``decode_attention_impl``) are accepted and have no effect here: the port
+picks a hand-written kernel for CUDA tensors and its plain twin for CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Tuple, Type, TypeVar
+
+T = TypeVar("T")
+
+
+class ConfigError(ValueError):
+    """Raised on unknown keys or invalid field values."""
+
+
+def _from_dict(cls: Type[T], data: Dict[str, Any]) -> T:
+    """Build a dataclass from a dict, rejecting unknown keys recursively."""
+    names = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = set(data) - set(names)
+    if unknown:
+        raise ConfigError(
+            f"unknown config keys for {cls.__name__}: {sorted(unknown)}; "
+            f"valid keys: {sorted(names)}")
+    kwargs: Dict[str, Any] = {}
+    for key, value in data.items():
+        sub = names[key].type if isinstance(names[key].type, type) else None
+        if (sub is not None and dataclasses.is_dataclass(sub)
+                and isinstance(value, dict)):
+            kwargs[key] = _from_dict(sub, value)
+        else:
+            kwargs[key] = value
+    return cls(**kwargs)
+
+
+class _Base:
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]):
+        return _from_dict(cls, data)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to mas_tpu_torch (ROADMAP {item})")
+
+
+@dataclass(frozen=True)
+class CodebookConfig(_Base):
+    """Vector-quantizer codebook (``mas_tpu/utils/config.py``).  Serving
+    reads only ``codebook_size``/``codebook_dim``; the k-means bootstrap
+    fields belong to VQ training (ROADMAP A8)."""
+
+    codebook_size: int = 1024
+    codebook_dim: int = 256
+    beta: float = 0.25
+    init_steps: int = 2000
+    reservoir_size: int = 200_000
+    samples_per_image: int = 10
+    kmeans_iters: int = 10
+
+    def __post_init__(self):
+        if self.codebook_size <= 0 or self.codebook_dim <= 0:
+            raise ConfigError("codebook_size and codebook_dim must be positive")
+        if self.reservoir_size <= 0:
+            raise ConfigError("reservoir_size must be positive")
+        if self.reservoir_size < self.codebook_size:
+            raise ConfigError(
+                f"reservoir_size ({self.reservoir_size}) must be >= "
+                f"codebook_size ({self.codebook_size})")
+
+
+@dataclass(frozen=True)
+class VQModelConfig(_Base):
+    """VQ-VAE / VQGAN autoencoder; len(channels)-2 up/down stages."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    channels: Tuple[int, ...] = (128, 128, 128, 256, 512, 512)
+    num_res_blocks: int = 2
+    attn_resolutions: Tuple[int, ...] = (32,)
+    resolution: int = 512
+    z_channels: int = 256
+    embed_dim: int = 256
+    dropout: float = 0.0
+    codebook: CodebookConfig = field(default_factory=CodebookConfig)
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if isinstance(self.channels, list):
+            object.__setattr__(self, "channels", tuple(self.channels))
+        if isinstance(self.attn_resolutions, list):
+            object.__setattr__(self, "attn_resolutions",
+                               tuple(self.attn_resolutions))
+        if isinstance(self.codebook, dict):
+            object.__setattr__(self, "codebook",
+                               CodebookConfig.from_dict(self.codebook))
+        if len(self.channels) < 2:
+            raise ConfigError("channels needs at least 2 entries")
+        if self.resolution % self.spatial_reduction != 0:
+            raise ConfigError(
+                f"resolution {self.resolution} not divisible by reduction "
+                f"{self.spatial_reduction}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ConfigError(
+                f"compute_dtype must be float32/bfloat16, got "
+                f"{self.compute_dtype!r}")
+
+    @property
+    def num_down(self) -> int:
+        return len(self.channels) - 2
+
+    @property
+    def spatial_reduction(self) -> int:
+        return 2 ** self.num_down
+
+    @property
+    def latent_resolution(self) -> int:
+        return self.resolution // self.spatial_reduction
+
+
+@dataclass(frozen=True)
+class TransformerConfig(_Base):
+    """MakeAScene AR transformer; sequence = [text | seg | image]."""
+
+    num_layers: int = 24
+    hidden_dim: int = 1024
+    num_attn_heads: int = 16
+    num_kv_heads: int = 0
+    image_vocab_size: int = 8192
+    seg_vocab_size: int = 1024
+    text_vocab_size: int = 16512
+    image_tokens_per_dim: int = 32
+    seg_tokens_per_dim: int = 16
+    text_length: int = 128
+    attn_dropout: float = 0.0
+    out_dropout: float = 0.0
+    # PB-relax subtracts a per-row constant that softmax cancels; the port
+    # computes the plain masked softmax with fp32 statistics either way
+    cogview_pb_relax: bool = True
+    cogview_sandwich_layernorm: bool = True
+    pb_relax_alpha: float = 32.0
+    # True: bidirectional over the text+seg prefix (paper); False: pure
+    # causal, faithful to the reference's effective mask
+    prefix_bidirectional: bool = True
+    rudalle_relax: bool = False
+    cogview_layernorm_prescale: bool = False
+    compute_dtype: str = "float32"
+    ln_matmul_fold: bool = False
+    attention_impl: str = "auto"
+    decode_attention_impl: str = "auto"
+    remat: bool = False
+    remat_policy: str = "nothing"
+    # 'int8' | 'int4' decode caches; 'compute' (float cache) needs kernel
+    # B9 and raises when a decode cache is allocated
+    kv_cache_dtype: str = "compute"
+    decode_ring_tail: bool = False
+    # 'lane' and 'lane_aliased' both mean "written in place" here: the
+    # port's caches are preallocated and kernel B3 writes into them
+    kv_cache_layout: str = "lane"
+    kv_scale_dtype: str = "float32"
+    decode_length_buckets: int = 1
+    decode_q_rows: int = 1
+    layernorm_impl: str = "jnp"
+    scan_layers: bool = False
+
+    def __post_init__(self):
+        if self.hidden_dim % self.num_attn_heads:
+            raise ConfigError("hidden_dim must divide num_attn_heads")
+        if self.text_vocab_size < self.text_length:
+            raise ConfigError("text_vocab_size must be >= text_length "
+                              "(pad-remap needs text_length trailing slots)")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ConfigError(
+                f"compute_dtype must be float32/bfloat16, got "
+                f"{self.compute_dtype!r}")
+        if self.kv_cache_dtype not in ("compute", "int8", "int4"):
+            raise ConfigError(
+                f"kv_cache_dtype must be compute/int8/int4, got "
+                f"{self.kv_cache_dtype!r}")
+        if self.kv_cache_layout not in ("lane", "lane_aliased", "packed"):
+            raise ConfigError(
+                f"kv_cache_layout must be lane/lane_aliased/packed, got "
+                f"{self.kv_cache_layout!r}")
+        if self.decode_length_buckets < 1 or self.decode_q_rows < 1:
+            raise ConfigError(
+                "decode_length_buckets and decode_q_rows must be >= 1")
+        if self.kv_scale_dtype not in ("float32", "bfloat16"):
+            raise ConfigError(
+                f"kv_scale_dtype must be float32/bfloat16, got "
+                f"{self.kv_scale_dtype!r}")
+        if self.layernorm_impl not in ("jnp", "pallas"):
+            raise ConfigError(
+                f"layernorm_impl must be jnp/pallas, got "
+                f"{self.layernorm_impl!r}")
+        self._reject_tpu_ablations()
+
+    def _reject_tpu_ablations(self):
+        checks = (
+            (self.decode_ring_tail, "decode_ring_tail", "A5"),
+            (self.decode_length_buckets > 1, "decode_length_buckets > 1",
+             "A5"),
+            (self.decode_q_rows > 1, "decode_q_rows > 1", "A5"),
+            (self.kv_cache_layout == "packed", "kv_cache_layout='packed'",
+             "B10"),
+            (self.num_kv_heads not in (0, self.num_attn_heads),
+             "num_kv_heads (grouped-query attention)", "A9"),
+            (self.rudalle_relax, "rudalle_relax", "A9"),
+            (self.cogview_layernorm_prescale, "cogview_layernorm_prescale",
+             "A9"),
+            (self.ln_matmul_fold, "ln_matmul_fold", "A9"),
+            (self.scan_layers, "scan_layers (load stacked trees unstacked)",
+             "A9"),
+            (self.layernorm_impl == "pallas", "layernorm_impl='pallas'",
+             "B7"),
+            (self.kv_scale_dtype == "bfloat16", "kv_scale_dtype='bfloat16'",
+             "B2/B3"),
+        )
+        for bad, what, item in checks:
+            if bad:
+                raise _not_ported(what, item)
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_dim // self.num_attn_heads
+
+    @property
+    def image_length(self) -> int:
+        return self.image_tokens_per_dim ** 2
+
+    @property
+    def seg_length(self) -> int:
+        return self.seg_tokens_per_dim ** 2
+
+    @property
+    def total_length(self) -> int:
+        return self.text_length + self.seg_length + self.image_length
+
+    @property
+    def prefix_length(self) -> int:
+        return self.text_length + self.seg_length
+
+    @property
+    def effective_prefix(self) -> int:
+        """Bidirectional-prefix extent applied to masks (0 = pure causal)."""
+        return self.prefix_length if self.prefix_bidirectional else 0
+
+    def check_decode_cache(self) -> None:
+        """The port decodes over int8/int4 caches only (kernels B2/B3)."""
+        if self.kv_cache_dtype == "compute":
+            raise _not_ported("kv_cache_dtype='compute' (float decode cache)",
+                              "B9")
