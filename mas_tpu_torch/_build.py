@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels (``csrc/*.cu``) on first use.
 
-``nvcc`` compiles every source in ``csrc/`` into one shared library with a
-plain C interface for Hopper (``sm_90a``), and ``ctypes`` loads it.  No
+``nvcc`` compiles every source in ``csrc/`` for Hopper (``sm_90a``), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, which ``ctypes`` loads.  No
 PyTorch header is included, so the build takes seconds.  The library goes
 into ``build/mas_tpu_torch/`` at the root of the checkout, named by a hash
 of the sources and flags: a changed source builds a new library, an
@@ -23,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "mas_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _LIB = None
 
@@ -56,26 +57,44 @@ def _digest(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds, verbose: bool) -> None:
+    """Run the commands in parallel; raise with the log of the first that
+    fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    logs = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in procs]
+    for cmd, log, code in logs:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n"
+                               f"{log}")
+        if verbose:
+            print(log)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the sources if no library for their hash exists; returns
     the library path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
     memory and spills per kernel) to a fresh build and prints its log."""
     srcs = _sources()
-    lib = BUILD_DIR / f"libmas_kernels_{_digest(srcs)}.so"
+    digest = _digest(srcs)
+    lib = BUILD_DIR / f"libmas_kernels_{digest}.so"
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    nvcc, tag = _nvcc(), f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in srcs]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    try:
+        _run([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(srcs, objs)], verbose)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], verbose)
+        os.replace(tmp, lib)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib
 
 
@@ -89,6 +108,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mas_decode_quant.argtypes = [p, p, p, p, p, p, p,
                                      i, i, i, i, i, i, i, p]
     lib.mas_decode_quant.restype = i
+    # z codebook cb_sq out, N K D is_bf16, stream
+    lib.mas_vq_argmin.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.mas_vq_argmin.restype = i
     lib.mas_cuda_error_string.argtypes = [i]
     lib.mas_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,16 +1,24 @@
-"""Command-line entry point of the PyTorch port: ``--mode sample``.
+"""Command-line entry point of the PyTorch port: ``--mode sample`` and
+``--mode pretrain_segmentation``.
 
-Counterpart of ``mas_tpu/cli.py::_run_sample``: tokenizes the config's
-captions, samples image tokens with guidance and top-k, decodes them with
-VQ-IMG and writes the image grid.  Without checkpoints the weights are
-seeded random, as the JAX ``--mode sample`` does.
+``sample`` is the counterpart of ``mas_tpu/cli.py::_run_sample``: it
+tokenizes the config's captions, samples image tokens with guidance and
+top-k, decodes them with VQ-IMG and writes the image grid.  Without
+checkpoints the weights are seeded random, as the JAX ``--mode sample``
+does.  ``transformer_checkpoint`` / ``vq_checkpoint`` may name a
+reference-layout ``.pt``, as the JAX package's ``--mode export`` writes
+it, or a checkpoint of the port's VQ-SEG training.
+
+``pretrain_segmentation`` trains VQ-SEG (``train/loop.py``) on the
+config's ``data`` section; only ``kind: synthetic`` is ported (ROADMAP
+A13).  Every other mode raises: it is not ported yet (ROADMAP A9-A11).
 
 Usage:
     python -m mas_tpu_torch.cli --config configs/sample_256.json --device cuda
+    python -m mas_tpu_torch.cli --config configs/seg_256.json \
+        --mode pretrain_segmentation --device cuda
 
-``transformer_checkpoint`` / ``vq_checkpoint`` may name a reference-layout
-``.pt``, as the JAX package's ``--mode export`` writes it.  Every other
-mode raises: it is not ported yet (ROADMAP A11).
+``--device`` is explicit; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ from .data.tokenizer import HashWordTokenizer
 from .models.sampler import sample_images
 from .models.transformer import MakeAScene
 from .models.vqvae import VQModel
-from .utils.config import ConfigError, TransformerConfig, VQModelConfig
+from .utils.config import (ConfigError, SegLossConfig, TrainConfig,
+                           TransformerConfig, VQModelConfig)
 from .utils.logging import make_grid, save_image
 from .utils.weights import init_random_, load_reference_pt, serving_state
 
@@ -106,6 +115,33 @@ def run_sample(raw: Dict[str, Any], device) -> str:
     return out
 
 
+def data_iter(data_cfg: Dict[str, Any], batch_size: int,
+              model_cfg: VQModelConfig):
+    """The host batch iterator of the config's ``data`` section for VQ-SEG
+    training, as ``mas_tpu/cli.py::_data_iter``; the port has the
+    synthetic kind."""
+    from .data.dataset import SyntheticSegBatches
+
+    kind = data_cfg.get("kind", "synthetic")
+    if kind != "synthetic":
+        raise NotImplementedError(
+            f"data kind {kind!r} is not ported to mas_tpu_torch "
+            "(ROADMAP A13); only 'synthetic' is")
+    res = data_cfg.get("resolution", model_cfg.resolution)
+    return iter(SyntheticSegBatches(batch_size, res, data_cfg.get("seed", 0)))
+
+
+def run_pretrain_segmentation(raw: Dict[str, Any], train_raw: Dict[str, Any],
+                              device):
+    from .train.loop import run_pretrain_segmentation as run
+
+    train_cfg = TrainConfig.from_dict(train_raw)
+    model_cfg = VQModelConfig.from_dict(raw["model"])
+    loss_cfg = SegLossConfig.from_dict(raw.get("loss", {}))
+    batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
+    return run(train_cfg, model_cfg, batches, loss_cfg, device)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="mas_tpu_torch",
                                  description=__doc__.split("\n")[0])
@@ -117,17 +153,23 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     with open(args.config) as f:
         raw = json.load(f)
-    train = raw.get("train", {})
+    train = dict(raw.get("train", {}))
     mode = args.mode or train.get("mode", "pretrain_segmentation")
+    device = torch.device(args.device)
+    if mode == "pretrain_segmentation":
+        train["mode"] = mode
+        state = run_pretrain_segmentation(raw, train, device)
+        print(f"trained to step {state.step}")
+        return 0
     if mode != "sample":
         raise NotImplementedError(
             f"mode {mode!r} is not ported to mas_tpu_torch yet (ROADMAP "
-            "A11); only 'sample' is")
+            "A9-A11); only 'sample' and 'pretrain_segmentation' are")
     unknown = set(train) - _SAMPLE_TRAIN_KEYS
     if unknown:
         raise ConfigError(f"train keys {sorted(unknown)} configure training, "
                           "which mas_tpu_torch does not port yet")
-    print(run_sample(raw, torch.device(args.device)))
+    print(run_sample(raw, device))
     return 0
 
 

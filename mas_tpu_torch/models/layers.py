@@ -1,4 +1,5 @@
-"""Conv building blocks of the VQ decoder, as ``mas_tpu/models/layers.py``.
+"""Conv building blocks of the VQ autoencoders, as
+``mas_tpu/models/layers.py``.
 
 Public tensors are NHWC like the JAX package; inside, activations are
 NCHW tensors in the channels_last memory format, so the same memory is a
@@ -7,8 +8,9 @@ contiguous NHWC tensor for the GroupNorm+swish kernel (``x.permute(0, 2,
 weights keep the reference's OIHW layout and ``.weight`` names.
 
 Conv 3x3 "SAME" is padding 1; Upsample is nearest 2x then a 3x3 conv;
+Downsample pads bottom/right by one, then a stride-2 VALID 3x3 conv;
 AttnBlock is plain matmul -> fp32 softmax -> matmul, as the JAX einsums.
-Downsample and SyncBatchNorm are encode-side (ROADMAP A7).
+GroupNorm+swish goes through ``GNSwishFunction`` (kernels B4/B8 on CUDA).
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ class _Norm(nn.Module):
 
 
 class GroupNormSwish(_Norm):
-    """GroupNorm(32, eps=1e-6) then swish; kernel B4 on CUDA."""
+    """GroupNorm(32, eps=1e-6) then swish, differentiable; kernels B4
+    (forward) and B8 (backward) on CUDA."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = group_norm_swish(_nhwc(x).contiguous(), self.weight, self.bias,
@@ -57,18 +60,23 @@ def conv(cin: int, cout: int, kernel: int = 3) -> nn.Conv2d:
 
 
 class ResnetBlock(nn.Module):
-    """GN->swish->conv3x3 twice, 1x1 ``nin_shortcut`` on channel change."""
+    """GN->swish->conv3x3 twice, 1x1 ``nin_shortcut`` on channel change;
+    dropout between ``norm2`` and ``conv2`` in training mode."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dropout: float = 0.0):
         super().__init__()
         self.norm1 = GroupNormSwish(cin)
         self.conv1 = conv(cin, cout)
         self.norm2 = GroupNormSwish(cout)
+        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
         self.conv2 = conv(cout, cout)
         self.nin_shortcut = conv(cin, cout, 1) if cin != cout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+        h = self.norm2(self.conv1(self.norm1(x)))
+        if self.dropout is not None:
+            h = self.dropout(h)
+        h = self.conv2(h)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -105,3 +113,55 @@ class Upsample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.interpolate(x, scale_factor=2.0, mode="nearest")
         return self.conv(x.contiguous(memory_format=torch.channels_last))
+
+
+class Downsample(nn.Module):
+    """Pad bottom and right by one (none top/left), then a stride-2 VALID
+    3x3 conv."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = nn.Conv2d(c, c, 3, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(x, (0, 1, 0, 1))
+        return self.conv(x.contiguous(memory_format=torch.channels_last))
+
+
+class SyncBatchNorm(nn.Module):
+    """BatchNorm over (N, H, W) of the ``quant_conv`` output, as the JAX
+    ``SyncBatchNorm``: fp32 statistics, the *biased* batch variance
+    E[x^2] - mean^2 in training mode, running statistics with decay 0.9
+    (``nn.BatchNorm2d`` would track the unbiased variance), output in x's
+    dtype.  Single process: statistics across processes wait for
+    ``torch.distributed`` (ROADMAP A12).  ``num_batches_tracked`` is kept
+    for the reference key layout and never read."""
+
+    def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x NCHW; ``train``: batch statistics, and update the running
+        ones in place."""
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        out = (xf - mean[:, None, None]) * inv[:, None, None] \
+            + self.bias[:, None, None]
+        return out.to(x.dtype)

@@ -1,8 +1,9 @@
 """Normalization + activation primitives (NHWC), as ``mas_tpu/ops/norms.py``.
 
 Statistics are fp32 whatever the input dtype, and the variance is the
-two-pass mean of squared deviations.  ``group_norm_swish`` dispatches to
-kernel B4 (``ops/gn_swish.py``) for CUDA tensors.
+two-pass mean of squared deviations.  ``group_norm_swish`` goes through
+``ops/gn_swish.py::GNSwishFunction``: kernels B4 (forward) and B8
+(backward) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -44,10 +45,11 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def group_norm_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
-    """Fused GroupNorm -> swish over NHWC; kernel B4 for CUDA tensors."""
-    from .gn_swish import gn_swish
+    """Fused GroupNorm -> swish over NHWC, differentiable; kernels B4/B8
+    for CUDA tensors."""
+    from .gn_swish import GNSwishFunction
 
-    return gn_swish(x, scale, bias, num_groups, eps)[0]
+    return GNSwishFunction.apply(x, scale, bias, num_groups, eps)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -1,8 +1,10 @@
 """Strict, typed configuration schema for the PyTorch port.
 
 Same field names, defaults and validation as ``mas_tpu/utils/config.py``
-(``CodebookConfig``, ``VQModelConfig``, ``TransformerConfig``), so the JAX
-package's JSON configs (``configs/sample_256.json``) load unchanged.  The
+(``CodebookConfig``, ``VQModelConfig``, ``TransformerConfig``,
+``SegLossConfig``, ``OptimizerConfig``, ``TrainConfig``), so the JAX
+package's JSON configs (``configs/sample_256.json``, ``configs/seg_256.json``)
+load unchanged.  The
 port cannot import that module: importing anything under ``mas_tpu`` pulls
 in jax (``mas_tpu/__init__.py`` -> ``mas_tpu/eval.py``).
 
@@ -60,9 +62,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclass(frozen=True)
 class CodebookConfig(_Base):
-    """Vector-quantizer codebook (``mas_tpu/utils/config.py``).  Serving
-    reads only ``codebook_size``/``codebook_dim``; the k-means bootstrap
-    fields belong to VQ training (ROADMAP A8)."""
+    """Vector-quantizer codebook with the staged k-means bootstrap
+    (``mas_tpu/utils/config.py``): collect latents into the reservoir after
+    ``q_start_collect`` micro-steps, pass latents through unquantized until
+    ``q_init``, then re-initialize the codebook by k-means every
+    ``q_re_step`` micro-steps until ``q_re_end``."""
 
     codebook_size: int = 1024
     codebook_dim: int = 256
@@ -81,6 +85,22 @@ class CodebookConfig(_Base):
             raise ConfigError(
                 f"reservoir_size ({self.reservoir_size}) must be >= "
                 f"codebook_size ({self.codebook_size})")
+
+    @property
+    def q_start_collect(self) -> int:
+        return self.init_steps
+
+    @property
+    def q_init(self) -> int:
+        return self.init_steps * 3
+
+    @property
+    def q_re_end(self) -> int:
+        return self.init_steps * 30
+
+    @property
+    def q_re_step(self) -> int:
+        return self.init_steps // 2
 
 
 @dataclass(frozen=True)
@@ -263,3 +283,79 @@ class TransformerConfig(_Base):
         if self.kv_cache_dtype == "compute":
             raise _not_ported("kv_cache_dtype='compute' (float decode cache)",
                               "B9")
+
+
+@dataclass(frozen=True)
+class SegLossConfig(_Base):
+    """Weighted-BCE seg loss (``losses/seg.py``)."""
+
+    image_channels: int = 159
+    codebook_weight: float = 1.0
+    face_weight: float = 20.0
+    face_channel_start: int = 153
+    face_channel_end: int = 158
+
+
+@dataclass(frozen=True)
+class OptimizerConfig(_Base):
+    lr: float = 4.5e-6
+    beta1: float = 0.5
+    beta2: float = 0.9
+    eps: float = 1e-8
+    accumulate_grad: int = 1
+
+
+@dataclass(frozen=True)
+class MeshConfig(_Base):
+    """Device mesh of the JAX package; the port runs on one device until
+    ``torch.distributed`` is wired in (ROADMAP A12)."""
+
+    data: int = -1
+    model: int = 1
+
+
+@dataclass(frozen=True)
+class TrainConfig(_Base):
+    """Training run settings.  The port trains VQ-SEG only: the other
+    modes, and the fields only they or a device mesh read, raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them."""
+
+    mode: str = "pretrain_segmentation"
+    total_steps: int = 100
+    batch_size: int = 2
+    log_period: int = 50
+    save_period: int = 50_000
+    checkpoint_dir: str = "checkpoints"
+    resume: bool = False
+    seed: int = 0
+    start_uncond: int = 0
+    uncond_p: float = 0.1
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    disc_optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    allow_replicated_batch: bool = False
+
+    def __post_init__(self):
+        valid = {"pretrain_segmentation", "pretrain_image", "train_transformer"}
+        if self.mode not in valid:
+            raise ConfigError(f"mode must be one of {sorted(valid)}")
+        for name in ("mesh", "optimizer", "disc_optimizer"):
+            v = getattr(self, name)
+            if isinstance(v, dict):
+                cls = MeshConfig if name == "mesh" else OptimizerConfig
+                object.__setattr__(self, name, cls.from_dict(v))
+        checks = (
+            (self.mode == "pretrain_image", "mode 'pretrain_image'", "A10"),
+            (self.mode == "train_transformer", "mode 'train_transformer'",
+             "A9"),
+            (self.start_uncond != 0 or self.uncond_p != 0.1,
+             "start_uncond/uncond_p (transformer CFG dropout)", "A9"),
+            (self.disc_optimizer != OptimizerConfig(),
+             "disc_optimizer (VQ-IMG discriminator)", "A10"),
+            (self.mesh != MeshConfig(), "mesh (multi-device training)",
+             "A12"),
+            (self.allow_replicated_batch, "allow_replicated_batch", "A12"),
+        )
+        for bad, what, item in checks:
+            if bad:
+                raise _not_ported(what, item)

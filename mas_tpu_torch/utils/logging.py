@@ -1,8 +1,11 @@
-"""Image-grid helpers (numpy only), as in ``mas_tpu/utils/logging.py``."""
+"""Image-grid helpers (numpy only) and the scalar logger, as in
+``mas_tpu/utils/logging.py``."""
 
 from __future__ import annotations
 
+import json
 import os
+import time
 
 import numpy as np
 
@@ -27,3 +30,20 @@ def save_image(grid: np.ndarray, path: str) -> None:
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     Image.fromarray((grid * 255).astype(np.uint8).squeeze()).save(path)
+
+
+class Logger:
+    """Scalar logger: prints one JSON line per call and appends it to
+    ``<log_dir>/metrics.jsonl``.  Image grids (``Visualizer``) are not
+    ported yet (ROADMAP A11)."""
+
+    def __init__(self, log_dir: str = "logs"):
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, "metrics.jsonl")
+
+    def log(self, step: int, **scalars) -> None:
+        line = json.dumps({"step": step, "time": time.time(),
+                           **{k: float(v) for k, v in scalars.items()}})
+        print(line)
+        with open(self.path, "a") as f:
+            f.write(line + "\n")

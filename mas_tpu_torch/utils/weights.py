@@ -12,12 +12,13 @@ layout:
   * ``load_reference_pt`` reads a ``.pt`` written by the JAX package's
     ``--mode export`` (or a reference checkpoint).
 
-The decoder's ``nn.Sequential`` indices are replayed from the config
-(``models/vqvae.py::decoder_layout``), the same replay as
-``mas_tpu/utils/torch_import.py::_decoder_layout``.  Keys of parts this
-slice does not port (the VQ encoder and ``quant_conv``, ROADMAP A7) and the
-reference transformer's derived ``transformer.mask`` buffer (the port
-builds the mask from indices) are set aside by ``serving_state``.
+The encoder's and decoder's ``nn.Sequential`` indices are replayed from
+the config (``models/vqvae.py::encoder_layout``/``decoder_layout``), the
+same replay as ``mas_tpu/utils/torch_import.py``.  The BN on
+``quant_conv`` takes its running statistics from the ``batch_stats``
+collection; ``num_batches_tracked`` is written as 0, as the exporter does.
+The reference transformer's derived ``transformer.mask`` buffer (the port
+builds the mask from indices) is set aside by ``serving_state``.
 """
 
 from __future__ import annotations
@@ -28,14 +29,12 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from ..models.codebook import Codebook
-from ..models.vqvae import decoder_layout
+from ..models.codebook import Codebook, codebook_init_embedding
+from ..models.vqvae import decoder_layout, encoder_layout
 from .config import TransformerConfig, VQModelConfig
 
 State = Dict[str, torch.Tensor]
 
-# key prefixes of reference checkpoints that the serving slice does not use
-UNPORTED_VQ_PREFIXES = ("encoder.", "quant_conv.")
 DERIVED_TRANSFORMER_KEYS = ("transformer.mask",)
 
 
@@ -74,24 +73,36 @@ def _attn(out: State, prefix: str, p: Mapping[str, Any]) -> None:
         _conv(out, f"{prefix}.{name}", p[name])
 
 
-def vq_from_flax(variables: Mapping[str, Any], cfg: VQModelConfig) -> State:
-    """flax VQModel variables (numpy) -> the decode-side ``state_dict`` of
-    ``models.vqvae.VQModel``."""
-    params = variables["params"] if "params" in variables else variables
-    dec = params["decoder"]
-    out: State = {}
-    for idx, (kind, name) in enumerate(decoder_layout(cfg)):
-        prefix = f"decoder.model.{idx}"
+def _sequential(out: State, torch_prefix: str, plan,
+                params: Mapping[str, Any]) -> None:
+    for idx, (kind, name) in enumerate(plan):
+        prefix = f"{torch_prefix}.{idx}"
         if kind == "conv":
-            _conv(out, prefix, dec[name])
+            _conv(out, prefix, params[name])
         elif kind == "resnet":
-            _resnet(out, prefix, dec[name])
+            _resnet(out, prefix, params[name])
         elif kind == "attn":
-            _attn(out, prefix, dec[name])
-        elif kind == "up":
-            _conv(out, f"{prefix}.conv", dec[name]["conv"])
+            _attn(out, prefix, params[name])
+        elif kind in ("down", "up"):
+            _conv(out, f"{prefix}.conv", params[name]["conv"])
         elif kind == "norm":
-            _norm(out, prefix, dec[name])
+            _norm(out, prefix, params[name])
+
+
+def vq_from_flax(variables: Mapping[str, Any], cfg: VQModelConfig) -> State:
+    """flax VQModel variables (numpy; ``params`` and ``batch_stats``) ->
+    the ``state_dict`` of ``models.vqvae.VQModel``."""
+    params = variables["params"]
+    stats = variables["batch_stats"]["quant_bn"]
+    out: State = {}
+    _sequential(out, "encoder.model", encoder_layout(cfg), params["encoder"])
+    _sequential(out, "decoder.model", decoder_layout(cfg), params["decoder"])
+    _conv(out, "quant_conv.0", params["quant_conv"])
+    _norm(out, "quant_conv.1", params["quant_bn"])
+    out["quant_conv.1.running_mean"] = _t(stats["mean"])
+    out["quant_conv.1.running_var"] = _t(stats["var"])
+    out["quant_conv.1.num_batches_tracked"] = torch.zeros((),
+                                                          dtype=torch.long)
     _conv(out, "post_quant_conv", params["post_quant_conv"])
     out["quantize.embedding.weight"] = _t(params["codebook_embedding"])
     return out
@@ -148,12 +159,11 @@ def load_reference_pt(path: str) -> State:
 
 
 def serving_state(state: Mapping[str, torch.Tensor], kind: str) -> State:
-    """Set aside the keys the serving slice does not load: encode-side VQ
-    keys (``kind='vq'``) or the derived mask buffer (``kind=
-    'transformer'``)."""
+    """The keys a port model loads: every key of a VQ checkpoint
+    (``kind='vq'``); all but the derived mask buffer of a transformer one
+    (``kind='transformer'``)."""
     if kind == "vq":
-        return {k: v for k, v in state.items()
-                if not k.startswith(UNPORTED_VQ_PREFIXES)}
+        return dict(state)
     if kind == "transformer":
         return {k: v for k, v in state.items()
                 if k not in DERIVED_TRANSFORMER_KEYS}
@@ -171,9 +181,9 @@ def init_random_(module: torch.nn.Module, generator: torch.Generator) -> None:
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, torch.nn.Embedding) and id(m) in codebooks:
-                k = m.num_embeddings
-                init.uniform_(m.weight, -1.0 / k, 1.0 / k,
-                              generator=generator)
+                m.weight.copy_(codebook_init_embedding(
+                    m.num_embeddings, m.embedding_dim, generator,
+                    m.weight.device))
             elif isinstance(m, torch.nn.Embedding):
                 init.normal_(m.weight, 0.0, 0.02, generator=generator)
             elif isinstance(m, torch.nn.Linear):

@@ -63,9 +63,8 @@ def _vq_pair(seed=0):
 def test_decoder_keys_replay_matches_export():
     jmodel, variables, model = _vq_pair()
     exported = export_vqbase_state(_np_tree(variables), jmodel.cfg)
-    decode_side = {k for k in exported
-                   if not k.startswith(("encoder.", "quant_conv."))}
-    assert set(model.state_dict()) == decode_side
+    assert set(model.state_dict()) == set(exported)
+    assert any(k.startswith("encoder.model.") for k in exported)
 
 
 def test_vq_decode_code_matches_jax():
@@ -81,7 +80,7 @@ def test_vq_decode_code_matches_jax():
 
 def test_vq_loads_exported_pt_strict(tmp_path):
     """The .pt written by the JAX package's --mode export loads with
-    strict=True once the encode-side keys are set aside."""
+    strict=True into the full VQModel, encode side included."""
     from mas_tpu.utils.torch_export import save_torch_checkpoint
 
     jmodel, variables, model = _vq_pair(seed=2)

@@ -12,18 +12,23 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mas_tpu.ops import norms as jnorms
 from mas_tpu.ops.attention import (_flash_fwd, flash_attention,
                                    prefix_causal_attention_jnp)
 from mas_tpu.ops.decode_cache import update_quant_caches_aliased
-from mas_tpu.ops.pallas.gn_swish import _gn_swish_fwd_stats_pallas
+from mas_tpu.ops.pallas.gn_swish import (_gn_swish_bwd_pallas,
+                                         _gn_swish_fwd_stats_pallas)
 from mas_tpu.ops.quant import decode_attention_int8
 from mas_tpu.ops.quant import dequantize_kv as jdequantize_kv
 from mas_tpu.ops.quant import quantize_kv as jquantize_kv
+from mas_tpu.ops.vq import vq_argmin as jvq_argmin
+from mas_tpu.ops.vq import vq_argmin_jnp
 
-from mas_tpu_torch.ops import attention, decode_cache, gn_swish, norms, quant
+from mas_tpu_torch.ops import (attention, decode_cache, gn_swish, norms,
+                               quant, vq)
 
 
 def _np(x):
@@ -239,21 +244,156 @@ def test_group_norm_and_layer_norm_match_jnp():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
+# --- B8: GroupNorm + swish backward ----------------------------------------
+
+def _gn_inputs(shape, seed):
+    r = _rng(seed)
+    c = shape[-1]
+    x = r.standard_normal(shape).astype(np.float32)
+    s = (r.standard_normal(c) * 0.5 + 1.0).astype(np.float32)
+    b = (r.standard_normal(c) * 0.1).astype(np.float32)
+    g = r.standard_normal(shape).astype(np.float32)
+    return x, s, b, g
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64), (1, 16, 16, 128)])
+def test_gn_swish_bwd_matches_pallas_interpret_and_vjp(shape):
+    """The B8 twin from the B4 stats vs the Pallas backward (interpret)
+    and vs jax.vjp of the jnp forward.  dx: atol 2e-5 (fp32, sums over
+    one group in another order); dscale/dbias reduce over B*H*W rows:
+    atol 1e-4, as the JAX package's own test."""
+    x, s, b, g = _gn_inputs(shape, sum(shape))
+    t = torch.from_numpy
+    _, stats = gn_swish.gn_swish(t(x), t(s), t(b))
+    dx, ds, db = gn_swish.gn_swish_bwd(t(x), t(g), t(s), t(b), stats)
+    _, jstats = _gn_swish_fwd_stats_pallas(jnp.asarray(x), jnp.asarray(s),
+                                           jnp.asarray(b), 32, 1e-6,
+                                           interpret=True)
+    ref = _gn_swish_bwd_pallas(jnp.asarray(x), jnp.asarray(g),
+                               jnp.asarray(s), jnp.asarray(b), jstats, 32,
+                               interpret=True)
+    _, vjp = jax.vjp(lambda x_, s_, b_: jnorms.group_norm_swish(
+        x_, s_, b_, impl="jnp"), jnp.asarray(x), jnp.asarray(s),
+        jnp.asarray(b))
+    for want in (ref, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(dx.numpy(), np.asarray(want[0]),
+                                   atol=2e-5)
+        np.testing.assert_allclose(ds.numpy(), np.asarray(want[1]),
+                                   atol=1e-4)
+        np.testing.assert_allclose(db.numpy(), np.asarray(want[2]),
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_swish_function_grads_match_plain_autograd(dtype):
+    """GNSwishFunction (B4 + B8 twins on CPU) under torch.autograd.grad vs
+    autograd through gn_swish_plain on an fp32 copy of x: fp32 atol 1e-5.
+    bf16: the Function rounds dx to bf16 once from fp32, so it lies within
+    half a bf16 ulp of the fp32 reference: rtol 2^-8."""
+    x, s, b, g = _gn_inputs((2, 4, 4, 64), 5)
+    x = torch.from_numpy(x).to(dtype).requires_grad_()
+    s = torch.from_numpy(s).requires_grad_()
+    b = torch.from_numpy(b).requires_grad_()
+    g = torch.from_numpy(g).to(dtype)
+    y = gn_swish.GNSwishFunction.apply(x, s, b, 32, 1e-6)
+    assert torch.equal(y, gn_swish.gn_swish_plain(x, s, b)[0])
+    got = torch.autograd.grad(y, (x, s, b), g)
+    x32 = x.detach().float().requires_grad_()
+    y_ref = gn_swish.gn_swish_plain(x32, s, b)[0]
+    want = torch.autograd.grad(y_ref, (x32, s, b), g.float())
+    assert [a.dtype for a in got] == [dtype, torch.float32, torch.float32]
+    tol = (dict(atol=1e-5) if dtype == torch.float32
+           else dict(atol=1e-6, rtol=2 ** -8))
+    np.testing.assert_allclose(got[0].float().numpy(), want[0].numpy(),
+                               **tol)
+    for a, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-5)
+
+
+def test_group_norm_swish_carries_grad_fn():
+    from mas_tpu_torch.models.layers import GroupNormSwish
+
+    x = torch.randn(1, 64, 4, 4).requires_grad_()
+    y = GroupNormSwish(64)(x)
+    assert y.requires_grad and y.grad_fn is not None
+    y.square().sum().backward()
+    assert x.grad is not None and float(x.grad.abs().sum()) > 0
+
+
+# --- B5: VQ argmin ---------------------------------------------------------
+
+@pytest.mark.parametrize("n,k,d", [(300, 64, 32), (1024, 128, 256)])
+def test_vq_argmin_matches_jnp_and_pallas_interpret(n, k, d):
+    """Held to the B5 agreement rule (``ops/vq.py``); with these random
+    inputs the indices are equal."""
+    r = _rng(n + k)
+    z = r.standard_normal((n, d)).astype(np.float32)
+    cb = r.standard_normal((k, d)).astype(np.float32)
+    got = vq.vq_argmin(torch.from_numpy(z), torch.from_numpy(cb))
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    for ref in (vq_argmin_jnp(jnp.asarray(z), jnp.asarray(cb)),
+                jvq_argmin(jnp.asarray(z), jnp.asarray(cb),
+                           impl="pallas_interpret")):
+        want = torch.from_numpy(np.array(ref))
+        assert vq.argmin_agrees(torch.from_numpy(z), torch.from_numpy(cb),
+                                got, want)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_vq_argmin_duplicate_rows_take_first_index():
+    r = _rng(11)
+    cb = r.standard_normal((16, 8)).astype(np.float32)
+    cb[9] = cb[3]
+    cb[12] = cb[3]
+    z = np.stack([cb[3], cb[3] + 1e-3, cb[5]]).astype(np.float32)
+    got = vq.vq_argmin(torch.from_numpy(z), torch.from_numpy(cb))
+    np.testing.assert_array_equal(got.numpy(), [3, 3, 5])
+    np.testing.assert_array_equal(
+        np.asarray(vq_argmin_jnp(jnp.asarray(z), jnp.asarray(cb))), [3, 3, 5])
+
+
+def test_vq_argmin_rule_rejects_a_far_choice():
+    r = _rng(12)
+    z = torch.from_numpy(r.standard_normal((2000, 8)).astype(np.float32))
+    cb = torch.from_numpy(r.standard_normal((32, 8)).astype(np.float32))
+    want = vq.vq_argmin(z, cb)
+    assert vq.argmin_agrees(z, cb, want, want)
+    bad = want.clone()
+    bad[0] = (bad[0] + 1) % 32      # one row in 2000, but not a near-tie
+    assert not vq.argmin_agrees(z, cb, bad, want)
+    bad = want.clone()
+    bad[:10] = (bad[:10] + 1) % 32  # 0.5% of rows
+    assert not vq.argmin_agrees(z, cb, bad, want)
+
+
+def test_vq_quantize_gathers_with_codebook_grad():
+    r = _rng(13)
+    z = torch.from_numpy(r.standard_normal((2, 3, 4, 8)).astype(np.float32))
+    cb = torch.from_numpy(r.standard_normal((10, 8)).astype(np.float32))
+    cb.requires_grad_()
+    z_q, idx = vq.vq_quantize(z, cb)
+    assert z_q.shape == z.shape and idx.shape == (2, 3, 4)
+    assert torch.equal(z_q.detach(), cb.detach()[idx.long()])
+    z_q.sum().backward()
+    np.testing.assert_array_equal(
+        cb.grad[:, 0].numpy(),
+        np.bincount(idx.reshape(-1).numpy(), minlength=10))
+
+
 # --- wrappers: CPU twins, no silent acceptance of other devices -----------
 
 def test_wrappers_on_cpu_do_not_count_launches():
-    before = (attention.flash_attention.launches,
-              quant.decode_attention_quant.launches,
-              decode_cache.write_quant_kv.launches,
-              gn_swish.gn_swish.launches)
+    counted = (attention.flash_attention, quant.decode_attention_quant,
+               decode_cache.write_quant_kv, gn_swish.gn_swish,
+               gn_swish.gn_swish_bwd, vq.vq_argmin)
+    before = [fn.launches for fn in counted]
     x = torch.zeros(1, 4, 4, 32)
-    gn_swish.gn_swish(x, torch.ones(32), torch.zeros(32))
+    y, stats = gn_swish.gn_swish(x, torch.ones(32), torch.zeros(32))
+    gn_swish.gn_swish_bwd(x, y, torch.ones(32), torch.zeros(32), stats)
     q = torch.zeros(1, 1, 8, 64)
     attention.flash_attention(q, q, q, 0)
-    assert before == (attention.flash_attention.launches,
-                      quant.decode_attention_quant.launches,
-                      decode_cache.write_quant_kv.launches,
-                      gn_swish.gn_swish.launches)
+    vq.vq_argmin(torch.zeros(3, 8), torch.zeros(4, 8))
+    assert before == [fn.launches for fn in counted]
 
 
 def test_wrappers_reject_meta_tensors():
@@ -263,6 +403,12 @@ def test_wrappers_reject_meta_tensors():
     x = torch.empty(1, 4, 4, 32, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         gn_swish.gn_swish(x, torch.ones(32), torch.zeros(32))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        gn_swish.gn_swish_bwd(x, x, torch.ones(32), torch.zeros(32),
+                              torch.empty(1, 2, 32, device="meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        vq.vq_argmin(torch.empty(3, 8, device="meta"),
+                     torch.empty(4, 8, device="meta"))
 
 
 def test_kernel_checks_reject_bad_inputs():
@@ -281,3 +427,14 @@ def test_kernel_checks_reject_bad_inputs():
         decode_cache._check(k, quant.QuantCache.empty(1, 2, 16, 64, 4),
                             torch.zeros(1, 2, 64), torch.zeros(1, 2, 64),
                             torch.zeros(1, dtype=torch.int64))
+    x = torch.zeros(1, 4, 4, 64)
+    with pytest.raises(ValueError, match="stats"):
+        gn_swish._check_bwd(x, x, torch.ones(64), torch.zeros(64),
+                            torch.zeros(1, 2, 16), 32)
+    with pytest.raises(ValueError, match="g must be"):
+        gn_swish._check_bwd(x, x.double(), torch.ones(64), torch.zeros(64),
+                            torch.zeros(1, 2, 32), 32)
+    with pytest.raises(ValueError, match="D <= 256"):
+        vq._check(torch.zeros(4, 512), torch.zeros(8, 512))
+    with pytest.raises(TypeError, match="one dtype"):
+        vq._check(torch.zeros(4, 8, dtype=torch.bfloat16), torch.zeros(8, 8))

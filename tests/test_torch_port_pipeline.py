@@ -158,7 +158,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, mas_tpu_torch, mas_tpu_torch.cli, "
             "mas_tpu_torch.models.sampler, mas_tpu_torch.ops.gn_swish, "
             "mas_tpu_torch.ops.decode_cache, mas_tpu_torch.utils.weights, "
-            "mas_tpu_torch.breakdown; "
+            "mas_tpu_torch.breakdown, mas_tpu_torch.train.loop, "
+            "mas_tpu_torch.ops.vq, mas_tpu_torch.utils.checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'mas_tpu', 'triton')]; "
             "print(bad); sys.exit(1 if bad else 0)")
