@@ -6,8 +6,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. print the card (nvidia-smi name and power limit) and the versions;
      no CUDA device is an error — there is no CPU path;
   2. build the CUDA kernels from ``mas_tpu_torch/csrc`` (nvcc, sm_90a);
-  3. hold each hand-written kernel against its plain PyTorch twin on the
-     card at the main path's shapes, and time both (CUDA events, median);
+  3. hold each hand-written kernel (B1-B8) against its plain PyTorch twin
+     on the card at the main paths' shapes, and time both (CUDA events,
+     median);
   4. run the serving path at full width — ``configs/sample_256.json``
      (24 layers, hidden 1024, int4 cache, guidance 3.0, top-k 64), seeded
      random weights, its 4 captions — through ``sample_images``, check the
@@ -22,7 +23,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      floors of B4/B5/B8, a bitwise resume from the final checkpoint, and
      one micro-step through the kernels against the plain twins;
   6. tokenize 8 random 512^2 images with the ``configs/img_512.json``
-     model (bf16, K = 8192) through ``encode_tokens``.
+     model (bf16, K = 8192) through ``encode_tokens``;
+  7. train the transformer at full width — ``configs/transformer_512.json``
+     as shipped (24 layers, hidden 1024, T = 1408, batch 8, bf16, remat
+     'mlp') — for 8 steps through ``run_train_transformer`` (B1, B6), then
+     2 resumed steps with ``layernorm_impl: "pallas"`` (B7) and CFG dropout
+     forced; check losses, fp32 parameters, a nonzero gradient for every
+     parameter, the exact launch counts, a bitwise resume, and one step
+     through the kernels against the plain twins.
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -50,7 +58,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "sample_256.json")
 SEG_CONFIG = os.path.join(ROOT, "configs", "seg_256.json")
 IMG_CONFIG = os.path.join(ROOT, "configs", "img_512.json")
+TRANSFORMER_CONFIG = os.path.join(ROOT, "configs", "transformer_512.json")
 TRAIN_STEPS = 16
+TRANSFORMER_STEPS = 8
 DEVICE = "cuda"
 
 
@@ -284,12 +294,12 @@ def check_b5(gen) -> dict:
     """VQ argmin at (N=512, K=1024, D=256) fp32, the seg training shape,
     and (N=8192, K=8192, D=256) bf16 z and codebook, the img_512
     tokenization shape, against the plain twin.  Tolerance: the agreement
-    rule of ``mas_tpu_torch/ops/vq.py`` (>= 99.9% equal indices; where
-    they differ, the twin's distance of the kernel's choice within
-    1e-5 * (||z||^2 + max ||e||^2) of the minimum), since the kernel sums
-    each dot product in another order.  Exactly duplicated codebook rows
-    must resolve to the first index.  max_abs_err is the largest such
-    distance gap."""
+    rule of ``mas_tpu_torch/ops/vq.py`` (where the indices differ, the
+    twin's distance of the kernel's choice within 1e-5 * (||z||^2 + max
+    ||e||^2) of the minimum; every chosen code the first of its exact
+    copies), since the kernel sums each dot product in another order.
+    Exactly duplicated codebook rows must resolve to the first index.
+    max_abs_err is the largest such distance gap."""
     from mas_tpu_torch.ops import vq
 
     out, gap = {}, 0.0
@@ -303,7 +313,8 @@ def check_b5(gen) -> dict:
         require(got.dtype == torch.int32 and got.shape == (n,),
                 f"B5 output {got.dtype} {tuple(got.shape)}")
         require(vq.argmin_agrees(z, cb, got, want),
-                f"B5 ({n}, {k}, {dtype}): indices disagree beyond near-ties")
+                f"B5 ({n}, {k}, {dtype}): indices disagree beyond near-ties "
+                f"({int((got != want).sum())} rows differ)")
         dist = vq.vq_distances(z, cb)
         gap = max(gap, float((dist.gather(1, got.long()[:, None])[:, 0]
                               - dist.min(dim=1).values).max()))
@@ -390,39 +401,169 @@ def check_b8(gen) -> dict:
     return out
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor, n: int) -> bool:
+    """|a - b| <= n bf16 ulps of max |b| everywhere."""
+    top = float(b.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    return max_err(a, b) <= n * ulp
+
+
+def check_b6(gen) -> dict:
+    """Attention backward at [8, 16, 1408, 64] bf16 at prefix 384 and 0
+    (the training geometry) and [2, 16, 640, 64] fp32 at prefix 384, q/k/v
+    as views into one fused qkv tensor, out and lse from B1 and dO laid out
+    [B, T, H, d] as the model passes them.  Tolerances, per tensor against
+    the plain twin: fp32 atol 1e-4 * max |grad| (both sum over up to T
+    products in fp32, in other orders); bf16 two bf16 ulps of max |grad|
+    (both round an fp32 value to bf16 once)."""
+    from mas_tpu_torch.ops import attention
+
+    out, err = {}, 0.0
+    for (b, h, t, d), dtype, prefix in (
+            ((8, 16, 1408, 64), torch.bfloat16, 384),
+            ((8, 16, 1408, 64), torch.bfloat16, 0),
+            ((2, 16, 640, 64), torch.float32, 384)):
+        qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen,
+                          dtype=dtype)
+        q, k, v = attention.split_qkv(qkv)
+        o, lse = attention.flash_attention(q, k, v, prefix)
+        do = torch.randn(b, t, h, d, device="cuda", generator=gen,
+                         dtype=dtype).transpose(1, 2)
+        got = attention.flash_attention_bwd(q, k, v, o, lse, do, prefix)
+        want = attention.prefix_causal_attention_bwd_plain(q, k, v, o, lse,
+                                                           do, prefix)
+        torch.cuda.synchronize()
+        for i, name in enumerate(("dq", "dk", "dv")):
+            g, w = got[:, :, i].transpose(1, 2), want[i]
+            ok = (bf16_ulps(g, w, 2) if dtype == torch.bfloat16 else
+                  max_err(g, w) <= 1e-4 * float(w.abs().max()))
+            require(ok, f"B6 {name} [{b},{h},{t},{d}] {dtype} prefix "
+                    f"{prefix}: max err {max_err(g, w):.3e}, max |grad| "
+                    f"{float(w.float().abs().max()):.3e}")
+            err = max(err, max_err(g, w))
+            print(f"B6 {name} [{b},{h},{t},{d}] {dtype} prefix {prefix}: "
+                  f"max err {max_err(g, w):.3e}, max |grad| "
+                  f"{float(w.float().abs().max()):.3e}")
+        if dtype == torch.bfloat16 and prefix == 384:
+            args = (q, k, v, o, lse, do, prefix)
+            out["ms"] = timed_ms(lambda: attention.flash_attention_bwd(*args))
+            out["plain_ms"] = timed_ms(
+                lambda: attention.prefix_causal_attention_bwd_plain(*args),
+                reps=5)
+        del got, want
+    out["max_abs_err"] = err
+    return out
+
+
+def check_b7(gen) -> dict:
+    """LayerNorm forward and backward at [11264, 1024] (the train step's
+    B * T rows) in bf16 and fp32 against the plain twins.  Tolerances: y
+    and dx are rounded to x's dtype once from fp32 values that differ only
+    in summation order: fp32 atol 1e-5, rtol 1e-5; bf16 atol 1e-2, rtol
+    1e-2 (one bf16 ulp is 2^-8 to 2^-7 relative).  dscale and dbias are
+    fp32 sums over 11264 rows, whose rounding grows like sqrt(rows): atol
+    1e-4 * sqrt(rows), rtol 1e-5, as for B8."""
+    from mas_tpu_torch.ops import layer_norm as ln
+
+    n, d = 11264, 1024
+    out, err = {}, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(n, d, device="cuda", generator=gen) * 2 + 0.5
+             ).to(dtype)
+        g = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+        s = torch.randn(d, device="cuda", generator=gen) * 0.5 + 1.0
+        b = torch.randn(d, device="cuda", generator=gen) * 0.1
+        y = ln.layer_norm_fwd(x, s, b)
+        py = ln.layer_norm_fwd_plain(x, s, b)
+        got = ln.layer_norm_bwd(x, g, s)
+        want = ln.layer_norm_bwd_plain(x, g, s)
+        torch.cuda.synchronize()
+        tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+        p_tol = (1e-4 * n ** 0.5, 1e-5)
+        require(y.dtype == dtype and close(y, py, *tol),
+                f"B7 fwd {dtype}: max err {max_err(y, py):.3e}")
+        require(got[0].dtype == dtype and close(got[0], want[0], *tol),
+                f"B7 dx {dtype}: max err {max_err(got[0], want[0]):.3e}")
+        for i, what in ((1, "dscale"), (2, "dbias")):
+            require(close(got[i], want[i], *p_tol), f"B7 {what} {dtype}: "
+                    f"max err {max_err(got[i], want[i]):.3e}")
+        err = max(err, max_err(y, py), max_err(got[0], want[0]))
+        print(f"B7 [{n},{d}] {dtype}: y max err {max_err(y, py):.3e}, dx "
+              f"{max_err(got[0], want[0]):.3e}, dscale "
+              f"{max_err(got[1], want[1]):.3e}, dbias "
+              f"{max_err(got[2], want[2]):.3e}")
+        if dtype == torch.bfloat16:
+            out["ms"] = timed_ms(lambda: (ln.layer_norm_fwd(x, s, b),
+                                          ln.layer_norm_bwd(x, g, s)))
+            out["plain_ms"] = timed_ms(lambda: (
+                ln.layer_norm_fwd_plain(x, s, b),
+                ln.layer_norm_bwd_plain(x, g, s)))
+            out["fwd_ms"] = timed_ms(lambda: ln.layer_norm_fwd(x, s, b))
+            out["fwd_plain_ms"] = timed_ms(
+                lambda: ln.layer_norm_fwd_plain(x, s, b))
+            print(f"B7 bf16 forward alone: kernel {out['fwd_ms']:.4f} ms, "
+                  f"plain {out['fwd_plain_ms']:.4f} ms")
+    out["max_abs_err"] = err
+    return out
+
+
 KERNELS = (
-    # name, route, source, replaces, check
-    ("B1 flash_attention (prefill)", "cuda", "mas_tpu_torch/csrc/flash_fwd.cu",
+    # id, name, route, source, replaces, check
+    ("B1", "B1 flash_attention", "cuda", "mas_tpu_torch/csrc/flash_fwd.cu",
      "mas_tpu/ops/attention.py:117", check_b1),
-    ("B2 decode_attention_quant", "cuda", "mas_tpu_torch/csrc/decode_quant.cu",
-     "mas_tpu/ops/quant.py:187", check_b2),
-    ("B3 write_quant_kv", "triton", "mas_tpu_torch/ops/decode_cache.py",
+    ("B2", "B2 decode_attention_quant", "cuda",
+     "mas_tpu_torch/csrc/decode_quant.cu", "mas_tpu/ops/quant.py:187",
+     check_b2),
+    ("B3", "B3 write_quant_kv", "triton", "mas_tpu_torch/ops/decode_cache.py",
      "mas_tpu/ops/decode_cache.py:270", check_b3),
-    ("B4 gn_swish", "triton", "mas_tpu_torch/ops/gn_swish.py",
+    ("B4", "B4 gn_swish", "triton", "mas_tpu_torch/ops/gn_swish.py",
      "mas_tpu/ops/pallas/gn_swish.py:50", check_b4),
-    ("B5 vq_argmin", "cuda", "mas_tpu_torch/csrc/vq_argmin.cu",
+    ("B5", "B5 vq_argmin", "cuda", "mas_tpu_torch/csrc/vq_argmin.cu",
      "mas_tpu/ops/vq.py:33", check_b5),
-    ("B8 gn_swish_bwd", "triton", "mas_tpu_torch/ops/gn_swish.py",
+    ("B6", "B6 flash_attention_bwd", "cuda", "mas_tpu_torch/csrc/flash_bwd.cu",
+     "mas_tpu/ops/attention.py:354", check_b6),
+    ("B7", "B7 layer_norm_fwd + layer_norm_bwd", "triton",
+     "mas_tpu_torch/ops/layer_norm.py", "mas_tpu/ops/pallas/layer_norm.py:47",
+     check_b7),
+    ("B8", "B8 gn_swish_bwd", "triton", "mas_tpu_torch/ops/gn_swish.py",
      "mas_tpu/ops/pallas/gn_swish.py:117", check_b8),
 )
 
 
-def wrappers():
-    """The launch-counting wrapper of each kernel, in KERNELS order."""
-    from mas_tpu_torch.ops import attention, decode_cache, gn_swish, quant, vq
+def wrappers() -> dict:
+    """The launch-counting wrappers of each kernel, keyed by its id in
+    KERNELS order (B7's forward and backward are two wrappers)."""
+    from mas_tpu_torch.ops import (attention, decode_cache, gn_swish,
+                                   layer_norm, quant, vq)
 
-    return (attention.flash_attention, quant.decode_attention_quant,
-            decode_cache.write_quant_kv, gn_swish.gn_swish, vq.vq_argmin,
-            gn_swish.gn_swish_bwd)
+    return {"B1": (attention.flash_attention,),
+            "B2": (quant.decode_attention_quant,),
+            "B3": (decode_cache.write_quant_kv,),
+            "B4": (gn_swish.gn_swish,), "B5": (vq.vq_argmin,),
+            "B6": (attention.flash_attention_bwd,),
+            "B7": (layer_norm.layer_norm_fwd, layer_norm.layer_norm_bwd),
+            "B8": (gn_swish.gn_swish_bwd,)}
+
+
+def reset_counts() -> None:
+    for fns in wrappers().values():
+        for fn in fns:
+            fn.launches = 0
+
+
+def read_counts() -> dict:
+    """Launches since ``reset_counts``, per kernel id."""
+    return {k: sum(fn.launches for fn in fns)
+            for k, fns in wrappers().items()}
 
 
 def phase_kernels(gen) -> list:
     rows = []
-    for name, route, source, replaces, check in KERNELS:
+    for kid, name, route, source, replaces, check in KERNELS:
         res = check(gen)
         print(f"{name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f}"
               f" ms")
-        rows.append(dict(name=name, route=route, source=source,
+        rows.append(dict(id=kid, name=name, route=route, source=source,
                          replaces=replaces, **res))
     return rows
 
@@ -463,27 +604,25 @@ def count_gns(module) -> int:
     return sum(isinstance(m, GroupNormSwish) for m in module.modules())
 
 
-def phase_slice(gen, rows: list) -> list:
+def phase_slice(gen) -> dict:
     """The serving path; returns its launch count per kernel."""
     raw, transformer, vq, text, seg = load_slice(gen)
     cfg = transformer.cfg
     n_gns = count_gns(vq.decoder)
-    fns = wrappers()
-    for fn in fns:
-        fn.launches = 0
+    reset_counts()
     imgs, secs = run_slice(raw, transformer, vq, text, seg, seed=1)
-    counts = [fn.launches for fn in fns]
+    counts = read_counts()
     print(f"slice: images {tuple(imgs.shape)} in {secs:.2f} s (first run, "
           f"includes kernel JIT); launches {counts}")
     require(tuple(imgs.shape) == (4, 256, 256, 3), f"image shape "
             f"{tuple(imgs.shape)}")
     require(bool(torch.isfinite(imgs).all()), "images are finite")
     steps = cfg.image_length - 1
-    floors = (cfg.num_layers, cfg.num_layers * steps,
-              cfg.num_layers * steps, n_gns)
-    for row, n, floor in zip(rows, counts, floors):
-        require(n >= floor, f"{row['name']} launched {n} times on the main "
-                f"path, expected >= {floor}")
+    floors = {"B1": cfg.num_layers, "B2": cfg.num_layers * steps,
+              "B3": cfg.num_layers * steps, "B4": n_gns}
+    for kid, floor in floors.items():
+        require(counts[kid] >= floor, f"{kid} launched {counts[kid]} times "
+                f"on the serving path, expected >= {floor}")
 
     teacher_forced_check(transformer, text, seg, gen)
 
@@ -564,7 +703,7 @@ def seg_training_configs(tmp: str):
             SegLossConfig.from_dict(raw["loss"]), raw["data"])
 
 
-def phase_train(smi: str) -> list:
+def phase_train(smi: str) -> dict:
     """16 micro-steps of seg_256 training through ``run_pretrain_
     segmentation`` with B4, B5 and B8; returns the launch counts."""
     from mas_tpu_torch.data.dataset import SyntheticSegBatches
@@ -597,16 +736,14 @@ def phase_train(smi: str) -> list:
             if counter == cb.q_init:
                 snap["state"] = copy.deepcopy(state)
 
-        fns = wrappers()
-        for fn in fns:
-            fn.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state = run_pretrain_segmentation(
             train_cfg, model_cfg, batches, loss_cfg, DEVICE,
             logger=Logger(os.path.join(tmp, "logs")), on_step=on_step)
         torch.cuda.synchronize()
-        counts = [fn.launches for fn in fns]
+        counts = read_counts()
         print(f"train: {TRAIN_STEPS} micro-steps in "
               f"{time.perf_counter() - t0:.2f} s (first run, includes "
               f"kernel JIT); launches {counts}")
@@ -623,12 +760,11 @@ def phase_train(smi: str) -> list:
         require(state.opt.count == TRAIN_STEPS // 3, "optimizer updates")
         n_gns = count_gns(state.model)
         quantizing = sum(r["counter"] >= cb.q_init for r in record)
-        floors = dict(zip(("B4", "B5", "B8"), (n_gns * TRAIN_STEPS,
-                                               quantizing,
-                                               n_gns * TRAIN_STEPS)))
-        for name, n in zip(("B4", "B5", "B8"), counts[3:]):
-            require(n >= floors[name], f"{name} launched {n} times in "
-                    f"training, expected >= {floors[name]}")
+        floors = {"B4": n_gns * TRAIN_STEPS, "B5": quantizing,
+                  "B8": n_gns * TRAIN_STEPS}
+        for name, floor in floors.items():
+            require(counts[name] >= floor, f"{name} launched "
+                    f"{counts[name]} times in training, expected >= {floor}")
 
         step_ms = {r["counter"]: 1e3 * (r["t"] - prev["t"])
                    for prev, r in zip(record, record[1:])}
@@ -729,8 +865,10 @@ def kernels_vs_twins_step(state, batch, loss_cfg) -> None:
     emb = state.model.quantize.embedding.weight
     z = aux["latent"].reshape(-1, emb.shape[1])
     idx, pidx = aux["indices"].reshape(-1), paux["indices"].reshape(-1)
-    require(vq.argmin_agrees(z, emb, idx, vq.vq_argmin_plain(z, emb)),
-            "kernel indices vs the twin on the kernel's latents")
+    own = vq.vq_argmin_plain(z, emb)
+    require(vq.argmin_agrees(z, emb, idx, own),
+            f"kernel indices vs the twin on the kernel's latents "
+            f"({int((idx != own).sum())} of {len(own)} rows differ)")
     agree = float((idx == pidx).float().mean())
     flipped = idx != pidx
     moved = torch.cat([idx[flipped], pidx[flipped]]).long()
@@ -758,7 +896,7 @@ def kernels_vs_twins_step(state, batch, loss_cfg) -> None:
 
 # --- phase 6: tokenization at img_512 width ---------------------------------
 
-def phase_tokenize(gen, smi: str) -> list:
+def phase_tokenize(gen, smi: str) -> dict:
     """``encode_tokens`` of the img_512 model (bf16, K = 8192, seeded
     random weights) on 8 random 512^2 images; returns the launch counts.
     The random codebook (U(-1/K, 1/K)) would make every distance a near-tie,
@@ -780,13 +918,11 @@ def phase_tokenize(gen, smi: str) -> list:
         model.quantize.embedding.weight.copy_(
             book.reshape(-1, cfg.embed_dim)[:cfg.codebook.codebook_size])
     x = torch.rand(*shape, device=DEVICE, generator=gen)
-    fns = wrappers()
-    for fn in fns:
-        fn.launches = 0
+    reset_counts()
     with torch.inference_mode():
         tokens = model.encode_tokens(x)
         torch.cuda.synchronize()
-        counts = [fn.launches for fn in fns]
+        counts = read_counts()
         z = model.encode_latent(x).reshape(-1, cfg.embed_dim)
         emb = model.quantize.embedding.weight.to(z.dtype)
         plain = vq_ops.vq_argmin_plain(z, emb)
@@ -802,9 +938,10 @@ def phase_tokenize(gen, smi: str) -> list:
     require(vq_ops.argmin_agrees(z, emb, tokens.reshape(-1), plain),
             f"tokens vs the plain twin on the same latents (agreement "
             f"{agree:.5f})")
-    require(counts[4] >= 1, f"B5 launched {counts[4]} times in tokenization")
-    require(counts[3] >= count_gns(model.encoder),
-            f"B4 launched {counts[3]} times in tokenization")
+    require(counts["B5"] >= 1, f"B5 launched {counts['B5']} times in "
+            "tokenization")
+    require(counts["B4"] >= count_gns(model.encoder),
+            f"B4 launched {counts['B4']} times in tokenization")
     print(f"tokenize: 8 x {cfg.resolution}^2 -> {tuple(tokens.shape)}, "
           f"{len(torch.unique(tokens))} distinct codes, agreement with the "
           f"twin {agree:.5f}; {ms:.2f} ms per batch (device, CUDA events); "
@@ -812,15 +949,210 @@ def phase_tokenize(gen, smi: str) -> list:
     return counts
 
 
+# --- phase 7: transformer training at full width ----------------------------
+
+def transformer_configs(tmp: str, **train_overrides):
+    """configs/transformer_512.json as shipped (24 layers, hidden 1024, 16
+    heads, T = 1408, batch 8, bf16, remat 'mlp', Adam lr 4.5e-6, betas
+    0.9/0.95), with its checkpoints under ``tmp``."""
+    from mas_tpu_torch.utils.config import TrainConfig, TransformerConfig
+
+    with open(TRANSFORMER_CONFIG) as f:
+        raw = json.load(f)
+    train = dict(raw["train"], checkpoint_dir=os.path.join(tmp, "ckpt"),
+                 **train_overrides)
+    return (TrainConfig.from_dict(train),
+            TransformerConfig.from_dict(raw["transformer"]), raw["data"])
+
+
+def phase_train_transformer(smi: str) -> dict:
+    """``run_train_transformer`` at full width: 8 steps as configured, then
+    2 resumed steps with ``layernorm_impl: "pallas"`` (B7) and uncond_p 1.0
+    from step 9.  Checks finite losses, fp32 parameters, a finite nonzero
+    gradient for every parameter at step 1 (Adam's first moment after one
+    update is 0.1 g), moved parameters, the CFG dropout schedule, the exact
+    B1/B6/B7 launch counts, one step through the kernels against the plain
+    twins, and a bitwise resume; returns the launch counts."""
+    from mas_tpu_torch.data.dataset import SyntheticTokenBatches
+    from mas_tpu_torch.train.loop import (build_transformer_state,
+                                          run_train_transformer)
+    from mas_tpu_torch.utils.logging import Logger
+
+    steps_a, steps_b = TRANSFORMER_STEPS, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        train_cfg, tcfg, data = transformer_configs(
+            tmp, total_steps=steps_a)
+        source = iter(SyntheticTokenBatches(train_cfg.batch_size, tcfg,
+                                            data.get("seed", 0)))
+        batches = [{k: torch.from_numpy(v).to(DEVICE)
+                    for k, v in next(source).items()}
+                   for _ in range(steps_a + steps_b)]
+        init = build_transformer_state(train_cfg, tcfg, DEVICE)
+        before = {k: v.clone() for k, v in init.model.state_dict().items()}
+        del init
+        record = []
+
+        def on_step(step_no, state, metrics):
+            torch.cuda.synchronize()
+            record.append(dict(t=time.perf_counter(), step=step_no,
+                               loss=float(metrics["loss"]),
+                               uncond=bool(metrics["uncond"])))
+            if step_no == 1:
+                first_step_checks(state, before)
+
+        logger = Logger(os.path.join(tmp, "logs"))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = run_train_transformer(train_cfg, tcfg, batches[:steps_a],
+                                      DEVICE, logger, on_step)
+        torch.cuda.synchronize()
+        counts_a = read_counts()
+        secs_a = time.perf_counter() - t0
+
+        ln_cfg = dataclasses.replace(tcfg, layernorm_impl="pallas")
+        train_b = dataclasses.replace(train_cfg, total_steps=steps_a + steps_b,
+                                      resume=True, uncond_p=1.0,
+                                      start_uncond=steps_a + 1)
+        reset_counts()
+        state = run_train_transformer(train_b, ln_cfg, batches[steps_a:],
+                                      DEVICE, logger, on_step)
+        torch.cuda.synchronize()
+        counts_b = read_counts()
+        print(f"train_transformer: {steps_a} steps in {secs_a:.2f} s (first "
+              f"run); launches {counts_a}, then {steps_b} steps with B7: "
+              f"{counts_b}")
+
+        losses = [r["loss"] for r in record]
+        print("train_transformer losses: "
+              + " ".join(f"{v:.5f}" for v in losses))
+        require(len(record) == steps_a + steps_b
+                and state.step == steps_a + steps_b,
+                f"ran {len(record)} steps, state at {state.step}")
+        require(all(math.isfinite(v) for v in losses), "losses are finite")
+        require(all(p.dtype == torch.float32
+                    for p in state.model.parameters()), "fp32 parameters")
+        uncond = [r["uncond"] for r in record[steps_a:]]
+        require(uncond == [False, True],
+                f"uncond with uncond_p 1.0 from step {steps_a + 1}: {uncond}")
+        n_layers, n_ln = tcfg.num_layers, 4 * tcfg.num_layers + 2
+        want_a = dict(B1=n_layers * steps_a, B6=n_layers * steps_a, B7=0)
+        want_b = dict(B1=n_layers * steps_b, B6=n_layers * steps_b,
+                      B7=2 * n_ln * steps_b)
+        for want, got, what in ((want_a, counts_a, "as configured"),
+                                (want_b, counts_b, "with B7")):
+            for kid, n in want.items():
+                require(got[kid] == n, f"{kid} launched {got[kid]} times in "
+                        f"transformer training {what}, expected {n}")
+            require(all(got[k] == 0 for k in ("B2", "B3", "B4", "B5", "B8")),
+                    f"serving or VQ kernels launched in transformer training:"
+                    f" {got}")
+
+        step_ms = [1e3 * (r["t"] - prev["t"])
+                   for prev, r in zip(record, record[1:])]
+        tokens = train_cfg.batch_size * tcfg.total_length
+        steady = statistics.median(step_ms[1:steps_a - 1])
+        print(f"train_transformer step (steps 3-{steps_a}, host clock, "
+              f"synchronized): median {steady:.1f} ms, {tokens / steady * 1e3:.0f}"
+              f" tokens/s; with B7 (step {steps_a + 2}): {step_ms[-1]:.1f} ms"
+              f" [{smi}]")
+
+        transformer_resume_check(train_b, ln_cfg, state)
+        transformer_kernels_vs_twins(state, batches[-1])
+    return {k: counts_a[k] + counts_b[k] for k in counts_a}
+
+
+def first_step_checks(state, before) -> None:
+    """After step 1: every parameter moved and got a finite, nonzero
+    gradient (Adam's first moment is 0.1 g), every layer's qkv weight
+    included (the attention Function passes the gradient through B6)."""
+    bad = []
+    for name, p in state.model.named_parameters():
+        mu = state.opt.mu[name]
+        if not bool(torch.isfinite(mu).all()) or float(mu.abs().max()) == 0:
+            bad.append(f"{name}: gradient zero or not finite")
+        if torch.equal(p, before[name]):
+            bad.append(f"{name}: unchanged after step 1")
+    require(not bad, "after step 1: " + "; ".join(bad))
+    qkv = [f"transformer.layers.{i}.attn.qkv.weight"
+           for i in range(state.model.cfg.num_layers)]
+    require(all(name in state.opt.mu for name in qkv), "qkv weights in Adam")
+    print(f"step 1: all {len(before)} parameters moved with finite nonzero "
+          f"gradients, qkv weight gradient max |g| per layer from "
+          f"{min(float(state.opt.mu[n].abs().max()) * 10 for n in qkv):.3e}"
+          f" to {max(float(state.opt.mu[n].abs().max()) * 10 for n in qkv):.3e}")
+
+
+def transformer_resume_check(train_cfg, tcfg, state) -> None:
+    """The checkpoint written at the end resumes bitwise."""
+    from mas_tpu_torch.train.loop import build_transformer_state
+
+    resumed = build_transformer_state(train_cfg, tcfg, DEVICE)
+    require(resumed.step == state.step, f"resume: step {resumed.step}")
+    for k, v in state.model.state_dict().items():
+        require(torch.equal(resumed.model.state_dict()[k], v),
+                f"resume: model {k}")
+    a, b = resumed.opt.state_dict(), state.opt.state_dict()
+    require((a["count"], a["mini_step"]) == (b["count"], b["mini_step"]),
+            "resume: optimizer counters")
+    for part in ("mu", "nu", "acc"):
+        for k, v in b[part].items():
+            require(torch.equal(a[part][k], v), f"resume: {part} {k}")
+    print(f"resume: step {resumed.step}, model and Adam state bitwise equal")
+
+
+def transformer_kernels_vs_twins(state, batch) -> None:
+    """One loss and gradient of the bf16 model with B7 LayerNorms, once
+    through B1/B6/B7 and once with their plain twins patched in, from the
+    same weights and tokens.  The two differ only where a kernel and its
+    twin round an fp32 value to bf16 in another place or sum in another
+    order, which 24 bf16 layers carry on.  Bounds (PERF.md): loss within
+    rel 1e-2; each gradient tensor within 0.1 of its norm
+    (||g - g_twin|| <= 0.1 ||g_twin||)."""
+    from mas_tpu_torch.ops import attention
+    from mas_tpu_torch.ops import layer_norm as ln
+    from mas_tpu_torch.train.steps import transformer_loss_and_grads
+
+    args = (batch["text"], batch["seg"], batch["image"])
+    loss, grads = transformer_loss_and_grads(state.model, *args)
+    with ExitStack() as stack:
+        for mod, name, plain in (
+                (attention, "flash_attention",
+                 attention.prefix_causal_attention_plain),
+                (attention, "flash_attention_bwd",
+                 lambda *a: torch.stack(
+                     [g.transpose(1, 2) for g in
+                      attention.prefix_causal_attention_bwd_plain(*a)],
+                     dim=2)),
+                (ln, "layer_norm_fwd", ln.layer_norm_fwd_plain),
+                (ln, "layer_norm_bwd", ln.layer_norm_bwd_plain)):
+            stack.enter_context(mock.patch.object(mod, name, plain))
+        ploss, pgrads = transformer_loss_and_grads(state.model, *args)
+    torch.cuda.synchronize()
+    rel = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    worst, bad = 0.0, []
+    names = [n for n, _ in state.model.named_parameters()]
+    for name, g, pg in zip(names, grads, pgrads):
+        r = float((g - pg).norm()) / max(float(pg.norm()), 1e-30)
+        worst = max(worst, r)
+        if r > 0.1:
+            bad.append(f"{name}: {r:.3e}")
+    print(f"kernels vs twins, one step (bf16, B7 LayerNorms): loss "
+          f"{float(loss)!r} vs {float(ploss)!r} (rel {rel:.2e}), worst "
+          f"gradient ||d|| / ||g|| {worst:.3e}")
+    require(rel <= 1e-2, "kernels-vs-twins loss")
+    require(not bad, "kernels-vs-twins gradients: " + "; ".join(bad))
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernels(gen)
-    paths = (phase_slice(gen, rows), phase_train(smi),
-             phase_tokenize(gen, smi))
-    for i, row in enumerate(rows):
-        row["launches"] = sum(counts[i] for counts in paths)
+    paths = (phase_slice(gen), phase_train(smi), phase_tokenize(gen, smi),
+             phase_train_transformer(smi))
+    for row in rows:
+        row["launches"] = sum(counts[row["id"]] for counts in paths)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -104,6 +104,11 @@ def _declare(lib: ctypes.CDLL) -> None:
                                   ctypes.POINTER(ctypes.c_longlong),
                                   i, i, i, i, i, p]
     lib.mas_flash_fwd.restype = i
+    # q k v out dout lse delta dqkv, strides, B H T prefix is_bf16, stream
+    lib.mas_flash_bwd.argtypes = [p, p, p, p, p, p, p, p,
+                                  ctypes.POINTER(ctypes.c_longlong),
+                                  i, i, i, i, i, p]
+    lib.mas_flash_bwd.restype = i
     # q kq ks vq vs index out, B H T q_sb q_sh bits is_bf16, stream
     lib.mas_decode_quant.argtypes = [p, p, p, p, p, p, p,
                                      i, i, i, i, i, i, i, p]

@@ -6,6 +6,8 @@
                                       [--config configs/seg_256.json]
     python -m mas_tpu_torch.breakdown --path tokenize
                                       [--config configs/img_512.json]
+    python -m mas_tpu_torch.breakdown --path train_transformer
+                                      [--config configs/transformer_512.json]
 
 ``serve`` (default), for each batch size (prompts; guidance doubles the
 decode rows): prefill plus cache seeding, the decode step on the host
@@ -20,12 +22,21 @@ over a full reservoir, alone and as part of its micro-step.
 
 ``tokenize``: ``encode_tokens`` of a batch of random images.
 
+``train_transformer``: the transformer train step (CFG dropout, loss,
+backward, Adam) on one synthetic batch of the config's size, with the
+config's ``layernorm_impl`` ("jnp": PyTorch's fused layer norm) and with
+``"pallas"`` (kernel B7).
+
+Every profile also sums the device time of the port's own kernels by id
+(B1 ... B8), whether or not they are among the top kernels.
+
 Seeded random weights; warm-up runs first.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -36,10 +47,22 @@ from .models.sampler import sample_images
 from .utils.config import TransformerConfig, VQModelConfig
 
 
+# substring of a device kernel's name -> the port's kernel id
+_KERNEL_IDS = (("flash_fwd_kernel", "B1"), ("decode_quant_kernel", "B2"),
+               ("_write_kernel", "B3"), ("_gn_bwd_", "B8"), ("_gn_", "B4"),
+               ("vq_argmin_kernel", "B5"), ("flash_bwd_", "B6"),
+               ("_ln_", "B7"))
+
+
+def _kernel_id(name: str):
+    return next((kid for sub, kid in _KERNEL_IDS if sub in name), None)
+
+
 def _profile(fn, steps: int):
     """(host ms per call without the profiler, device-busy ms per call
     from a profiled run of as many calls, top kernels by device time as
-    (name, ms per call, launches per call))."""
+    (name, ms per call, launches per call), and the port's kernels by id
+    as [ms per call, launches per call])."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -56,11 +79,19 @@ def _profile(fn, steps: int):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    ported = {}
+    for e in kernels:
+        kid = _kernel_id(e.key)
+        if kid is not None:
+            ms, n = ported.get(kid, (0.0, 0))
+            ported[kid] = [ms + e.self_device_time_total / 1e3 / steps,
+                           n + e.count // steps]
     return {"host_ms": host, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / host),
             "top_kernels_ms_per_call": [
                 (e.key[:70], e.self_device_time_total / 1e3 / steps,
-                 e.count // steps) for e in top]}
+                 e.count // steps) for e in top],
+            "ported_kernels_ms_per_call": dict(sorted(ported.items()))}
 
 
 def train_breakdown(raw, gen, steps: int = 4) -> list:
@@ -117,6 +148,39 @@ def tokenize_breakdown(raw, gen, batch: int = 8, steps: int = 4) -> dict:
         return {"what": f"encode_tokens, {batch} x {cfg.resolution}^2, "
                 f"{cfg.compute_dtype}",
                 **_profile(lambda: vq.encode_tokens(x), steps)}
+
+
+def train_transformer_breakdown(raw, gen, steps: int = 3) -> list:
+    from .data.dataset import SyntheticTokenBatches
+    from .train.state import create_transformer_train_state
+    from .train.steps import make_transformer_train_step
+    from .utils.config import TrainConfig
+
+    train_cfg = TrainConfig.from_dict(raw["train"])
+    base = TransformerConfig.from_dict(raw["transformer"])
+    batch = next(iter(SyntheticTokenBatches(train_cfg.batch_size, base)))
+    args = [torch.from_numpy(batch[k]).cuda()
+            for k in ("text", "seg", "image")]
+    tokens = train_cfg.batch_size * base.total_length
+    rows = []
+    for impl in dict.fromkeys((base.layernorm_impl, "pallas")):
+        cfg = dataclasses.replace(base, layernorm_impl=impl)
+        state = create_transformer_train_state(cfg, train_cfg.optimizer, gen,
+                                               "cuda")
+        step = make_transformer_train_step(state.model, state.opt,
+                                           train_cfg.uncond_p,
+                                           train_cfg.start_uncond)
+        for _ in range(2):                      # warm-up
+            step(state, *args, gen)
+        row = _profile(lambda: step(state, *args, gen), steps)
+        rows.append({"what": f"transformer train step, batch "
+                     f"{train_cfg.batch_size} x T {base.total_length}, "
+                     f"{cfg.compute_dtype}, remat "
+                     f"{cfg.remat_policy if cfg.remat else 'off'}, "
+                     f"layernorm_impl {impl}",
+                     "tokens_per_s": tokens / row["host_ms"] * 1e3, **row})
+        del state, step
+    return rows
 
 
 def _decode_profile(transformer, caches, tok, first_step: int, steps: int):
@@ -177,11 +241,12 @@ def breakdown(transformer, vq, text, seg, batch: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("serve", "train", "tokenize"),
+    ap.add_argument("--path", choices=("serve", "train", "tokenize",
+                                       "train_transformer"),
                     default="serve")
     ap.add_argument("--config", default=None,
-                    help="default: configs/sample_256.json, seg_256.json or "
-                    "img_512.json by --path")
+                    help="default: configs/sample_256.json, seg_256.json, "
+                    "img_512.json or transformer_512.json by --path")
     ap.add_argument("--batch", type=int, nargs="+", default=[4, 64])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -189,12 +254,18 @@ def main(argv=None) -> int:
         raise RuntimeError("breakdown needs a CUDA device")
     config = args.config or {"serve": "configs/sample_256.json",
                              "train": "configs/seg_256.json",
-                             "tokenize": "configs/img_512.json"}[args.path]
+                             "tokenize": "configs/img_512.json",
+                             "train_transformer":
+                                 "configs/transformer_512.json"}[args.path]
     with open(config) as f:
         raw = json.load(f)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if args.path == "train":
         for row in train_breakdown(raw, gen):
+            print(json.dumps(row))
+        return 0
+    if args.path == "train_transformer":
+        for row in train_transformer_breakdown(raw, gen):
             print(json.dumps(row))
         return 0
     if args.path == "tokenize":

@@ -1,5 +1,5 @@
-"""Command-line entry point of the PyTorch port: ``--mode sample`` and
-``--mode pretrain_segmentation``.
+"""Command-line entry point of the PyTorch port: ``--mode sample``,
+``--mode pretrain_segmentation`` and ``--mode train_transformer``.
 
 ``sample`` is the counterpart of ``mas_tpu/cli.py::_run_sample``: it
 tokenizes the config's captions, samples image tokens with guidance and
@@ -7,16 +7,19 @@ top-k, decodes them with VQ-IMG and writes the image grid.  Without
 checkpoints the weights are seeded random, as the JAX ``--mode sample``
 does.  ``transformer_checkpoint`` / ``vq_checkpoint`` may name a
 reference-layout ``.pt``, as the JAX package's ``--mode export`` writes
-it, or a checkpoint of the port's VQ-SEG training.
+it, or a checkpoint of the port's VQ-SEG or transformer training.
 
-``pretrain_segmentation`` trains VQ-SEG (``train/loop.py``) on the
-config's ``data`` section; only ``kind: synthetic`` is ported (ROADMAP
-A13).  Every other mode raises: it is not ported yet (ROADMAP A9-A11).
+``pretrain_segmentation`` trains VQ-SEG and ``train_transformer`` the
+transformer (``train/loop.py``) on the config's ``data`` section; only
+``kind: synthetic`` is ported (ROADMAP A13).  Every other mode raises: it
+is not ported yet (ROADMAP A10, A11).
 
 Usage:
     python -m mas_tpu_torch.cli --config configs/sample_256.json --device cuda
     python -m mas_tpu_torch.cli --config configs/seg_256.json \
         --mode pretrain_segmentation --device cuda
+    python -m mas_tpu_torch.cli --config configs/transformer_512.json \
+        --mode train_transformer --device cuda
 
 ``--device`` is explicit; nothing falls back to the CPU.
 """
@@ -115,20 +118,23 @@ def run_sample(raw: Dict[str, Any], device) -> str:
     return out
 
 
-def data_iter(data_cfg: Dict[str, Any], batch_size: int,
-              model_cfg: VQModelConfig):
-    """The host batch iterator of the config's ``data`` section for VQ-SEG
-    training, as ``mas_tpu/cli.py::_data_iter``; the port has the
+def data_iter(data_cfg: Dict[str, Any], batch_size: int, model_cfg):
+    """The host batch iterator of the config's ``data`` section, as
+    ``mas_tpu/cli.py::_data_iter``: seg maps for a ``VQModelConfig``
+    (VQ-SEG training), tokens for a ``TransformerConfig``; the port has the
     synthetic kind."""
-    from .data.dataset import SyntheticSegBatches
+    from .data.dataset import SyntheticSegBatches, SyntheticTokenBatches
 
     kind = data_cfg.get("kind", "synthetic")
     if kind != "synthetic":
         raise NotImplementedError(
             f"data kind {kind!r} is not ported to mas_tpu_torch "
             "(ROADMAP A13); only 'synthetic' is")
+    seed = data_cfg.get("seed", 0)
+    if isinstance(model_cfg, TransformerConfig):
+        return iter(SyntheticTokenBatches(batch_size, model_cfg, seed))
     res = data_cfg.get("resolution", model_cfg.resolution)
-    return iter(SyntheticSegBatches(batch_size, res, data_cfg.get("seed", 0)))
+    return iter(SyntheticSegBatches(batch_size, res, seed))
 
 
 def run_pretrain_segmentation(raw: Dict[str, Any], train_raw: Dict[str, Any],
@@ -140,6 +146,20 @@ def run_pretrain_segmentation(raw: Dict[str, Any], train_raw: Dict[str, Any],
     loss_cfg = SegLossConfig.from_dict(raw.get("loss", {}))
     batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
     return run(train_cfg, model_cfg, batches, loss_cfg, device)
+
+
+def run_train_transformer(raw: Dict[str, Any], train_raw: Dict[str, Any],
+                          device):
+    from .train.loop import run_train_transformer as run
+
+    train_cfg = TrainConfig.from_dict(train_raw)
+    model_cfg = TransformerConfig.from_dict(raw["transformer"])
+    batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
+    return run(train_cfg, model_cfg, batches, device)
+
+
+_TRAIN_MODES = {"pretrain_segmentation": run_pretrain_segmentation,
+                "train_transformer": run_train_transformer}
 
 
 def main(argv=None) -> int:
@@ -156,15 +176,16 @@ def main(argv=None) -> int:
     train = dict(raw.get("train", {}))
     mode = args.mode or train.get("mode", "pretrain_segmentation")
     device = torch.device(args.device)
-    if mode == "pretrain_segmentation":
+    if mode in _TRAIN_MODES:
         train["mode"] = mode
-        state = run_pretrain_segmentation(raw, train, device)
+        state = _TRAIN_MODES[mode](raw, train, device)
         print(f"trained to step {state.step}")
         return 0
     if mode != "sample":
         raise NotImplementedError(
             f"mode {mode!r} is not ported to mas_tpu_torch yet (ROADMAP "
-            "A9-A11); only 'sample' and 'pretrain_segmentation' are")
+            "A10, A11); only 'sample', 'pretrain_segmentation' and "
+            "'train_transformer' are")
     unknown = set(train) - _SAMPLE_TRAIN_KEYS
     if unknown:
         raise ConfigError(f"train keys {sorted(unknown)} configure training, "

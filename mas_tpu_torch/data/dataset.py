@@ -28,3 +28,26 @@ class SyntheticSegBatches:
                 assemble_seg_map(pan[i], edge[i], hum[i], zero[i], face[i])
                 for i in range(b)])
             yield {"mask": mask.astype(np.float32)}
+
+
+class SyntheticTokenBatches:
+    """Random (text, seg, image) token batches (transformer stage)."""
+
+    def __init__(self, batch_size: int, cfg, seed: int = 0):
+        self.batch_size = batch_size
+        self.cfg = cfg
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        cfg, b = self.cfg, self.batch_size
+        while True:
+            yield {
+                "text": self.rng.integers(
+                    0, cfg.text_vocab_size - cfg.text_length,
+                    (b, cfg.text_length), dtype=np.int32),
+                "seg": self.rng.integers(0, cfg.seg_vocab_size,
+                                         (b, cfg.seg_length), dtype=np.int32),
+                "image": self.rng.integers(
+                    0, cfg.image_vocab_size, (b, cfg.image_length),
+                    dtype=np.int32),
+            }

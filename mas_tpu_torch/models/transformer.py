@@ -1,4 +1,5 @@
-"""MakeAScene autoregressive transformer, serving path (prefill + decode).
+"""MakeAScene autoregressive transformer: training forward, prefill and
+decode.
 
 Counterpart of ``mas_tpu/models/transformer.py``: token sequence
 [text | seg | image]; three token embeddings, text positions and
@@ -11,25 +12,39 @@ Attention is the plain masked softmax with fp32 statistics.  CogView's
 PB-relax (``cogview_pb_relax``) subtracts an alpha-scaled max, a per-row
 constant that softmax cancels exactly, so it is not computed.
 
-Kernels: the full-sequence attention (``__call__`` and ``prefill``) is B1
-(``ops/attention.py``); each decode step writes the new token's k/v with B3
-(``ops/decode_cache.py``) and reads the int8/int4 caches with B2
-(``ops/quant.py``).  CPU tensors take the kernels' plain twins.
+Kernels: the full-sequence attention (``forward`` and ``prefill``) is B1,
+with B6 as its backward, through ``ops/attention.py::
+FlashAttentionFunction``; each decode step writes the new token's k/v with
+B3 (``ops/decode_cache.py``) and reads the int8/int4 caches with B2
+(``ops/quant.py``).  With ``layernorm_impl: "pallas"`` every LayerNorm of
+at least 4096 rows is B7 (``ops/layer_norm.py``).  CPU tensors take the
+kernels' plain twins.
 
 Parameters use the reference ``state_dict`` keys
 (``transformer.layers.{i}.attn.qkv`` ...), the layout the JAX package's
-``utils/torch_export.py`` writes.  Linear and embedding weights are held
-in the compute dtype, as flax casts them at use; LayerNorm parameters stay
-fp32 and LayerNorm statistics are fp32.
+``utils/torch_export.py`` writes.  Linear and embedding layers compute in
+the compute dtype, casting weight, bias and input at use, as flax
+``Dense(dtype=...)`` and ``Embed(dtype=...)`` do.  A model built for
+training (``fp32_params=True``) keeps those parameters in fp32, as the JAX
+package does; a serving model casts them to the compute dtype once, which
+makes the cast at use a no-op.  LayerNorm parameters stay fp32 and
+LayerNorm statistics are fp32.
+
+``remat`` recomputes in the backward pass what the JAX package's
+``nn.remat`` recomputes: the MLP (``remat_policy: "mlp"``), the whole
+layer (``"nothing"``), or the whole layer with the outputs of its matrix
+products saved (``"dots"``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils import checkpoint
 
 from ..ops import attention, decode_cache, quant
 from ..ops.norms import layer_norm
@@ -39,38 +54,74 @@ from .vqvae import compute_dtype
 
 KVCache = List[Tuple[QuantCache, QuantCache]]
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy: "dots"`` (JAX's
+    ``dots_saveable``): keep the matmul outputs, recompute the rest."""
+    policy = checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype``: weight, bias and
+    input are cast at use (a no-op where they already have that dtype)."""
+
+    def __init__(self, d_in: int, d_out: int, compute_dtype: torch.dtype):
+        super().__init__(d_in, d_out)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embed(nn.Embedding):
+    """``nn.Embedding`` whose rows come out in ``compute_dtype``."""
+
+    def __init__(self, num: int, dim: int, compute_dtype: torch.dtype):
+        super().__init__(num, dim)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx, self.weight).to(self.compute_dtype)
+
 
 class LayerNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, impl: str = "jnp", eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.impl = impl
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.eps)
+        return layer_norm(x, self.weight, self.bias, self.eps, self.impl)
 
 
 class SelfAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        self.qkv = nn.Linear(cfg.hidden_dim, 3 * cfg.hidden_dim)
-        self.out_proj = nn.Linear(cfg.hidden_dim, cfg.hidden_dim)
+        dt = compute_dtype(cfg.compute_dtype)
+        self.qkv = Dense(cfg.hidden_dim, 3 * cfg.hidden_dim, dt)
+        self.out_proj = Dense(cfg.hidden_dim, cfg.hidden_dim, dt)
 
-    def _heads(self, x: torch.Tensor):
-        """[B, T, D] -> q, k, v views [B, H, T, hd] into the qkv output."""
+    def _qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T, D] -> the fused projection viewed [B, T, 3, H, hd]."""
         cfg = self.cfg
         b, t, _ = x.shape
-        qkv = self.qkv(x).view(b, t, 3, cfg.num_attn_heads, cfg.head_dim)
-        return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+        return self.qkv(x).view(b, t, 3, cfg.num_attn_heads, cfg.head_dim)
 
     def forward(self, x: torch.Tensor, prefix_length: int):
         """Full-sequence attention; returns (out, (k, v) [B, H, T, hd])."""
         b, t, d = x.shape
-        q, k, v = self._heads(x)
-        ctx, _ = attention.flash_attention(q, k, v, prefix_length)
+        qkv = self._qkv(x)
+        ctx = attention.FlashAttentionFunction.apply(qkv, prefix_length)
         ctx = ctx.transpose(1, 2).reshape(b, t, d)
+        _, k, v = attention.split_qkv(qkv)
         return self.out_proj(ctx), (k, v)
 
     def decode(self, x: torch.Tensor, k_cache: QuantCache,
@@ -78,7 +129,7 @@ class SelfAttention(nn.Module):
         """x [B, 1, D]; writes this token's k/v at ``index`` in place, then
         attends over positions <= index."""
         b = x.shape[0]
-        q, k, v = self._heads(x)
+        q, k, v = attention.split_qkv(self._qkv(x))
         decode_cache.write_quant_kv(k_cache, v_cache, k[:, :, 0], v[:, :, 0],
                                     index)
         ctx = quant.decode_attention_quant(q, k_cache, v_cache, index)
@@ -88,8 +139,9 @@ class SelfAttention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        self.lin1 = nn.Linear(cfg.hidden_dim, 4 * cfg.hidden_dim)
-        self.lin2 = nn.Linear(4 * cfg.hidden_dim, cfg.hidden_dim)
+        dt = compute_dtype(cfg.compute_dtype)
+        self.lin1 = Dense(cfg.hidden_dim, 4 * cfg.hidden_dim, dt)
+        self.lin2 = Dense(4 * cfg.hidden_dim, cfg.hidden_dim, dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.lin2(F.gelu(self.lin1(x), approximate="tanh"))
@@ -101,11 +153,13 @@ class TransformerLayer(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.sandwich = cfg.cogview_sandwich_layernorm
-        self.ln_in = LayerNorm(cfg.hidden_dim)
-        self.ln_out = LayerNorm(cfg.hidden_dim)
+        self.remat_mlp = cfg.remat and cfg.remat_policy == "mlp"
+        ln = functools.partial(LayerNorm, cfg.hidden_dim, cfg.layernorm_impl)
+        self.ln_in = ln()
+        self.ln_out = ln()
         if self.sandwich:
-            self.first_ln_sandwich = LayerNorm(cfg.hidden_dim)
-            self.second_ln_sandwich = LayerNorm(cfg.hidden_dim)
+            self.first_ln_sandwich = ln()
+            self.second_ln_sandwich = ln()
         self.attn = SelfAttention(cfg)
         self.mlp = MLP(cfg)
 
@@ -113,7 +167,11 @@ class TransformerLayer(nn.Module):
         if self.sandwich:
             a = self.first_ln_sandwich(a)
         x = x + a
-        m = self.mlp(self.ln_out(x))
+        if self.remat_mlp and torch.is_grad_enabled():
+            m = checkpoint.checkpoint(self.mlp, self.ln_out(x),
+                                      use_reentrant=False)
+        else:
+            m = self.mlp(self.ln_out(x))
         if self.sandwich:
             m = self.second_ln_sandwich(m)
         return x + m
@@ -135,31 +193,38 @@ class _Stack(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(
             [TransformerLayer(cfg) for _ in range(cfg.num_layers)])
-        self.final_ln = LayerNorm(cfg.hidden_dim)
+        self.final_ln = LayerNorm(cfg.hidden_dim, cfg.layernorm_impl)
 
 
 class MakeAScene(nn.Module):
-    """Embeddings + layers + final LN + to_logits (serving path)."""
+    """Embeddings + layers + final LN + to_logits.
 
-    def __init__(self, cfg: TransformerConfig):
+    ``fp32_params``: keep Linear and Embedding parameters in fp32 (the
+    training path: Adam's updates are far below a bf16 ulp of a weight);
+    otherwise they are cast to the compute dtype once (serving)."""
+
+    def __init__(self, cfg: TransformerConfig, fp32_params: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.compute_dtype)
         d = cfg.hidden_dim
-        self.image_token_embedding = nn.Embedding(cfg.image_vocab_size, d)
-        self.seg_token_embedding = nn.Embedding(cfg.seg_vocab_size, d)
-        self.text_token_embedding = nn.Embedding(cfg.text_vocab_size, d)
-        self.text_pos_embeddings = nn.Embedding(cfg.text_length, d)
-        self.seg_row_embeddings = nn.Embedding(cfg.seg_tokens_per_dim, d)
-        self.seg_col_embeddings = nn.Embedding(cfg.seg_tokens_per_dim, d)
-        self.image_row_embeddings = nn.Embedding(cfg.image_tokens_per_dim, d)
-        self.image_col_embeddings = nn.Embedding(cfg.image_tokens_per_dim, d)
+        emb = functools.partial(Embed, compute_dtype=self.dtype)
+        self.image_token_embedding = emb(cfg.image_vocab_size, d)
+        self.seg_token_embedding = emb(cfg.seg_vocab_size, d)
+        self.text_token_embedding = emb(cfg.text_vocab_size, d)
+        self.text_pos_embeddings = emb(cfg.text_length, d)
+        self.seg_row_embeddings = emb(cfg.seg_tokens_per_dim, d)
+        self.seg_col_embeddings = emb(cfg.seg_tokens_per_dim, d)
+        self.image_row_embeddings = emb(cfg.image_tokens_per_dim, d)
+        self.image_col_embeddings = emb(cfg.image_tokens_per_dim, d)
         self.transformer = _Stack(cfg)
-        self.to_logits = nn.Sequential(LayerNorm(d),
-                                       nn.Linear(d, cfg.image_vocab_size))
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Embedding)):
-                m.to(self.dtype)
+        self.to_logits = nn.Sequential(
+            LayerNorm(d, cfg.layernorm_impl),
+            Dense(d, cfg.image_vocab_size, self.dtype))
+        if not fp32_params:
+            for m in self.modules():
+                if isinstance(m, (nn.Linear, nn.Embedding)):
+                    m.to(self.dtype)
 
     # --- embeddings ---------------------------------------------------------
 
@@ -197,11 +262,24 @@ class MakeAScene(nn.Module):
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         return self.to_logits(h).float()
 
-    def _backbone(self, x: torch.Tensor):
+    def _backbone(self, x: torch.Tensor, keep_kv: bool = False):
+        """Layers + final LN -> (h, per-layer (k, v) when ``keep_kv``)."""
+        cfg = self.cfg
+        remat = (cfg.remat and cfg.remat_policy != "mlp"
+                 and torch.is_grad_enabled())
+        context = (functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, _save_dots)
+            if cfg.remat_policy == "dots" else checkpoint.noop_context_fn)
         kvs = []
         for layer in self.transformer.layers:
-            x, kv = layer(x, self.cfg.effective_prefix)
-            kvs.append(kv)
+            if remat:
+                x, kv = checkpoint.checkpoint(
+                    layer, x, cfg.effective_prefix, use_reentrant=False,
+                    context_fn=context)
+            else:
+                x, kv = layer(x, cfg.effective_prefix)
+            if keep_kv:
+                kvs.append(kv)
         return self.transformer.final_ln(x), kvs
 
     # --- entry points -------------------------------------------------------
@@ -218,7 +296,8 @@ class MakeAScene(nn.Module):
     def prefill(self, text_tokens, seg_tokens):
         """Run the text+seg prefix -> (logits [B, vocab] for the first image
         token, per-layer (k, v) [B, H, prefix, hd])."""
-        h, kvs = self._backbone(self.embed_prefix(text_tokens, seg_tokens))
+        h, kvs = self._backbone(self.embed_prefix(text_tokens, seg_tokens),
+                                keep_kv=True)
         return self._logits(h[:, -1:, :])[:, 0], kvs
 
     def allocate_caches(self, prefill_kv: Sequence, batch: int) -> KVCache:

@@ -1,10 +1,14 @@
-"""Prefix-bidirectional causal attention forward (kernel B1).
+"""Prefix-bidirectional causal attention: forward (kernel B1), backward
+(kernel B6), and ``FlashAttentionFunction``, which joins them for autograd.
 
 Counterpart of ``mas_tpu/ops/attention.py``: ``flash_attention`` is the
 forward of the Pallas flash kernel (``_fwd_kernel``), hand-written for
 Hopper in ``csrc/flash_fwd.cu``; ``prefix_causal_attention_plain`` is the
 plain twin (counterpart of ``prefix_causal_attention_jnp``), which also
-returns the logsumexp the kernel writes for a later backward pass.
+returns the logsumexp the kernel writes for the backward pass.
+``flash_attention_bwd`` is the backward (``_bwd_dkv_kernel`` and
+``_bwd_dq_kernel``), hand-written in ``csrc/flash_bwd.cu``;
+``prefix_causal_attention_bwd_plain`` is its plain twin.
 
 Mask: row i sees keys [0, bound) with bound = prefix for i < prefix, else
 i + 1 — causal, and bidirectional inside the text+seg prefix.  The
@@ -98,3 +102,121 @@ def flash_attention(q, k, v, prefix_length: int):
 
 
 flash_attention.launches = 0
+
+
+def split_qkv(qkv: torch.Tensor):
+    """[B, T, 3, H, d] fused projection -> q, k, v views [B, H, T, d]."""
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def prefix_causal_attention_bwd_plain(q, k, v, out, lse, do,
+                                      prefix_length: int):
+    """Plain twin of B6: the backward from the saved (out, lse) in fp32 ->
+    (dq, dk, dv) [B, H, T, d] in q's dtype."""
+    d = q.shape[-1]
+    t = q.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    gf = do.float()
+    s = torch.matmul(qf * scale, kf.transpose(-1, -2))
+    pos = torch.arange(t, device=q.device)
+    qpos, kpos = pos[:, None], pos[None, :]
+    mask = (kpos <= qpos) | ((qpos < prefix_length) & (kpos < prefix_length))
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    delta = (gf * out.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+BWD_TILE = 64   # rows of a q tile and keys of a k tile in csrc/flash_bwd.cu
+
+
+def _check_bwd(q, k, v, out, lse, do):
+    _check(q, k, v)
+    b, h, t, _ = q.shape
+    for name, x in (("out", out), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} must be a {q.dtype} {tuple(q.shape)} "
+                             f"tensor on {q.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name} needs a contiguous last dim")
+    if (tuple(lse.shape) != (b, h, t) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous fp32 [{b}, {h}, {t}] "
+                         f"tensor on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    if t % BWD_TILE:
+        raise ValueError(f"flash_attention_bwd kernel takes T a multiple of "
+                         f"{BWD_TILE}, got {t}")
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, prefix_length: int):
+    """Backward of ``flash_attention`` from its saved (out, lse).
+
+    q, k, v, out, do [B, H, T, 64] bf16 or fp32, any strides with a
+    contiguous last dim; lse [B, H, T] fp32.  Returns dqkv [B, T, 3, H, 64]
+    in q's dtype (dq, dk, dv along dim 2), the gradient of a fused qkv
+    projection's output.  Kernel B6 for CUDA tensors (T a multiple of 64),
+    plain twin for CPU tensors."""
+    if q.device.type == "cpu":
+        grads = prefix_causal_attention_bwd_plain(q, k, v, out, lse, do,
+                                                  prefix_length)
+        return torch.stack([g.transpose(1, 2) for g in grads], dim=2)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, got "
+                         f"{q.device}")
+    _check_bwd(q, k, v, out, lse, do)
+    if prefix_length < 0:
+        raise ValueError(f"prefix_length must be >= 0, got {prefix_length}")
+    b, h, t, d = q.shape
+    dqkv = torch.empty((b, t, 3, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *do.stride()[:3])
+    lib = _build.library()
+    status = lib.mas_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+        strides, b, h, t, int(prefix_length), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "flash_bwd")
+    flash_attention_bwd.launches += 1
+    return dqkv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention over a fused projection with a gradient: B1 forward, B6
+    backward from the (out, lse) B1 wrote (their plain twins on CPU).
+
+    The kernels fill outputs made with ``torch.empty``, which carry no
+    ``grad_fn``: called bare, ``flash_attention`` cuts the autograd graph on
+    the card.  Every differentiable use goes through this Function.
+
+    ``apply(qkv, prefix_length)``: qkv [B, T, 3, H, d] -> out [B, H, T, d]
+    (laid out [B, T, H, d] on CUDA); the gradient of qkv is B6's buffer."""
+
+    @staticmethod
+    def forward(ctx, qkv, prefix_length: int):
+        out, lse = flash_attention(*split_qkv(qkv), prefix_length)
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(qkv, out, lse)
+        ctx.prefix_length = prefix_length
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dqkv = flash_attention_bwd(*split_qkv(qkv), out, lse, do,
+                                   ctx.prefix_length)
+        return dqkv, None

@@ -3,7 +3,8 @@
 Statistics are fp32 whatever the input dtype, and the variance is the
 two-pass mean of squared deviations.  ``group_norm_swish`` goes through
 ``ops/gn_swish.py::GNSwishFunction``: kernels B4 (forward) and B8
-(backward) for CUDA tensors.
+(backward) for CUDA tensors; ``layer_norm(impl='pallas')`` through
+``ops/layer_norm.py::LayerNormFunction``: kernel B7.
 """
 
 from __future__ import annotations
@@ -52,14 +53,32 @@ def group_norm_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return GNSwishFunction.apply(x, scale, bias, num_groups, eps)
 
 
+def ln_kernel_shape(x: torch.Tensor) -> bool:
+    """The JAX package's rule for its fused LayerNorm
+    (``mas_tpu/ops/pallas/layer_norm.py::_supported``): at least 4096 rows
+    and a last axis that is a multiple of 128; smaller calls, such as the
+    decode step's [B, 1, D], cost more in dispatch than they save."""
+    d = x.shape[-1]
+    return x.dim() >= 2 and d % 128 == 0 and x.numel() // d >= 4096
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, impl: str = "jnp") -> torch.Tensor:
     """LayerNorm over the last axis, fp32 statistics and affine, rounded
     once to x's dtype — as the JAX path.
 
-    PyTorch's fused layer norm on the fp32 upcast: three launches (the JAX
-    LayerNorm is XLA-fused, not a Pallas kernel: B7 is an opt-in).  Written
-    out as fp32 tensor ops it cost ~10 launches per call, which bound the
-    decode step on the host (PERF.md)."""
+    ``impl='pallas'`` (``TransformerConfig.layernorm_impl``) takes kernel
+    B7 through ``ops/layer_norm.py::LayerNormFunction`` for shapes that
+    meet ``ln_kernel_shape``, as the JAX package takes its Pallas
+    LayerNorm.  Every other call is PyTorch's fused layer norm on the fp32
+    upcast: three launches.  Written out as fp32 tensor ops it cost ~10
+    launches per call, which bound the decode step on the host
+    (PERF.md)."""
+    if impl not in ("jnp", "pallas"):
+        raise ValueError(f"impl must be jnp/pallas, got {impl!r}")
+    if impl == "pallas" and ln_kernel_shape(x):
+        from .layer_norm import LayerNormFunction
+
+        return LayerNormFunction.apply(x, scale, bias, eps)
     return F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(),
                         eps).to(x.dtype)

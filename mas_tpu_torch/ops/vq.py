@@ -8,14 +8,21 @@ indices carry no gradient.  The gather of the chosen rows is
 ``F.embedding``, outside the kernel, so the codebook gets its gradient
 through it.
 
-Agreement rule between the kernel and the twin.  The kernel drops ||z||^2
-(constant per row) and sums each dot product in another order than the
-twin's matmul, so the two can pick different codes only where two
-distances are within fp32 rounding of each other: indices must agree on
-at least 99.9% of rows, and at every row where they differ, the twin's
-distance of the kernel's choice must lie within 1e-5 * (||z||^2 + max_k
-||e_k||^2) of the twin's minimum (``argmin_agrees``).  Exactly equal
-distances resolve to the lower index on both sides.
+Agreement rule between the kernel and the twin (``argmin_agrees``).  The
+kernel drops ||z||^2 (constant per row) and sums each dot product in
+another order than the twin's matmul, so the two can pick different codes
+only where two distances are within fp32 rounding of each other:
+  * at every row where they differ, the twin's distance of the kernel's
+    choice lies within 1e-5 * (||z||^2 + max_k ||e_k||^2) of the twin's
+    minimum;
+  * every chosen code is the first of the codebook rows bitwise equal to
+    it: exactly equal distances resolve to the lower index.
+The number of differing rows is not bounded beyond that.  A trained
+codebook holds exact duplicates (k-means seeds drawn from a reservoir
+sampled with replacement) and a few rows of latents whose two nearest
+codes differ by less than that rounding; at seg training size (512 rows)
+even one such row flipping is 0.2% of them, so a share floor would turn
+a legitimate near-tie into a failure.
 """
 
 from __future__ import annotations
@@ -43,13 +50,17 @@ def vq_argmin_plain(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
 
 
 def argmin_agrees(z: torch.Tensor, codebook: torch.Tensor,
-                  got: torch.Tensor, want: torch.Tensor,
-                  min_share: float = 0.999) -> bool:
-    """The agreement rule of the module docstring: ``got`` and ``want``
-    index the same rows, or rows whose distances tie within fp32
-    rounding."""
+                  got: torch.Tensor, want: torch.Tensor) -> bool:
+    """The agreement rule of the module docstring: ``got`` picks the
+    first of equal codebook rows, and indexes the same rows as ``want`` or
+    rows whose distances tie with them within fp32 rounding."""
     got, want = got.reshape(-1).long(), want.reshape(-1).long()
-    if float((got == want).float().mean()) < min_share:
+    _, copy_of = torch.unique(codebook, dim=0, return_inverse=True)
+    first = torch.full((int(copy_of.max()) + 1,), len(copy_of),
+                       dtype=torch.long, device=copy_of.device)
+    first.scatter_reduce_(0, copy_of, torch.arange(
+        len(copy_of), device=copy_of.device), reduce="amin")
+    if not bool((first[copy_of[got]] == got).all()):
         return False
     diff = (got != want).nonzero().reshape(-1)
     if not len(diff):

@@ -1,5 +1,6 @@
-"""Training loop of the VQ-SEG stage, as ``mas_tpu/train/loop.py::
-run_pretrain_segmentation`` and its shared ``_loop``: build the state,
+"""Training loops of the VQ-SEG stage and of the transformer, as
+``mas_tpu/train/loop.py::run_pretrain_segmentation`` and
+``run_train_transformer`` with their shared ``_loop``: build the state,
 resume from the latest checkpoint when asked, then step, log scalars and
 checkpoint.  Batches are dicts of numpy arrays or tensors; they are moved
 to the device in the loop.  Image grids (``Visualizer``) are not ported
@@ -10,21 +11,24 @@ from __future__ import annotations
 
 import itertools
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.checkpoint import latest_step, restore_checkpoint, \
     save_checkpoint
-from ..utils.config import SegLossConfig, TrainConfig, VQModelConfig
+from ..utils.config import (SegLossConfig, TrainConfig, TransformerConfig,
+                            VQModelConfig)
 from ..utils.logging import Logger
-from .state import VQTrainState, create_vq_train_state
-from .steps import make_seg_train_step
+from .state import (TransformerTrainState, VQTrainState,
+                    create_transformer_train_state, create_vq_train_state)
+from .steps import make_seg_train_step, make_transformer_train_step
 
 
 def step_generator(seed: int, start: int, device) -> torch.Generator:
-    """The run's random stream (reservoir sampling, k-means init), seeded
+    """The run's random stream (reservoir sampling, k-means init, CFG
+    dropout), seeded
     from ``train.seed`` and the step the run starts at, so a resumed run
     does not replay the first run's draws."""
     mixed = np.random.SeedSequence([seed, start]).generate_state(1,
@@ -38,12 +42,13 @@ def _scalars(metrics: Dict) -> Dict[str, float]:
             or (torch.is_tensor(v) and v.numel() == 1)}
 
 
-def _loop(cfg: TrainConfig, state: VQTrainState, step_fn: Callable,
-          batches: Iterable, key: str, device, logger: Logger,
-          on_step: Optional[Callable] = None) -> VQTrainState:
-    """Step over ``batches[key]`` until ``total_steps``; log every
-    ``log_period``, checkpoint every ``save_period`` and at the end.
-    ``on_step(step, state, metrics)`` runs after every micro-step."""
+def _loop(cfg: TrainConfig, state, step_fn: Callable, batches: Iterable,
+          to_step_args: Callable[[Dict], Tuple], device, logger: Logger,
+          on_step: Optional[Callable] = None):
+    """Step ``step_fn(state, *to_step_args(batch), generator)`` until
+    ``total_steps``; log every ``log_period``, checkpoint every
+    ``save_period`` and at the end.  ``on_step(step, state, metrics)`` runs
+    after every micro-step."""
     start = state.step
     if start >= cfg.total_steps:
         print(f"resume at step {start} >= total_steps {cfg.total_steps}; "
@@ -55,8 +60,9 @@ def _loop(cfg: TrainConfig, state: VQTrainState, step_fn: Callable,
         step_no = start + i
         if step_no >= cfg.total_steps:
             break
-        x = torch.as_tensor(batch[key]).to(device, non_blocking=True)
-        metrics = step_fn(state, x, generator)
+        args = [torch.as_tensor(a).to(device, non_blocking=True)
+                for a in to_step_args(batch)]
+        metrics = step_fn(state, *args, generator)
         if on_step is not None:
             on_step(step_no + 1, state, metrics)
         if (step_no + 1) % cfg.log_period == 0:
@@ -73,18 +79,22 @@ def _loop(cfg: TrainConfig, state: VQTrainState, step_fn: Callable,
     return state
 
 
-def build_seg_state(train_cfg: TrainConfig, model_cfg: VQModelConfig,
-                    device) -> VQTrainState:
-    """Seeded initial state, restored from the latest checkpoint of
-    ``checkpoint_dir`` when ``train.resume`` is set and one exists.  The
-    seg stage accumulates at the undivided lr, as the reference does."""
-    init = torch.Generator(device=device).manual_seed(train_cfg.seed)
-    state = create_vq_train_state(model_cfg, train_cfg.optimizer, init,
-                                  device, rescale_lr=False)
+def _maybe_resume(train_cfg: TrainConfig, state):
+    """Restore ``state`` from the latest checkpoint of ``checkpoint_dir``
+    when ``train.resume`` is set and one exists."""
     if train_cfg.resume and latest_step(train_cfg.checkpoint_dir) is not None:
         restore_checkpoint(train_cfg.checkpoint_dir, state)
         print(f"resumed from step {state.step}")
     return state
+
+
+def build_seg_state(train_cfg: TrainConfig, model_cfg: VQModelConfig,
+                    device) -> VQTrainState:
+    """Seeded initial state, or the latest checkpoint's (``_maybe_resume``).
+    The seg stage accumulates at the undivided lr, as the reference does."""
+    init = torch.Generator(device=device).manual_seed(train_cfg.seed)
+    return _maybe_resume(train_cfg, create_vq_train_state(
+        model_cfg, train_cfg.optimizer, init, device, rescale_lr=False))
 
 
 def run_pretrain_segmentation(train_cfg: TrainConfig,
@@ -106,6 +116,32 @@ def run_pretrain_segmentation(train_cfg: TrainConfig,
                                from_packed_labels=packed)
     rest = (itertools.chain([first], batches) if first is not None
             else batches)
-    return _loop(train_cfg, state, step, rest,
-                 "seg_packed" if packed else "mask", device,
+    key = "seg_packed" if packed else "mask"
+    return _loop(train_cfg, state, step, rest, lambda b: (b[key],), device,
+                 logger or Logger(), on_step)
+
+
+def build_transformer_state(train_cfg: TrainConfig,
+                            model_cfg: TransformerConfig,
+                            device) -> TransformerTrainState:
+    """Seeded initial state, or the latest checkpoint's (``_maybe_resume``)."""
+    init = torch.Generator(device=device).manual_seed(train_cfg.seed)
+    return _maybe_resume(train_cfg, create_transformer_train_state(
+        model_cfg, train_cfg.optimizer, init, device))
+
+
+def run_train_transformer(train_cfg: TrainConfig,
+                          model_cfg: TransformerConfig,
+                          batches: Iterable[Dict], device="cuda",
+                          logger: Optional[Logger] = None,
+                          on_step: Optional[Callable] = None
+                          ) -> TransformerTrainState:
+    """Transformer stage.  Batches carry pre-extracted ``text``, ``seg``
+    and ``image`` tokens (``data/dataset.py::SyntheticTokenBatches``)."""
+    state = build_transformer_state(train_cfg, model_cfg, device)
+    step = make_transformer_train_step(state.model, state.opt,
+                                       train_cfg.uncond_p,
+                                       train_cfg.start_uncond)
+    return _loop(train_cfg, state, step, batches,
+                 lambda b: (b["text"], b["seg"], b["image"]), device,
                  logger or Logger(), on_step)

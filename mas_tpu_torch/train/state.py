@@ -1,5 +1,5 @@
-"""Train state of the VQ stage and its optimizer, as
-``mas_tpu/train/state.py``.
+"""Train states of the VQ stage and of the transformer, and their
+optimizer, as ``mas_tpu/train/state.py``.
 
 ``Adam`` is optax's ``adam`` (update m^ / (sqrt(v^) + eps), bias-corrected
 moments) behind ``optax.MultiSteps``: with ``accumulate_grad`` k > 1 each
@@ -16,8 +16,9 @@ from typing import Dict, Iterable, Sequence, Tuple
 import torch
 
 from ..models.codebook import CodebookState, codebook_init_state
+from ..models.transformer import MakeAScene
 from ..models.vqvae import VQModel
-from ..utils.config import OptimizerConfig, VQModelConfig
+from ..utils.config import OptimizerConfig, TransformerConfig, VQModelConfig
 from ..utils.weights import init_random_
 
 
@@ -118,3 +119,24 @@ def create_vq_train_state(cfg: VQModelConfig, opt_cfg: OptimizerConfig,
     opt = make_adam(opt_cfg, model.named_parameters(), rescale_lr)
     return VQTrainState(0, model, codebook_init_state(cfg.codebook, device),
                         opt)
+
+
+@dataclass
+class TransformerTrainState:
+    step: int                  # micro-steps taken
+    model: MakeAScene          # fp32 parameters
+    opt: Adam
+
+
+def create_transformer_train_state(cfg: TransformerConfig,
+                                   opt_cfg: OptimizerConfig,
+                                   generator: torch.Generator,
+                                   device) -> TransformerTrainState:
+    """A MakeAScene on ``device`` with fp32 parameters (cast to the compute
+    dtype at use), seeded random weights and Adam at the undivided lr, as
+    the JAX package's ``run_train_transformer`` builds it."""
+    with torch.device(device):
+        model = MakeAScene(cfg, fp32_params=True)
+    init_random_(model, generator)
+    opt = make_adam(opt_cfg, model.named_parameters(), rescale_lr=False)
+    return TransformerTrainState(0, model, opt)

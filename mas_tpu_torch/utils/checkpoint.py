@@ -1,10 +1,12 @@
 """Train-state checkpoints: one ``torch.save`` file per saved step,
 ``<dir>/step_<step>.pt``, holding
 
-  * ``model``: the ``VQModel`` ``state_dict`` in the reference key layout
+  * ``model``: the model's ``state_dict`` in the reference key layout
     (BN running statistics included), so ``utils/weights.py::
-    load_reference_pt`` reads it and a trained VQ-SEG feeds the sampler;
-  * ``codebook``: the phase counter, ``filled`` and the reservoir;
+    load_reference_pt`` reads it and a trained VQ-SEG or transformer
+    feeds the sampler;
+  * ``codebook`` (VQ states only): the phase counter, ``filled`` and the
+    reservoir;
   * ``optimizer``: Adam's moments, update count and accumulation buffers;
   * ``step``: micro-steps taken.
 
@@ -39,14 +41,16 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def save_checkpoint(directory: str, state) -> str:
-    """Write ``state`` (a ``train.state.VQTrainState``) at its step."""
+    """Write ``state`` (a ``train.state.VQTrainState`` or
+    ``TransformerTrainState``) at its step."""
     os.makedirs(directory, exist_ok=True)
     path = checkpoint_path(directory, state.step)
-    vq = state.vq_state
     payload = {"step": state.step, "model": state.model.state_dict(),
-               "codebook": {"counter": vq.counter, "filled": vq.filled,
-                            "reservoir": vq.reservoir},
                "optimizer": state.opt.state_dict()}
+    if hasattr(state, "vq_state"):
+        vq = state.vq_state
+        payload["codebook"] = {"counter": vq.counter, "filled": vq.filled,
+                               "reservoir": vq.reservoir}
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -62,10 +66,11 @@ def restore_checkpoint(directory: str, state):
     payload = torch.load(checkpoint_path(directory, step), map_location="cpu",
                          weights_only=True)
     state.model.load_state_dict(payload["model"], strict=True)
-    cb = payload["codebook"]
-    state.vq_state = CodebookState(
-        counter=cb["counter"], filled=cb["filled"],
-        reservoir=cb["reservoir"].to(state.vq_state.reservoir.device))
+    if hasattr(state, "vq_state"):
+        cb = payload["codebook"]
+        state.vq_state = CodebookState(
+            counter=cb["counter"], filled=cb["filled"],
+            reservoir=cb["reservoir"].to(state.vq_state.reservoir.device))
     state.opt.load_state_dict(payload["optimizer"])
     state.step = payload["step"]
     return state

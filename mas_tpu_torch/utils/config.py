@@ -152,6 +152,9 @@ class VQModelConfig(_Base):
         return self.resolution // self.spatial_reduction
 
 
+REMAT_POLICIES = ("mlp", "nothing", "dots")
+
+
 @dataclass(frozen=True)
 class TransformerConfig(_Base):
     """MakeAScene AR transformer; sequence = [text | seg | image]."""
@@ -182,6 +185,9 @@ class TransformerConfig(_Base):
     ln_matmul_fold: bool = False
     attention_impl: str = "auto"
     decode_attention_impl: str = "auto"
+    # recompute in the backward pass (``torch.utils.checkpoint``): 'mlp'
+    # the MLP only, 'nothing' the whole layer, 'dots' the whole layer with
+    # the matmul outputs saved
     remat: bool = False
     remat_policy: str = "nothing"
     # 'int8' | 'int4' decode caches; 'compute' (float cache) needs kernel
@@ -226,6 +232,10 @@ class TransformerConfig(_Base):
             raise ConfigError(
                 f"layernorm_impl must be jnp/pallas, got "
                 f"{self.layernorm_impl!r}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ConfigError(
+                f"remat_policy must be one of {REMAT_POLICIES}, got "
+                f"{self.remat_policy!r}")
         self._reject_tpu_ablations()
 
     def _reject_tpu_ablations(self):
@@ -237,15 +247,13 @@ class TransformerConfig(_Base):
             (self.kv_cache_layout == "packed", "kv_cache_layout='packed'",
              "B10"),
             (self.num_kv_heads not in (0, self.num_attn_heads),
-             "num_kv_heads (grouped-query attention)", "A9"),
-            (self.rudalle_relax, "rudalle_relax", "A9"),
+             "num_kv_heads (grouped-query attention)", "A9b"),
+            (self.rudalle_relax, "rudalle_relax", "A9b"),
             (self.cogview_layernorm_prescale, "cogview_layernorm_prescale",
-             "A9"),
-            (self.ln_matmul_fold, "ln_matmul_fold", "A9"),
+             "A9b"),
+            (self.ln_matmul_fold, "ln_matmul_fold", "A9b"),
             (self.scan_layers, "scan_layers (load stacked trees unstacked)",
-             "A9"),
-            (self.layernorm_impl == "pallas", "layernorm_impl='pallas'",
-             "B7"),
+             "A9b"),
             (self.kv_scale_dtype == "bfloat16", "kv_scale_dtype='bfloat16'",
              "B2/B3"),
         )
@@ -316,8 +324,9 @@ class MeshConfig(_Base):
 
 @dataclass(frozen=True)
 class TrainConfig(_Base):
-    """Training run settings.  The port trains VQ-SEG only: the other
-    modes, and the fields only they or a device mesh read, raise
+    """Training run settings.  The port trains VQ-SEG and the transformer
+    (with CFG text dropout: ``uncond_p``, from step ``start_uncond``); the
+    VQ-IMG mode, and the fields only it or a device mesh reads, raise
     ``NotImplementedError`` naming the ROADMAP item that ports them."""
 
     mode: str = "pretrain_segmentation"
@@ -346,10 +355,6 @@ class TrainConfig(_Base):
                 object.__setattr__(self, name, cls.from_dict(v))
         checks = (
             (self.mode == "pretrain_image", "mode 'pretrain_image'", "A10"),
-            (self.mode == "train_transformer", "mode 'train_transformer'",
-             "A9"),
-            (self.start_uncond != 0 or self.uncond_p != 0.1,
-             "start_uncond/uncond_p (transformer CFG dropout)", "A9"),
             (self.disc_optimizer != OptimizerConfig(),
              "disc_optimizer (VQ-IMG discriminator)", "A10"),
             (self.mesh != MeshConfig(), "mesh (multi-device training)",

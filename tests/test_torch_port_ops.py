@@ -27,8 +27,8 @@ from mas_tpu.ops.quant import quantize_kv as jquantize_kv
 from mas_tpu.ops.vq import vq_argmin as jvq_argmin
 from mas_tpu.ops.vq import vq_argmin_jnp
 
-from mas_tpu_torch.ops import (attention, decode_cache, gn_swish, norms,
-                               quant, vq)
+from mas_tpu_torch.ops import (attention, decode_cache, gn_swish,
+                               layer_norm, norms, quant, vq)
 
 
 def _np(x):
@@ -366,6 +366,37 @@ def test_vq_argmin_rule_rejects_a_far_choice():
     assert not vq.argmin_agrees(z, cb, bad, want)
 
 
+def test_vq_argmin_rule_accepts_one_near_tie_in_512_rows():
+    """Seg training quantizes 512 rows: one row whose two nearest codes
+    differ by less than fp32 rounding may resolve either way."""
+    r = _rng(13)
+    cb = torch.from_numpy(r.standard_normal((64, 32)).astype(np.float32))
+    cb[1] = cb[0] * (1 + 2e-7)
+    z = torch.from_numpy(r.standard_normal((512, 32)).astype(np.float32))
+    z[0] = cb[0]
+    want = vq.vq_argmin(z, cb)
+    assert int(want[0]) in (0, 1)
+    flipped = want.clone()
+    flipped[0] = 1 - want[0]
+    assert vq.argmin_agrees(z, cb, flipped, want)
+
+
+def test_vq_argmin_rule_rejects_a_later_exact_copy():
+    """Equal codebook rows give equal distances, and the lower index must
+    win, however many rows choose them."""
+    r = _rng(14)
+    cb = torch.from_numpy(r.standard_normal((64, 32)).astype(np.float32))
+    cb[40] = cb[7]
+    z = torch.from_numpy(r.standard_normal((4096, 32)).astype(np.float32))
+    z[0] = cb[7] + 1e-3
+    want = vq.vq_argmin(z, cb)
+    assert int(want[0]) == 7
+    bad = want.clone()
+    bad[0] = 40
+    assert not vq.argmin_agrees(z, cb, bad, want)
+    assert not vq.argmin_agrees(z, cb, bad, bad)
+
+
 def test_vq_quantize_gathers_with_codebook_grad():
     r = _rng(13)
     z = torch.from_numpy(r.standard_normal((2, 3, 4, 8)).astype(np.float32))
@@ -438,3 +469,185 @@ def test_kernel_checks_reject_bad_inputs():
         vq._check(torch.zeros(4, 512), torch.zeros(8, 512))
     with pytest.raises(TypeError, match="one dtype"):
         vq._check(torch.zeros(4, 8, dtype=torch.bfloat16), torch.zeros(8, 8))
+
+
+# --- B6: attention backward, and FlashAttentionFunction ---------------------
+
+@pytest.mark.parametrize("t,prefix", [(256, 0), (256, 64), (256, 128),
+                                      (128, 64)])
+def test_attention_bwd_plain_matches_jax_grad_pallas_interpret(t, prefix):
+    """The B6 twin from (out, lse) vs jax.vjp through the Pallas flash
+    attention (interpret mode): T = 256 with (128, 128) blocks runs the
+    multi-block backward with block skipping; T = 128 is one block.  fp32
+    atol 1e-5."""
+    r = _rng(t + prefix)
+    q, k, v, do = (r.standard_normal((1, 2, t, 64)).astype(np.float32)
+                   for _ in range(4))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = attention.prefix_causal_attention_plain(tq, tk, tv, prefix)
+    got = attention.prefix_causal_attention_bwd_plain(tq, tk, tv, out, lse,
+                                                      tdo, prefix)
+    _, vjp = jax.vjp(lambda q_, k_, v_: flash_attention(
+        q_, k_, v_, prefix, 128, 128, interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, want in zip(got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), atol=1e-5)
+    # the wrapper stacks them into the fused [B, T, 3, H, d] gradient
+    dqkv = attention.flash_attention_bwd(tq, tk, tv, out, lse, tdo, prefix)
+    assert dqkv.shape == (1, t, 3, 2, 64)
+    for i, g in enumerate(got):
+        assert torch.equal(dqkv[:, :, i].transpose(1, 2), g)
+
+
+@pytest.mark.parametrize("prefix", [0, 20])
+def test_flash_attention_function_grads_match_plain_autograd(prefix):
+    """FlashAttentionFunction under torch.autograd.grad (B1 + B6 twins on
+    CPU) vs autograd through prefix_causal_attention_plain over the same
+    fused qkv views: dq, dk, dv fp32 atol 1e-5."""
+    r = _rng(200 + prefix)
+    qkv = torch.from_numpy(r.standard_normal((2, 64, 3, 2, 64)).astype(
+        np.float32)).requires_grad_()
+    g = torch.from_numpy(r.standard_normal((2, 2, 64, 64)).astype(np.float32))
+    out = attention.FlashAttentionFunction.apply(qkv, prefix)
+    assert out.grad_fn is not None
+    got, = torch.autograd.grad(out, qkv, g)
+    ref, _ = attention.prefix_causal_attention_plain(
+        *attention.split_qkv(qkv), prefix)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    want, = torch.autograd.grad(ref, qkv, g)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def test_flash_attention_function_saves_nothing_without_grad():
+    qkv = torch.zeros(1, 64, 3, 1, 64)
+    with torch.no_grad():
+        out = attention.FlashAttentionFunction.apply(qkv, 0)
+    assert out.grad_fn is None
+
+
+# --- B7: LayerNorm forward and backward --------------------------------------
+
+def _ln_inputs(shape, seed):
+    r = _rng(seed)
+    d = shape[-1]
+    x = (r.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    s = (r.standard_normal(d) * 0.5 + 1.0).astype(np.float32)
+    b = (r.standard_normal(d) * 0.1).astype(np.float32)
+    g = r.standard_normal(shape).astype(np.float32)
+    return x, s, b, g
+
+
+def test_layer_norm_fwd_plain_matches_pallas_interpret():
+    from mas_tpu.ops.pallas.layer_norm import _ln_fwd_pallas
+
+    x, s, b, _ = _ln_inputs((4096, 128), 31)
+    t = torch.from_numpy
+    got = layer_norm.layer_norm_fwd(t(x), t(s), t(b))
+    ref = _ln_fwd_pallas(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b),
+                         1e-5, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("g_scale", [1.0, 1 / 64])
+def test_layer_norm_bwd_plain_matches_pallas_interpret(g_scale):
+    """fp32 atol 1e-5.  dscale and dbias sum 4096 rows in another order
+    than the Pallas kernel's row tiles; with unit g the sums reach ~100 and
+    their rounding ~5e-5, so they are held to atol 1e-5 with g scaled by
+    1/64 (sums of order 1), and dx with unit g."""
+    from mas_tpu.ops.pallas.layer_norm import _ln_bwd_pallas
+
+    x, s, b, g = _ln_inputs((4096, 128), 32)
+    g = (g * g_scale).astype(np.float32)
+    t = torch.from_numpy
+    got = layer_norm.layer_norm_bwd(t(x), t(g), t(s))
+    ref = _ln_bwd_pallas(jnp.asarray(x), jnp.asarray(g), jnp.asarray(s),
+                         1e-5, interpret=True)
+    assert [a.dtype for a in got] == [torch.float32] * 3
+    checked = got[:1] if g_scale == 1.0 else got
+    for a, want in zip(checked, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_function_grads_match_autograd(dtype):
+    """LayerNormFunction (B7 twins on CPU) under torch.autograd.grad vs
+    autograd through F.layer_norm on an fp32 copy of x: fp32 atol 1e-5;
+    bf16 dx is rounded once from fp32: rtol 2^-8.  dscale/dbias stay fp32:
+    atol 1e-4 (sums over 64 rows of the bf16-rounded g)."""
+    x, s, b, g = _ln_inputs((2, 32, 128), 33)
+    x = torch.from_numpy(x).to(dtype).requires_grad_()
+    s = torch.from_numpy(s).requires_grad_()
+    b = torch.from_numpy(b).requires_grad_()
+    g = torch.from_numpy(g).to(dtype)
+    y = layer_norm.LayerNormFunction.apply(x, s, b, 1e-5)
+    assert y.dtype == dtype and y.shape == x.shape
+    got = torch.autograd.grad(y, (x, s, b), g)
+    x32 = x.detach().float().requires_grad_()
+    y_ref = torch.nn.functional.layer_norm(x32, (128,), s, b, 1e-5)
+    want = torch.autograd.grad(y_ref, (x32, s, b), g.float())
+    assert [a.dtype for a in got] == [dtype, torch.float32, torch.float32]
+    tol = (dict(atol=1e-5) if dtype == torch.float32
+           else dict(atol=1e-6, rtol=2 ** -8))
+    np.testing.assert_allclose(got[0].float().numpy(), want[0].numpy(),
+                               **tol)
+    for a, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-4)
+
+
+def test_layer_norm_impl_takes_b7_under_the_jax_shape_rule():
+    """impl='pallas' goes through LayerNormFunction for >= 4096 rows with d
+    a multiple of 128, and through F.layer_norm for the decode step's
+    [B, 1, D] and for d = 96; both agree with impl='jnp' (fp32 atol
+    1e-5)."""
+    s, b = torch.ones(128).requires_grad_(), torch.zeros(128)
+    for shape, d, kernel in (((2, 2048, 128), 128, True),
+                             ((8, 1, 128), 128, False),
+                             ((4096, 96), 96, False)):
+        x = torch.randn(*shape).requires_grad_()
+        y = norms.layer_norm(x, s[:d], b[:d], impl="pallas")
+        assert (type(y.grad_fn).__name__ == "LayerNormFunctionBackward") \
+            == kernel, shape
+        np.testing.assert_allclose(
+            y.detach().numpy(),
+            norms.layer_norm(x, s[:d], b[:d]).detach().numpy(), atol=1e-5)
+    with pytest.raises(ValueError, match="jnp/pallas"):
+        norms.layer_norm(x, s[:96], b[:96], impl="triton")
+
+
+def test_b6_b7_wrappers_count_no_cpu_launch_and_reject_meta():
+    counted = (attention.flash_attention_bwd, layer_norm.layer_norm_fwd,
+               layer_norm.layer_norm_bwd)
+    before = [fn.launches for fn in counted]
+    q = torch.zeros(1, 1, 64, 64)
+    attention.flash_attention_bwd(q, q, q, q, torch.zeros(1, 1, 64), q, 0)
+    x = torch.zeros(8, 128)
+    layer_norm.layer_norm_fwd(x, torch.ones(128), torch.zeros(128))
+    layer_norm.layer_norm_bwd(x, x, torch.ones(128))
+    assert before == [fn.launches for fn in counted]
+    m = torch.empty(1, 1, 64, 64, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        attention.flash_attention_bwd(m, m, m, m, m[..., 0], m, 0)
+    xm = torch.empty(8, 128, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        layer_norm.layer_norm_fwd(xm, torch.ones(128), torch.zeros(128))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        layer_norm.layer_norm_bwd(xm, xm, torch.ones(128))
+
+
+def test_b6_b7_kernel_checks_reject_bad_inputs():
+    q = torch.zeros(1, 2, 96, 64)
+    lse = torch.zeros(1, 2, 96)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        attention._check_bwd(q, q, q, q, lse, q)
+    q = torch.zeros(1, 2, 128, 64)
+    with pytest.raises(ValueError, match="lse"):
+        attention._check_bwd(q, q, q, q, torch.zeros(1, 2, 128).double(), q)
+    with pytest.raises(ValueError, match="do must be"):
+        attention._check_bwd(q, q, q, q, torch.zeros(1, 2, 128), q.double())
+    x = torch.zeros(8, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        layer_norm._check(x.t(), torch.ones(8))
+    with pytest.raises(ValueError, match="scale"):
+        layer_norm._check(x, torch.ones(64))
+    with pytest.raises(ValueError, match="g must be"):
+        layer_norm._check(x, torch.ones(128), g=x.bfloat16())

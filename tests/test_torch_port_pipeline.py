@@ -113,7 +113,7 @@ def test_cli_refuses_unported_modes(tmp_path):
     from mas_tpu_torch.cli import main
 
     path = tmp_path / "cfg.json"
-    path.write_text(json.dumps({"train": {"mode": "train_transformer"}}))
+    path.write_text(json.dumps({"train": {"mode": "pretrain_image"}}))
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["--config", str(path), "--device", "cpu"])
 
@@ -175,7 +175,8 @@ def test_import_leaves_jax_out():
     dict(decode_q_rows=4), dict(kv_cache_layout="packed"),
     dict(num_kv_heads=1), dict(rudalle_relax=True),
     dict(cogview_layernorm_prescale=True), dict(ln_matmul_fold=True),
-    dict(scan_layers=True), dict(layernorm_impl="pallas"),
+    dict(scan_layers=True),
+    dict(ln_matmul_fold=True, layernorm_impl="pallas"),
     dict(kv_scale_dtype="bfloat16")])
 def test_tpu_only_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
