@@ -2,17 +2,24 @@
 the JAX package ``mas_tpu``.
 
 Slices ported so far:
-  * text+seg -> 256^2 image sampling (``models.sampler.sample_images``,
+  * text+seg -> image sampling at 256^2 and 512^2 over float, int8/int4
+    lane and int8/int4 packed KV caches (``models.sampler.sample_images``,
     ``python -m mas_tpu_torch.cli --mode sample``);
   * VQ tokenization (``models.vqvae.VQModel.encode_tokens``) and VQ-SEG
     training (``train.loop.run_pretrain_segmentation``,
-    ``--mode pretrain_segmentation``).
-Six hand-written kernels carry them on CUDA: B1 prefix-causal attention
-forward (``csrc/flash_fwd.cu``), B2 quantized decode attention
-(``csrc/decode_quant.cu``), B3 quantize-and-write of the decode caches
-(Triton, ``ops/decode_cache.py``), B4 GroupNorm+swish forward and B8 its
-backward (Triton, ``ops/gn_swish.py``), and B5 the VQ nearest-code argmin
-(``csrc/vq_argmin.cu``).  CPU tensors take each kernel's plain twin.
+    ``--mode pretrain_segmentation``);
+  * transformer training (``train.loop.run_train_transformer``,
+    ``--mode train_transformer``).
+Eleven hand-written kernels carry them on CUDA: B1 prefix-causal attention
+forward and B6 its backward (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``),
+B2 quantized and B9 float decode attention (``csrc/decode_quant.cu``), B3
+and B10 quantize-and-write of the lane and packed decode caches (Triton,
+``ops/decode_cache.py``), B4 GroupNorm+swish forward and B8 its backward
+(Triton, ``ops/gn_swish.py``), B5 the VQ nearest-code argmin
+(``csrc/vq_argmin.cu``), B7 LayerNorm forward and backward (Triton,
+``ops/layer_norm.py``) and B11 the residual add with LayerNorm statistics
+(Triton, ``ops/ln_producer.py``).  CPU tensors take each kernel's plain
+twin.
 
 This package imports torch and numpy, never jax.
 """

@@ -109,10 +109,14 @@ def _declare(lib: ctypes.CDLL) -> None:
                                   ctypes.POINTER(ctypes.c_longlong),
                                   i, i, i, i, i, p]
     lib.mas_flash_bwd.restype = i
-    # q kq ks vq vs index out, B H T q_sb q_sh bits is_bf16, stream
+    # q kq ks vq vs index out, B H T pos_stride q_sb q_sh bits is_bf16,
+    # stream
     lib.mas_decode_quant.argtypes = [p, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, i, p]
+                                     i, i, i, i, i, i, i, i, p]
     lib.mas_decode_quant.restype = i
+    # q k v index out, B H T q_sb q_sh cache_bf16 is_bf16, stream
+    lib.mas_decode_float.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.mas_decode_float.restype = i
     # z codebook cb_sq out, N K D is_bf16, stream
     lib.mas_vq_argmin.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.mas_vq_argmin.restype = i

@@ -13,7 +13,12 @@
 decode rows): prefill plus cache seeding, the decode step on the host
 clock, the device-busy time of decode steps from ``torch.profiler`` (sum
 of kernel times) and the idle share it leaves, the kernels that take the
-most device time, and the VQ decode of all images.
+most device time, and the VQ decode of all images.  Decode steps are
+profiled in two windows: from step 8, where the cache holds little more
+than the prefix, and from the middle of the image, where a read covers
+the prefix and half the image (at 512^2, ~900 of 1408 positions: the
+average over a sample).  Any sampling config serves: the float cache of
+a 512^2 config, e.g. README's, or ``kv_cache_layout: "packed"``.
 
 ``train``: the VQ-SEG micro-step in the quantize phase (counter past
 q_re_end, so no k-means), with cuDNN TF32 off (as ``chip_smoke.py`` runs
@@ -28,7 +33,7 @@ config's ``layernorm_impl`` ("jnp": PyTorch's fused layer norm) and with
 ``"pallas"`` (kernel B7).
 
 Every profile also sums the device time of the port's own kernels by id
-(B1 ... B8), whether or not they are among the top kernels.
+(B1 ... B11), whether or not they are among the top kernels.
 
 Seeded random weights; warm-up runs first.  Needs a CUDA device.
 """
@@ -49,9 +54,10 @@ from .utils.config import TransformerConfig, VQModelConfig
 
 # substring of a device kernel's name -> the port's kernel id
 _KERNEL_IDS = (("flash_fwd_kernel", "B1"), ("decode_quant_kernel", "B2"),
-               ("_write_kernel", "B3"), ("_gn_bwd_", "B8"), ("_gn_", "B4"),
-               ("vq_argmin_kernel", "B5"), ("flash_bwd_", "B6"),
-               ("_ln_", "B7"))
+               ("_packed_write_kernel", "B10"), ("_write_kernel", "B3"),
+               ("_gn_bwd_", "B8"), ("_gn_", "B4"), ("vq_argmin_kernel", "B5"),
+               ("flash_bwd_", "B6"), ("_ln_", "B7"),
+               ("decode_float_kernel", "B9"), ("_add_stats_kernel", "B11"))
 
 
 def _kernel_id(name: str):
@@ -183,27 +189,10 @@ def train_transformer_breakdown(raw, gen, steps: int = 3) -> list:
     return rows
 
 
-def _decode_profile(transformer, caches, tok, first_step: int, steps: int):
-    """(host ms per step without the profiler, device-busy ms per step from
-    a profiled run of as many steps, top kernels by device time)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for step in range(first_step, first_step + steps):
-        transformer.decode_step(tok, step, caches)
-    torch.cuda.synchronize()
-    host = (time.perf_counter() - t0) * 1e3 / steps
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for step in range(first_step + steps, first_step + 2 * steps):
-            transformer.decode_step(tok, step, caches)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return host, busy, [(e.key[:60], e.self_device_time_total / 1e3 / steps,
-                         e.count // steps) for e in top]
+def _decode_steps(transformer, caches, tok, first_step: int):
+    """A call that runs the next decode step from ``first_step`` on."""
+    steps = iter(range(first_step, transformer.cfg.image_length - 1))
+    return lambda: transformer.decode_step(tok, next(steps), caches)
 
 
 def breakdown(transformer, vq, text, seg, batch: int) -> dict:
@@ -223,7 +212,10 @@ def breakdown(transformer, vq, text, seg, batch: int) -> dict:
         tok = logits.argmax(-1, keepdim=True)
         for step in range(8):                   # warm the step
             transformer.decode_step(tok, step, caches)
-        host, busy, top = _decode_profile(transformer, caches, tok, 8, 16)
+        mid = cfg.image_length // 2
+        windows = {f"decode_steps_from_{first}": _profile(
+            _decode_steps(transformer, caches, tok, first), 16)
+            for first in (8, mid)}
         grid = torch.randint(0, vq.cfg.codebook.codebook_size,
                              (batch, cfg.image_tokens_per_dim,
                               cfg.image_tokens_per_dim), device="cuda")
@@ -233,10 +225,9 @@ def breakdown(transformer, vq, text, seg, batch: int) -> dict:
             vq.decode_code(grid[i:i + 32])
         torch.cuda.synchronize()
         vq_ms = (time.perf_counter() - t0) * 1e3
-    return {"batch": batch, "prefill_and_cache_seed_ms": prefill_ms,
-            "decode_step_host_ms": host, "decode_step_device_busy_ms": busy,
-            "decode_device_idle_share": max(0.0, 1.0 - busy / host),
-            "decode_top_kernels_ms_per_step": top, "vq_decode_ms": vq_ms}
+    return {"batch": batch, "cache": f"{cfg.kv_cache_dtype} "
+            f"{cfg.kv_cache_layout}", "prefill_and_cache_seed_ms": prefill_ms,
+            **windows, "vq_decode_ms": vq_ms}
 
 
 def main(argv=None) -> int:

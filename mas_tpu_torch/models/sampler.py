@@ -6,8 +6,12 @@ Counterpart of ``mas_tpu/models/sampler.py`` (default branch of
   * guidance by batch doubling: the conditional half keeps the text, the
     unconditional half gets all-pad text (remapped per position by the
     embedding), ``logits = uncond + scale * (cond - uncond)``;
-  * int8/int4 caches allocated once at full length and written in place
-    by every decode step (kernel B3) — nothing grows or is copied;
+  * caches allocated once at full length (``MakeAScene.allocate_caches``:
+    float, int8/int4 lane or int8/int4 packed) and written in place by
+    every decode step — nothing grows or is copied.  The JAX package does
+    the same for the packed cache (``_decode_loop``: one full-size cache)
+    and grows its other caches between segments only under
+    ``cache_segment``, which is not ported;
   * temperature, then top-k as select-k then categorical over the k
     values, with the exact ``torch.topk`` (the JAX ``approx=False`` path);
     random draws come from an explicit ``torch.Generator``.
@@ -58,7 +62,6 @@ def sample_tokens(model: MakeAScene, text_tokens: torch.Tensor,
             "cache_segment is a TPU ablation, not ported to mas_tpu_torch "
             "(ROADMAP A5)")
     cfg = model.cfg
-    cfg.check_decode_cache()
     b = text_tokens.shape[0]
     if guidance_scale != 1.0:
         text_all = torch.cat([text_tokens, torch.zeros_like(text_tokens)])

@@ -14,11 +14,16 @@ constant that softmax cancels exactly, so it is not computed.
 
 Kernels: the full-sequence attention (``forward`` and ``prefill``) is B1,
 with B6 as its backward, through ``ops/attention.py::
-FlashAttentionFunction``; each decode step writes the new token's k/v with
-B3 (``ops/decode_cache.py``) and reads the int8/int4 caches with B2
-(``ops/quant.py``).  With ``layernorm_impl: "pallas"`` every LayerNorm of
-at least 4096 rows is B7 (``ops/layer_norm.py``).  CPU tensors take the
-kernels' plain twins.
+FlashAttentionFunction``.  Each decode step writes the new token's k/v and
+reads the cache, by the cache's kind (``allocate_caches``):
+  * float (``kv_cache_dtype: "compute"``): an in-place ``index_copy_``,
+    then B9 (``ops/decode_attention.py``);
+  * int8/int4 lane caches: B3 (``ops/decode_cache.py``), then B2
+    (``ops/quant.py``);
+  * int8/int4 packed cache (``kv_cache_layout: "packed"``): B10, then B2
+    over strided views of the packed buffer (``ops/decode_cache.py``).
+With ``layernorm_impl: "pallas"`` every LayerNorm of at least 4096 rows is
+B7 (``ops/layer_norm.py``).  CPU tensors take the kernels' plain twins.
 
 Parameters use the reference ``state_dict`` keys
 (``transformer.layers.{i}.attn.qkv`` ...), the layout the JAX package's
@@ -39,20 +44,27 @@ products saved (``"dots"``).
 from __future__ import annotations
 
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 from torch.utils import checkpoint
 
-from ..ops import attention, decode_cache, quant
+from ..ops import attention, decode_attention, decode_cache, quant
+from ..ops.decode_attention import FloatCache
+from ..ops.decode_cache import PackedQuantCache
 from ..ops.norms import layer_norm
 from ..ops.quant import QuantCache
 from ..utils.config import TransformerConfig
 from .vqvae import compute_dtype
 
-KVCache = List[Tuple[QuantCache, QuantCache]]
+# per layer: (k, v) float or lane caches, or (packed cache, None), as the
+# JAX package's caches are
+LayerCache = Union[Tuple[FloatCache, FloatCache],
+                   Tuple[QuantCache, QuantCache],
+                   Tuple[PackedQuantCache, None]]
+KVCache = List[LayerCache]
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
          torch.ops.aten.bmm.default)
@@ -124,15 +136,25 @@ class SelfAttention(nn.Module):
         _, k, v = attention.split_qkv(qkv)
         return self.out_proj(ctx), (k, v)
 
-    def decode(self, x: torch.Tensor, k_cache: QuantCache,
-               v_cache: QuantCache, index: torch.Tensor) -> torch.Tensor:
+    def decode(self, x: torch.Tensor, k_cache, v_cache,
+               index: torch.Tensor) -> torch.Tensor:
         """x [B, 1, D]; writes this token's k/v at ``index`` in place, then
-        attends over positions <= index."""
+        attends over positions <= index.  The caches are a float pair, a
+        lane-quantized pair, or one packed cache with ``v_cache`` None
+        (``mas_tpu/models/transformer.py::SelfAttention.decode``)."""
         b = x.shape[0]
         q, k, v = attention.split_qkv(self._qkv(x))
-        decode_cache.write_quant_kv(k_cache, v_cache, k[:, :, 0], v[:, :, 0],
-                                    index)
-        ctx = quant.decode_attention_quant(q, k_cache, v_cache, index)
+        k, v = k[:, :, 0], v[:, :, 0]
+        if isinstance(k_cache, PackedQuantCache):
+            decode_cache.write_packed_kv(k_cache, k, v, index)
+            ctx = decode_cache.decode_attention_packed(q, k_cache, index)
+        elif isinstance(k_cache, QuantCache):
+            decode_cache.write_quant_kv(k_cache, v_cache, k, v, index)
+            ctx = quant.decode_attention_quant(q, k_cache, v_cache, index)
+        else:
+            decode_attention.write_float_kv(k_cache, v_cache, k, v, index)
+            ctx = decode_attention.decode_attention_float(q, k_cache, v_cache,
+                                                          index)
         return self.out_proj(ctx.reshape(b, 1, self.cfg.hidden_dim))
 
 
@@ -301,11 +323,20 @@ class MakeAScene(nn.Module):
         return self._logits(h[:, -1:, :])[:, 0], kvs
 
     def allocate_caches(self, prefill_kv: Sequence, batch: int) -> KVCache:
-        """Full-length int8/int4 caches seeded with the quantized prefix.
-        They are allocated once and written in place by ``decode_step``."""
+        """Full-length caches seeded with the prefill's k/v: float caches in
+        the compute dtype (``kv_cache_dtype: "compute"``), else the
+        quantized prefix in lane caches or, with ``kv_cache_layout:
+        "packed"``, in one packed cache per layer.  They are allocated once
+        and written in place by ``decode_step``."""
         cfg = self.cfg
-        cfg.check_decode_cache()
+        total = cfg.total_length
+        if cfg.kv_cache_dtype == "compute":
+            return [(FloatCache.seeded(k, total), FloatCache.seeded(v, total))
+                    for k, v in prefill_kv]
         bits = 4 if cfg.kv_cache_dtype == "int4" else 8
+        if cfg.kv_cache_layout == "packed":
+            return [(decode_cache.seed_packed_cache(k, v, total, bits), None)
+                    for k, v in prefill_kv]
         device = self.text_pos_embeddings.weight.device
         caches = []
         for k, v in prefill_kv:

@@ -12,6 +12,12 @@ values [B, H, T, d] int8, or [B, H, T, d/2] uint8 for int4 (torch has no
 int4: two nibbles per byte, low nibble = even dim); scales [B, H, T] fp32.
 Each position's d values are contiguous, which is what the kernel reads.
 
+The values may also be a view whose positions lie further apart than one
+position's bytes: ``stride(2)`` bytes apart, with ``stride(1) = T *
+stride(2)`` and ``stride(0) = H * stride(1)``.  That is how the k and v
+halves of the packed cache (``ops/decode_cache.py::PackedQuantCache``) are
+read in place; the kernel takes the stride as its ``pos_stride`` argument.
+
 ``decode_attention_quant`` launches ``csrc/decode_quant.cu`` for CUDA
 tensors and takes ``decode_attention_quant_plain`` only for CPU tensors.
 """
@@ -118,11 +124,30 @@ def decode_attention_quant_plain(q, k_cache: QuantCache,
     return torch.matmul(pv, v_cache.values().float()).to(q.dtype)
 
 
+def position_stride(values: torch.Tensor) -> int:
+    """Bytes between the positions of a [B, H, T, w] int8/uint8 value
+    cache laid out as the kernels read it: a contiguous last dim, positions
+    ``stride(2) >= w`` apart, and (b, h) rows T positions apart, with the
+    base and the stride 16-byte aligned; raise otherwise."""
+    _, h, t, w = values.shape
+    ps = values.stride(2)
+    if (values.stride(3) != 1 or ps < w or values.stride(1) != t * ps
+            or values.stride(0) != h * t * ps):
+        raise ValueError(f"cache values need strides (H*T*p, T*p, p, 1) with "
+                         f"p >= {w}, got {values.stride()}")
+    if ps % 16 or values.data_ptr() % 16:
+        raise ValueError("cache values need a 16-byte aligned base and "
+                         "position stride")
+    return ps
+
+
 def check_caches(k_cache: QuantCache, v_cache: QuantCache, batch: int,
-                 heads: int, device, index: torch.Tensor) -> None:
-    """Raise unless both caches are contiguous [batch, heads, T, 64] (int4:
-    [.., 32] uint8) with fp32 [batch, heads, T] scales on ``device``, of one
-    bit width, and ``index`` is a 1-element int32 tensor there."""
+                 heads: int, device, index: torch.Tensor) -> int:
+    """Raise unless both caches are [batch, heads, T, 64] (int4: [.., 32]
+    uint8) with one position stride (``position_stride``) and contiguous
+    fp32 [batch, heads, T] scales on ``device``, of one bit width, and
+    ``index`` is a 1-element int32 tensor there.  Returns the position
+    stride in bytes."""
     if k_cache.bits != v_cache.bits:
         raise ValueError("k and v caches must share one bit width")
     width = HEAD_DIM // 2 if k_cache.bits == 4 else HEAD_DIM
@@ -137,18 +162,30 @@ def check_caches(k_cache: QuantCache, v_cache: QuantCache, batch: int,
                 f"fp32 [{batch}, {heads}, T] scales, got {c.q.dtype} "
                 f"{tuple(c.q.shape)} / {c.scale.dtype} "
                 f"{tuple(c.scale.shape)}")
-        if not (c.q.is_contiguous() and c.scale.is_contiguous()):
-            raise ValueError("caches must be contiguous")
+        if not c.scale.is_contiguous():
+            raise ValueError("cache scales must be contiguous")
         if c.q.device != device or c.scale.device != device:
             raise ValueError(f"caches must be on {device}")
+    ps = position_stride(k_cache.q)
+    if position_stride(v_cache.q) != ps:
+        raise ValueError("k and v caches must share one position stride")
+    check_index(index, device)
+    return ps
+
+
+def check_index(index: torch.Tensor, device) -> None:
+    """The decode position: a 1-element int32 tensor on ``device``, so no
+    kernel launch needs its host value."""
     if (index.dtype != torch.int32 or index.numel() != 1
             or index.device != device):
         raise ValueError(f"index must be a 1-element int32 tensor on "
                          f"{device}")
 
 
-def _check(q, k_cache, v_cache, index):
-    b, h, one, d = q.shape
+def check_query(q) -> None:
+    """Raise unless q is a bf16 or fp32 [B, H, 1, 64] decode query with a
+    contiguous last dim (the decode kernels B2 and B9 read it so)."""
+    _, _, one, d = q.shape
     if one != 1 or d != HEAD_DIM:
         raise ValueError(f"q must be [B, H, 1, {HEAD_DIM}], got "
                          f"{tuple(q.shape)}")
@@ -156,7 +193,12 @@ def _check(q, k_cache, v_cache, index):
         raise TypeError(f"q must be bf16 or fp32, got {q.dtype}")
     if q.stride(-1) != 1:
         raise ValueError("q needs a contiguous last dim")
-    check_caches(k_cache, v_cache, b, h, q.device, index)
+
+
+def _check(q, k_cache, v_cache, index) -> int:
+    check_query(q)
+    return check_caches(k_cache, v_cache, q.shape[0], q.shape[1], q.device,
+                        index)
 
 
 def decode_attention_quant(q, k_cache: QuantCache, v_cache: QuantCache,
@@ -164,7 +206,8 @@ def decode_attention_quant(q, k_cache: QuantCache, v_cache: QuantCache,
     """Single-token attention over quantized caches, masked to <= index.
 
     q [B, H, 1, 64] (any batch/head strides, contiguous last dim), caches
-    as ``QuantCache``, ``index`` a 1-element int32 tensor on q's device.
+    as ``QuantCache`` whose values may be position-strided views (see the
+    module docstring), ``index`` a 1-element int32 tensor on q's device.
     Returns a contiguous [B, H, 1, 64] tensor in q's dtype.
     """
     if q.device.type == "cpu":
@@ -172,15 +215,15 @@ def decode_attention_quant(q, k_cache: QuantCache, v_cache: QuantCache,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_quant runs on cpu or cuda, got "
                          f"{q.device}")
-    _check(q, k_cache, v_cache, index)
+    pos_stride = _check(q, k_cache, v_cache, index)
     b, h, _, d = q.shape
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     lib = _build.library()
     status = lib.mas_decode_quant(
         q.data_ptr(), k_cache.q.data_ptr(), k_cache.scale.data_ptr(),
         v_cache.q.data_ptr(), v_cache.scale.data_ptr(), index.data_ptr(),
-        out.data_ptr(), b, h, k_cache.q.shape[2], q.stride(0), q.stride(1),
-        k_cache.bits, int(q.dtype == torch.bfloat16),
+        out.data_ptr(), b, h, k_cache.q.shape[2], pos_stride, q.stride(0),
+        q.stride(1), k_cache.bits, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "decode_quant")
     decode_attention_quant.launches += 1

@@ -14,7 +14,8 @@ ROADMAP item that would port them; they are never silently ignored.
 Fields read only by the JAX package's dispatch (``attention_impl``,
 ``decode_attention_impl``) are accepted and have no effect here: the port
 picks a hand-written kernel for CUDA tensors and its plain twin for CPU
-tensors.
+tensors.  The ``ConfigError``s of ``kv_cache_layout`` are the JAX
+package's, so a config that one package refuses the other refuses too.
 """
 
 from __future__ import annotations
@@ -190,12 +191,17 @@ class TransformerConfig(_Base):
     # the matmul outputs saved
     remat: bool = False
     remat_policy: str = "nothing"
-    # 'int8' | 'int4' decode caches; 'compute' (float cache) needs kernel
-    # B9 and raises when a decode cache is allocated
+    # decode cache: 'compute' is a float cache in the compute dtype; on the
+    # card the port reads every float cache through kernel B9, whatever
+    # decode_attention_impl says, as it reads every int8/int4 cache through
+    # kernel B2
     kv_cache_dtype: str = "compute"
     decode_ring_tail: bool = False
-    # 'lane' and 'lane_aliased' both mean "written in place" here: the
-    # port's caches are preallocated and kernel B3 writes into them
+    # 'lane' and 'lane_aliased' both mean separate k and v caches written
+    # in place by kernel B3; 'packed' keeps one layer's k and v in one
+    # [B, H, T, 2d] buffer (int4: [B, H, T, d] bytes), written by kernel
+    # B10 and read by B2 through strided views.  Caches are preallocated
+    # at full length and written in place.
     kv_cache_layout: str = "lane"
     kv_scale_dtype: str = "float32"
     decode_length_buckets: int = 1
@@ -221,6 +227,17 @@ class TransformerConfig(_Base):
             raise ConfigError(
                 f"kv_cache_layout must be lane/lane_aliased/packed, got "
                 f"{self.kv_cache_layout!r}")
+        if self.kv_cache_layout in ("lane_aliased", "packed"):
+            if self.kv_cache_dtype not in ("int8", "int4"):
+                raise ConfigError(
+                    f"kv_cache_layout={self.kv_cache_layout!r} is a "
+                    "quantized-cache layout; set kv_cache_dtype to int8 "
+                    "or int4")
+            if self.total_length % 128:
+                raise ConfigError(
+                    f"kv_cache_layout={self.kv_cache_layout!r} needs "
+                    "total_length % 128 == 0, as the JAX package's "
+                    "in-place write kernels do")
         if self.decode_length_buckets < 1 or self.decode_q_rows < 1:
             raise ConfigError(
                 "decode_length_buckets and decode_q_rows must be >= 1")
@@ -244,8 +261,6 @@ class TransformerConfig(_Base):
             (self.decode_length_buckets > 1, "decode_length_buckets > 1",
              "A5"),
             (self.decode_q_rows > 1, "decode_q_rows > 1", "A5"),
-            (self.kv_cache_layout == "packed", "kv_cache_layout='packed'",
-             "B10"),
             (self.num_kv_heads not in (0, self.num_attn_heads),
              "num_kv_heads (grouped-query attention)", "A9b"),
             (self.rudalle_relax, "rudalle_relax", "A9b"),
@@ -285,12 +300,6 @@ class TransformerConfig(_Base):
     def effective_prefix(self) -> int:
         """Bidirectional-prefix extent applied to masks (0 = pure causal)."""
         return self.prefix_length if self.prefix_bidirectional else 0
-
-    def check_decode_cache(self) -> None:
-        """The port decodes over int8/int4 caches only (kernels B2/B3)."""
-        if self.kv_cache_dtype == "compute":
-            raise _not_ported("kv_cache_dtype='compute' (float decode cache)",
-                              "B9")
 
 
 @dataclass(frozen=True)

@@ -2,9 +2,10 @@
 
 Greedy sampling (top_k = 1) with guidance 3.0 over an int8 cache must give
 the JAX sampler's tokens exactly; the images must match JAX's
-``sample_images`` to 1e-4 (fp32).  Also: the CLI writes an image from a
-tiny JSON config, the package imports without jax, and the TPU-only knobs
-raise instead of being ignored.
+``sample_images`` to 1e-4 (fp32).  Also: greedy sampling over a float
+cache, the CLI writes an image from a tiny JSON config, the package
+imports without jax, and the TPU-only knobs raise instead of being
+ignored.
 """
 
 import json
@@ -159,7 +160,9 @@ def test_import_leaves_jax_out():
             "mas_tpu_torch.models.sampler, mas_tpu_torch.ops.gn_swish, "
             "mas_tpu_torch.ops.decode_cache, mas_tpu_torch.utils.weights, "
             "mas_tpu_torch.breakdown, mas_tpu_torch.train.loop, "
-            "mas_tpu_torch.ops.vq, mas_tpu_torch.utils.checkpoint; "
+            "mas_tpu_torch.ops.vq, mas_tpu_torch.utils.checkpoint, "
+            "mas_tpu_torch.ops.decode_attention, "
+            "mas_tpu_torch.ops.ln_producer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'mas_tpu', 'triton')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -172,8 +175,7 @@ def test_import_leaves_jax_out():
 
 @pytest.mark.parametrize("knob", [
     dict(decode_ring_tail=True), dict(decode_length_buckets=2),
-    dict(decode_q_rows=4), dict(kv_cache_layout="packed"),
-    dict(num_kv_heads=1), dict(rudalle_relax=True),
+    dict(decode_q_rows=4), dict(num_kv_heads=1), dict(rudalle_relax=True),
     dict(cogview_layernorm_prescale=True), dict(ln_matmul_fold=True),
     dict(scan_layers=True),
     dict(ln_matmul_fold=True, layernorm_impl="pallas"),
@@ -184,13 +186,20 @@ def test_tpu_only_knobs_raise(knob):
 
 
 def test_lane_aliased_is_accepted_and_float_cache_raises_at_decode():
-    TransformerConfig(**T_TINY, kv_cache_layout="lane_aliased",
-                      kv_cache_dtype="int8")
-    _, _, model = _t_pair(seed=1)          # kv_cache_dtype='compute'
+    """Once a refusal test (the float cache had no kernel): now lane_aliased
+    is accepted where the JAX package accepts it (total_length a multiple
+    of 128), and sampling over a float cache gives JAX's greedy tokens."""
+    TransformerConfig(**dict(T_TINY, text_length=96, text_vocab_size=128),
+                      kv_cache_layout="lane_aliased", kv_cache_dtype="int8")
+    jt, tvars, model = _t_pair(seed=1)     # kv_cache_dtype='compute'
     text, seg, _ = _tokens(model.cfg)
-    with pytest.raises(NotImplementedError, match="B9"):
-        sample_tokens(model, torch.from_numpy(text), torch.from_numpy(seg),
-                      torch.Generator(), top_k=1)
+    ref = jsampler.sample_tokens(jt, tvars, jnp.asarray(text, jnp.int32),
+                                 jnp.asarray(seg, jnp.int32),
+                                 jax.random.PRNGKey(0), top_k=1)
+    tok = sample_tokens(model, torch.from_numpy(text), torch.from_numpy(seg),
+                        torch.Generator(), top_k=1)
+    assert tok.shape == (2, model.cfg.image_length)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(ref))
 
 
 def test_cache_segment_raises():
