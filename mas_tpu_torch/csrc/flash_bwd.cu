@@ -5,8 +5,8 @@
 // transformer train step.
 //
 // Computes, from q, k, v, out, dout [B, H, T, 64] (bf16 or fp32) and the
-// forward's lse [B, H, T] (fp32, kernel B1), with q pre-scaled by
-// scale = 1/sqrt(64) as in the forward:
+// forward's lse [B, H, T] (fp32, kernel B1), with scale = 1/sqrt(64) as in
+// the forward:
 //   P  = exp(q k^T scale - lse), masked: row i sees keys [0, bound) with
 //        bound = prefix for i < prefix, else i + 1
 //   dV = P^T dO     dP = dO V^T     delta = rowsum(dO * O)
@@ -17,41 +17,63 @@
 //
 // What bounds it on the H100: at the training shape (T = 1408, prefix 384)
 // the work is O(T^2 d) multiply-adds per (b, h) against O(T d) bytes, so it
-// is compute bound.  This first version runs the products on the fp32 CUDA
-// cores, not the tensor cores (wgmma comes later).
+// is compute bound; only the tensor cores come near the bound.
 //
-// What the design does about it: the standard split into two kernels, so no
-// block needs atomics and the result does not depend on launch order, plus a
-// small pre-pass:
+// Three launches, so no block needs atomics and the result does not depend
+// on launch order:
 //   1. delta: one warp per row, delta = rowsum(dO * O) in fp32, computed once
 //      and read by both kernels (not once per (q-tile, k-tile) pair);
-//   2. dK/dV: one block per (b*h, 64-key tile); k and v stay in shared memory
-//      while the block loops over the q-tiles that can see the tile (from the
-//      first tile when the keys meet the prefix, else from the causal start,
-//      mas_tpu/ops/attention.py:391-400);
-//   3. dQ: one block per (b*h, 64-row q tile); q and dO stay in shared memory
-//      while the block loops over the k-tiles up to max(causal bound, prefix
-//      bound) (mas_tpu/ops/attention.py:435-441), as B1 does.
-// Every tile sits in shared memory as fp32 rows of 64 values with a stride of
-// 68 floats.  256 threads hold a 4 x 4 register tile each of every 64 x 64
-// product.  Products that reduce over the head dim (S, dP) give each thread
-// the rows ty + 16a and columns tx + 16b and read both operands as 16-byte
-// vectors along the head dim: with the stride of 68, the 16 rows a warp
-// reads at once fall on distinct banks.  Products that reduce over rows (dV,
-// dK, dQ) give each thread 4 adjacent rows and 4 adjacent columns and read
-// 16-byte vectors along those.  Inputs are addressed by strides (last dim
-// contiguous), so q, k, v can be views into the fused qkv projection.
+//   2. dK/dV: one block per (b*h, 64-key tile), looping over the q-tiles that
+//      can see the tile (from the first tile when the keys meet the prefix,
+//      else from the causal start, mas_tpu/ops/attention.py:391-400);
+//   3. dQ: one block per (b*h, 64-row q tile), looping over the k-tiles up to
+//      max(causal bound, prefix bound) (mas_tpu/ops/attention.py:435-441),
+//      as B1 does.
+// The split recomputes S and dP in the dQ kernel: 7 tile products per
+// visible (q tile, k tile) pair where a single kernel with atomic dQ sums
+// (FlashAttention-2) has 5, i.e. 40% more tensor-core work for
+// deterministic gradients without atomics.
+//
+// bf16 (flash_bwd_dkv_kernel_bf16, flash_bwd_dq_kernel_bf16): every product
+// runs on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate,
+// fragments and swizzle of flash_mma.cuh), four warps per block, 16 keys
+// (dK/dV) or 16 q rows (dQ) per warp, fp32 accumulators in registers.
+//   dK/dV: K and V stay in shared memory; Q, dO, lse and delta tiles stream
+//   through a two-stage cp.async ring.  S^T = K Q^T and dP^T = V dO^T put
+//   the keys on the mma rows, so P^T = exp(S^T scale - lse) (masked) and
+//   dS^T = P^T (dP^T - delta) sit in the accumulators, and dV += P^T dO,
+//   dK += dS^T Q take them, rounded to bf16, as A operands straight from
+//   registers; Q and dO give their B fragments by ldmatrix (for S^T, dP^T)
+//   and ldmatrix.trans (for dV, dK).
+//   dQ: Q and dO stay in registers as A fragments; K/V tiles stream through
+//   the ring; dS is rounded to bf16 in registers for dQ += dS K (K by
+//   ldmatrix.trans).
+// Both round P and dS to bf16 as tensor-core operands, where the Pallas
+// kernels keep them fp32 (they upcast, attention.py:361-369): a relative
+// error of at most 2^-9 per operand, summed over the keys or rows as the
+// kernel sums.  Results go out through shared memory as 16-byte rows.
+//
+// fp32 (flash_bwd_dkv_kernel, flash_bwd_dq_kernel) keeps the CUDA-core
+// kernels: TF32 tensor cores would not hold the fp32 path to its tolerance,
+// and no configuration trains attention in fp32.  Every tile sits in shared
+// memory as fp32 rows with a stride of 68 floats, and 256 threads hold a
+// 4 x 4 register tile each of every 64 x 64 product.
+//
+// Inputs are addressed by strides (last dim contiguous), so q, k, v can be
+// views into the fused qkv projection; the bf16 kernels need every (b, h,
+// t) stride a multiple of 8 elements and 16-byte aligned data (the wrapper
+// checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_mma.cuh"
+
 namespace {
 
-constexpr int D = 64;            // head dim
-constexpr int BT = 64;           // rows of a q tile, keys of a k tile
-constexpr int NT = 256;          // threads per block: 16 x 16
-constexpr int LD = D + 4;        // shared row stride in floats
-constexpr int TILE = BT * LD;    // floats per shared tile
+using namespace flash_mma;
+
+constexpr int BT = 64;  // rows of a q tile, keys of a k tile
 
 struct Strides {
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot, gb, gh, gt;
@@ -61,19 +83,326 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+
+// delta[bh][i] = sum_c dO[b, h, i, c] * O[b, h, i, c]; one warp per row
+constexpr int DELTA_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(DELTA_THREADS)
+flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                       float* __restrict__ delta, Strides st, int H,
+                       int t_len, long long rows) {
+  const long long row =
+      (long long)blockIdx.x * (DELTA_THREADS / 32) + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const int i = static_cast<int>(row % t_len);
+  const long long bh = row / t_len;
+  const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
+  const T* op = out + b * st.ob + h * st.oh + i * st.ot;
+  const T* gp = dout + b * st.gb + h * st.gh + i * st.gt;
+  float s = to_f(op[lane]) * to_f(gp[lane]) +
+            to_f(op[lane + 32]) * to_f(gp[lane + 32]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) delta[row] = s;
 }
 
+// --- bf16: tensor cores ------------------------------------------------------
+
+constexpr int MT = 128;     // threads per block: 4 warps x 16 rows
+constexpr int STAGES = 2;   // ring depth
+// a dK/dV ring stage: Q tile, dO tile, lse[64], delta[64]
+constexpr int QSTAGE_BYTES = 2 * TILE_BYTES + 2 * BT * 4;
+constexpr int DKV_SMEM = 2 * TILE_BYTES + STAGES * QSTAGE_BYTES;
+// the dQ kernel: Q and dO tiles, then STAGES x (K tile, V tile)
+constexpr int DQ_SMEM = 2 * TILE_BYTES + STAGES * 2 * TILE_BYTES;
+
+__device__ __forceinline__ void zero(float (&a)[8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[nt][e] = 0.f;
+}
+
+// acc (16 x 64 per warp) += A B over 64 dims: A fragments loaded from the
+// swizzled tile `a_tile` at rows [r0, r0 + 16), B from `b_tile` held [n][k]
+__device__ __forceinline__ void mma_rows_nk(float (&acc)[8][4],
+                                            uint32_t a_tile, int r0,
+                                            uint32_t b_tile, int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t a[4];
+    load_a(a, a_tile, r0, j, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bb[4];
+      load_b_nk(bb, b_tile, 16 * np, j, lane);
+      mma(acc[2 * np], a, bb[0], bb[1]);
+      mma(acc[2 * np + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// acc (16 x 64 per warp) += A B over 64 rows of `b_tile` (held [k][n]),
+// with A the bf16 rounding of the C fragments `c` (16 x 64)
+__device__ __forceinline__ void mma_regs_kn(float (&acc)[8][4],
+                                            const float (&c)[8][4],
+                                            uint32_t b_tile, int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t a[4];
+    c_to_a(a, c[2 * j], c[2 * j + 1]);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bb[4];
+      load_b_kn(bb, b_tile, 16 * np, j, lane);
+      mma(acc[2 * np], a, bb[0], bb[1]);
+      mma(acc[2 * np + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(MT, 2)
+flash_bwd_dkv_kernel_bf16(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dqkv, Strides st,
+                          int H, int t_len, int prefix, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sk = smem_addr(smem), sv = sk + TILE_BYTES;
+  const uint32_t ring = sv + TILE_BYTES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BT;  // low key tiles see the most q tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int pfx = min(prefix, t_len);
+
+  const __nv_bfloat16* qp = q + b * st.qb + h * st.qh;
+  const __nv_bfloat16* gp = dout + b * st.gb + h * st.gh;
+  const float* lp = lse + (long long)bh * t_len;
+  const float* dp_ = delta + (long long)bh * t_len;
+
+  // stage s <- Q, dO, lse, delta of the q tile at q0
+  auto load_q = [&](int s, int q0) {
+    const uint32_t base = ring + s * QSTAGE_BYTES;
+    load_tile<MT>(base, qp, st.qt, q0, t_len);
+    load_tile<MT>(base + TILE_BYTES, gp, st.gt, q0, t_len);
+    if (threadIdx.x < 32) {  // 2 x 16 chunks of 4 floats
+      const int c = threadIdx.x & 15;
+      const float* src = (threadIdx.x < 16 ? lp : dp_) + q0 + 4 * c;
+      cp_async16(base + 2 * TILE_BYTES + (threadIdx.x >> 4) * BT * 4 + 16 * c,
+                 src, true);
+    }
+  };
+
+  load_tile<MT>(sk, k + b * st.kb + h * st.kh, st.kt, k0, t_len);
+  load_tile<MT>(sv, v + b * st.vb + h * st.vh, st.vt, k0, t_len);
+  // q-tiles that see a key of this tile: all when the keys meet the prefix,
+  // else those from the tile holding row k0 on (rows i >= key)
+  const int q_lo = k0 < pfx ? 0 : k0 / BT;
+  const int nq = t_len / BT - q_lo;
+  load_q(0, q_lo * BT);
+  cp_async_commit();
+
+  const int key_lo = k0 + warp * 16 + grp;  // and key_lo + 8
+  float dk[8][4], dv[8][4];
+  zero(dk);
+  zero(dv);
+
+  for (int i = 0; i < nq; ++i) {
+    const int q0 = (q_lo + i) * BT;
+    if (i + 1 < nq) load_q((i + 1) % STAGES, q0 + BT);
+    cp_async_commit();
+    cp_async_wait<1>();  // K, V and this q tile have landed
+    __syncthreads();
+    const uint32_t sq = ring + (i % STAGES) * QSTAGE_BYTES;
+    const uint32_t sg = sq + TILE_BYTES;
+    const float* lse_s = reinterpret_cast<const float*>(
+        smem + (sq - sk) + 2 * TILE_BYTES);
+    const float* del_s = lse_s + BT;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 q rows per warp
+    float s[8][4], dpt[8][4];
+    zero(s);
+    zero(dpt);
+    mma_rows_nk(s, sk, warp * 16, sq, lane);
+    mma_rows_nk(dpt, sv, warp * 16, sg, lane);
+
+    // P^T and dS^T in place; column (q row) c = 8 nt + 2 tig + (e & 1)
+    const bool masked = k0 + BT > row_bound(q0, pfx);
+    const float sl2 = scale * LOG2E;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int c = nt * 8 + 2 * tig;
+      const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 ds = *reinterpret_cast<const float2*>(del_s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float l2 = (e & 1) ? ls.y : ls.x;
+        const float dl = (e & 1) ? ds.y : ds.x;
+        float p = exp2f(fmaf(s[nt][e], sl2, -l2 * LOG2E));
+        if (masked &&
+            key_lo + 8 * (e >> 1) >= row_bound(q0 + c + (e & 1), pfx))
+          p = 0.f;
+        s[nt][e] = p;
+        dpt[nt][e] = p * (dpt[nt][e] - dl);
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q (q unscaled: dK takes the scale at the end)
+    mma_regs_kn(dv, s, sg, lane);
+    mma_regs_kn(dk, dpt, sq, lane);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // dK, dV rows through the (consumed) K and V tiles, then 16-byte stores
+  store_rows(smem, dk, scale, scale, warp * 16, lane);
+  store_rows(smem + TILE_BYTES, dv, 1.f, 1.f, warp * 16, lane);
+  __syncthreads();
+  const long long row_stride = 3LL * H * D;
+  __nv_bfloat16* base =
+      dqkv + ((long long)b * t_len + k0) * row_stride + h * D;
+  for (int idx = threadIdx.x; idx < 2 * BT * 8; idx += MT) {
+    const int which = idx >> 9, r = (idx >> 3) & 63, c = idx & 7;
+    *reinterpret_cast<uint4*>(base + r * row_stride + (1 + which) * H * D +
+                              c * 8) =
+        *reinterpret_cast<const uint4*>(smem + which * TILE_BYTES + swz(r, c));
+  }
+}
+
+__global__ void __launch_bounds__(MT, 2)
+flash_bwd_dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dqkv, Strides st,
+                         int H, int t_len, int prefix, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sq = smem_addr(smem), sg = sq + TILE_BYTES;
+  const uint32_t ring = sg + TILE_BYTES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BT;  // heaviest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int pfx = min(prefix, t_len);
+
+  const __nv_bfloat16* kp = k + b * st.kb + h * st.kh;
+  const __nv_bfloat16* vp = v + b * st.vb + h * st.vh;
+  auto load_kv = [&](int s, int k0) {
+    const uint32_t base = ring + s * 2 * TILE_BYTES;
+    load_tile<MT>(base, kp, st.kt, k0, t_len);
+    load_tile<MT>(base + TILE_BYTES, vp, st.vt, k0, t_len);
+  };
+
+  load_tile<MT>(sq, q + b * st.qb + h * st.qh, st.qt, q0, t_len);
+  load_tile<MT>(sg, dout + b * st.gb + h * st.gh, st.gt, q0, t_len);
+  load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[4][4], ga[4][4];  // Q and dO as A fragments: 16 rows per warp
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    load_a(qa[j], sq, warp * 16, j, lane);
+    load_a(ga[j], sg, warp * 16, j, lane);
+  }
+
+  // the k-tiles any row of this q tile can see
+  int hi = q0 + BT;
+  if (q0 < pfx) hi = max(hi, pfx);
+  const int nk = (hi + BT - 1) / BT;
+
+  const int row_lo = q0 + warp * 16 + grp;  // and row_lo + 8
+  const int bnd[2] = {row_bound(row_lo, pfx), row_bound(row_lo + 8, pfx)};
+  const float sl2 = scale * LOG2E;
+  const float lse2[2] = {lse[(long long)bh * t_len + row_lo] * LOG2E,
+                         lse[(long long)bh * t_len + row_lo + 8] * LOG2E};
+  const float dl[2] = {delta[(long long)bh * t_len + row_lo],
+                       delta[(long long)bh * t_len + row_lo + 8]};
+  const int tile_bound = row_bound(q0, pfx);
+
+  float dq[8][4];
+  zero(dq);
+
+  for (int t = 0; t < nk; ++t) {
+    const int k0 = t * BT;
+    if (t + 1 < nk) load_kv((t + 1) % STAGES, k0 + BT);
+    cp_async_commit();
+    cp_async_wait<1>();  // this K/V tile has landed
+    __syncthreads();
+    const uint32_t sk = ring + (t % STAGES) * 2 * TILE_BYTES;
+    const uint32_t sv = sk + TILE_BYTES;
+
+    // S = Q K^T, dP = dO V^T: 16 q rows x 64 keys per warp
+    float s[8][4], dp[8][4];
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kb[4], vb[4];
+        load_b_nk(kb, sk, 16 * np, j, lane);
+        mma(s[2 * np], qa[j], kb[0], kb[1]);
+        mma(s[2 * np + 1], qa[j], kb[2], kb[3]);
+        load_b_nk(vb, sv, 16 * np, j, lane);
+        mma(dp[2 * np], ga[j], vb[0], vb[1]);
+        mma(dp[2 * np + 1], ga[j], vb[2], vb[3]);
+      }
+
+    // dS in place of S
+    const bool masked = k0 + BT > tile_bound;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[nt][e], sl2, -lse2[e >> 1]));
+        if (masked && k0 + nt * 8 + 2 * tig + (e & 1) >= bnd[e >> 1])
+          p = 0.f;
+        s[nt][e] = p * (dp[nt][e] - dl[e >> 1]);
+      }
+
+    // dQ += dS K
+    mma_regs_kn(dq, s, sk, lane);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // dQ * scale through the (consumed) Q tile, then 16-byte stores
+  store_rows(smem, dq, scale, scale, warp * 16, lane);
+  __syncthreads();
+  const long long row_stride = 3LL * H * D;
+  __nv_bfloat16* base =
+      dqkv + ((long long)b * t_len + q0) * row_stride + h * D;
+  for (int idx = threadIdx.x; idx < BT * 8; idx += MT) {
+    const int r = idx >> 3, c = idx & 7;
+    *reinterpret_cast<uint4*>(base + r * row_stride + c * 8) =
+        *reinterpret_cast<const uint4*>(smem + swz(r, c));
+  }
+}
+
+// --- fp32: CUDA cores --------------------------------------------------------
+
+constexpr int NT = 256;          // threads per block: 16 x 16
+constexpr int LD = D + 4;        // shared row stride in floats
+constexpr int TILE = BT * LD;    // floats per shared tile
+
 // dst[r][c] = src[(row0 + r) * row_stride + c] * mul, for a 64 x 64 tile
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          float mul) {
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              long long row_stride, int row0,
+                                              float mul) {
   for (int idx = threadIdx.x; idx < BT * D; idx += NT) {
     const int r = idx / D, c = idx % D;
-    dst[r * LD + c] = to_f(src[(row0 + r) * row_stride + c]) * mul;
+    dst[r * LD + c] = src[(row0 + r) * row_stride + c] * mul;
   }
 }
 
@@ -116,40 +445,15 @@ __device__ __forceinline__ void mma_tn(float (&acc)[4][4], const float* a,
   }
 }
 
-__device__ __forceinline__ int row_bound(int row, int pfx) {
-  return row < pfx ? pfx : row + 1;
-}
-
-// delta[bh][i] = sum_c dO[b, h, i, c] * O[b, h, i, c]; one warp per row
-template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                       float* __restrict__ delta, Strides st, int H,
-                       int t_len, long long rows) {
-  const long long row = (long long)blockIdx.x * (NT / 32) + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const int i = static_cast<int>(row % t_len);
-  const long long bh = row / t_len;
-  const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
-  const T* op = out + b * st.ob + h * st.oh + i * st.ot;
-  const T* gp = dout + b * st.gb + h * st.gh + i * st.gt;
-  float s = to_f(op[lane]) * to_f(gp[lane]) +
-            to_f(op[lane + 32]) * to_f(gp[lane + 32]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) delta[row] = s;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(NT, 2)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dqkv,
+                     const float* __restrict__ delta, float* __restrict__ dqkv,
                      Strides st, int H, int t_len, int prefix, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;             // K [key][c]
+  extern __shared__ __align__(16) float smemf[];
+  float* ks = smemf;            // K [key][c]
   float* vs = ks + TILE;        // V [key][c]
   float* qs = vs + TILE;        // Q * scale [row][c]
   float* gs = qs + TILE;        // dO [row][c]
@@ -163,15 +467,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int pfx = min(prefix, t_len);
 
-  const T* qp = q + b * st.qb + h * st.qh;
-  const T* kp = k + b * st.kb + h * st.kh;
-  const T* vp = v + b * st.vb + h * st.vh;
-  const T* gp = dout + b * st.gb + h * st.gh;
+  const float* qp = q + b * st.qb + h * st.qh;
+  const float* kp = k + b * st.kb + h * st.kh;
+  const float* vp = v + b * st.vb + h * st.vh;
+  const float* gp = dout + b * st.gb + h * st.gh;
   const float* lp = lse + (long long)bh * t_len;
   const float* dp_ = delta + (long long)bh * t_len;
 
-  load_tile(ks, kp, st.kt, k0, 1.f);
-  load_tile(vs, vp, st.vt, k0, 1.f);
+  load_tile_f32(ks, kp, st.kt, k0, 1.f);
+  load_tile_f32(vs, vp, st.vt, k0, 1.f);
 
   float dk[4][4], dv[4][4];
 #pragma unroll
@@ -186,8 +490,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qi = q_lo; qi < nq; ++qi) {
     const int q0 = qi * BT;
     __syncthreads();  // the previous tile's Q, dO, P, dS are consumed
-    load_tile(qs, qp, st.qt, q0, scale);
-    load_tile(gs, gp, st.gt, q0, 1.f);
+    load_tile_f32(qs, qp, st.qt, q0, scale);
+    load_tile_f32(gs, gp, st.gt, q0, 1.f);
     if (threadIdx.x < BT) {
       lse_s[threadIdx.x] = lp[q0 + threadIdx.x];
       delta_s[threadIdx.x] = dp_[q0 + threadIdx.x];
@@ -223,25 +527,25 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + 4 * ty + i;
-    T* base = dqkv + ((long long)b * t_len + key) * row_stride + h * D;
+    float* base = dqkv + ((long long)b * t_len + key) * row_stride + h * D;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = 4 * tx + j;
-      store_f(base + H * D + c, dk[i][j]);
-      store_f(base + 2 * H * D + c, dv[i][j]);
+      base[H * D + c] = dk[i][j];
+      base[2 * H * D + c] = dv[i][j];
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NT, 2)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dqkv,
+                    const float* __restrict__ delta, float* __restrict__ dqkv,
                     Strides st, int H, int t_len, int prefix, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;             // Q * scale [row][c]
+  extern __shared__ __align__(16) float smemf[];
+  float* qs = smemf;            // Q * scale [row][c]
   float* gs = qs + TILE;        // dO [row][c]
   float* ks = gs + TILE;        // K [key][c]
   float* vs = ks + TILE;        // V [key][c]
@@ -254,10 +558,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int pfx = min(prefix, t_len);
 
-  const T* kp = k + b * st.kb + h * st.kh;
-  const T* vp = v + b * st.vb + h * st.vh;
-  load_tile(qs, q + b * st.qb + h * st.qh, st.qt, q0, scale);
-  load_tile(gs, dout + b * st.gb + h * st.gh, st.gt, q0, 1.f);
+  const float* kp = k + b * st.kb + h * st.kh;
+  const float* vp = v + b * st.vb + h * st.vh;
+  load_tile_f32(qs, q + b * st.qb + h * st.qh, st.qt, q0, scale);
+  load_tile_f32(gs, dout + b * st.gb + h * st.gh, st.gt, q0, 1.f);
   if (threadIdx.x < BT) {
     lse_s[threadIdx.x] = lse[(long long)bh * t_len + q0 + threadIdx.x];
     delta_s[threadIdx.x] = delta[(long long)bh * t_len + q0 + threadIdx.x];
@@ -275,8 +579,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kj = 0; kj < hi; ++kj) {
     const int k0 = kj * BT;
     __syncthreads();  // the previous tile's K and dS^T are consumed
-    load_tile(ks, kp, st.kt, k0, 1.f);
-    load_tile(vs, vp, st.vt, k0, 1.f);
+    load_tile_f32(ks, kp, st.kt, k0, 1.f);
+    load_tile_f32(vs, vp, st.vt, k0, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -305,52 +609,34 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
-    T* base = dqkv + ((long long)b * t_len + row) * row_stride + h * D;
+    float* base = dqkv + ((long long)b * t_len + row) * row_stride + h * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) store_f(base + 4 * tx + j, dq[i][j] * scale);
+    for (int j = 0; j < 4; ++j) base[4 * tx + j] = dq[i][j] * scale;
   }
 }
 
+// launch kernel with smem bytes of dynamic shared memory
+template <typename Kernel, typename... Args>
+cudaError_t launch_big(Kernel kernel, dim3 grid, int threads, int smem,
+                       cudaStream_t s, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, const void* lse, void* delta, void* dqkv,
-           const Strides& st, int batch, int heads, int t_len, int prefix,
-           cudaStream_t s) {
-  const float scale = 0.125f;  // 1 / sqrt(64)
+cudaError_t launch_delta(const void* out, const void* dout, void* delta,
+                         const Strides& st, int batch, int heads, int t_len,
+                         cudaStream_t s) {
   const long long rows = (long long)batch * heads * t_len;
-  const int rows_per_block = NT / 32;
+  const int rows_per_block = DELTA_THREADS / 32;
   flash_bwd_delta_kernel<T><<<(rows + rows_per_block - 1) / rows_per_block,
-                              NT, 0, s>>>(
+                              DELTA_THREADS, 0, s>>>(
       static_cast<const T*>(out), static_cast<const T*>(dout),
       static_cast<float*>(delta), st, heads, t_len, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const dim3 grid(t_len / BT, batch * heads);
-  const int dkv_smem = 6 * TILE * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkv_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<T><<<grid, NT, dkv_smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dqkv), st, heads, t_len, prefix, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int dq_smem = 5 * TILE * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dq_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<T><<<grid, NT, dq_smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dqkv), st, heads, t_len, prefix, scale);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -371,9 +657,38 @@ extern "C" int mas_flash_bwd(const void* q, const void* k, const void* v,
   st.ob = strides[9]; st.oh = strides[10]; st.ot = strides[11];
   st.gb = strides[12]; st.gh = strides[13]; st.gt = strides[14];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dqkv, st,
-                                 batch, heads, t_len, prefix, s);
-  return launch<float>(q, k, v, out, dout, lse, delta, dqkv, st, batch,
-                       heads, t_len, prefix, s);
+  const float scale = 0.125f;  // 1 / sqrt(64)
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  cudaError_t err;
+  if (is_bf16) {
+    using bf = __nv_bfloat16;
+    err = launch_delta<bf>(out, dout, delta, st, batch, heads, t_len, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(batch * heads, t_len / BT);
+    const bf *qb = static_cast<const bf*>(q), *kb = static_cast<const bf*>(k),
+             *vb = static_cast<const bf*>(v), *gb = static_cast<const bf*>(dout);
+    bf* g = static_cast<bf*>(dqkv);
+    err = launch_big(flash_bwd_dkv_kernel_bf16, grid, MT, DKV_SMEM, s, qb, kb,
+                     vb, gb, l, dl, g, st, heads, t_len, prefix, scale);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(launch_big(flash_bwd_dq_kernel_bf16, grid, MT,
+                                       DQ_SMEM, s, qb, kb, vb, gb, l, dl, g,
+                                       st, heads, t_len, prefix, scale));
+  }
+  err = launch_delta<float>(out, dout, delta, st, batch, heads, t_len, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(t_len / BT, batch * heads);
+  const float *qf = static_cast<const float*>(q),
+              *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v),
+              *gf = static_cast<const float*>(dout);
+  float* g = static_cast<float*>(dqkv);
+  const int f = static_cast<int>(sizeof(float));
+  err = launch_big(flash_bwd_dkv_kernel, grid, NT, 6 * TILE * f, s, qf, kf, vf,
+                   gf, l, dl, g, st, heads, t_len, prefix, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_big(flash_bwd_dq_kernel, grid, NT,
+                                     5 * TILE * f, s, qf, kf, vf, gf, l, dl, g,
+                                     st, heads, t_len, prefix, scale));
 }

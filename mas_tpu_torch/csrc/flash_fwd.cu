@@ -2,38 +2,239 @@
 //
 // Replaces: mas_tpu/ops/attention.py::_fwd_kernel (launched by
 // _flash_fwd), the Pallas flash-attention forward of the transformer
-// prefill.
+// prefill and training step.
 //
 // Computes, for q, k, v [B, H, T, 64] (bf16 or fp32), out = softmax(q k^T /
 // sqrt(d)) v and lse = logsumexp of the scaled scores, where row i sees the
 // keys [0, bound): bound = prefix for i < prefix, else i + 1 (the visible
 // span is always contiguous, mas_tpu/ops/attention.py::_row_bound).
 //
-// What bounds it on the H100: at the prefill shape (T = 384, d = 64) the
-// work is O(T^2 d) multiply-adds on 2 * T * d inputs per (b, h), so it is
-// compute bound; this first version runs the products on the fp32 CUDA
-// cores, not the tensor cores (wgmma comes later), and its inner loops are
-// bound by shared-memory reads of k and v.
+// What bounds it on the H100: per (b, h) the work is O(T^2 d) multiply-adds
+// on O(T d) bytes (at T = 384, d = 64: ~150 operations per byte read), so it
+// is compute bound, and only the tensor cores (989 TFLOP/s in bf16, against
+// 67 on the fp32 cores) come near the bound.
 //
-// What the design does about it: one block per (b*h, 32-row q tile), four
-// threads per q row.  Each thread keeps its q row (pre-scaled) and its own
-// fp32 output accumulator in registers, and owns every fourth key of each
-// 64-key tile staged in shared memory as fp32.  It runs its own online
-// softmax (running max and sum), and the four partial states of a row merge
-// through warp shuffles at the end.  Reads of k and v rows are 16-byte
-// vectors; the row stride of 68 floats puts the four rows a warp reads at
-// once on distinct banks, and the eight threads reading the same row get a
-// broadcast.  K-tiles past max(causal bound, prefix bound) of the q tile are
-// never loaded (mas_tpu/ops/attention.py:173-177).  Inputs are addressed by
-// strides (last dim contiguous), so q, k, v can be views into the fused qkv
-// projection and out can be written in [B, T, H, d] order.
+// bf16 (flash_fwd_kernel_bf16), FlashAttention-2 style: one block of four
+// warps per (b*h, 64-row q tile), 16 q rows per warp; heaviest q tiles are
+// launched first (causal rows have unequal work).  The q tile is copied
+// once with cp.async, moved into mma A fragments with ldmatrix and scaled
+// by 1/8 there (a power of two: exact in bf16, as the Pallas kernel's
+// q * scale).  64-key K/V tiles stream through a two-stage cp.async ring
+// (16-byte copies, rows past T zero-filled), so the next tile's load
+// overlaps this tile's products.  S = q K^T and O += P V run on the tensor
+// cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; K fragments by
+// ldmatrix, V by ldmatrix.trans, both free of bank conflicts through the
+// XOR swizzle of flash_mma.cuh).  The online softmax works on the S
+// accumulators in registers: row max and sum over the four lanes that share
+// a row (shuffles), exp2 with log2(e) folded into one fma, fp32 m and l.
+// P is rounded to bf16 in registers, as the Pallas kernel's
+// p.astype(v.dtype), and is P V's A operand as it stands: it never touches
+// shared memory.  Only tiles that straddle a row's bound are masked, and
+// tiles past max(causal bound, prefix bound) of the q tile are never
+// loaded (mas_tpu/ops/attention.py:173-177).  The epilogue divides by l,
+// rounds once, and writes out through shared memory as 16-byte rows.
+//
+// fp32 (flash_fwd_kernel) keeps the CUDA-core kernel: TF32 tensor cores
+// would not hold the fp32 path to its 1e-5 tolerance, and no configuration
+// runs attention in fp32.  One block per (b*h, 32-row q tile), four threads
+// per q row, each with its q row and its fp32 accumulator in registers and
+// every fourth key of a 64-key tile staged in shared memory; the four
+// partial softmax states of a row merge through shuffles.
+//
+// Inputs are addressed by strides (last dim contiguous), so q, k, v can be
+// views into the fused qkv projection and out can be written in
+// [B, T, H, d] order; the bf16 kernel needs every (b, h, t) stride a
+// multiple of 8 elements and 16-byte aligned data (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int D = 64;          // head dim
+using namespace flash_mma;
+
+struct Strides {
+  long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;
+};
+
+// --- bf16: tensor cores ------------------------------------------------------
+
+constexpr int MQ = 64;          // q rows per block, 16 per warp
+constexpr int MK = 64;          // keys per K/V tile
+constexpr int MT = 128;         // threads per block
+constexpr int STAGES = 2;       // K/V ring depth
+
+__global__ void __launch_bounds__(MT)
+flash_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, Strides st, int H, int t_len,
+                      int prefix) {
+  // Q tile, then STAGES x (K tile, V tile)
+  __shared__ __align__(128) unsigned char smem[(1 + 2 * STAGES) * TILE_BYTES];
+  const uint32_t sq = smem_addr(smem);
+  const uint32_t skv = sq + TILE_BYTES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * MQ;  // heaviest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int pfx = min(prefix, t_len);
+
+  const __nv_bfloat16* kp = k + b * st.kb + h * st.kh;
+  const __nv_bfloat16* vp = v + b * st.vb + h * st.vh;
+
+  // the last key any row of this q tile can see
+  int hi = min(q0 + MQ, t_len);
+  if (q0 < pfx) hi = max(hi, pfx);
+  const int ntiles = (hi + MK - 1) / MK;
+
+  load_tile<MT>(sq, q + b * st.qb + h * st.qh, st.qt, q0, t_len);
+  cp_async_commit();
+  load_tile<MT>(skv, kp, st.kt, 0, t_len);
+  load_tile<MT>(skv + TILE_BYTES, vp, st.vt, 0, t_len);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // q * 1/8 as A fragments: 16 rows x 4 slices of 16 dims
+  uint32_t qa[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    load_a(qa[j], sq, warp * 16, j, lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) qa[j][e] = scale_eighth(qa[j][e]);
+  }
+
+  // this thread's rows: grp and grp + 8 of the warp's 16
+  const int row_lo = q0 + warp * 16 + grp;
+  const int bnd[2] = {row_bound(row_lo, pfx), row_bound(row_lo + 8, pfx)};
+  const int tile_bound = row_bound(q0, pfx);  // least bound of the tile
+
+  float o[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      const uint32_t nxt = skv + ((t + 1) % STAGES) * 2 * TILE_BYTES;
+      load_tile<MT>(nxt, kp, st.kt, (t + 1) * MK, t_len);
+      load_tile<MT>(nxt + TILE_BYTES, vp, st.vt, (t + 1) * MK, t_len);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+    const uint32_t sk = skv + (t % STAGES) * 2 * TILE_BYTES;
+    const uint32_t sv = sk + TILE_BYTES;
+    const int k0 = t * MK;
+
+    // S = (q / 8) K^T: 16 rows x 64 keys per warp
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kb[4];
+        load_b_nk(kb, sk, 16 * np, j, lane);
+        mma(s[2 * np], qa[j], kb[0], kb[1]);
+        mma(s[2 * np + 1], qa[j], kb[2], kb[3]);
+      }
+
+    // mask only a tile that reaches past some row's bound (keys past T
+    // included: every real row's bound is <= T)
+    if (k0 + MK > tile_bound) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + nt * 8 + 2 * tig + (e & 1) >= bnd[e >> 1])
+            s[nt][e] = -INFINITY;
+    }
+
+    // online softmax; key 0 is visible to every row, so m is finite from
+    // the first tile on
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    }
+    float ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float alpha = exp2f((m[r] - mx[r]) * LOG2E);
+      l[r] *= alpha;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        o[nt][2 * r] *= alpha;
+        o[nt][2 * r + 1] *= alpha;
+      }
+      m[r] = mx[r];
+      ms[r] = mx[r] * LOG2E;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(fmaf(s[nt][e], LOG2E, -ms[e >> 1]));
+        l[e >> 1] += s[nt][e];
+      }
+
+    // O += P V, P rounded to bf16 in registers
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t pa[4];
+      c_to_a(pa, s[2 * j], s[2 * j + 1]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t vb[4];
+        load_b_kn(vb, sv, 16 * np, j, lane);
+        mma(o[2 * np], pa, vb[0], vb[1]);
+        mma(o[2 * np + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  // out rows through the (consumed) Q tile, then 16-byte coalesced stores
+  store_rows(smem, o, 1.f / l[0], 1.f / l[1], warp * 16, lane);
+  if (tig == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row_lo + 8 * r < t_len)
+        lse[(long long)bh * t_len + row_lo + 8 * r] = m[r] + logf(l[r]);
+  }
+  __syncthreads();
+  __nv_bfloat16* op = out + b * st.ob + h * st.oh;
+  for (int idx = threadIdx.x; idx < MQ * 8; idx += MT) {
+    const int r = idx >> 3, c = idx & 7;
+    if (q0 + r < t_len)
+      *reinterpret_cast<uint4*>(op + (q0 + r) * st.ot + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + swz(r, c));
+  }
+}
+
+// --- fp32: CUDA cores --------------------------------------------------------
+
 constexpr int BQ = 32;         // q rows per block
 constexpr int BK = 64;         // keys per shared-memory tile
 constexpr int SUB = 4;         // threads per q row
@@ -42,23 +243,9 @@ constexpr int KPAD = D + 4;    // shared row stride in floats
 constexpr int KPT = BK / SUB;  // keys per thread per tile
 constexpr float NEG = -1e30f;  // masked score, as the Pallas kernel
 
-struct Strides {
-  long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, Strides st, int H, int t_len,
                  int prefix, float scale) {
   __shared__ __align__(16) float ks[BK * KPAD];
@@ -73,16 +260,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int i = q0 + tid / SUB;  // this thread's query row
   const bool row_ok = i < t_len;
   const int pfx = min(prefix, t_len);
-  const int bound = row_ok ? (i < pfx ? pfx : i + 1) : 0;
+  const int bound = row_ok ? row_bound(i, pfx) : 0;
 
-  const T* qp = q + b * st.qb + h * st.qh;
-  const T* kp = k + b * st.kb + h * st.kh;
-  const T* vp = v + b * st.vb + h * st.vh;
+  const float* qp = q + b * st.qb + h * st.qh;
+  const float* kp = k + b * st.kb + h * st.kh;
+  const float* vp = v + b * st.vb + h * st.vh;
 
   float qr[D];
 #pragma unroll
   for (int c = 0; c < D; ++c)
-    qr[c] = row_ok ? to_f(qp[i * st.qt + c]) * scale : 0.f;
+    qr[c] = row_ok ? qp[i * st.qt + c] * scale : 0.f;
 
   // the last tile any row of this q tile can see
   const int q_last = min(q0 + BQ, t_len) - 1;
@@ -103,8 +290,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kj = k0 + j;
       float kv = 0.f, vv = 0.f;
       if (kj < t_len) {
-        kv = to_f(kp[kj * st.kt + c]);
-        vv = to_f(vp[kj * st.vt + c]);
+        kv = kp[kj * st.kt + c];
+        vv = vp[kj * st.vt + c];
       }
       ks[j * KPAD + c] = kv;
       vs[j * KPAD + c] = vv;
@@ -173,10 +360,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (!row_ok) return;
   const float inv = 1.f / l_all;
-  T* op = out + b * st.ob + h * st.oh + i * st.ot;
+  float* op = out + b * st.ob + h * st.oh + i * st.ot;
 #pragma unroll
   for (int c = 0; c < D; ++c)
-    if (c / (D / SUB) == sub) store_f(op + c, acc[c] * inv);
+    if (c / (D / SUB) == sub) op[c] = acc[c] * inv;
   if (sub == 0) lse[(long long)bh * t_len + i] = m_all + logf(l_all);
 }
 
@@ -191,21 +378,22 @@ extern "C" int mas_flash_fwd(const void* q, const void* k, const void* v,
   st.kb = strides[3]; st.kh = strides[4]; st.kt = strides[5];
   st.vb = strides[6]; st.vh = strides[7]; st.vt = strides[8];
   st.ob = strides[9]; st.oh = strides[10]; st.ot = strides[11];
-  const dim3 grid((t_len + BQ - 1) / BQ, batch * heads);
-  const float scale = 0.125f;  // 1 / sqrt(64)
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    flash_fwd_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
+    const dim3 grid(batch * heads, (t_len + MQ - 1) / MQ);
+    flash_fwd_kernel_bf16<<<grid, MT, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
         static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), st,
-        heads, t_len, prefix, scale);
+        heads, t_len, prefix);
   } else {
-    flash_fwd_kernel<float><<<grid, NT, 0, s>>>(
+    const dim3 grid((t_len + BQ - 1) / BQ, batch * heads);
+    flash_fwd_kernel<<<grid, NT, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out),
-        static_cast<float*>(lse), st, heads, t_len, prefix, scale);
+        static_cast<float*>(lse), st, heads, t_len, prefix,
+        0.125f /* 1 / sqrt(64) */);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -65,6 +65,25 @@ def _check(q, k, v):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dim")
+    _check_rows(q.dtype, q=q, k=k, v=v)
+
+
+def _rows_aligned(t) -> bool:
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def _check_rows(dtype, **tensors):
+    """The bf16 kernels copy rows in 16-byte pieces (cp.async): every
+    (b, h, t) stride must be a multiple of 8 elements and the data 16-byte
+    aligned.  Views into the fused qkv projection are; others raise."""
+    if dtype != torch.bfloat16:
+        return
+    for name, t in tensors.items():
+        if not _rows_aligned(t):
+            raise ValueError(
+                f"{name}: the bf16 kernel needs (b, h, t) strides that are "
+                f"multiples of 8 and 16-byte aligned data, got strides "
+                f"{tuple(t.stride())} at address {t.data_ptr():#x}")
 
 
 def flash_attention(q, k, v, prefix_length: int):
@@ -145,11 +164,13 @@ def _check_bwd(q, k, v, out, lse, do):
                              f"{tuple(x.shape)} on {x.device}")
         if x.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dim")
+    _check_rows(q.dtype, out=out, do=do)
     if (tuple(lse.shape) != (b, h, t) or lse.dtype != torch.float32
-            or not lse.is_contiguous() or lse.device != q.device):
-        raise ValueError(f"lse must be a contiguous fp32 [{b}, {h}, {t}] "
-                         f"tensor on {q.device}, got {lse.dtype} "
-                         f"{tuple(lse.shape)} on {lse.device}")
+            or not lse.is_contiguous() or lse.device != q.device
+            or lse.data_ptr() % 16):
+        raise ValueError(f"lse must be a contiguous 16-byte aligned fp32 "
+                         f"[{b}, {h}, {t}] tensor on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     if t % BWD_TILE:
         raise ValueError(f"flash_attention_bwd kernel takes T a multiple of "
                          f"{BWD_TILE}, got {t}")
@@ -215,8 +236,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qkv, out, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        if do.stride(-1) != 1 or not _rows_aligned(do):
+            do = do.clone(memory_format=torch.contiguous_format)
         dqkv = flash_attention_bwd(*split_qkv(qkv), out, lse, do,
                                    ctx.prefix_length)
         return dqkv, None

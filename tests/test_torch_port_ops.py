@@ -60,6 +60,30 @@ def test_attention_plain_matches_pallas_interpret(prefix):
     np.testing.assert_allclose(out.numpy(), np.asarray(j_public), atol=1e-5)
 
 
+@pytest.mark.parametrize("prefix", [0, 20, 64])
+@pytest.mark.parametrize("blk_k", [16, 64])
+def test_attention_plain_within_b1_bf16_tolerance_of_pallas_bf16(prefix,
+                                                                 blk_k):
+    """On bf16 inputs the Pallas forward (interpret mode) rounds P to bf16
+    before P V, as kernel B1 does; the plain twin keeps P fp32.  The two
+    agree within chip_smoke.check_b1's bf16 tolerances (out atol 1e-2, rtol
+    1e-2; lse atol 1e-4), so those tolerances admit the reference's own
+    rounding.  blk_k 16 runs the online-softmax loop, 64 the single pass."""
+    r = _rng(300 + prefix + blk_k)
+    q, k, v = (r.standard_normal((2, 2, 64, 64)).astype(np.float32)
+               for _ in range(3))
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    out, lse = attention.prefix_causal_attention_plain(tq, tk, tv, prefix)
+    j_out, j_lse = _flash_fwd(*(jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                                for x in (tq, tk, tv)),
+                              prefix, 16, blk_k, interpret=True)
+    assert j_out.dtype == jnp.bfloat16 and out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(j_out.astype(jnp.float32)),
+                               atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), atol=1e-4)
+
+
 @pytest.mark.parametrize("prefix", [0, 17, 37])
 def test_attention_plain_matches_jnp_ragged_length(prefix):
     """T = 37 is no multiple of any tile."""
@@ -651,3 +675,42 @@ def test_b6_b7_kernel_checks_reject_bad_inputs():
         layer_norm._check(x, torch.ones(64))
     with pytest.raises(ValueError, match="g must be"):
         layer_norm._check(x, torch.ones(128), g=x.bfloat16())
+
+
+def test_bf16_attention_checks_pass_the_fused_qkv_views():
+    """B1/B6 take q, k, v as views into the fused qkv projection, out laid
+    out [B, T, H, 64] and dO as the model passes it: 16-byte rows, no copy."""
+    qkv = torch.zeros(2, 128, 3, 2, 64, dtype=torch.bfloat16)
+    q, k, v = attention.split_qkv(qkv)
+    attention._check(q, k, v)
+    out = torch.zeros(2, 128, 2, 64, dtype=torch.bfloat16).transpose(1, 2)
+    attention._check_bwd(q, k, v, out, torch.zeros(2, 2, 128), out)
+
+
+def _unaligned_rows(kind, dtype=torch.bfloat16):
+    """A [1, 2, 64, 64] view whose rows the bf16 kernels cannot copy in
+    16-byte pieces."""
+    if kind == "t stride 68":
+        return torch.zeros(1, 2, 64, 68, dtype=dtype)[..., :64]
+    if kind == "h stride 4100":
+        return torch.zeros(1, 2, 4100, dtype=dtype)[..., :4096].unflatten(
+            -1, (64, 64))
+    return torch.zeros(1, 2, 64, 72, dtype=dtype)[..., 4:68]  # 8 bytes off
+
+
+@pytest.mark.parametrize("kind", ["t stride 68", "h stride 4100",
+                                  "data 8 bytes off"])
+def test_bf16_attention_checks_reject_unaligned_rows(kind):
+    bad = _unaligned_rows(kind)
+    assert bad.shape == (1, 2, 64, 64) and bad.stride(-1) == 1
+    good = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64)
+    with pytest.raises(ValueError, match="k: the bf16 kernel"):
+        attention._check(good, bad, good)
+    with pytest.raises(ValueError, match="do: the bf16 kernel"):
+        attention._check_bwd(good, good, good, good, lse, bad)
+    # the fp32 kernels read elements, not 16-byte rows
+    good = good.float()
+    bad = _unaligned_rows(kind, torch.float32)
+    attention._check(good, bad, good)
+    attention._check_bwd(good, good, good, good, lse, bad)
