@@ -6,11 +6,17 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. print the card (nvidia-smi name and power limit) and the versions;
      no CUDA device is an error — there is no CPU path;
   2. build the CUDA kernels from ``mas_tpu_torch/csrc`` (nvcc, sm_90a);
+     print each kernel's registers and fail if a tensor-core or decode
+     kernel spills, or a bf16 flash kernel has no tensor-core instruction;
   3. hold each hand-written kernel (B1-B11) against its plain PyTorch
-     twin on the card at the main paths' shapes, and time both, and one
-     PyTorch library call that computes the same function where there is
-     one (CUDA events, median); each kernel's bound is the larger of its
-     bytes over 3.35 TB/s and its operations over the peak for their type;
+     twin on the card at the main paths' shapes (the attention kernels
+     also at head dims 32 and 128, the decode reads over the edges of
+     their split), and time both, and one PyTorch library call that
+     computes the same function where there is one (CUDA events, median;
+     B2 and B9 also back to back and replayed from a CUDA graph, over
+     enough cache sets to keep the L2 cold); each kernel's bound is the
+     larger of its bytes over 3.35 TB/s and its operations over the peak
+     for their type;
   4. run the serving path at full width — ``configs/sample_256.json``
      (24 layers, hidden 1024, int4 cache, guidance 3.0, top-k 64), seeded
      random weights, its 4 captions — through ``sample_images``, check the
@@ -54,15 +60,24 @@ Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
 "device": {...}}``.
+
+    python3 chip_smoke.py --decode-times DIR
+
+times only the decode reads B2 and B9 of the ``mas_tpu_torch`` under DIR
+(for example a ``git archive`` of another commit) and prints one JSON
+line, so two trees compare on one card in one call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -128,6 +143,57 @@ def run_ms(fn, calls: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn`` when ``calls`` calls replay from one
+    CUDA graph (median of ``reps`` replays, CUDA events around each): no
+    host time between the launches, so a kernel shorter than its launch's
+    host time (``run_ms`` then measures the host) is timed too.  Capturing
+    also shows that the launches can be captured, the thread-block-cluster
+    launches of B2 and B9 included."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                       # allocations and JIT outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def rotating(fn, sets):
+    """A no-argument call of ``fn(*sets[i])`` for i = 0, 1, ... in turn:
+    with more bytes in the sets than the 50 MB L2 holds, each call reads
+    its inputs from device memory, as a decode step reads a layer's
+    cache."""
+    sets = list(sets)
+    state = {"i": -1}
+
+    def call():
+        state["i"] = (state["i"] + 1) % len(sets)
+        return fn(*sets[state["i"]])
+
+    return call
+
+
+def n_sets(set_bytes: int, total: float = 100e6) -> int:
+    """Input sets to rotate over: at least 4, and more than ``total``
+    bytes in all."""
+    return max(4, int(total // set_bytes) + 1)
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -182,10 +248,39 @@ def phase_build() -> None:
     from mas_tpu_torch import _build
 
     t0 = time.perf_counter()
-    lib = _build.build(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        lib = _build.build(verbose=True)
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
+    spill_check(log.getvalue())
     sass_check(lib, _build._nvcc())
+
+
+# kernels that must not spill registers to local memory
+NO_SPILL_KERNELS = ("_bf16", "decode_quant_kernel", "decode_float_kernel")
+
+
+def spill_check(log: str) -> None:
+    """Print registers and spill stores per kernel from ptxas's -v log (an
+    empty log: the library was built before, nothing to read); fail if a
+    kernel of NO_SPILL_KERNELS spills."""
+    name, rows = None, []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), None])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1][0] == name:
+            rows[-1][2] = int(m.group(1))
+    for name, spill, regs in rows:
+        print(f"ptxas {name}: {regs} registers, {spill} bytes spill stores")
+    bad = [name for name, spill, _ in rows
+           if spill and any(k in name for k in NO_SPILL_KERNELS)]
+    require(not bad, f"register spills in {bad}")
 
 
 # the bf16 flash kernels must run their products on the tensor cores
@@ -226,12 +321,14 @@ def check_b1(gen) -> dict:
     average: atol 1e-2, rtol 1e-2 (one bf16 ulp of the output is 2^-8
     relative); lse is fp32: atol 1e-4.  The same bf16 tolerances hold at
     T = 200 (ragged) and at the training shape [8, 16, 1408, 64], which is
-    also timed beside the library call and its bound."""
+    also timed beside the library call and its bound, and at head dims 32
+    (zero-padded to 64) and 128 at T = 200; [8, 16, 1408, 128] is timed
+    back to back."""
     from mas_tpu_torch.ops import attention
 
-    def qkv_views(b, h, t, dtype):
+    def qkv_views(b, h, t, dtype, dim=64):
         return attention.split_qkv(torch.randn(
-            b, t, 3, h, d, device="cuda", generator=gen, dtype=dtype))
+            b, t, 3, h, dim, device="cuda", generator=gen, dtype=dtype))
 
     def held(q, k, v, prefix, what):
         o, lse = attention.flash_attention(q, k, v, prefix)
@@ -263,6 +360,15 @@ def check_b1(gen) -> dict:
             if dtype == torch.bfloat16:
                 err = max(err, e)
         print(f"B1 {dtype} T=200 prefix 0/37/100/200: ok")
+    for dim in (32, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            q2, k2, v2 = qkv_views(2, 4, 200, dtype, dim)
+            for prefix in (0, 37, 200):
+                e, _ = held(q2, k2, v2, prefix,
+                            f"{dtype} d={dim} T=200 prefix {prefix}")
+                if dtype == torch.bfloat16:
+                    err = max(err, e)
+        print(f"B1 d={dim} bf16 and fp32 T=200 prefix 0/37/200: ok")
     out["ms"] = timed_ms(lambda: attention.flash_attention(q, k, v, 384))
     out["plain_ms"] = timed_ms(
         lambda: attention.prefix_causal_attention_plain(q, k, v, 384))
@@ -291,6 +397,18 @@ def check_b1(gen) -> dict:
           f"{timed_ms(library):.4f} ms, back to back {run_ms(kernel):.4f} / "
           f"{run_ms(library):.4f} ms, bound {bd['bound_ms']:.4f} ms "
           f"({bd['bound_by']})")
+    q3, k3, v3 = qkv_views(b, h, t2, torch.bfloat16, 128)
+    e, le = held(q3, k3, v3, 384, f"[{b},{h},{t2},128] prefix 384")
+    err = max(err, e)
+    kernel = lambda: attention.flash_attention(q3, k3, v3, 384)
+    library = lambda: F.scaled_dot_product_attention(q3, k3, v3,
+                                                     attn_mask=mask)
+    bd = bound(4 * b * h * t2 * 128 * 2 + b * h * t2 * 4,
+               4 * 128 * prefix_causal_pairs(t2, 384) * b * h, torch.bfloat16)
+    print(f"B1 [{b},{h},{t2},128] bf16 prefix 384: out max err {e:.3e}; back "
+          f"to back kernel {run_ms(kernel):.4f} ms, library "
+          f"{run_ms(library):.4f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']})")
     out["max_abs_err"] = err
     return out
 
@@ -303,70 +421,128 @@ def _caches(gen, bits, b=128, h=16, t=640, d=64):
     return mk(), mk()
 
 
-def check_b2(gen) -> dict:
-    """Decode read: q [128, 16, 1, 64] bf16 (a view into qkv), int4 and int8
-    caches with T = 640, index 384 / 511 / 639.  Tolerance: both versions
-    accumulate in fp32 and round to bf16 once: atol 1e-2, rtol 1e-2.  The
-    packed cache is read through strided views of its k and v halves: it
-    must give the lane read of the same values bit for bit (same kernel,
-    same arithmetic, another position stride), and match its plain twin."""
+def _decode_q(gen, rows, h, d, dtype=torch.bfloat16):
+    """A decode query [rows, h, 1, d], a view into a fused qkv tensor as
+    the model passes it."""
+    qkv = torch.randn(rows, 1, 3, h, d, device="cuda", generator=gen,
+                      dtype=dtype)
+    return qkv[:, :, 0].transpose(1, 2)
+
+
+# decode positions around the edges of the split's chunks (valid = index +
+# 1 below, at and above multiples of S = 8 and of the 32- to 128-position
+# tiles, chunks left empty at index < 7) and of the cache
+CHUNK_EDGES = (0, 1, 6, 7, 8, 9, 127, 128, 383, 511, 638, 639)
+
+
+def b2_times(gen, rows: int) -> dict:
+    """B2 over int4 caches [rows, 16, 640, 64] at index 511 (mid-way
+    through the 256^2 decode), q bf16: the kernel one call at a time
+    (``timed_ms``) and back to back (``run_ms``), the packed read of the
+    same shape back to back, and the plain twin; each rotates over
+    ``n_sets`` cache sets so the cache is read from device memory."""
     from mas_tpu_torch.ops import decode_cache, quant
 
-    b, h, d = 128, 16, 64
-    qkv = torch.randn(b, 1, 3, h, d, device="cuda", generator=gen,
-                      dtype=torch.bfloat16)
-    q = qkv[:, :, 0].transpose(1, 2)
-    err, out = 0.0, {}
-    for bits in (4, 8):
-        kc, vc = _caches(gen, bits)
-        for index in (384, 511, 639):
-            idx = torch.tensor([index], dtype=torch.int32, device="cuda")
-            o = quant.decode_attention_quant(q, kc, vc, idx)
-            p = quant.decode_attention_quant_plain(q, kc, vc, idx)
-            torch.cuda.synchronize()
-            require(close(o, p, 1e-2, 1e-2),
-                    f"B2 int{bits} index {index}: max err {max_err(o, p)}")
-            err = max(err, max_err(o, p))
-            print(f"B2 int{bits} index {index}: max err {max_err(o, p):.3e}")
-            # fp32 q: only the fp32 summation order differs, atol 1e-5
-            q32 = q.float()
-            require(close(quant.decode_attention_quant(q32, kc, vc, idx),
-                          quant.decode_attention_quant_plain(q32, kc, vc, idx),
-                          1e-5, 1e-5), f"B2 fp32 int{bits} index {index}")
-        if bits == 4:   # the config's cache; 511 is mid-way through decode
-            idx = torch.tensor([511], dtype=torch.int32, device="cuda")
-            out["ms"] = timed_ms(
-                lambda: quant.decode_attention_quant(q, kc, vc, idx))
-            out["plain_ms"] = timed_ms(
-                lambda: quant.decode_attention_quant_plain(q, kc, vc, idx))
-        packed = decode_cache.seed_packed_cache(
-            torch.randn(b, h, 640, d, device="cuda", generator=gen),
-            torch.randn(b, h, 640, d, device="cuda", generator=gen), 640,
-            bits)
-        lane = [quant.QuantCache(c.q.contiguous(), c.scale.contiguous(),
-                                 bits) for c in packed.views()]
-        for index in (384, 511, 639):
-            idx = torch.tensor([index], dtype=torch.int32, device="cuda")
-            o = decode_cache.decode_attention_packed(q, packed, idx)
-            p = decode_cache.decode_attention_packed_plain(q, packed, idx)
-            o_lane = quant.decode_attention_quant(q, *lane, idx)
-            torch.cuda.synchronize()
-            require(torch.equal(o, o_lane), f"B2 packed int{bits} index "
-                    f"{index}: differs from the lane read of the same values")
-            require(close(o, p, 1e-2, 1e-2), f"B2 packed int{bits} index "
-                    f"{index}: max err {max_err(o, p)}")
-            err = max(err, max_err(o, p))
-        idx = torch.tensor([511], dtype=torch.int32, device="cuda")
-        out[f"packed_int{bits}_ms"] = timed_ms(
-            lambda: decode_cache.decode_attention_packed(q, packed, idx))
-        out[f"lane_int{bits}_ms"] = timed_ms(
-            lambda: quant.decode_attention_quant(q, *lane, idx))
-        print(f"B2 packed int{bits}: equal to the lane read at 384/511/639; "
-              f"index 511 packed {out[f'packed_int{bits}_ms']:.4f} ms, lane "
-              f"{out[f'lane_int{bits}_ms']:.4f} ms")
+    h, t, d, bits = 16, 640, 64, 4
+    pair = 2 * rows * h * t * (d // 2 + 4)
+    idx = torch.tensor([511], dtype=torch.int32, device="cuda")
+    lane = [(_decode_q(gen, rows, h, d), *_caches(gen, bits, rows, h, t, d))
+            for _ in range(n_sets(pair))]
+    packed = [(q, decode_cache.seed_packed_cache(
+        torch.randn(rows, h, t, d, device="cuda", generator=gen),
+        torch.randn(rows, h, t, d, device="cuda", generator=gen), t, bits))
+        for q, _, _ in lane]
+    kernel = rotating(lambda q, kc, vc: quant.decode_attention_quant(
+        q, kc, vc, idx), lane)
+    packed_read = rotating(lambda q, c: decode_cache.decode_attention_packed(
+        q, c, idx), packed)
+    plain = rotating(lambda q, kc, vc: quant.decode_attention_quant_plain(
+        q, kc, vc, idx), lane)
     valid = 512
-    out.update(bound(2 * b * h * valid * (d // 2 + 4) + 2 * b * h * d * 2,
-                     4 * d * valid * b * h, torch.bfloat16))
+    out = {"ms": timed_ms(kernel), "b2b_ms": run_ms(kernel),
+           "graph_ms": graph_ms(kernel),
+           "packed_b2b_ms": run_ms(packed_read),
+           "packed_graph_ms": graph_ms(packed_read),
+           "plain_ms": timed_ms(plain, reps=5), "sets": len(lane),
+           **bound(2 * rows * h * valid * (d // 2 + 4) + 2 * rows * h * d * 2,
+                   4 * d * valid * rows * h, torch.bfloat16)}
+    out["bound_share"] = out["bound_ms"] / out["graph_ms"]
+    return out
+
+
+def check_b2(gen) -> dict:
+    """Decode read: q [rows, 16, 1, d] bf16 (a view into qkv) at 128 rows
+    (batch 64 with guidance: one block per (b, h)) and 8 rows (batch 4:
+    eight blocks of one cluster per (b, h)), int4 and int8 caches with
+    T = 640, at every index of CHUNK_EDGES; head dims 32 and 128 too.
+    Tolerance: both versions accumulate in fp32 and round to bf16 once:
+    atol 1e-2, rtol 1e-2; fp32 q: only the fp32 summation order differs,
+    atol 1e-5.  The packed cache is read through strided views of its k
+    and v halves: it must give the lane read of the same values bit for
+    bit (same kernel, same split, another position stride), and match its
+    plain twin.  Timed by ``b2_times`` at both row counts."""
+    from mas_tpu_torch.ops import decode_cache, quant
+
+    h, t = 16, 640
+    err, out = 0.0, {}
+    for rows, d in ((128, 64), (8, 64), (8, 32), (8, 128), (128, 32),
+                    (128, 128)):
+        indices = CHUNK_EDGES if d == 64 else (0, 6, 383, 639)
+        q = _decode_q(gen, rows, h, d)
+        for bits in (4, 8):
+            kc, vc = _caches(gen, bits, rows, h, t, d)
+            for index in indices:
+                idx = torch.tensor([index], dtype=torch.int32, device="cuda")
+                o = quant.decode_attention_quant(q, kc, vc, idx)
+                p = quant.decode_attention_quant_plain(q, kc, vc, idx)
+                q32 = q.float()
+                o32 = quant.decode_attention_quant(q32, kc, vc, idx)
+                p32 = quant.decode_attention_quant_plain(q32, kc, vc, idx)
+                torch.cuda.synchronize()
+                what = f"B2 [{rows},{h},{t},{d}] int{bits} index {index}"
+                require(close(o, p, 1e-2, 1e-2),
+                        f"{what}: max err {max_err(o, p)}")
+                require(close(o32, p32, 1e-5, 1e-5),
+                        f"{what} fp32: max err {max_err(o32, p32)}")
+                err = max(err, max_err(o, p))
+            print(f"B2 [{rows},{h},{t},{d}] int{bits}, bf16 and fp32 q, "
+                  f"index {indices[0]}..{indices[-1]} ({len(indices)}): ok")
+            if d != 64:
+                continue
+            packed = decode_cache.seed_packed_cache(
+                torch.randn(rows, h, t, d, device="cuda", generator=gen),
+                torch.randn(rows, h, t, d, device="cuda", generator=gen), t,
+                bits)
+            lane = [quant.QuantCache(c.q.contiguous(), c.scale.contiguous(),
+                                     bits) for c in packed.views()]
+            for index in indices:
+                idx = torch.tensor([index], dtype=torch.int32, device="cuda")
+                o = decode_cache.decode_attention_packed(q, packed, idx)
+                p = decode_cache.decode_attention_packed_plain(q, packed, idx)
+                o_lane = quant.decode_attention_quant(q, *lane, idx)
+                torch.cuda.synchronize()
+                require(torch.equal(o, o_lane), f"B2 packed [{rows}] "
+                        f"int{bits} index {index}: differs from the lane read "
+                        "of the same values")
+                require(close(o, p, 1e-2, 1e-2), f"B2 packed [{rows}] "
+                        f"int{bits} index {index}: max err {max_err(o, p)}")
+                err = max(err, max_err(o, p))
+            print(f"B2 packed [{rows}] int{bits}: bitwise equal to the lane "
+                  "read at every index")
+    for rows in (128, 8):
+        res = b2_times(gen, rows)
+        print(f"B2 int4 [{rows},{h},{t},64] index 511 ({res['sets']} cache "
+              f"sets): one call {res['ms']:.4f} ms, back to back "
+              f"{res['b2b_ms']:.4f} ms (packed {res['packed_b2b_ms']:.4f}), "
+              f"graph {res['graph_ms']:.4f} ms (packed "
+              f"{res['packed_graph_ms']:.4f}), plain {res['plain_ms']:.4f} "
+              f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+              f"{100 * res['bound_share']:.1f}% of it")
+        if rows == 128:
+            out.update(res)
+        else:
+            out["batch4_graph_ms"] = res["graph_ms"]
+            out["batch4_bound_ms"] = res["bound_ms"]
     out["library_ms"] = None
     out["max_abs_err"] = err
     return out
@@ -583,7 +759,10 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor, n: int) -> bool:
 
 def check_b6(gen) -> dict:
     """Attention backward at [8, 16, 1408, 64] bf16 at prefix 384 and 0
-    (the training geometry) and [2, 16, 640, 64] fp32 at prefix 384, q/k/v
+    (the training geometry) and [2, 16, 640, 64] fp32 at prefix 384; at
+    T = 200 (a ragged last tile) with head dims 64, 32 (zero-padded to 64)
+    and 128, bf16 and fp32; and [8, 16, 1408, 128] bf16, timed back to
+    back, q/k/v
     as views into one fused qkv tensor, out and lse from B1 and dO laid out
     [B, T, H, d] as the model passes them.  Tolerances, per tensor against
     the plain twin: fp32 atol 1e-4 * max |grad| (both sum over up to T
@@ -595,7 +774,13 @@ def check_b6(gen) -> dict:
     for (b, h, t, d), dtype, prefix in (
             ((8, 16, 1408, 64), torch.bfloat16, 384),
             ((8, 16, 1408, 64), torch.bfloat16, 0),
-            ((2, 16, 640, 64), torch.float32, 384)):
+            ((2, 16, 640, 64), torch.float32, 384),
+            ((2, 8, 200, 64), torch.bfloat16, 37),
+            ((2, 8, 200, 32), torch.bfloat16, 37),
+            ((2, 8, 200, 128), torch.bfloat16, 37),
+            ((2, 8, 200, 128), torch.float32, 0),
+            ((2, 8, 200, 32), torch.float32, 200),
+            ((8, 16, 1408, 128), torch.bfloat16, 384)):
         qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen,
                           dtype=dtype)
         q, k, v = attention.split_qkv(qkv)
@@ -617,7 +802,7 @@ def check_b6(gen) -> dict:
             print(f"B6 {name} [{b},{h},{t},{d}] {dtype} prefix {prefix}: "
                   f"max err {max_err(g, w):.3e}, max |grad| "
                   f"{float(w.float().abs().max()):.3e}")
-        if dtype == torch.bfloat16 and prefix == 384:
+        if d == 64 and dtype == torch.bfloat16 and prefix == 384:
             args = (q, k, v, o, lse, do, prefix)
             kernel = lambda: attention.flash_attention_bwd(*args)
             out["ms"] = timed_ms(kernel)
@@ -640,6 +825,16 @@ def check_b6(gen) -> dict:
             out.update(bound(8 * n * 2 + b * h * t * 4,
                              10 * d * prefix_causal_pairs(t, prefix) * b * h,
                              torch.bfloat16))
+        elif d == 128 and t == 1408:
+            args = (q, k, v, o, lse, do, prefix)
+            n = b * h * t * d
+            bd = bound(8 * n * 2 + b * h * t * 4,
+                       10 * d * prefix_causal_pairs(t, prefix) * b * h,
+                       torch.bfloat16)
+            ms = run_ms(lambda: attention.flash_attention_bwd(*args))
+            print(f"B6 [{b},{h},{t},{d}] bf16 prefix {prefix}, back to back: "
+                  f"kernel {ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                  f"({bd['bound_by']})")
         del got, want
     out["max_abs_err"] = err
     return out
@@ -703,69 +898,112 @@ def check_b7(gen) -> dict:
     return out
 
 
-def check_b9(gen) -> dict:
-    """Float-cache decode read at the 512^2 serving shape: q [128, 16, 1, 64]
-    bf16 (a view into qkv, batch 64 with guidance) against bf16 caches
-    [128, 16, 1408, 64] at index 383 (the last prefix position), 895 and
-    1407, and the batch-4 shape (8 rows); fp32 caches [8, 16, 640, 64].
-    Tolerance: both versions accumulate in fp32 and round the output to
-    bf16 once: atol 1e-2, rtol 1e-2; fp32 q and caches: only the fp32
-    summation order differs, atol 1e-5, rtol 1e-5.  Timed at index 1407,
-    where every position is read; the library call is
-    ``F.scaled_dot_product_attention`` over the valid prefix."""
+def b9_times(gen, rows: int) -> dict:
+    """B9 over bf16 caches [rows, 16, 1408, 64] at index 1407 (every
+    position read; the 512^2 geometry), q bf16: the kernel, and the library
+    call ``F.scaled_dot_product_attention`` over the valid prefix, one call
+    at a time (``timed_ms``) and back to back (``run_ms``), and the plain
+    twin; each rotates over ``n_sets`` cache sets so the cache is read from
+    device memory."""
     from mas_tpu_torch.ops import decode_attention as da
 
     h, t, d = 16, 1408, 64
+    pair = 2 * rows * h * t * d * 2
+    idx = torch.tensor([1407], dtype=torch.int32, device="cuda")
+    sets = [(_decode_q(gen, rows, h, d),
+             *(da.FloatCache(torch.randn(rows, h, t, d, device="cuda",
+                                         generator=gen, dtype=torch.bfloat16))
+               for _ in range(2)))
+            for _ in range(n_sets(pair))]
+    kernel = rotating(lambda q, kc, vc: da.decode_attention_float(
+        q, kc, vc, idx), sets)
+    plain = rotating(lambda q, kc, vc: da.decode_attention_float_plain(
+        q, kc, vc, idx), sets)
+    library = rotating(lambda q, kc, vc: F.scaled_dot_product_attention(
+        q, kc.data, vc.data), [(q.contiguous(), kc, vc)
+                               for q, kc, vc in sets])
+    out = {"ms": timed_ms(kernel), "b2b_ms": run_ms(kernel),
+           "graph_ms": graph_ms(kernel),
+           "library_ms": timed_ms(library), "library_b2b_ms": run_ms(library),
+           "library_graph_ms": graph_ms(library),
+           "plain_ms": timed_ms(plain, reps=5), "sets": len(sets),
+           **bound(2 * rows * h * t * d * 2 + 2 * rows * h * d * 2,
+                   4 * d * t * rows * h, torch.bfloat16)}
+    out["bound_share"] = out["bound_ms"] / out["graph_ms"]
+    return out
+
+
+def check_b9(gen) -> dict:
+    """Float-cache decode read at the 512^2 serving shape: q [rows, 16, 1,
+    64] bf16 (a view into qkv) against bf16 caches [rows, 16, 1408, 64] at
+    128 rows (batch 64 with guidance) and 8 rows (batch 4), at the indices
+    of CHUNK_EDGES and 895 and 1407; head dims 32 and 128 too; fp32 q and
+    caches [8, 16, 640, 64] and [128, 16, 640, 64].  Tolerance: both
+    versions accumulate in fp32 and round the output to bf16 once: atol
+    1e-2, rtol 1e-2; fp32 q and caches: only the fp32 summation order
+    differs, atol 1e-5, rtol 1e-5.  Timed by ``b9_times`` at both row
+    counts."""
+    from mas_tpu_torch.ops import decode_attention as da
+
+    h = 16
     out, err = {}, 0.0
-    for rows in (128, 8):
-        qkv = torch.randn(rows, 1, 3, h, d, device="cuda", generator=gen,
-                          dtype=torch.bfloat16)
-        q = qkv[:, :, 0].transpose(1, 2)
+    for rows, t, d, dtype in ((128, 1408, 64, torch.bfloat16),
+                              (8, 1408, 64, torch.bfloat16),
+                              (8, 1408, 32, torch.bfloat16),
+                              (8, 1408, 128, torch.bfloat16),
+                              (128, 1408, 128, torch.bfloat16),
+                              (128, 640, 32, torch.bfloat16),
+                              (8, 640, 64, torch.float32),
+                              (128, 640, 64, torch.float32),
+                              (8, 640, 128, torch.float32)):
+        q = _decode_q(gen, rows, h, d, dtype)
         kc, vc = (da.FloatCache(torch.randn(rows, h, t, d, device="cuda",
-                                            generator=gen,
-                                            dtype=torch.bfloat16))
+                                            generator=gen, dtype=dtype))
                   for _ in range(2))
-        for index in (383, 895, 1407):
+        indices = sorted({i for i in CHUNK_EDGES + (895, 1407) if i < t}
+                         | {t - 1})
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        for index in indices:
             idx = torch.tensor([index], dtype=torch.int32, device="cuda")
             o = da.decode_attention_float(q, kc, vc, idx)
             p = da.decode_attention_float_plain(q, kc, vc, idx)
             torch.cuda.synchronize()
-            require(close(o, p, 1e-2, 1e-2), f"B9 [{rows},{h},{t},{d}] bf16 "
+            require(close(o, p, tol, tol), f"B9 [{rows},{h},{t},{d}] {dtype} "
                     f"index {index}: max err {max_err(o, p)}")
-            err = max(err, max_err(o, p))
-            print(f"B9 [{rows},{h},{t},{d}] bf16 index {index}: max err "
-                  f"{max_err(o, p):.3e}")
-        idx = torch.tensor([1407], dtype=torch.int32, device="cuda")
-        ms = timed_ms(lambda: da.decode_attention_float(q, kc, vc, idx))
-        mid = torch.tensor([895], dtype=torch.int32, device="cuda")
-        ms_mid = timed_ms(lambda: da.decode_attention_float(q, kc, vc, mid))
-        print(f"B9 [{rows},{h},{t},{d}]: index 1407 {ms:.4f} ms, index 895 "
-              f"{ms_mid:.4f} ms")
-        if rows == 128:
-            out["ms"], out["mid_ms"] = ms, ms_mid
-            out["plain_ms"] = timed_ms(
-                lambda: da.decode_attention_float_plain(q, kc, vc, idx))
-            qc = q.contiguous()
-            out["library_ms"] = timed_ms(lambda: F.scaled_dot_product_attention(
-                qc, kc.data, vc.data))
-            out.update(bound(2 * rows * h * t * d * 2 + 2 * rows * h * d * 2,
-                             4 * d * t * rows * h, torch.bfloat16))
-        else:
-            out["batch4_ms"] = ms
+            if dtype == torch.bfloat16:
+                err = max(err, max_err(o, p))
+        print(f"B9 [{rows},{h},{t},{d}] {dtype}, index {indices[0]}.."
+              f"{indices[-1]} ({len(indices)}): ok")
         del kc, vc
-    q32 = torch.randn(8, h, 1, d, device="cuda", generator=gen)
-    k32, v32 = (da.FloatCache(torch.randn(8, h, 640, d, device="cuda",
-                                          generator=gen)) for _ in range(2))
-    for index in (0, 383, 639):
-        idx = torch.tensor([index], dtype=torch.int32, device="cuda")
-        o = da.decode_attention_float(q32, k32, v32, idx)
-        p = da.decode_attention_float_plain(q32, k32, v32, idx)
-        torch.cuda.synchronize()
-        require(close(o, p, 1e-5, 1e-5), f"B9 fp32 index {index}: max err "
-                f"{max_err(o, p)}")
-    print("B9 fp32 [8,16,640,64] index 0/383/639: ok")
+    for rows in (128, 8):
+        res = b9_times(gen, rows)
+        print(f"B9 bf16 [{rows},{h},1408,64] index 1407 ({res['sets']} cache "
+              f"sets): kernel one call / back to back / graph "
+              f"{res['ms']:.4f} / {res['b2b_ms']:.4f} / {res['graph_ms']:.4f}"
+              f" ms; SDPA {res['library_ms']:.4f} / "
+              f"{res['library_b2b_ms']:.4f} / {res['library_graph_ms']:.4f} "
+              f"ms; plain {res['plain_ms']:.4f} ms; bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}), "
+              f"{100 * res['bound_share']:.1f}% of it")
+        if rows == 128:
+            out.update(res)
+        else:
+            out["batch4_graph_ms"] = res["graph_ms"]
+            out["batch4_library_graph_ms"] = res["library_graph_ms"]
+            out["batch4_bound_ms"] = res["bound_ms"]
     out["max_abs_err"] = err
     return out
+
+
+def decode_times() -> dict:
+    """``b2_times`` and ``b9_times`` at 128 and 8 rows, for whichever
+    ``mas_tpu_torch`` is imported: ``python3 chip_smoke.py --decode-times
+    DIR`` imports it from DIR (e.g. a ``git archive`` of the parent
+    commit), so two trees are timed on one card in one call."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return {f"B{k}_{rows}": fn(gen, rows) for k, fn in (("2", b2_times),
+                                                        ("9", b9_times))
+            for rows in (128, 8)}
 
 
 def check_b10(gen) -> dict:
@@ -1722,7 +1960,14 @@ def phase_ln_producer(gen, smi: str) -> dict:
     return counts
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv[:1] == ["--decode-times"]:
+        # the decode reads of the mas_tpu_torch under argv[1] alone
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        smi = phase_device()
+        print(json.dumps({"tree": argv[1], "card": smi,
+                          "decode_times": decode_times()}))
+        return 0
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1746,4 +1991,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -99,23 +99,27 @@ def build(verbose: bool = False) -> Path:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mas_flash_fwd.argtypes = [p, p, p, p, p,          # q k v out lse
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # q k v out lse, strides, B H T prefix head_dim, scale, is_bf16, stream
+    lib.mas_flash_fwd.argtypes = [p, p, p, p, p,
                                   ctypes.POINTER(ctypes.c_longlong),
-                                  i, i, i, i, i, p]
+                                  i, i, i, i, i, f, i, p]
     lib.mas_flash_fwd.restype = i
-    # q k v out dout lse delta dqkv, strides, B H T prefix is_bf16, stream
+    # q k v out dout lse delta dqkv, strides, B H T prefix head_dim, scale,
+    # is_bf16, stream
     lib.mas_flash_bwd.argtypes = [p, p, p, p, p, p, p, p,
                                   ctypes.POINTER(ctypes.c_longlong),
-                                  i, i, i, i, i, p]
+                                  i, i, i, i, i, f, i, p]
     lib.mas_flash_bwd.restype = i
-    # q kq ks vq vs index out, B H T pos_stride q_sb q_sh bits is_bf16,
-    # stream
+    # q kq ks vq vs index out, B H T pos_stride q_sb q_sh head_dim bits
+    # is_bf16 split, scale, stream
     lib.mas_decode_quant.argtypes = [p, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, i, i, p]
+                                     i, i, i, i, i, i, i, i, i, i, f, p]
     lib.mas_decode_quant.restype = i
-    # q k v index out, B H T q_sb q_sh cache_bf16 is_bf16, stream
-    lib.mas_decode_float.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    # q k v index out, B H T q_sb q_sh head_dim cache_bf16 is_bf16 split,
+    # scale, stream
+    lib.mas_decode_float.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                     i, f, p]
     lib.mas_decode_float.restype = i
     # z codebook cb_sq out, N K D is_bf16, stream
     lib.mas_vq_argmin.argtypes = [p, p, p, p, i, i, i, i, p]

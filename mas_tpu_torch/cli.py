@@ -14,6 +14,12 @@ transformer (``train/loop.py``) on the config's ``data`` section; only
 ``kind: synthetic`` is ported (ROADMAP A13).  Every other mode raises: it
 is not ported yet (ROADMAP A10, A11).
 
+As in ``mas_tpu/cli.py::main``, every mode builds a ``TrainConfig`` from
+the whole ``train`` section (a mode that does not train validates as
+``pretrain_segmentation``), and a training mode whose config has no
+``model`` or ``transformer`` section takes ``vq_seg_config()`` or
+``TransformerConfig()``.
+
 Usage:
     python -m mas_tpu_torch.cli --config configs/sample_256.json --device cuda
     python -m mas_tpu_torch.cli --config configs/seg_256.json \
@@ -38,13 +44,14 @@ from .data.tokenizer import HashWordTokenizer
 from .models.sampler import sample_images
 from .models.transformer import MakeAScene
 from .models.vqvae import VQModel
-from .utils.config import (ConfigError, SegLossConfig, TrainConfig,
-                           TransformerConfig, VQModelConfig)
+from .utils.config import (SegLossConfig, TrainConfig, TransformerConfig,
+                           VQModelConfig, vq_seg_config)
 from .utils.logging import make_grid, save_image
 from .utils.weights import init_random_, load_reference_pt, serving_state
 
-# the train-section keys sampling reads; the rest configure training
-_SAMPLE_TRAIN_KEYS = {"mode", "batch_size", "seed"}
+# TrainConfig validates these modes; the others reuse its generic fields
+TRAIN_CONFIG_MODES = ("pretrain_segmentation", "pretrain_image",
+                      "train_transformer")
 
 
 def load_transformer(cfg: TransformerConfig, checkpoint: Optional[str],
@@ -98,16 +105,14 @@ def prompt_tokens(raw: Dict[str, Any], cfg: TransformerConfig,
     return text.astype(np.int64), seg.astype(np.int64)
 
 
-def run_sample(raw: Dict[str, Any], device) -> str:
-    train = dict(raw.get("train", {}))
+def run_sample(raw: Dict[str, Any], train_cfg: TrainConfig, device) -> str:
     tcfg = TransformerConfig.from_dict(raw["transformer"])
     vcfg = VQModelConfig.from_dict(raw["model"])
-    generator = torch.Generator(device=device).manual_seed(
-        int(train.get("seed", 0)))
+    generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
     transformer = load_transformer(tcfg, raw.get("transformer_checkpoint"),
                                    device, generator)
     vq = load_vq(vcfg, raw.get("vq_checkpoint"), device, generator)
-    text, seg = prompt_tokens(raw, tcfg, int(train.get("batch_size", 4)))
+    text, seg = prompt_tokens(raw, tcfg, train_cfg.batch_size)
     imgs = sample_images(
         transformer, vq, torch.from_numpy(text).to(device),
         torch.from_numpy(seg).to(device), generator,
@@ -137,23 +142,23 @@ def data_iter(data_cfg: Dict[str, Any], batch_size: int, model_cfg):
     return iter(SyntheticSegBatches(batch_size, res, seed))
 
 
-def run_pretrain_segmentation(raw: Dict[str, Any], train_raw: Dict[str, Any],
+def run_pretrain_segmentation(raw: Dict[str, Any], train_cfg: TrainConfig,
                               device):
     from .train.loop import run_pretrain_segmentation as run
 
-    train_cfg = TrainConfig.from_dict(train_raw)
-    model_cfg = VQModelConfig.from_dict(raw["model"])
+    model_cfg = (VQModelConfig.from_dict(raw["model"]) if "model" in raw
+                 else vq_seg_config())
     loss_cfg = SegLossConfig.from_dict(raw.get("loss", {}))
     batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
     return run(train_cfg, model_cfg, batches, loss_cfg, device)
 
 
-def run_train_transformer(raw: Dict[str, Any], train_raw: Dict[str, Any],
+def run_train_transformer(raw: Dict[str, Any], train_cfg: TrainConfig,
                           device):
     from .train.loop import run_train_transformer as run
 
-    train_cfg = TrainConfig.from_dict(train_raw)
-    model_cfg = TransformerConfig.from_dict(raw["transformer"])
+    model_cfg = (TransformerConfig.from_dict(raw["transformer"])
+                 if "transformer" in raw else TransformerConfig())
     batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
     return run(train_cfg, model_cfg, batches, device)
 
@@ -173,12 +178,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     with open(args.config) as f:
         raw = json.load(f)
-    train = dict(raw.get("train", {}))
-    mode = args.mode or train.get("mode", "pretrain_segmentation")
+    train_raw = dict(raw.get("train", {}))
+    mode = args.mode or train_raw.get("mode", "pretrain_segmentation")
+    train_raw["mode"] = (mode if mode in TRAIN_CONFIG_MODES
+                         else TRAIN_CONFIG_MODES[0])
+    train_cfg = TrainConfig.from_dict(train_raw)
     device = torch.device(args.device)
     if mode in _TRAIN_MODES:
-        train["mode"] = mode
-        state = _TRAIN_MODES[mode](raw, train, device)
+        state = _TRAIN_MODES[mode](raw, train_cfg, device)
         print(f"trained to step {state.step}")
         return 0
     if mode != "sample":
@@ -186,11 +193,7 @@ def main(argv=None) -> int:
             f"mode {mode!r} is not ported to mas_tpu_torch yet (ROADMAP "
             "A10, A11); only 'sample', 'pretrain_segmentation' and "
             "'train_transformer' are")
-    unknown = set(train) - _SAMPLE_TRAIN_KEYS
-    if unknown:
-        raise ConfigError(f"train keys {sorted(unknown)} configure training, "
-                          "which mas_tpu_torch does not port yet")
-    print(run_sample(raw, device))
+    print(run_sample(raw, train_cfg, device))
     return 0
 
 

@@ -1,5 +1,5 @@
 // Single-token decode attention over an int8 or int4 KV cache (kernel B2)
-// and over a float cache (kernel B9): one template, two instances.
+// and over a float cache (kernel B9): one template, two kernel names.
 //
 // B2 replaces: mas_tpu/ops/quant.py::_int8_decode_kernel (launched by
 // _decode_attention_int8_pallas), the fused quantized-cache read.
@@ -7,52 +7,100 @@
 // _decode_attention_pallas), the read of the float ("compute") cache.
 //
 // Computes, for one query row per (b, h) and positions t <= index:
-//   s[t] = (q . k[t]) * ks[t] / sqrt(d)        (k scale folds in after the dot)
+//   s[t] = (q' . k[t]) * ks[t]                 (k scale folds in after the dot)
 //   p    = softmax(s)
 //   out  = sum_t (p[t] * vs[t]) * v[t]          (v scale folds into p)
-// with ks = vs = 1 for a float cache (no scale is read).  p stays fp32, as
-// in the Pallas kernels; the output is rounded to q's dtype once.
+// with ks = vs = 1 for a float cache (no scale is read).  q' = q / sqrt(d):
+// B2 scales in fp32 (mas_tpu/ops/quant.py:204); B9 scales in q's dtype, as
+// the Pallas kernel's q * asarray(scale, q.dtype) (the host passes the
+// scale rounded to that dtype; the product is rounded to it once).  p stays
+// fp32, as in the Pallas kernels; the output is rounded to q's dtype once.
 // Cache layout (the port's own): values [B, H, T, *] with the d values of a
 // position contiguous: int8 [.., d], int4 [.., d/2] uint8 with two nibbles
 // per byte (low nibble = even dim), bf16 or fp32 [.., d]; scales [B, H, T]
 // fp32.  Positions are ``pos_stride`` bytes apart and rows of one (b, h)
 // are T * pos_stride bytes apart, so the k and v halves of the packed
-// [B, H, T, 2d] cache are read in place through strided views (pos_stride
-// 2d bytes for int8, d for int4); the lane caches have pos_stride = the
-// bytes of one position.  ``index`` is a 1-element int32 device tensor, so
-// the launch needs no host value of the decode position.
+// [B, H, T, 2d] cache are read in place through strided views; the lane
+// caches have pos_stride = the bytes of one position.  ``index`` is a
+// 1-element int32 device tensor: no launch parameter depends on it.
 //
 // What bounds both on the H100: bytes.  Every valid cache position is read
-// once (d/2, d or 2d bytes, plus a 4-byte scale when quantized, for k and
-// for v) and feeds only 2 * d multiply-adds, far below the card's
-// ops-per-byte balance.
+// once (d/2, d, 2d or 4d bytes, plus a 4-byte scale when quantized, for k
+// and for v) and feeds only 2 d multiply-adds, far below the card's
+// operations-per-byte balance.  MHA gives each (b, h) one query row, so
+// the tensor cores have nothing to do.  The levers are bytes in flight and
+// enough blocks on every SM.
 //
-// What the design does about it: only positions <= index are read (the
-// Pallas kernels' ceil((index+1)/128) blocks, at position granularity), and
-// quantized values are dequantized in registers, so the device-memory
-// stream stays at one byte, one nibble or one float per element.  One block
-// per (b, h): at the serving batch (64 images, 128 rows with guidance) that
-// is 2048 blocks over the 132 SMs.  Eight lanes share one position, each
-// reading a contiguous 4-, 8- or 16-byte slice of its d values (two 16-byte
-// loads for fp32); a warp covers four positions per step, so neighbouring
-// lanes read neighbouring bytes.  Each lane group keeps its own online
-// softmax state; groups merge through shuffles, warps through shared
-// memory.
+// What the design does about it:
+// - A ring of tiles in shared memory.  Each block copies tiles of P
+//   positions of k, v (and their scales) with cp.async into a STAGES-deep
+//   ring, STAGES - 1 tiles ahead of the one it computes on, so no global
+//   load ever waits on the softmax, and every block keeps 24 KB in flight.
+//   The math reads shared memory only.  A stage is 8 KB of values for
+//   every (bits, d): P = 4096 / (bytes of one position).
+// - A split over positions inside a thread-block cluster.  The launch has
+//   B * H * S blocks, S consecutive blocks (one cluster) per (b, h).  The
+//   host picks S from B * H alone (ops/quant.py::decode_split): enough
+//   blocks for every SM at batch 4, S = 1 at the serving batch.  Block
+//   rank j takes the positions [j c, (j + 1) c) of [0, valid) with
+//   c = ceil(valid / S), computed on the device from ``index``, so the
+//   launch shape never changes with the decode position (a CUDA graph can
+//   hold it).  A chunk may be empty (valid < S): it contributes m = -1e30,
+//   l = 0 and no NaN.  Each block merges its warps' online-softmax states
+//   into (m, l, acc[d]) in shared memory; rank 0 reads its peers' states
+//   through distributed shared memory (cluster.map_shared_rank), merges
+//   them in rank order and writes the output; a second cluster.sync keeps
+//   every block alive until rank 0 has read it.  No global workspace, no
+//   counter to reset, and the chunking depends on B * H and valid only,
+//   so the packed read and the lane read of the same values give the same
+//   bits.
+// - Lane mapping: every lane works on 16 bytes of one position (bf16: 8
+//   values, fp32: 4, int8: 16), 8 for int4 (16 values), so a warp's
+//   shared-memory reads are contiguous and free of bank conflicts.  Each lane group keeps its own online-softmax state and
+//   rescales once per tile.  int8 and int4 values become floats by the
+//   2^23 magic-number trick (exact for these small integers), not by the
+//   quarter-rate integer-to-float conversion.
+// - head_dim is a template parameter, instantiated for 32, 64 and 128.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int D = 64;             // head dim
-constexpr int LPP = 8;            // lanes per cache position
-constexpr int DPL = D / LPP;      // dims per lane
 constexpr int WARPS = 4;
 constexpr int NT = 32 * WARPS;
-constexpr int PPW = 32 / LPP;     // positions per warp per step
-constexpr int PPB = PPW * WARPS;  // positions per block per step
-constexpr float NEG = -1e30f;
+constexpr int STAGES = 4;         // ring depth: STAGES - 1 tiles in flight
+constexpr int STAGE_VALUES = 8192;  // bytes of k and v values per stage
+constexpr int MAX_SPLIT = 8;      // portable cluster size
+constexpr float NEG = -1e30f;     // masked score, as the Pallas kernels
+
+// geometry of one (bits, head dim) instance.  A lane works on 16 bytes of
+// a position, 8 for int4: 32 int4 values a lane took 109 registers (q and
+// accumulator alone 64), four blocks an SM; 16 values take 84, five.
+template <int BITS, int D>
+struct Geo {
+  static constexpr int W = D * BITS / 8;   // bytes of one position (k or v)
+  static constexpr int LB = BITS == 4 ? 8 : 16;  // bytes per lane
+  static constexpr int LPP = W / LB;       // lanes per position
+  static constexpr int VPL = LB * 8 / BITS;  // values per lane
+  static constexpr int PPW = 32 / LPP;     // positions per warp step
+  static constexpr int PPB = PPW * WARPS;  // positions per block step
+  static constexpr int P = STAGE_VALUES / (2 * W);  // positions per tile
+  static constexpr int STEPS = P / PPB;    // block steps per tile
+  static constexpr int CPP = W / 16;       // 16-byte copies per position
+  static constexpr int VAL_BYTES = 2 * P * W;                   // k, v
+  static constexpr int STAGE_BYTES = VAL_BYTES + (BITS <= 8 ? 8 * P : 0);
+  static_assert(LPP >= 1 && LPP <= 32 && (LPP & (LPP - 1)) == 0,
+                "a position spans a power of two of lanes");
+  static_assert(VPL * LPP == D, "lanes cover the head dim");
+  static_assert(CPP >= 1 && P * CPP % NT == 0,
+                "whole 16-byte copies per thread");
+  static_assert(STEPS >= 1 && STEPS * PPB == P, "whole steps per tile");
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -62,32 +110,83 @@ __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+// x rounded to TQ (round to nearest even) and back
+__device__ __forceinline__ float round_to(float x, const float*) { return x; }
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
-// DPL cache values of one lane -> floats.  BITS 8 and 4: int8 / int4
-// values, sign-extended; 16: bf16; 32: fp32.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The cache bytes of one lane (in shared memory) -> VPL floats.  BITS 8:
+// 16 int8 values; 4: 8 bytes of int4 values (two's complement); 16: 8
+// bf16; 32: 4 fp32.
 template <int BITS>
 __device__ __forceinline__ void unpack(const uint8_t* p, float* out);
 
 template <>
 __device__ __forceinline__ void unpack<8>(const uint8_t* p, float* out) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    out[i] = static_cast<float>(static_cast<int>(w.x << (24 - 8 * i)) >> 24);
-    out[4 + i] =
-        static_cast<float>(static_cast<int>(w.y << (24 - 8 * i)) >> 24);
+    // byte b + 128 as the low byte of 2^23: float 2^23 + 128 + b, exactly
+    const uint32_t x = u[i] ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[4 * i + j] =
+          __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440 + j)) -
+          8388736.0f;
   }
 }
 
 template <>
 __device__ __forceinline__ void unpack<4>(const uint8_t* p, float* out) {
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const uint32_t u[2] = {w.x, w.y};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // byte i: low nibble = dim 2i, high nibble = dim 2i + 1
-    out[2 * i] = static_cast<float>(static_cast<int>(w << (28 - 8 * i)) >> 28);
-    out[2 * i + 1] =
-        static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 28);
+  for (int i = 0; i < 2; ++i) {
+    // byte j of a word holds dims 8 i + 2 j (low nibble) and 8 i + 2 j + 1
+    // (high nibble); each nibble n + 8 becomes the low byte of 2^23: float
+    // 2^23 + 8 + n, exactly
+    const uint32_t lo = (u[i] & 0x0F0F0F0Fu) ^ 0x08080808u;
+    const uint32_t hi = ((u[i] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      out[8 * i + 2 * j] =
+          __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7440 + j)) -
+          8388616.0f;
+      out[8 * i + 2 * j + 1] =
+          __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7440 + j)) -
+          8388616.0f;
+    }
   }
 }
 
@@ -106,98 +205,170 @@ __device__ __forceinline__ void unpack<16>(const uint8_t* p, float* out) {
 template <>
 __device__ __forceinline__ void unpack<32>(const uint8_t* p, float* out) {
   const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 16);
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
-// The body of both kernels, for the block of one (b, h).  BITS 8 / 4: a
-// quantized cache with per-position scales (B2); 16 / 32: a bf16 / fp32
-// cache without scales (B9).  pos_stride: bytes between positions.
-template <int BITS, typename TQ>
+// The body of both kernels, for block rank j of the cluster of one (b, h).
+// BITS 8 / 4: a quantized cache with per-position scales (B2); 16 / 32: a
+// bf16 / fp32 cache without scales (B9).  pos_stride: bytes between
+// positions.
+template <int BITS, int D, typename TQ>
 __device__ __forceinline__ void decode_block(
     const TQ* __restrict__ q, const uint8_t* __restrict__ kq,
     const float* __restrict__ ks, const uint8_t* __restrict__ vq,
     const float* __restrict__ vs, const int* __restrict__ index,
     TQ* __restrict__ out, int H, int t_len, int pos_stride, int q_sb,
     int q_sh, float scale) {
-  constexpr bool SCALED = BITS <= 8;      // quantized: fold in the scales
-  constexpr int LBYTES = DPL * BITS / 8;  // bytes per lane
+  using G = Geo<BITS, D>;
+  constexpr bool SCALED = BITS <= 8;   // quantized: fold in the scales
+  constexpr int VPL = G::VPL;
+  __shared__ __align__(16) uint8_t ring[STAGES * G::STAGE_BYTES];
   __shared__ float sm_m[WARPS], sm_l[WARPS];
   __shared__ float sm_acc[WARPS][D];
+  __shared__ float part_m, part_l;   // this block's state, read by rank 0
+  __shared__ float part_acc[D];
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / split;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int grp = lane / LPP;   // position slot in the warp
-  const int part = lane % LPP;  // which DPL dims
-  const int valid = min(index[0] + 1, t_len);
+  const int grp = lane / G::LPP;   // position slot in the warp
+  const int part = lane % G::LPP;  // which LB bytes of the position
 
-  float qr[DPL];
-  const TQ* qp = q + (long long)b * q_sb + (long long)h * q_sh + part * DPL;
-#pragma unroll
-  for (int c = 0; c < DPL; ++c) qr[c] = to_f(qp[c]) * scale;
+  // this block's positions: [lo, hi) of [0, valid)
+  const int valid = min(index[0] + 1, t_len);
+  const int chunk = (valid + split - 1) / split;
+  const int lo = min(rank * chunk, valid);
+  const int hi = min(lo + chunk, valid);
+  const int ntiles = (hi - lo + G::P - 1) / G::P;
 
   const long long row = (long long)bh * t_len;
-  const uint8_t* kb = kq + row * pos_stride + part * LBYTES;
-  const uint8_t* vb = vq + row * pos_stride + part * LBYTES;
+  const uint8_t* kb = kq + row * pos_stride;
+  const uint8_t* vb = vq + row * pos_stride;
   const float* ksb = SCALED ? ks + row : nullptr;  // float caches: no scales
   const float* vsb = SCALED ? vs + row : nullptr;
 
-  float m = NEG, l = 0.f;
-  float acc[DPL];
+  // tile `tile` of the chunk -> ring slot `slot`: k values [P][W], v values
+  // [P][W], then k and v scales [P] each; positions past hi zero-filled
+  auto load_tile = [&](int tile, int slot) {
+    const int p0 = lo + tile * G::P;
+    const uint32_t st = smem_addr(ring + slot * G::STAGE_BYTES);
 #pragma unroll
-  for (int c = 0; c < DPL; ++c) acc[c] = 0.f;
+    for (int i = 0; i < G::P * G::CPP / NT; ++i) {
+      const int c = tid + i * NT;
+      const int p = c / G::CPP, off = (c % G::CPP) * 16;
+      const bool ok = p0 + p < hi;
+      const long long src = (long long)(ok ? p0 + p : 0) * pos_stride + off;
+      cp_async16(st + p * G::W + off, kb + src, ok);
+      cp_async16(st + G::P * G::W + p * G::W + off, vb + src, ok);
+    }
+    if constexpr (SCALED) {
+      for (int p = tid; p < G::P; p += NT) {
+        const bool ok = p0 + p < hi;
+        const int pos = ok ? p0 + p : 0;
+        cp_async4(st + G::VAL_BYTES + 4 * p, ksb + pos, ok);
+        cp_async4(st + G::VAL_BYTES + 4 * (G::P + p), vsb + pos, ok);
+      }
+    }
+  };
 
-  // warp-uniform trip count: every lane reaches the shuffles
-  for (int base = warp * PPW; base < valid; base += PPB) {
-    const int pos = base + grp;
-    const bool ok = pos < valid;
-    float dot = 0.f;
-    if (ok) {
-      float kf[DPL];
-      unpack<BITS>(kb + (long long)pos * pos_stride, kf);
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) dot = fmaf(qr[c], kf[c], dot);
-    }
-#pragma unroll
-    for (int o = 1; o < LPP; o <<= 1)
-      dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    if (ok) {
-      const float s = SCALED ? dot * ksb[pos] : dot;
-      const float m_new = fmaxf(m, s);
-      const float alpha = expf(m - m_new);
-      const float p = expf(s - m_new);
-      l = l * alpha + p;
-      const float pv = SCALED ? p * vsb[pos] : p;
-      float vf[DPL];
-      unpack<BITS>(vb + (long long)pos * pos_stride, vf);
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[c] = fmaf(pv, vf[c], acc[c] * alpha);
-      m = m_new;
-    }
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) load_tile(s, s);
+    cp_async_commit();
   }
 
-  // merge the PPW position groups of the warp (lanes 8 and 16 apart)
+  // q' while the first tiles are in flight: VPL dims per lane
+  float qr[VPL];
+  const TQ* qp = q + (long long)(bh / H) * q_sb + (long long)(bh % H) * q_sh +
+                 part * VPL;
+#pragma unroll
+  for (int c = 0; c < VPL; ++c) {
+    const float x = to_f(qp[c]) * scale;
+    qr[c] = SCALED ? x : round_to(x, q);
+  }
+
+  float m = NEG, l = 0.f;
+  float acc[VPL];
+#pragma unroll
+  for (int c = 0; c < VPL; ++c) acc[c] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + STAGES - 1 < ntiles)
+      load_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // tile t has landed
+    __syncthreads();
+    const uint8_t* st = ring + (t % STAGES) * G::STAGE_BYTES;
+    const float* kss = reinterpret_cast<const float*>(st + G::VAL_BYTES);
+    const int p0 = lo + t * G::P;
+
+    // scores of this lane group's STEPS positions; one rescale per tile
+    float sc[G::STEPS];
+    float tmax = NEG;
+#pragma unroll
+    for (int j = 0; j < G::STEPS; ++j) {
+      const int p = j * G::PPB + warp * G::PPW + grp;
+      float kf[VPL];
+      unpack<BITS>(st + p * G::W + part * G::LB, kf);
+      // four partial sums: a chain of VPL dependent fmas would stall
+      float dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) dp[c % 4] = fmaf(qr[c], kf[c], dp[c % 4]);
+      float dot = (dp[0] + dp[1]) + (dp[2] + dp[3]);
+#pragma unroll
+      for (int o = 1; o < G::LPP; o <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      const float s = SCALED ? dot * kss[p] : dot;
+      sc[j] = p0 + p < hi ? s : NEG;
+      tmax = fmaxf(tmax, sc[j]);
+    }
+    if (tmax > m) {
+      const float alpha = expf(m - tmax);
+      l *= alpha;
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) acc[c] *= alpha;
+      m = tmax;
+    }
+#pragma unroll
+    for (int j = 0; j < G::STEPS; ++j) {
+      const int p = j * G::PPB + warp * G::PPW + grp;
+      if (p0 + p < hi) {
+        const float pr = expf(sc[j] - m);
+        l += pr;
+        const float pv = SCALED ? pr * kss[G::P + p] : pr;
+        float vf[VPL];
+        unpack<BITS>(st + G::P * G::W + p * G::W + part * G::LB, vf);
+#pragma unroll
+        for (int c = 0; c < VPL; ++c) acc[c] = fmaf(pv, vf[c], acc[c]);
+      }
+    }
+    __syncthreads();  // every warp is done with this slot
+  }
+
+  // merge the PPW position groups of the warp (lanes LPP apart)
   float m_w = m;
 #pragma unroll
-  for (int o = LPP; o < 32; o <<= 1)
+  for (int o = G::LPP; o < 32; o <<= 1)
     m_w = fmaxf(m_w, __shfl_xor_sync(0xffffffffu, m_w, o));
   const float f = expf(m - m_w);
   l *= f;
 #pragma unroll
-  for (int o = LPP; o < 32; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+  for (int o = G::LPP; o < 32; o <<= 1)
+    l += __shfl_xor_sync(0xffffffffu, l, o);
 #pragma unroll
-  for (int c = 0; c < DPL; ++c) {
+  for (int c = 0; c < VPL; ++c) {
     float a = acc[c] * f;
 #pragma unroll
-    for (int o = LPP; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+    for (int o = G::LPP; o < 32; o <<= 1)
+      a += __shfl_xor_sync(0xffffffffu, a, o);
     acc[c] = a;
   }
   if (grp == 0) {
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) sm_acc[warp][part * DPL + c] = acc[c];
+    for (int c = 0; c < VPL; ++c) sm_acc[warp][part * VPL + c] = acc[c];
     if (part == 0) {
       sm_m[warp] = m_w;
       sm_l[warp] = l;
@@ -205,7 +376,7 @@ __device__ __forceinline__ void decode_block(
   }
   __syncthreads();
 
-  // merge the warps; one thread per output dim
+  // merge the warps into this block's state; one thread per dim
   if (tid < D) {
     float mm = sm_m[0];
 #pragma unroll
@@ -217,112 +388,185 @@ __device__ __forceinline__ void decode_block(
       ll += sm_l[w] * e;
       a += sm_acc[w][tid] * e;
     }
+    part_acc[tid] = a;
+    if (tid == 0) {
+      part_m = mm;
+      part_l = ll;
+    }
+  }
+  cluster.sync();  // every block's state is written
+
+  // rank 0 merges the cluster's states in rank order and writes out; the
+  // remote reads of all ranks are issued before any is used
+  if (rank == 0 && tid < D) {
+    float rm[MAX_SPLIT], rl[MAX_SPLIT], ra[MAX_SPLIT];
+#pragma unroll
+    for (int r = 0; r < MAX_SPLIT; ++r) {
+      const bool in = r < split;
+      const int rr = in ? r : 0;   // a rank of the cluster, read or not
+      const float m_r = *cluster.map_shared_rank(&part_m, rr);
+      const float l_r = *cluster.map_shared_rank(&part_l, rr);
+      const float a_r = cluster.map_shared_rank(part_acc, rr)[tid];
+      rm[r] = in ? m_r : NEG;
+      rl[r] = in ? l_r : 0.f;
+      ra[r] = in ? a_r : 0.f;
+    }
+    float mm = rm[0];
+#pragma unroll
+    for (int r = 1; r < MAX_SPLIT; ++r) mm = fmaxf(mm, rm[r]);
+    float ll = 0.f, a = 0.f;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLIT; ++r) {
+      const float e = expf(rm[r] - mm);
+      ll += rl[r] * e;
+      a += ra[r] * e;
+    }
     store_f(out + (long long)bh * D + tid, a / ll);
   }
+  cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
 // B2 (two kernel names, so a profile tells the two kernels apart)
-template <int BITS, typename TQ>
+template <int BITS, int D, typename TQ>
 __global__ void __launch_bounds__(NT)
 decode_quant_kernel(const TQ* q, const uint8_t* kq, const float* ks,
                     const uint8_t* vq, const float* vs, const int* index,
                     TQ* out, int H, int t_len, int pos_stride, int q_sb,
                     int q_sh, float scale) {
-  decode_block<BITS, TQ>(q, kq, ks, vq, vs, index, out, H, t_len, pos_stride,
-                         q_sb, q_sh, scale);
+  decode_block<BITS, D, TQ>(q, kq, ks, vq, vs, index, out, H, t_len,
+                            pos_stride, q_sb, q_sh, scale);
 }
 
 // B9
-template <int BITS, typename TQ>
+template <int BITS, int D, typename TQ>
 __global__ void __launch_bounds__(NT)
 decode_float_kernel(const TQ* q, const uint8_t* k, const uint8_t* v,
                     const int* index, TQ* out, int H, int t_len, int q_sb,
                     int q_sh, float scale) {
-  decode_block<BITS, TQ>(q, k, nullptr, v, nullptr, index, out, H, t_len,
-                         D * BITS / 8, q_sb, q_sh, scale);
+  decode_block<BITS, D, TQ>(q, k, nullptr, v, nullptr, index, out, H, t_len,
+                            D * BITS / 8, q_sb, q_sh, scale);
+}
+
+// rows * split blocks of NT threads, clusters of `split` blocks along x
+template <typename... KArgs, typename... Args>
+cudaError_t launch_split(void (*kernel)(KArgs...), int rows, int split,
+                         cudaStream_t s, Args... args) {
+  if (split < 1 || split > MAX_SPLIT) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows * split);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+struct QuantArgs {
+  const void *q, *kq, *ks, *vq, *vs, *index;
+  void* out;
+  int rows, heads, t_len, pos_stride, q_sb, q_sh, split;
+  float scale;
+  cudaStream_t s;
+};
+
+template <int BITS, int D, typename TQ>
+cudaError_t launch_quant(const QuantArgs& a) {
+  return launch_split(
+      decode_quant_kernel<BITS, D, TQ>, a.rows, a.split, a.s,
+      static_cast<const TQ*>(a.q), static_cast<const uint8_t*>(a.kq),
+      static_cast<const float*>(a.ks), static_cast<const uint8_t*>(a.vq),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.index),
+      static_cast<TQ*>(a.out), a.heads, a.t_len, a.pos_stride, a.q_sb,
+      a.q_sh, a.scale);
+}
+
+template <int BITS, int D>
+cudaError_t launch_quant_q(const QuantArgs& a, int is_bf16) {
+  return is_bf16 ? launch_quant<BITS, D, __nv_bfloat16>(a)
+                 : launch_quant<BITS, D, float>(a);
 }
 
 template <int BITS>
-void launch(const void* q, const void* kq, const void* ks, const void* vq,
-            const void* vs, const void* index, void* out, int batch,
-            int heads, int t_len, int pos_stride, int q_sb, int q_sh,
-            int is_bf16, cudaStream_t s) {
-  const float scale = 0.125f;  // 1 / sqrt(64)
-  const dim3 grid(batch * heads);
-  const uint8_t* k8 = static_cast<const uint8_t*>(kq);
-  const uint8_t* v8 = static_cast<const uint8_t*>(vq);
-  const float* ksf = static_cast<const float*>(ks);
-  const float* vsf = static_cast<const float*>(vs);
-  const int* idx = static_cast<const int*>(index);
-  if (is_bf16) {
-    decode_quant_kernel<BITS, __nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), k8, ksf, v8, vsf, idx,
-        static_cast<__nv_bfloat16*>(out), heads, t_len, pos_stride, q_sb,
-        q_sh, scale);
-  } else {
-    decode_quant_kernel<BITS, float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(q), k8, ksf, v8, vsf, idx,
-        static_cast<float*>(out), heads, t_len, pos_stride, q_sb, q_sh,
-        scale);
+cudaError_t launch_quant_d(const QuantArgs& a, int head_dim, int is_bf16) {
+  switch (head_dim) {
+    case 32: return launch_quant_q<BITS, 32>(a, is_bf16);
+    case 64: return launch_quant_q<BITS, 64>(a, is_bf16);
+    case 128: return launch_quant_q<BITS, 128>(a, is_bf16);
+    default: return cudaErrorInvalidValue;
   }
 }
 
+template <int BITS, int D, typename TQ>
+cudaError_t launch_float(const QuantArgs& a) {
+  return launch_split(
+      decode_float_kernel<BITS, D, TQ>, a.rows, a.split, a.s,
+      static_cast<const TQ*>(a.q), static_cast<const uint8_t*>(a.kq),
+      static_cast<const uint8_t*>(a.vq), static_cast<const int*>(a.index),
+      static_cast<TQ*>(a.out), a.heads, a.t_len, a.q_sb, a.q_sh, a.scale);
+}
+
+template <int BITS, int D>
+cudaError_t launch_float_q(const QuantArgs& a, int is_bf16) {
+  return is_bf16 ? launch_float<BITS, D, __nv_bfloat16>(a)
+                 : launch_float<BITS, D, float>(a);
+}
+
 template <int BITS>
-void launch_float(const void* q, const void* k, const void* v,
-                  const void* index, void* out, int batch, int heads,
-                  int t_len, int q_sb, int q_sh, int is_bf16,
-                  cudaStream_t s) {
-  const float scale = 0.125f;  // 1 / sqrt(64)
-  const dim3 grid(batch * heads);
-  const uint8_t* k8 = static_cast<const uint8_t*>(k);
-  const uint8_t* v8 = static_cast<const uint8_t*>(v);
-  const int* idx = static_cast<const int*>(index);
-  if (is_bf16) {
-    decode_float_kernel<BITS, __nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), k8, v8, idx,
-        static_cast<__nv_bfloat16*>(out), heads, t_len, q_sb, q_sh, scale);
-  } else {
-    decode_float_kernel<BITS, float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(q), k8, v8, idx, static_cast<float*>(out),
-        heads, t_len, q_sb, q_sh, scale);
+cudaError_t launch_float_d(const QuantArgs& a, int head_dim, int is_bf16) {
+  switch (head_dim) {
+    case 32: return launch_float_q<BITS, 32>(a, is_bf16);
+    case 64: return launch_float_q<BITS, 64>(a, is_bf16);
+    case 128: return launch_float_q<BITS, 128>(a, is_bf16);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// B2: bits 8 or 4; fp32 scales [B, H, T]; values pos_stride bytes apart.
+// B2: bits 8 or 4, head_dim 32, 64 or 128; fp32 scales [B, H, T]; values
+// pos_stride bytes apart; q and out bf16 (is_bf16 = 1) or fp32; `split`
+// blocks per (b, h), 1 to 8; `scale` = 1 / sqrt(head_dim) in fp32.
 extern "C" int mas_decode_quant(const void* q, const void* kq, const void* ks,
                                 const void* vq, const void* vs,
                                 const void* index, void* out, int batch,
                                 int heads, int t_len, int pos_stride,
-                                int q_sb, int q_sh, int bits, int is_bf16,
+                                int q_sb, int q_sh, int head_dim, int bits,
+                                int is_bf16, int split, float scale,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const QuantArgs a = {q, kq, ks, vq, vs, index, out, batch * heads, heads,
+                       t_len, pos_stride, q_sb, q_sh, split, scale,
+                       static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
   if (bits == 4) {
-    launch<4>(q, kq, ks, vq, vs, index, out, batch, heads, t_len, pos_stride,
-              q_sb, q_sh, is_bf16, s);
+    err = launch_quant_d<4>(a, head_dim, is_bf16);
   } else if (bits == 8) {
-    launch<8>(q, kq, ks, vq, vs, index, out, batch, heads, t_len, pos_stride,
-              q_sb, q_sh, is_bf16, s);
+    err = launch_quant_d<8>(a, head_dim, is_bf16);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B9: a contiguous bf16 (cache_bf16 = 1) or fp32 cache [B, H, T, 64]; q
-// and out bf16 (is_bf16 = 1) or fp32.
+// B9: a contiguous bf16 (cache_bf16 = 1) or fp32 cache [B, H, T, head_dim]
+// with head_dim 32, 64 or 128; q and out bf16 (is_bf16 = 1) or fp32;
+// `scale` = 1 / sqrt(head_dim) rounded to q's dtype.
 extern "C" int mas_decode_float(const void* q, const void* k, const void* v,
                                 const void* index, void* out, int batch,
                                 int heads, int t_len, int q_sb, int q_sh,
-                                int cache_bf16, int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cache_bf16) {
-    launch_float<16>(q, k, v, index, out, batch, heads, t_len, q_sb, q_sh,
-                     is_bf16, s);
-  } else {
-    launch_float<32>(q, k, v, index, out, batch, heads, t_len, q_sb, q_sh,
-                     is_bf16, s);
-  }
+                                int head_dim, int cache_bf16, int is_bf16,
+                                int split, float scale, void* stream) {
+  const QuantArgs a = {q, k, nullptr, v, nullptr, index, out, batch * heads,
+                       heads, t_len, 0, q_sb, q_sh, split, scale,
+                       static_cast<cudaStream_t>(stream)};
+  const cudaError_t err = cache_bf16 ? launch_float_d<16>(a, head_dim, is_bf16)
+                                     : launch_float_d<32>(a, head_dim, is_bf16);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

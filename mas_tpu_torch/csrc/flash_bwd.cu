@@ -4,14 +4,15 @@
 // (launched by _flash_bwd), the Pallas flash-attention backward of the
 // transformer train step.
 //
-// Computes, from q, k, v, out, dout [B, H, T, 64] (bf16 or fp32) and the
-// forward's lse [B, H, T] (fp32, kernel B1), with scale = 1/sqrt(64) as in
-// the forward:
+// Computes, from q, k, v, out, dout [B, H, T, D] (bf16 or fp32, D = 64 or
+// 128: the wrapper zero-pads any head dim d <= 128 up to one of them and
+// passes scale = 1/sqrt(d) of the true d; any T) and the forward's lse
+// [B, H, T] (fp32, kernel B1):
 //   P  = exp(q k^T scale - lse), masked: row i sees keys [0, bound) with
 //        bound = prefix for i < prefix, else i + 1
 //   dV = P^T dO     dP = dO V^T     delta = rowsum(dO * O)
 //   dS = P * (dP - delta)    dQ = dS K scale    dK = dS^T Q scale
-// and writes dQ, dK, dV in q's dtype into one [B, T, 3, H, 64] buffer, the
+// and writes dQ, dK, dV in q's dtype into one [B, T, 3, H, D] buffer, the
 // layout of the fused qkv projection's output, so its gradient needs no
 // concatenation.
 //
@@ -37,7 +38,15 @@
 // bf16 (flash_bwd_dkv_kernel_bf16, flash_bwd_dq_kernel_bf16): every product
 // runs on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate,
 // fragments and swizzle of flash_mma.cuh), four warps per block, 16 keys
-// (dK/dV) or 16 q rows (dQ) per warp, fp32 accumulators in registers.
+// (dK/dV) or 16 q rows (dQ) per warp, fp32 accumulators in registers.  At
+// D = 128 the accumulators alone take 128 registers a thread, so each
+// 64-wide q tile (dK/dV) or key tile (dQ) is taken in two passes of 32,
+// which halves the live S and dP fragments; the dK/dV kernel sweeps the q
+// tiles twice, dV first, then dK (recomputing S^T), so that one
+// accumulator is live at a time; and the dQ kernel reloads its Q and dO
+// fragments from shared memory at each use instead of keeping them in
+// registers.  Both stay below 255 registers without spills.  At D = 64:
+// one pass of 64, one sweep, Q and dO fragments in registers.
 //   dK/dV: K and V stay in shared memory; Q, dO, lse and delta tiles stream
 //   through a two-stage cp.async ring.  S^T = K Q^T and dP^T = V dO^T put
 //   the keys on the mma rows, so P^T = exp(S^T scale - lse) (masked) and
@@ -59,6 +68,11 @@
 // memory as fp32 rows with a stride of 68 floats, and 256 threads hold a
 // 4 x 4 register tile each of every 64 x 64 product.
 //
+// A ragged last tile (T not a multiple of 64) is zero-filled on load, its
+// lse and delta too: a padded q row then has P = 1 but dO = 0 and dP =
+// delta = 0, so it adds nothing to dK or dV; padded keys are masked, and
+// rows past T are never stored.
+//
 // Inputs are addressed by strides (last dim contiguous), so q, k, v can be
 // views into the fused qkv projection; the bf16 kernels need every (b, h,
 // t) stride a multiple of 8 elements and 16-byte aligned data (the wrapper
@@ -66,6 +80,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "flash_mma.cuh"
 
@@ -87,7 +103,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 // delta[bh][i] = sum_c dO[b, h, i, c] * O[b, h, i, c]; one warp per row
 constexpr int DELTA_THREADS = 256;
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(DELTA_THREADS)
 flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                        float* __restrict__ delta, Strides st, int H,
@@ -101,8 +117,9 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
   const T* op = out + b * st.ob + h * st.oh + i * st.ot;
   const T* gp = dout + b * st.gb + h * st.gh + i * st.gt;
-  float s = to_f(op[lane]) * to_f(gp[lane]) +
-            to_f(op[lane + 32]) * to_f(gp[lane + 32]);
+  float s = 0.f;
+#pragma unroll
+  for (int c = lane; c < D; c += 32) s += to_f(op[c]) * to_f(gp[c]);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   if (lane == 0) delta[row] = s;
@@ -112,57 +129,78 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 
 constexpr int MT = 128;     // threads per block: 4 warps x 16 rows
 constexpr int STAGES = 2;   // ring depth
-// a dK/dV ring stage: Q tile, dO tile, lse[64], delta[64]
-constexpr int QSTAGE_BYTES = 2 * TILE_BYTES + 2 * BT * 4;
-constexpr int DKV_SMEM = 2 * TILE_BYTES + STAGES * QSTAGE_BYTES;
-// the dQ kernel: Q and dO tiles, then STAGES x (K tile, V tile)
-constexpr int DQ_SMEM = 2 * TILE_BYTES + STAGES * 2 * TILE_BYTES;
 
-__device__ __forceinline__ void zero(float (&a)[8][4]) {
+// a dK/dV ring stage: Q tile, dO tile, lse[64], delta[64]
+template <int D>
+__host__ __device__ constexpr int qstage_bytes() {
+  return 2 * tile_bytes<D>() + 2 * BT * 4;
+}
+template <int D>
+__host__ __device__ constexpr int dkv_smem() {
+  return 2 * tile_bytes<D>() + STAGES * qstage_bytes<D>();
+}
+// the dQ kernel: Q and dO tiles, then STAGES x (K tile, V tile)
+template <int D>
+__host__ __device__ constexpr int dq_smem() {
+  return 2 * tile_bytes<D>() * (1 + STAGES);
+}
+// columns of a pass: the q rows (dK/dV) or keys (dQ) of a 64-wide tile
+// taken at once
+template <int D>
+__host__ __device__ constexpr int pass_cols() { return D == 64 ? 64 : 32; }
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N][4]) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < N; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) a[nt][e] = 0.f;
 }
 
-// acc (16 x 64 per warp) += A B over 64 dims: A fragments loaded from the
-// swizzled tile `a_tile` at rows [r0, r0 + 16), B from `b_tile` held [n][k]
-__device__ __forceinline__ void mma_rows_nk(float (&acc)[8][4],
+// acc (16 x NN per warp) += A B^T over D dims: A fragments loaded from the
+// swizzled tile `a_tile` at rows [r0, r0 + 16), B from rows [n0, n0 + NN)
+// of `b_tile`, held [n][k]
+template <int D, int NN>
+__device__ __forceinline__ void mma_rows_nk(float (&acc)[NN / 8][4],
                                             uint32_t a_tile, int r0,
-                                            uint32_t b_tile, int lane) {
+                                            uint32_t b_tile, int n0,
+                                            int lane) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < D / 16; ++j) {
     uint32_t a[4];
-    load_a(a, a_tile, r0, j, lane);
+    load_a<D>(a, a_tile, r0, j, lane);
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < NN / 16; ++np) {
       uint32_t bb[4];
-      load_b_nk(bb, b_tile, 16 * np, j, lane);
+      load_b_nk<D>(bb, b_tile, n0 + 16 * np, j, lane);
       mma(acc[2 * np], a, bb[0], bb[1]);
       mma(acc[2 * np + 1], a, bb[2], bb[3]);
     }
   }
 }
 
-// acc (16 x 64 per warp) += A B over 64 rows of `b_tile` (held [k][n]),
-// with A the bf16 rounding of the C fragments `c` (16 x 64)
-__device__ __forceinline__ void mma_regs_kn(float (&acc)[8][4],
-                                            const float (&c)[8][4],
-                                            uint32_t b_tile, int lane) {
+// acc (16 x D per warp) += A B over rows [k0, k0 + NK) of `b_tile` (held
+// [k][n]), with A the bf16 rounding of the C fragments `c` (16 x NK)
+template <int D, int NK>
+__device__ __forceinline__ void mma_regs_kn(float (&acc)[D / 8][4],
+                                            const float (&c)[NK / 8][4],
+                                            uint32_t b_tile, int k0,
+                                            int lane) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < NK / 16; ++j) {
     uint32_t a[4];
     c_to_a(a, c[2 * j], c[2 * j + 1]);
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < D / 16; ++np) {
       uint32_t bb[4];
-      load_b_kn(bb, b_tile, 16 * np, j, lane);
+      load_b_kn<D>(bb, b_tile, 16 * np, k0 / 16 + j, lane);
       mma(acc[2 * np], a, bb[0], bb[1]);
       mma(acc[2 * np + 1], a, bb[2], bb[3]);
     }
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(MT, 2)
 flash_bwd_dkv_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -172,9 +210,12 @@ flash_bwd_dkv_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dqkv, Strides st,
                           int H, int t_len, int prefix, float scale) {
+  constexpr int TB = tile_bytes<D>();
+  constexpr int QS = qstage_bytes<D>();
+  constexpr int QC = pass_cols<D>();
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t sk = smem_addr(smem), sv = sk + TILE_BYTES;
-  const uint32_t ring = sv + TILE_BYTES;
+  const uint32_t sk = smem_addr(smem), sv = sk + TB;
+  const uint32_t ring = sv + TB;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -188,94 +229,136 @@ flash_bwd_dkv_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   const float* lp = lse + (long long)bh * t_len;
   const float* dp_ = delta + (long long)bh * t_len;
 
-  // stage s <- Q, dO, lse, delta of the q tile at q0
+  // stage s <- Q, dO, lse, delta of the q tile at q0 (rows past T: zeros)
   auto load_q = [&](int s, int q0) {
-    const uint32_t base = ring + s * QSTAGE_BYTES;
-    load_tile<MT>(base, qp, st.qt, q0, t_len);
-    load_tile<MT>(base + TILE_BYTES, gp, st.gt, q0, t_len);
-    if (threadIdx.x < 32) {  // 2 x 16 chunks of 4 floats
-      const int c = threadIdx.x & 15;
-      const float* src = (threadIdx.x < 16 ? lp : dp_) + q0 + 4 * c;
-      cp_async16(base + 2 * TILE_BYTES + (threadIdx.x >> 4) * BT * 4 + 16 * c,
-                 src, true);
-    }
+    const uint32_t base = ring + s * QS;
+    load_tile<MT, D>(base, qp, st.qt, q0, t_len);
+    load_tile<MT, D>(base + TB, gp, st.gt, q0, t_len);
+    const int i = threadIdx.x & (BT - 1);  // threads 0-63 lse, 64-127 delta
+    const bool ok = q0 + i < t_len;
+    cp_async4(base + 2 * TB + (threadIdx.x / BT) * BT * 4 + 4 * i,
+              (threadIdx.x < BT ? lp : dp_) + (ok ? q0 + i : 0), ok);
   };
 
-  load_tile<MT>(sk, k + b * st.kb + h * st.kh, st.kt, k0, t_len);
-  load_tile<MT>(sv, v + b * st.vb + h * st.vh, st.vt, k0, t_len);
+  load_tile<MT, D>(sk, k + b * st.kb + h * st.kh, st.kt, k0, t_len);
+  load_tile<MT, D>(sv, v + b * st.vb + h * st.vh, st.vt, k0, t_len);
   // q-tiles that see a key of this tile: all when the keys meet the prefix,
   // else those from the tile holding row k0 on (rows i >= key)
   const int q_lo = k0 < pfx ? 0 : k0 / BT;
-  const int nq = t_len / BT - q_lo;
-  load_q(0, q_lo * BT);
-  cp_async_commit();
-
+  const int nq = (t_len + BT - 1) / BT - q_lo;
   const int key_lo = k0 + warp * 16 + grp;  // and key_lo + 8
-  float dk[8][4], dv[8][4];
-  zero(dk);
-  zero(dv);
+  const float sl2 = scale * LOG2E;
 
-  for (int i = 0; i < nq; ++i) {
-    const int q0 = (q_lo + i) * BT;
-    if (i + 1 < nq) load_q((i + 1) % STAGES, q0 + BT);
+  // One sweep over the q tiles, accumulating dV (what & 1) and / or dK
+  // (what & 2).  At D = 64 one sweep takes both.  At D = 128 the two
+  // 16 x 128 accumulators of a warp leave too few of the 255 registers for
+  // the rest and spill: dV takes a first sweep, dK a second, which
+  // recomputes S^T (one more of the four products per tile pair).
+  auto sweep = [&](auto what, float (&dk)[D / 8][4],
+                   float (&dv)[D / 8][4]) {
+    constexpr int W = decltype(what)::value;
+    load_q(0, q_lo * BT);
     cp_async_commit();
-    cp_async_wait<1>();  // K, V and this q tile have landed
-    __syncthreads();
-    const uint32_t sq = ring + (i % STAGES) * QSTAGE_BYTES;
-    const uint32_t sg = sq + TILE_BYTES;
-    const float* lse_s = reinterpret_cast<const float*>(
-        smem + (sq - sk) + 2 * TILE_BYTES);
-    const float* del_s = lse_s + BT;
+    for (int i = 0; i < nq; ++i) {
+      const int q0 = (q_lo + i) * BT;
+      if (i + 1 < nq) load_q((i + 1) % STAGES, q0 + BT);
+      cp_async_commit();
+      cp_async_wait<1>();  // K, V and this q tile have landed
+      __syncthreads();
+      const uint32_t sq = ring + (i % STAGES) * QS;
+      const uint32_t sg = sq + TB;
+      const float* lse_s = reinterpret_cast<const float*>(
+          smem + (sq - sk) + 2 * TB);
+      const float* del_s = lse_s + BT;
+      const bool masked = k0 + BT > row_bound(q0, pfx);
 
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 q rows per warp
-    float s[8][4], dpt[8][4];
-    zero(s);
-    zero(dpt);
-    mma_rows_nk(s, sk, warp * 16, sq, lane);
-    mma_rows_nk(dpt, sv, warp * 16, sg, lane);
+#pragma unroll
+      for (int c0 = 0; c0 < BT; c0 += QC) {
+        // S^T = K Q^T and dP^T = V dO^T: 16 keys x QC q rows per warp
+        float s[QC / 8][4], dpt[QC / 8][4];
+        zero(s);
+        mma_rows_nk<D, QC>(s, sk, warp * 16, sq, c0, lane);
+        if constexpr ((W & 2) != 0) {
+          zero(dpt);
+          mma_rows_nk<D, QC>(dpt, sv, warp * 16, sg, c0, lane);
+        }
 
-    // P^T and dS^T in place; column (q row) c = 8 nt + 2 tig + (e & 1)
-    const bool masked = k0 + BT > row_bound(q0, pfx);
-    const float sl2 = scale * LOG2E;
+        // P^T and dS^T in place; column (q row) c = c0 + 8 nt + 2 tig +
+        // (e & 1)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int c = nt * 8 + 2 * tig;
-      const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
-      const float2 ds = *reinterpret_cast<const float2*>(del_s + c);
+        for (int nt = 0; nt < QC / 8; ++nt) {
+          const int c = c0 + nt * 8 + 2 * tig;
+          const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
+          const float2 ds = *reinterpret_cast<const float2*>(del_s + c);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float l2 = (e & 1) ? ls.y : ls.x;
-        const float dl = (e & 1) ? ds.y : ds.x;
-        float p = exp2f(fmaf(s[nt][e], sl2, -l2 * LOG2E));
-        if (masked &&
-            key_lo + 8 * (e >> 1) >= row_bound(q0 + c + (e & 1), pfx))
-          p = 0.f;
-        s[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - dl);
+          for (int e = 0; e < 4; ++e) {
+            const float l2 = (e & 1) ? ls.y : ls.x;
+            const float dl = (e & 1) ? ds.y : ds.x;
+            float p = exp2f(fmaf(s[nt][e], sl2, -l2 * LOG2E));
+            if (masked &&
+                key_lo + 8 * (e >> 1) >= row_bound(q0 + c + (e & 1), pfx))
+              p = 0.f;
+            s[nt][e] = p;
+            if constexpr ((W & 2) != 0) dpt[nt][e] = p * (dpt[nt][e] - dl);
+          }
+        }
+
+        // dV += P^T dO, dK += dS^T Q (q unscaled: dK takes the scale at
+        // the end)
+        if constexpr ((W & 1) != 0) mma_regs_kn<D, QC>(dv, s, sg, c0, lane);
+        if constexpr ((W & 2) != 0) mma_regs_kn<D, QC>(dk, dpt, sq, c0, lane);
       }
+      __syncthreads();  // every warp is done with this stage
     }
+  };
 
-    // dV += P^T dO, dK += dS^T Q (q unscaled: dK takes the scale at the end)
-    mma_regs_kn(dv, s, sg, lane);
-    mma_regs_kn(dk, dpt, sq, lane);
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  // dK, dV rows through the (consumed) K and V tiles, then 16-byte stores
-  store_rows(smem, dk, scale, scale, warp * 16, lane);
-  store_rows(smem + TILE_BYTES, dv, 1.f, 1.f, warp * 16, lane);
-  __syncthreads();
+  // 64 rows of dK (which 0) or dV (which 1) from the swizzled shared tile
+  // at `tile` to dqkv, 16 bytes a thread at a time; rows past T are not
+  // stored
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
   const long long row_stride = 3LL * H * D;
   __nv_bfloat16* base =
       dqkv + ((long long)b * t_len + k0) * row_stride + h * D;
-  for (int idx = threadIdx.x; idx < 2 * BT * 8; idx += MT) {
-    const int which = idx >> 9, r = (idx >> 3) & 63, c = idx & 7;
-    *reinterpret_cast<uint4*>(base + r * row_stride + (1 + which) * H * D +
-                              c * 8) =
-        *reinterpret_cast<const uint4*>(smem + which * TILE_BYTES + swz(r, c));
+  auto write_rows = [&](int which, const unsigned char* tile) {
+    for (unsigned idx = threadIdx.x; idx < BT * CPR; idx += MT) {
+      const int r = idx / CPR, c = idx % CPR;
+      if (k0 + r < t_len)
+        *reinterpret_cast<uint4*>(base + r * row_stride +
+                                  (1 + which) * H * D + c * 8) =
+            *reinterpret_cast<const uint4*>(tile + swz<D>(r, c));
+    }
+  };
+
+  if constexpr (D == 64) {
+    float dk[D / 8][4], dv[D / 8][4];
+    zero(dk);
+    zero(dv);
+    sweep(std::integral_constant<int, 3>(), dk, dv);
+    // dK, dV rows through the (consumed) K and V tiles
+    store_rows<D>(smem, dk, scale, scale, warp * 16, lane);
+    store_rows<D>(smem + TB, dv, 1.f, 1.f, warp * 16, lane);
+    __syncthreads();
+    write_rows(0, smem);
+    write_rows(1, smem + TB);
+  } else {
+    float acc[D / 8][4];
+    zero(acc);
+    sweep(std::integral_constant<int, 1>(), acc, acc);
+    // dV through the free ring, before the second sweep refills it
+    unsigned char* stage = smem + (ring - sk);
+    store_rows<D>(stage, acc, 1.f, 1.f, warp * 16, lane);
+    __syncthreads();
+    write_rows(1, stage);
+    __syncthreads();
+    zero(acc);
+    sweep(std::integral_constant<int, 2>(), acc, acc);
+    store_rows<D>(smem, acc, scale, scale, warp * 16, lane);
+    __syncthreads();
+    write_rows(0, smem);
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(MT, 2)
 flash_bwd_dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
@@ -285,9 +368,12 @@ flash_bwd_dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dqkv, Strides st,
                          int H, int t_len, int prefix, float scale) {
+  constexpr int TB = tile_bytes<D>();
+  constexpr int NJ = D / 16;
+  constexpr int KC = pass_cols<D>();
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t sq = smem_addr(smem), sg = sq + TILE_BYTES;
-  const uint32_t ring = sg + TILE_BYTES;
+  const uint32_t sq = smem_addr(smem), sg = sq + TB;
+  const uint32_t ring = sg + TB;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -299,22 +385,28 @@ flash_bwd_dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kp = k + b * st.kb + h * st.kh;
   const __nv_bfloat16* vp = v + b * st.vb + h * st.vh;
   auto load_kv = [&](int s, int k0) {
-    const uint32_t base = ring + s * 2 * TILE_BYTES;
-    load_tile<MT>(base, kp, st.kt, k0, t_len);
-    load_tile<MT>(base + TILE_BYTES, vp, st.vt, k0, t_len);
+    const uint32_t base = ring + s * 2 * TB;
+    load_tile<MT, D>(base, kp, st.kt, k0, t_len);
+    load_tile<MT, D>(base + TB, vp, st.vt, k0, t_len);
   };
 
-  load_tile<MT>(sq, q + b * st.qb + h * st.qh, st.qt, q0, t_len);
-  load_tile<MT>(sg, dout + b * st.gb + h * st.gh, st.gt, q0, t_len);
+  load_tile<MT, D>(sq, q + b * st.qb + h * st.qh, st.qt, q0, t_len);
+  load_tile<MT, D>(sg, dout + b * st.gb + h * st.gh, st.gt, q0, t_len);
   load_kv(0, 0);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[4][4], ga[4][4];  // Q and dO as A fragments: 16 rows per warp
+  // Q and dO as A fragments (16 rows a warp): kept in registers at D = 64;
+  // at D = 128 they would take 64 registers more than the 255 allow, so
+  // they are loaded again from the resident Q and dO tiles at each use
+  constexpr bool KEEP_A = D == 64;
+  uint32_t qa[KEEP_A ? NJ : 1][4], ga[KEEP_A ? NJ : 1][4];
+  if constexpr (KEEP_A) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    load_a(qa[j], sq, warp * 16, j, lane);
-    load_a(ga[j], sg, warp * 16, j, lane);
+    for (int j = 0; j < NJ; ++j) {
+      load_a<D>(qa[j], sq, warp * 16, j, lane);
+      load_a<D>(ga[j], sg, warp * 16, j, lane);
+    }
   }
 
   // the k-tiles any row of this q tile can see
@@ -325,13 +417,17 @@ flash_bwd_dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   const int row_lo = q0 + warp * 16 + grp;  // and row_lo + 8
   const int bnd[2] = {row_bound(row_lo, pfx), row_bound(row_lo + 8, pfx)};
   const float sl2 = scale * LOG2E;
-  const float lse2[2] = {lse[(long long)bh * t_len + row_lo] * LOG2E,
-                         lse[(long long)bh * t_len + row_lo + 8] * LOG2E};
-  const float dl[2] = {delta[(long long)bh * t_len + row_lo],
-                       delta[(long long)bh * t_len + row_lo + 8]};
+  float lse2[2], dl[2];  // rows past T: zeros (they are not stored)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    const long long at = (long long)bh * t_len + row;
+    lse2[r] = row < t_len ? lse[at] * LOG2E : 0.f;
+    dl[r] = row < t_len ? delta[at] : 0.f;
+  }
   const int tile_bound = row_bound(q0, pfx);
 
-  float dq[8][4];
+  float dq[D / 8][4];
   zero(dq);
 
   for (int t = 0; t < nk; ++t) {
@@ -340,75 +436,111 @@ flash_bwd_dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();  // this K/V tile has landed
     __syncthreads();
-    const uint32_t sk = ring + (t % STAGES) * 2 * TILE_BYTES;
-    const uint32_t sv = sk + TILE_BYTES;
-
-    // S = Q K^T, dP = dO V^T: 16 q rows x 64 keys per warp
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kb[4], vb[4];
-        load_b_nk(kb, sk, 16 * np, j, lane);
-        mma(s[2 * np], qa[j], kb[0], kb[1]);
-        mma(s[2 * np + 1], qa[j], kb[2], kb[3]);
-        load_b_nk(vb, sv, 16 * np, j, lane);
-        mma(dp[2 * np], ga[j], vb[0], vb[1]);
-        mma(dp[2 * np + 1], ga[j], vb[2], vb[3]);
-      }
-
-    // dS in place of S
+    const uint32_t sk = ring + (t % STAGES) * 2 * TB;
+    const uint32_t sv = sk + TB;
     const bool masked = k0 + BT > tile_bound;
+
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int c0 = 0; c0 < BT; c0 += KC) {
+      // S = Q K^T, dP = dO V^T: 16 q rows x KC keys per warp
+      float s[KC / 8][4], dp[KC / 8][4];
+      zero(s);
+      zero(dp);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(s[nt][e], sl2, -lse2[e >> 1]));
-        if (masked && k0 + nt * 8 + 2 * tig + (e & 1) >= bnd[e >> 1])
-          p = 0.f;
-        s[nt][e] = p * (dp[nt][e] - dl[e >> 1]);
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t qj[4], gj[4];
+        if constexpr (KEEP_A) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            qj[e] = qa[j][e];
+            gj[e] = ga[j][e];
+          }
+        } else {
+          load_a<D>(qj, sq, warp * 16, j, lane);
+          load_a<D>(gj, sg, warp * 16, j, lane);
+        }
+#pragma unroll
+        for (int np = 0; np < KC / 16; ++np) {
+          uint32_t kb[4], vb[4];
+          load_b_nk<D>(kb, sk, c0 + 16 * np, j, lane);
+          mma(s[2 * np], qj, kb[0], kb[1]);
+          mma(s[2 * np + 1], qj, kb[2], kb[3]);
+          load_b_nk<D>(vb, sv, c0 + 16 * np, j, lane);
+          mma(dp[2 * np], gj, vb[0], vb[1]);
+          mma(dp[2 * np + 1], gj, vb[2], vb[3]);
+        }
       }
 
-    // dQ += dS K
-    mma_regs_kn(dq, s, sk, lane);
+      // dS in place of S
+#pragma unroll
+      for (int nt = 0; nt < KC / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[nt][e], sl2, -lse2[e >> 1]));
+          if (masked &&
+              k0 + c0 + nt * 8 + 2 * tig + (e & 1) >= bnd[e >> 1])
+            p = 0.f;
+          s[nt][e] = p * (dp[nt][e] - dl[e >> 1]);
+        }
+
+      // dQ += dS K
+      mma_regs_kn<D, KC>(dq, s, sk, c0, lane);
+    }
     __syncthreads();  // every warp is done with this stage
   }
 
   // dQ * scale through the (consumed) Q tile, then 16-byte stores
-  store_rows(smem, dq, scale, scale, warp * 16, lane);
+  store_rows<D>(smem, dq, scale, scale, warp * 16, lane);
   __syncthreads();
+  constexpr int CPR = D / 8;
   const long long row_stride = 3LL * H * D;
   __nv_bfloat16* base =
       dqkv + ((long long)b * t_len + q0) * row_stride + h * D;
-  for (int idx = threadIdx.x; idx < BT * 8; idx += MT) {
-    const int r = idx >> 3, c = idx & 7;
-    *reinterpret_cast<uint4*>(base + r * row_stride + c * 8) =
-        *reinterpret_cast<const uint4*>(smem + swz(r, c));
+  for (unsigned idx = threadIdx.x; idx < BT * CPR; idx += MT) {
+    const int r = idx / CPR, c = idx % CPR;
+    if (q0 + r < t_len)
+      *reinterpret_cast<uint4*>(base + r * row_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + swz<D>(r, c));
   }
 }
 
 // --- fp32: CUDA cores --------------------------------------------------------
 
 constexpr int NT = 256;          // threads per block: 16 x 16
-constexpr int LD = D + 4;        // shared row stride in floats
-constexpr int TILE = BT * LD;    // floats per shared tile
+constexpr int LDP = BT + 4;      // shared row stride of P, dS tiles (floats)
 
-// dst[r][c] = src[(row0 + r) * row_stride + c] * mul, for a 64 x 64 tile
+// shared row stride of a [64][D] tile in floats
+template <int D>
+__host__ __device__ constexpr int ld_of() { return D + 4; }
+// dK/dV: K, V, Q, dO tiles [64][D + 4], P and dS [64][68]
+template <int D>
+__host__ __device__ constexpr int dkv_f32_smem() {
+  return (4 * BT * ld_of<D>() + 2 * BT * LDP) * 4;
+}
+// dQ: Q, dO, K, V tiles [64][D + 4], dS^T [64][68]
+template <int D>
+__host__ __device__ constexpr int dq_f32_smem() {
+  return (4 * BT * ld_of<D>() + BT * LDP) * 4;
+}
+
+// dst[r][c] = src[(row0 + r) * row_stride + c] * mul, for a 64 x D tile;
+// rows at or past t_len are zero
+template <int D>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               long long row_stride, int row0,
-                                              float mul) {
+                                              int t_len, float mul) {
   for (int idx = threadIdx.x; idx < BT * D; idx += NT) {
     const int r = idx / D, c = idx % D;
-    dst[r * LD + c] = src[(row0 + r) * row_stride + c] * mul;
+    dst[r * ld_of<D>() + c] =
+        row0 + r < t_len ? src[(row0 + r) * row_stride + c] * mul : 0.f;
   }
 }
 
 // acc[a][b] += sum_c A[ty + 16a][c] * B[tx + 16b][c] over the head dim
+template <int D>
 __device__ __forceinline__ void mma_nt(float (&acc)[4][4], const float* a,
                                        const float* b, int ty, int tx) {
+  constexpr int LD = ld_of<D>();
 #pragma unroll 4
   for (int c = 0; c < D; c += 4) {
     float4 av[4], bv[4];
@@ -429,36 +561,47 @@ __device__ __forceinline__ void mma_nt(float (&acc)[4][4], const float* a,
   }
 }
 
-// acc[a][b] += sum_r A[r][4 ty + a] * B[r][4 tx + b] over the 64 tile rows
-__device__ __forceinline__ void mma_tn(float (&acc)[4][4], const float* a,
-                                       const float* b, int ty, int tx) {
+// acc[a][4 g + b] += sum_r A[r][4 ty + a] * B[r][64 g + 4 tx + b] over the
+// 64 tile rows; A [64][LDP], B [64][D + 4], g < D / 64
+template <int D>
+__device__ __forceinline__ void mma_tn(float (&acc)[4][D / 16],
+                                       const float* a, const float* b,
+                                       int ty, int tx) {
+  constexpr int LD = ld_of<D>();
 #pragma unroll 8
   for (int r = 0; r < BT; ++r) {
-    const float4 av = *reinterpret_cast<const float4*>(&a[r * LD + 4 * ty]);
-    const float4 bv = *reinterpret_cast<const float4*>(&b[r * LD + 4 * tx]);
+    const float4 av = *reinterpret_cast<const float4*>(&a[r * LDP + 4 * ty]);
     const float ar[4] = {av.x, av.y, av.z, av.w};
-    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int g = 0; g < D / 64; ++g) {
+      const float4 bv =
+          *reinterpret_cast<const float4*>(&b[r * LD + 64 * g + 4 * tx]);
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][4 * g + j] = fmaf(ar[i], br[j], acc[i][4 * g + j]);
+    }
   }
 }
 
-__global__ void __launch_bounds__(NT, 2)
+template <int D>
+__global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dqkv,
                      Strides st, int H, int t_len, int prefix, float scale) {
+  constexpr int LD = ld_of<D>();
   extern __shared__ __align__(16) float smemf[];
   float* ks = smemf;            // K [key][c]
-  float* vs = ks + TILE;        // V [key][c]
-  float* qs = vs + TILE;        // Q * scale [row][c]
-  float* gs = qs + TILE;        // dO [row][c]
-  float* ps = gs + TILE;        // P [row][key]
-  float* dss = ps + TILE;       // dS [row][key]
+  float* vs = ks + BT * LD;     // V [key][c]
+  float* qs = vs + BT * LD;     // Q * scale [row][c]
+  float* gs = qs + BT * LD;     // dO [row][c]
+  float* ps = gs + BT * LD;     // P [row][key]
+  float* dss = ps + BT * LDP;   // dS [row][key]
   __shared__ float lse_s[BT], delta_s[BT];
 
   const int bh = blockIdx.y;
@@ -474,27 +617,28 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* lp = lse + (long long)bh * t_len;
   const float* dp_ = delta + (long long)bh * t_len;
 
-  load_tile_f32(ks, kp, st.kt, k0, 1.f);
-  load_tile_f32(vs, vp, st.vt, k0, 1.f);
+  load_tile_f32<D>(ks, kp, st.kt, k0, t_len, 1.f);
+  load_tile_f32<D>(vs, vp, st.vt, k0, t_len, 1.f);
 
-  float dk[4][4], dv[4][4];
+  float dk[4][D / 16], dv[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
+    for (int j = 0; j < D / 16; ++j) dk[i][j] = dv[i][j] = 0.f;
 
   // q-tiles that see a key of this tile: all when the keys meet the prefix,
   // else those from the tile holding row k0 on (rows i >= key)
   const int q_lo = k0 < pfx ? 0 : k0 / BT;
-  const int nq = t_len / BT;
+  const int nq = (t_len + BT - 1) / BT;
   for (int qi = q_lo; qi < nq; ++qi) {
     const int q0 = qi * BT;
     __syncthreads();  // the previous tile's Q, dO, P, dS are consumed
-    load_tile_f32(qs, qp, st.qt, q0, scale);
-    load_tile_f32(gs, gp, st.gt, q0, 1.f);
+    load_tile_f32<D>(qs, qp, st.qt, q0, t_len, scale);
+    load_tile_f32<D>(gs, gp, st.gt, q0, t_len, 1.f);
     if (threadIdx.x < BT) {
-      lse_s[threadIdx.x] = lp[q0 + threadIdx.x];
-      delta_s[threadIdx.x] = dp_[q0 + threadIdx.x];
+      const int row = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = row < t_len ? lp[row] : 0.f;
+      delta_s[threadIdx.x] = row < t_len ? dp_[row] : 0.f;
     }
     __syncthreads();
 
@@ -503,8 +647,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    mma_nt(s, qs, ks, ty, tx);   // rows ty + 16i, keys tx + 16j
-    mma_nt(dp, gs, vs, ty, tx);
+    mma_nt<D>(s, qs, ks, ty, tx);   // rows ty + 16i, keys tx + 16j
+    mma_nt<D>(dp, gs, vs, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -513,13 +657,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const float p = (k0 + c < bound) ? expf(s[i][j] - lse_s[r]) : 0.f;
-        ps[r * LD + c] = p;
-        dss[r * LD + c] = p * (dp[i][j] - delta_s[r]);
+        ps[r * LDP + c] = p;
+        dss[r * LDP + c] = p * (dp[i][j] - delta_s[r]);
       }
     }
     __syncthreads();
-    mma_tn(dv, ps, gs, ty, tx);   // keys 4ty + i, dims 4tx + j
-    mma_tn(dk, dss, qs, ty, tx);
+    mma_tn<D>(dv, ps, gs, ty, tx);   // keys 4ty + i, dims 64g + 4tx + j
+    mma_tn<D>(dk, dss, qs, ty, tx);
   }
 
   // dK = dS^T (Q scale) is complete: q was scaled on load
@@ -527,29 +671,32 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + 4 * ty + i;
+    if (key >= t_len) continue;
     float* base = dqkv + ((long long)b * t_len + key) * row_stride + h * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = 4 * tx + j;
+    for (int j = 0; j < D / 16; ++j) {
+      const int c = 64 * (j / 4) + 4 * tx + j % 4;
       base[H * D + c] = dk[i][j];
       base[2 * H * D + c] = dv[i][j];
     }
   }
 }
 
-__global__ void __launch_bounds__(NT, 2)
+template <int D>
+__global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dqkv,
                     Strides st, int H, int t_len, int prefix, float scale) {
+  constexpr int LD = ld_of<D>();
   extern __shared__ __align__(16) float smemf[];
   float* qs = smemf;            // Q * scale [row][c]
-  float* gs = qs + TILE;        // dO [row][c]
-  float* ks = gs + TILE;        // K [key][c]
-  float* vs = ks + TILE;        // V [key][c]
-  float* dst = vs + TILE;       // dS^T [key][row]
+  float* gs = qs + BT * LD;     // dO [row][c]
+  float* ks = gs + BT * LD;     // K [key][c]
+  float* vs = ks + BT * LD;     // V [key][c]
+  float* dst = vs + BT * LD;    // dS^T [key][row]
   __shared__ float lse_s[BT], delta_s[BT];
 
   const int bh = blockIdx.y;
@@ -560,18 +707,20 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* kp = k + b * st.kb + h * st.kh;
   const float* vp = v + b * st.vb + h * st.vh;
-  load_tile_f32(qs, q + b * st.qb + h * st.qh, st.qt, q0, scale);
-  load_tile_f32(gs, dout + b * st.gb + h * st.gh, st.gt, q0, 1.f);
+  load_tile_f32<D>(qs, q + b * st.qb + h * st.qh, st.qt, q0, t_len, scale);
+  load_tile_f32<D>(gs, dout + b * st.gb + h * st.gh, st.gt, q0, t_len, 1.f);
   if (threadIdx.x < BT) {
-    lse_s[threadIdx.x] = lse[(long long)bh * t_len + q0 + threadIdx.x];
-    delta_s[threadIdx.x] = delta[(long long)bh * t_len + q0 + threadIdx.x];
+    const int row = q0 + threadIdx.x;
+    const long long at = (long long)bh * t_len + row;
+    lse_s[threadIdx.x] = row < t_len ? lse[at] : 0.f;
+    delta_s[threadIdx.x] = row < t_len ? delta[at] : 0.f;
   }
 
-  float dq[4][4];
+  float dq[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dq[i][j] = 0.f;
+    for (int j = 0; j < D / 16; ++j) dq[i][j] = 0.f;
 
   // the last k-tile any row of this q tile can see
   int hi = (q0 + BT - 1) / BT + 1;
@@ -579,8 +728,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kj = 0; kj < hi; ++kj) {
     const int k0 = kj * BT;
     __syncthreads();  // the previous tile's K and dS^T are consumed
-    load_tile_f32(ks, kp, st.kt, k0, 1.f);
-    load_tile_f32(vs, vp, st.vt, k0, 1.f);
+    load_tile_f32<D>(ks, kp, st.kt, k0, t_len, 1.f);
+    load_tile_f32<D>(vs, vp, st.vt, k0, t_len, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -588,8 +737,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    mma_nt(s, qs, ks, ty, tx);   // rows ty + 16i, keys tx + 16j
-    mma_nt(dp, gs, vs, ty, tx);
+    mma_nt<D>(s, qs, ks, ty, tx);   // rows ty + 16i, keys tx + 16j
+    mma_nt<D>(dp, gs, vs, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -598,20 +747,22 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const float p = (k0 + c < bound) ? expf(s[i][j] - lse_s[r]) : 0.f;
-        dst[c * LD + r] = p * (dp[i][j] - delta_s[r]);
+        dst[c * LDP + r] = p * (dp[i][j] - delta_s[r]);
       }
     }
     __syncthreads();
-    mma_tn(dq, dst, ks, ty, tx);  // rows 4ty + i, dims 4tx + j
+    mma_tn<D>(dq, dst, ks, ty, tx);  // rows 4ty + i, dims 64g + 4tx + j
   }
 
   const long long row_stride = 3LL * H * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
+    if (row >= t_len) continue;
     float* base = dqkv + ((long long)b * t_len + row) * row_stride + h * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) base[4 * tx + j] = dq[i][j] * scale;
+    for (int j = 0; j < D / 16; ++j)
+      base[64 * (j / 4) + 4 * tx + j % 4] = dq[i][j] * scale;
   }
 }
 
@@ -626,30 +777,73 @@ cudaError_t launch_big(Kernel kernel, dim3 grid, int threads, int smem,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch_delta(const void* out, const void* dout, void* delta,
                          const Strides& st, int batch, int heads, int t_len,
                          cudaStream_t s) {
   const long long rows = (long long)batch * heads * t_len;
   const int rows_per_block = DELTA_THREADS / 32;
-  flash_bwd_delta_kernel<T><<<(rows + rows_per_block - 1) / rows_per_block,
-                              DELTA_THREADS, 0, s>>>(
+  flash_bwd_delta_kernel<T, D><<<(rows + rows_per_block - 1) / rows_per_block,
+                                 DELTA_THREADS, 0, s>>>(
       static_cast<const T*>(out), static_cast<const T*>(dout),
       static_cast<float*>(delta), st, heads, t_len, rows);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* out, const void* dout, const void* lse,
+                       void* delta, void* dqkv, const Strides& st, int batch,
+                       int heads, int t_len, int prefix, float scale,
+                       int is_bf16, cudaStream_t s) {
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const int tiles = (t_len + BT - 1) / BT;
+  cudaError_t err;
+  if (is_bf16) {
+    using bf = __nv_bfloat16;
+    err = launch_delta<bf, D>(out, dout, delta, st, batch, heads, t_len, s);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(batch * heads, tiles);
+    const bf *qb = static_cast<const bf*>(q), *kb = static_cast<const bf*>(k),
+             *vb = static_cast<const bf*>(v), *gb = static_cast<const bf*>(dout);
+    bf* g = static_cast<bf*>(dqkv);
+    err = launch_big(flash_bwd_dkv_kernel_bf16<D>, grid, MT, dkv_smem<D>(),
+                     s, qb, kb, vb, gb, l, dl, g, st, heads, t_len, prefix,
+                     scale);
+    if (err != cudaSuccess) return err;
+    return launch_big(flash_bwd_dq_kernel_bf16<D>, grid, MT, dq_smem<D>(), s,
+                      qb, kb, vb, gb, l, dl, g, st, heads, t_len, prefix,
+                      scale);
+  }
+  err = launch_delta<float, D>(out, dout, delta, st, batch, heads, t_len, s);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(tiles, batch * heads);
+  const float *qf = static_cast<const float*>(q),
+              *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v),
+              *gf = static_cast<const float*>(dout);
+  float* g = static_cast<float*>(dqkv);
+  err = launch_big(flash_bwd_dkv_kernel<D>, grid, NT, dkv_f32_smem<D>(), s,
+                   qf, kf, vf, gf, l, dl, g, st, heads, t_len, prefix, scale);
+  if (err != cudaSuccess) return err;
+  return launch_big(flash_bwd_dq_kernel<D>, grid, NT, dq_f32_smem<D>(), s,
+                    qf, kf, vf, gf, l, dl, g, st, heads, t_len, prefix,
+                    scale);
 }
 
 }  // namespace
 
 // strides: (b, h, t) element strides of q, k, v, out and dout, in that
 // order; delta is fp32 scratch of B * H * T values; dqkv is a contiguous
-// [B, T, 3, H, 64] buffer in q's dtype.  T must be a multiple of 64.
+// [B, T, 3, H, head_dim] buffer in q's dtype; head_dim 64 or 128, any T;
+// scale = 1 / sqrt(d) of the true head dim d.
 extern "C" int mas_flash_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* dout,
                              const void* lse, void* delta, void* dqkv,
                              const long long* strides, int batch, int heads,
-                             int t_len, int prefix, int is_bf16,
-                             void* stream) {
+                             int t_len, int prefix, int head_dim, float scale,
+                             int is_bf16, void* stream) {
   Strides st;
   st.qb = strides[0]; st.qh = strides[1]; st.qt = strides[2];
   st.kb = strides[3]; st.kh = strides[4]; st.kt = strides[5];
@@ -657,38 +851,15 @@ extern "C" int mas_flash_bwd(const void* q, const void* k, const void* v,
   st.ob = strides[9]; st.oh = strides[10]; st.ot = strides[11];
   st.gb = strides[12]; st.gh = strides[13]; st.gt = strides[14];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float scale = 0.125f;  // 1 / sqrt(64)
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
   cudaError_t err;
-  if (is_bf16) {
-    using bf = __nv_bfloat16;
-    err = launch_delta<bf>(out, dout, delta, st, batch, heads, t_len, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(batch * heads, t_len / BT);
-    const bf *qb = static_cast<const bf*>(q), *kb = static_cast<const bf*>(k),
-             *vb = static_cast<const bf*>(v), *gb = static_cast<const bf*>(dout);
-    bf* g = static_cast<bf*>(dqkv);
-    err = launch_big(flash_bwd_dkv_kernel_bf16, grid, MT, DKV_SMEM, s, qb, kb,
-                     vb, gb, l, dl, g, st, heads, t_len, prefix, scale);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(launch_big(flash_bwd_dq_kernel_bf16, grid, MT,
-                                       DQ_SMEM, s, qb, kb, vb, gb, l, dl, g,
-                                       st, heads, t_len, prefix, scale));
+  if (head_dim == 64) {
+    err = launch_bwd<64>(q, k, v, out, dout, lse, delta, dqkv, st, batch,
+                         heads, t_len, prefix, scale, is_bf16, s);
+  } else if (head_dim == 128) {
+    err = launch_bwd<128>(q, k, v, out, dout, lse, delta, dqkv, st, batch,
+                          heads, t_len, prefix, scale, is_bf16, s);
+  } else {
+    err = cudaErrorInvalidValue;
   }
-  err = launch_delta<float>(out, dout, delta, st, batch, heads, t_len, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(t_len / BT, batch * heads);
-  const float *qf = static_cast<const float*>(q),
-              *kf = static_cast<const float*>(k),
-              *vf = static_cast<const float*>(v),
-              *gf = static_cast<const float*>(dout);
-  float* g = static_cast<float*>(dqkv);
-  const int f = static_cast<int>(sizeof(float));
-  err = launch_big(flash_bwd_dkv_kernel, grid, NT, 6 * TILE * f, s, qf, kf, vf,
-                   gf, l, dl, g, st, heads, t_len, prefix, scale);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_big(flash_bwd_dq_kernel, grid, NT,
-                                     5 * TILE * f, s, qf, kf, vf, gf, l, dl, g,
-                                     st, heads, t_len, prefix, scale));
+  return static_cast<int>(err);
 }

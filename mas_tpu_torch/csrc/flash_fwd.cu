@@ -4,22 +4,26 @@
 // _flash_fwd), the Pallas flash-attention forward of the transformer
 // prefill and training step.
 //
-// Computes, for q, k, v [B, H, T, 64] (bf16 or fp32), out = softmax(q k^T /
-// sqrt(d)) v and lse = logsumexp of the scaled scores, where row i sees the
+// Computes, for q, k, v [B, H, T, D] (bf16 or fp32, D = 64 or 128: the
+// wrapper zero-pads any head dim d <= 128 up to one of them and passes
+// scale = 1/sqrt(d) of the true d), out = softmax(q k^T scale) v and lse =
+// logsumexp of the scaled scores, where row i sees the
 // keys [0, bound): bound = prefix for i < prefix, else i + 1 (the visible
 // span is always contiguous, mas_tpu/ops/attention.py::_row_bound).
 //
 // What bounds it on the H100: per (b, h) the work is O(T^2 d) multiply-adds
 // on O(T d) bytes (at T = 384, d = 64: ~150 operations per byte read), so it
 // is compute bound, and only the tensor cores (989 TFLOP/s in bf16, against
-// 67 on the fp32 cores) come near the bound.
+// 67 on the fp32 cores) come near the bound.  Both kernels are templates
+// over D.
 //
 // bf16 (flash_fwd_kernel_bf16), FlashAttention-2 style: one block of four
 // warps per (b*h, 64-row q tile), 16 q rows per warp; heaviest q tiles are
 // launched first (causal rows have unequal work).  The q tile is copied
 // once with cp.async, moved into mma A fragments with ldmatrix and scaled
-// by 1/8 there (a power of two: exact in bf16, as the Pallas kernel's
-// q * scale).  64-key K/V tiles stream through a two-stage cp.async ring
+// there, rounded to bf16 once, as the Pallas kernel's q * asarray(scale,
+// q.dtype) (the host passes the scale rounded to bf16; 1/8 at d 64 is
+// exact).  64-key K/V tiles stream through a two-stage cp.async ring
 // (16-byte copies, rows past T zero-filled), so the next tile's load
 // overlaps this tile's products.  S = q K^T and O += P V run on the tensor
 // cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; K fragments by
@@ -37,9 +41,10 @@
 // fp32 (flash_fwd_kernel) keeps the CUDA-core kernel: TF32 tensor cores
 // would not hold the fp32 path to its 1e-5 tolerance, and no configuration
 // runs attention in fp32.  One block per (b*h, 32-row q tile), four threads
-// per q row, each with its q row and its fp32 accumulator in registers and
-// every fourth key of a 64-key tile staged in shared memory; the four
-// partial softmax states of a row merge through shuffles.
+// per q row, each with its fp32 accumulator in registers and every fourth
+// key of a 64-key tile; the scaled q rows and the K/V tiles sit in shared
+// memory.  The four partial softmax states of a row merge through
+// shuffles.
 //
 // Inputs are addressed by strides (last dim contiguous), so q, k, v can be
 // views into the fused qkv projection and out can be written in
@@ -67,17 +72,34 @@ constexpr int MK = 64;          // keys per K/V tile
 constexpr int MT = 128;         // threads per block
 constexpr int STAGES = 2;       // K/V ring depth
 
+// shared memory: the Q tile, then STAGES x (K tile, V tile); static at
+// D = 64 (40 KB, as the kernel was before head dims were templated),
+// dynamic at D = 128 (80 KB, above the 48 KB a static array may take)
+template <int D>
+__host__ __device__ constexpr int fwd_smem() {
+  return (1 + 2 * STAGES) * tile_bytes<D>();
+}
+template <int D>
+__host__ __device__ constexpr int fwd_dynamic_smem() {
+  return D == 64 ? 0 : fwd_smem<D>();
+}
+
+template <int D>
 __global__ void __launch_bounds__(MT)
 flash_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
                       __nv_bfloat16* __restrict__ out,
                       float* __restrict__ lse, Strides st, int H, int t_len,
-                      int prefix) {
-  // Q tile, then STAGES x (K tile, V tile)
-  __shared__ __align__(128) unsigned char smem[(1 + 2 * STAGES) * TILE_BYTES];
+                      int prefix, float scale) {
+  constexpr int TB = tile_bytes<D>();
+  constexpr int NJ = D / 16;    // k16 slices of the head dim
+  __shared__ __align__(128) unsigned char
+      smem_static[fwd_dynamic_smem<D>() ? 16 : fwd_smem<D>()];
+  extern __shared__ __align__(128) unsigned char smem_dynamic[];
+  unsigned char* smem = fwd_dynamic_smem<D>() ? smem_dynamic : smem_static;
   const uint32_t sq = smem_addr(smem);
-  const uint32_t skv = sq + TILE_BYTES;
+  const uint32_t skv = sq + TB;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -94,21 +116,21 @@ flash_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   if (q0 < pfx) hi = max(hi, pfx);
   const int ntiles = (hi + MK - 1) / MK;
 
-  load_tile<MT>(sq, q + b * st.qb + h * st.qh, st.qt, q0, t_len);
+  load_tile<MT, D>(sq, q + b * st.qb + h * st.qh, st.qt, q0, t_len);
   cp_async_commit();
-  load_tile<MT>(skv, kp, st.kt, 0, t_len);
-  load_tile<MT>(skv + TILE_BYTES, vp, st.vt, 0, t_len);
+  load_tile<MT, D>(skv, kp, st.kt, 0, t_len);
+  load_tile<MT, D>(skv + TB, vp, st.vt, 0, t_len);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
 
-  // q * 1/8 as A fragments: 16 rows x 4 slices of 16 dims
-  uint32_t qa[4][4];
+  // q * scale as A fragments: 16 rows x NJ slices of 16 dims
+  uint32_t qa[NJ][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    load_a(qa[j], sq, warp * 16, j, lane);
+  for (int j = 0; j < NJ; ++j) {
+    load_a<D>(qa[j], sq, warp * 16, j, lane);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) qa[j][e] = scale_eighth(qa[j][e]);
+    for (int e = 0; e < 4; ++e) qa[j][e] = scale_pair(qa[j][e], scale);
   }
 
   // this thread's rows: grp and grp + 8 of the warp's 16
@@ -116,38 +138,38 @@ flash_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   const int bnd[2] = {row_bound(row_lo, pfx), row_bound(row_lo + 8, pfx)};
   const int tile_bound = row_bound(q0, pfx);  // least bound of the tile
 
-  float o[8][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
-      const uint32_t nxt = skv + ((t + 1) % STAGES) * 2 * TILE_BYTES;
-      load_tile<MT>(nxt, kp, st.kt, (t + 1) * MK, t_len);
-      load_tile<MT>(nxt + TILE_BYTES, vp, st.vt, (t + 1) * MK, t_len);
+      const uint32_t nxt = skv + ((t + 1) % STAGES) * 2 * TB;
+      load_tile<MT, D>(nxt, kp, st.kt, (t + 1) * MK, t_len);
+      load_tile<MT, D>(nxt + TB, vp, st.vt, (t + 1) * MK, t_len);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile t has landed
     __syncthreads();
-    const uint32_t sk = skv + (t % STAGES) * 2 * TILE_BYTES;
-    const uint32_t sv = sk + TILE_BYTES;
+    const uint32_t sk = skv + (t % STAGES) * 2 * TB;
+    const uint32_t sv = sk + TB;
     const int k0 = t * MK;
 
-    // S = (q / 8) K^T: 16 rows x 64 keys per warp
+    // S = (q scale) K^T: 16 rows x 64 keys per warp
     float s[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t kb[4];
-        load_b_nk(kb, sk, 16 * np, j, lane);
+        load_b_nk<D>(kb, sk, 16 * np, j, lane);
         mma(s[2 * np], qa[j], kb[0], kb[1]);
         mma(s[2 * np + 1], qa[j], kb[2], kb[3]);
       }
@@ -179,7 +201,7 @@ flash_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ q,
       const float alpha = exp2f((m[r] - mx[r]) * LOG2E);
       l[r] *= alpha;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < D / 8; ++nt) {
         o[nt][2 * r] *= alpha;
         o[nt][2 * r + 1] *= alpha;
       }
@@ -200,9 +222,9 @@ flash_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ q,
       uint32_t pa[4];
       c_to_a(pa, s[2 * j], s[2 * j + 1]);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < D / 16; ++np) {
         uint32_t vb[4];
-        load_b_kn(vb, sv, 16 * np, j, lane);
+        load_b_kn<D>(vb, sv, 16 * np, j, lane);
         mma(o[2 * np], pa, vb[0], vb[1]);
         mma(o[2 * np + 1], pa, vb[2], vb[3]);
       }
@@ -216,7 +238,7 @@ flash_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
   // out rows through the (consumed) Q tile, then 16-byte coalesced stores
-  store_rows(smem, o, 1.f / l[0], 1.f / l[1], warp * 16, lane);
+  store_rows<D>(smem, o, 1.f / l[0], 1.f / l[1], warp * 16, lane);
   if (tig == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -225,11 +247,12 @@ flash_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
   __nv_bfloat16* op = out + b * st.ob + h * st.oh;
-  for (int idx = threadIdx.x; idx < MQ * 8; idx += MT) {
-    const int r = idx >> 3, c = idx & 7;
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  for (unsigned idx = threadIdx.x; idx < MQ * CPR; idx += MT) {
+    const int r = idx / CPR, c = idx % CPR;
     if (q0 + r < t_len)
       *reinterpret_cast<uint4*>(op + (q0 + r) * st.ot + c * 8) =
-          *reinterpret_cast<const uint4*>(smem + swz(r, c));
+          *reinterpret_cast<const uint4*>(smem + swz<D>(r, c));
   }
 }
 
@@ -239,17 +262,26 @@ constexpr int BQ = 32;         // q rows per block
 constexpr int BK = 64;         // keys per shared-memory tile
 constexpr int SUB = 4;         // threads per q row
 constexpr int NT = BQ * SUB;   // threads per block
-constexpr int KPAD = D + 4;    // shared row stride in floats
 constexpr int KPT = BK / SUB;  // keys per thread per tile
 constexpr float NEG = -1e30f;  // masked score, as the Pallas kernel
 
+// dynamic shared memory: K and V tiles [BK][D + 4], the q tile [BQ][D + 4]
+template <int D>
+__host__ __device__ constexpr int fwd_f32_smem() {
+  return (2 * BK + BQ) * (D + 4) * 4;
+}
+
+template <int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, Strides st, int H, int t_len,
                  int prefix, float scale) {
-  __shared__ __align__(16) float ks[BK * KPAD];
-  __shared__ __align__(16) float vs[BK * KPAD];
+  constexpr int KPAD = D + 4;    // shared row stride in floats
+  extern __shared__ __align__(16) float smf[];
+  float* ks = smf;
+  float* vs = ks + BK * KPAD;
+  float* qs = vs + BK * KPAD;    // q * scale [row][c]
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -266,10 +298,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kp = k + b * st.kb + h * st.kh;
   const float* vp = v + b * st.vb + h * st.vh;
 
-  float qr[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c)
-    qr[c] = row_ok ? qp[i * st.qt + c] * scale : 0.f;
+  for (int idx = tid; idx < BQ * D; idx += NT) {
+    const int r = idx / D, c = idx % D;
+    qs[r * KPAD + c] =
+        q0 + r < t_len ? qp[(q0 + r) * st.qt + c] * scale : 0.f;
+  }
+  const float4* qr = reinterpret_cast<const float4*>(&qs[(tid / SUB) * KPAD]);
 
   // the last tile any row of this q tile can see
   const int q_last = min(q0 + BQ, t_len) - 1;
@@ -308,10 +342,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c4 = 0; c4 < D / 4; ++c4) {
         const float4 kk = kr[c4];
-        dot = fmaf(qr[4 * c4 + 0], kk.x, dot);
-        dot = fmaf(qr[4 * c4 + 1], kk.y, dot);
-        dot = fmaf(qr[4 * c4 + 2], kk.z, dot);
-        dot = fmaf(qr[4 * c4 + 3], kk.w, dot);
+        const float4 qq = qr[c4];
+        dot = fmaf(qq.x, kk.x, dot);
+        dot = fmaf(qq.y, kk.y, dot);
+        dot = fmaf(qq.z, kk.z, dot);
+        dot = fmaf(qq.w, kk.w, dot);
       }
       s[u] = (k0 + j < bound) ? dot : NEG;
       tmax = fmaxf(tmax, s[u]);
@@ -367,35 +402,65 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (sub == 0) lse[(long long)bh * t_len + i] = m_all + logf(l_all);
 }
 
+// launch kernel with smem bytes of dynamic shared memory
+template <typename Kernel, typename... Args>
+cudaError_t launch_big(Kernel kernel, dim3 grid, int threads, int smem,
+                       cudaStream_t s, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
+                       void* lse, const Strides& st, int batch, int heads,
+                       int t_len, int prefix, float scale, int is_bf16,
+                       cudaStream_t s) {
+  if (is_bf16) {
+    using bf = __nv_bfloat16;
+    const dim3 grid(batch * heads, (t_len + MQ - 1) / MQ);
+    return launch_big(flash_fwd_kernel_bf16<D>, grid, MT,
+                      fwd_dynamic_smem<D>(), s,
+                      static_cast<const bf*>(q), static_cast<const bf*>(k),
+                      static_cast<const bf*>(v), static_cast<bf*>(out),
+                      static_cast<float*>(lse), st, heads, t_len, prefix,
+                      scale);
+  }
+  const dim3 grid((t_len + BQ - 1) / BQ, batch * heads);
+  return launch_big(flash_fwd_kernel<D>, grid, NT, fwd_f32_smem<D>(), s,
+                    static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), static_cast<float*>(out),
+                    static_cast<float*>(lse), st, heads, t_len, prefix, scale);
+}
+
 }  // namespace
 
+// head_dim 64 or 128; scale = 1 / sqrt(d) of the true head dim d (bf16:
+// rounded to bf16 by the caller)
 extern "C" int mas_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const long long* strides,
                              int batch, int heads, int t_len, int prefix,
-                             int is_bf16, void* stream) {
+                             int head_dim, float scale, int is_bf16,
+                             void* stream) {
   Strides st;
   st.qb = strides[0]; st.qh = strides[1]; st.qt = strides[2];
   st.kb = strides[3]; st.kh = strides[4]; st.kt = strides[5];
   st.vb = strides[6]; st.vh = strides[7]; st.vt = strides[8];
   st.ob = strides[9]; st.oh = strides[10]; st.ot = strides[11];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    const dim3 grid(batch * heads, (t_len + MQ - 1) / MQ);
-    flash_fwd_kernel_bf16<<<grid, MT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), st,
-        heads, t_len, prefix);
+  cudaError_t err;
+  if (head_dim == 64) {
+    err = launch_fwd<64>(q, k, v, out, lse, st, batch, heads, t_len, prefix,
+                         scale, is_bf16, s);
+  } else if (head_dim == 128) {
+    err = launch_fwd<128>(q, k, v, out, lse, st, batch, heads, t_len, prefix,
+                          scale, is_bf16, s);
   } else {
-    const dim3 grid((t_len + BQ - 1) / BQ, batch * heads);
-    flash_fwd_kernel<<<grid, NT, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out),
-        static_cast<float*>(lse), st, heads, t_len, prefix,
-        0.125f /* 1 / sqrt(64) */);
+    err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 extern "C" const char* mas_cuda_error_string(int status) {

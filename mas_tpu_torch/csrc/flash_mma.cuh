@@ -1,10 +1,11 @@
 // Tensor-core building blocks of the bf16 flash-attention kernels (B1, B6).
 //
-// Tiles of 64 bf16 values per row (the head dim) sit in shared memory as
-// 128-byte rows of eight 16-byte chunks, chunk c of row r stored at chunk
-// c ^ (r & 7).  The eight rows an 8 x 8 ldmatrix reads at one logical chunk
-// then fall on eight distinct physical chunks, i.e. all 32 banks: loads of
-// A fragments, B fragments and their transposes are free of bank conflicts.
+// Tiles of D bf16 values per row (the head dim, D = 64 or 128, a template
+// parameter) sit in shared memory as 2D-byte rows of D / 8 16-byte chunks,
+// chunk c of row r stored at chunk c ^ (r & 7).  The eight rows an 8 x 8
+// ldmatrix reads at one logical chunk then fall on eight physical chunks
+// that differ in their low three bits, i.e. on all 32 banks: loads of A
+// fragments, B fragments and their transposes are free of bank conflicts.
 //
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulate), per warp, with lane
 // = 4 * grp + tig:
@@ -23,14 +24,15 @@
 
 namespace flash_mma {
 
-constexpr int D = 64;             // head dim
-constexpr int ROW_BYTES = D * 2;  // one bf16 row of a tile
-constexpr int TILE_BYTES = 64 * ROW_BYTES;
+// bytes of a 64-row bf16 tile of head dim D
+template <int D>
+__host__ __device__ constexpr int tile_bytes() { return 64 * D * 2; }
 constexpr float LOG2E = 1.4426950408889634f;
 
-// byte offset of 16-byte chunk c of row r in a swizzled tile
+// byte offset of 16-byte chunk c of row r in a swizzled tile of head dim D
+template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(r * ROW_BYTES + ((c ^ (r & 7)) << 4));
+  return static_cast<uint32_t>(r * (2 * D) + ((c ^ (r & 7)) << 4));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -56,24 +58,47 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [row0, row0 + 64) of a [*, 64] bf16 matrix with the given row stride
+// x through an opaque move: what is computed from the result stays where
+// it is computed, instead of being hoisted out of the enclosing loops and
+// kept in registers
+__device__ __forceinline__ int opaque(int x) {
+  int r;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(x));
+  return r;
+}
+
+// rows [row0, row0 + 64) of a [*, D] bf16 matrix with the given row stride
 // (elements, a multiple of 8) into a swizzled tile; rows at or past t_len
-// are zero-filled.  NTHREADS threads share the 512 chunks.
-template <int NTHREADS>
+// are zero-filled.  NTHREADS threads share the 8 D chunks.  At D = 128
+// the addresses are computed at each call: hoisted out of the callers'
+// loops they would hold 16 addresses per tile in registers.
+template <int NTHREADS, int D>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           long long row_stride, int row0,
                                           int t_len) {
-  static_assert(512 % NTHREADS == 0, "whole chunks per thread");
+  constexpr int CPR = D / 8;  // chunks per row
+  static_assert(64 * CPR % NTHREADS == 0, "whole chunks per thread");
+  // unsigned: the divisions by the power of two CPR are shifts
+  const unsigned tid = D == 64 ? threadIdx.x : opaque(threadIdx.x);
 #pragma unroll
-  for (int i = 0; i < 512 / NTHREADS; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    const int r = idx >> 3, c = idx & 7;
+  for (int i = 0; i < 64 * CPR / NTHREADS; ++i) {
+    const unsigned idx = tid + i * NTHREADS;
+    const int r = idx / CPR, c = idx % CPR;
     const bool ok = row0 + r < t_len;
     const __nv_bfloat16* g =
         src + (ok ? row0 + r : 0) * row_stride + c * 8;
-    cp_async16(dst + swz(r, c), g, ok);
+    cp_async16(dst + swz<D>(r, c), g, ok);
   }
+}
+
+// 4 bytes global -> shared (through L1); zero-filled when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -92,27 +117,30 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
 }
 
 // The three fragment loads, for a warp whose lane is `lane`, from a
-// swizzled [rows][64] tile at `tile`:
+// swizzled [rows][D] tile at `tile`:
 // A of the 16 x 16 block at rows [r0, r0 + 16), dims [16 j, 16 j + 16)
+template <int D>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t tile,
                                        int r0, int j, int lane) {
-  ldsm_x4(a, tile + swz(r0 + (lane & 15), 2 * j + (lane >> 4)));
+  ldsm_x4(a, tile + swz<D>(r0 + (lane & 15), 2 * j + (lane >> 4)));
 }
 
 // B of two n8 tiles (n = rows [n0, n0 + 16) of the tile, k = dims [16 j,
 // 16 j + 16)): the tile holds B transposed ([n][k], e.g. K for Q K^T).
 // b[0], b[1] serve n tile n0, b[2], b[3] n tile n0 + 8.
+template <int D>
 __device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], uint32_t tile,
                                           int n0, int j, int lane) {
-  ldsm_x4(b, tile + swz(n0 + (lane & 7) + ((lane >> 4) << 3),
-                        2 * j + ((lane >> 3) & 1)));
+  ldsm_x4(b, tile + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3),
+                           2 * j + ((lane >> 3) & 1)));
 }
 
 // B of two n8 tiles (k = rows [16 j, 16 j + 16) of the tile, n = dims
 // [n0, n0 + 16)): the tile holds B as it is ([k][n], e.g. V for P V).
+template <int D>
 __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], uint32_t tile,
                                           int n0, int j, int lane) {
-  ldsm_x4_t(b, tile + swz(16 * j + (lane & 15), (n0 >> 3) + (lane >> 4)));
+  ldsm_x4_t(b, tile + swz<D>(16 * j + (lane & 15), (n0 >> 3) + (lane >> 4)));
 }
 
 // d += a b, one m16n8k16 tensor-core product
@@ -132,10 +160,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return r;
 }
 
-// a bf16 pair times 2^-3 (exact: a power of two)
-__device__ __forceinline__ uint32_t scale_eighth(uint32_t x) {
-  return pack_bf16(__uint_as_float(x << 16) * 0.125f,
-                   __uint_as_float(x & 0xffff0000u) * 0.125f);
+// a bf16 pair times `scale`, rounded to bf16 once (exact when scale is a
+// power of two)
+__device__ __forceinline__ uint32_t scale_pair(uint32_t x, float scale) {
+  return pack_bf16(__uint_as_float(x << 16) * scale,
+                   __uint_as_float(x & 0xffff0000u) * scale);
 }
 
 // The A fragment of k16 slice j from the C fragments of n8 tiles 2j, 2j+1
@@ -148,18 +177,19 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// acc [16 rows x 64] of this warp (C fragments of 8 n8 tiles) -> bf16 rows
-// r0.. r0 + 15 of a swizzled tile at `tile` (generic pointer to shared)
+// acc [16 rows x D] of this warp (C fragments of D / 8 n8 tiles) -> bf16
+// rows r0.. r0 + 15 of a swizzled tile at `tile` (generic pointer to shared)
+template <int D>
 __device__ __forceinline__ void store_rows(unsigned char* tile,
-                                           const float (&acc)[8][4],
+                                           const float (&acc)[D / 8][4],
                                            float mul_lo, float mul_hi,
                                            int r0, int lane) {
   const int grp = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    *reinterpret_cast<uint32_t*>(tile + swz(r0 + grp, nt) + 4 * tig) =
+  for (int nt = 0; nt < D / 8; ++nt) {
+    *reinterpret_cast<uint32_t*>(tile + swz<D>(r0 + grp, nt) + 4 * tig) =
         pack_bf16(acc[nt][0] * mul_lo, acc[nt][1] * mul_lo);
-    *reinterpret_cast<uint32_t*>(tile + swz(r0 + grp + 8, nt) + 4 * tig) =
+    *reinterpret_cast<uint32_t*>(tile + swz<D>(r0 + grp + 8, nt) + 4 * tig) =
         pack_bf16(acc[nt][2] * mul_hi, acc[nt][3] * mul_hi);
   }
 }

@@ -15,6 +15,13 @@ i + 1 — causal, and bidirectional inside the text+seg prefix.  The
 reference's PB-relax max shift is a per-row constant that softmax cancels,
 so both versions compute the plain masked softmax with fp32 statistics.
 
+Head dims: the kernels are instantiated for d = 64 and 128.  For any
+other d <= 128 the wrappers zero-pad q, k, v (and out, dO) to the next of
+the two and drop the extra output columns; this is exact: zero columns add
+nothing to q . k, the scale stays 1/sqrt(d) of the true d, and the output
+and gradient columns they produce are dropped.  A head dim above 128
+raises (ROADMAP C3).  Any T: both kernels take a ragged last tile.
+
 The wrapper takes the plain twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.
 """
@@ -22,23 +29,49 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
+from torch.nn import functional as F
 
 from .. import _build
 
 _NEG_INF = -1e30
-HEAD_DIM = 64
+KERNEL_HEAD_DIMS = (64, 128)   # the head dims B1 and B6 are built for
 
 
-def prefix_causal_attention_plain(q, k, v, prefix_length: int):
+@functools.lru_cache(maxsize=None)
+def q_scale(d: int, dtype: torch.dtype) -> float:
+    """1 / sqrt(d) rounded to ``dtype``, as ``jnp.asarray(scale, dtype)``."""
+    return float(torch.tensor(1.0 / math.sqrt(d), dtype=dtype))
+
+
+def kernel_head_dim(d: int) -> int:
+    """The instantiated head dim of B1/B6 that holds d: 64 or 128; raise
+    above 128 (ROADMAP C3)."""
+    if not 1 <= d <= KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"the flash attention kernels take head_dim <= "
+                         f"{KERNEL_HEAD_DIMS[-1]}, got {d} (ROADMAP C3)")
+    return next(w for w in KERNEL_HEAD_DIMS if d <= w)
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x [..., d] with zero columns appended up to ``width`` (a new tensor),
+    or x itself when d == width."""
+    d = x.shape[-1]
+    return x if d == width else F.pad(x, (0, width - d))
+
+
+def prefix_causal_attention_plain(q, k, v, prefix_length: int, scale=None):
     """q, k, v [B, H, T, d] -> (out [B, H, T, d] in q's dtype,
-    lse [B, H, T] fp32); fp32 scores and softmax."""
+    lse [B, H, T] fp32); fp32 scores and softmax.  q is scaled in its own
+    dtype, as the Pallas kernel's q * asarray(scale, q.dtype); ``scale``
+    defaults to 1/sqrt(d) (the padded route passes the true d's)."""
     d = q.shape[-1]
     t = q.shape[2]
-    s = torch.matmul(q.float() * (1.0 / math.sqrt(d)),
-                     k.float().transpose(-1, -2))
+    scale = q_scale(d, q.dtype) if scale is None else scale
+    s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     pos = torch.arange(t, device=q.device)
     qpos, kpos = pos[:, None], pos[None, :]
     mask = (kpos <= qpos) | ((qpos < prefix_length) & (kpos < prefix_length))
@@ -53,9 +86,7 @@ def _check(q, k, v):
         raise ValueError(f"q, k, v must share one [B, H, T, d] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes head_dim "
-                         f"{HEAD_DIM}, got {q.shape[-1]}")
+    padded = kernel_head_dim(q.shape[-1]) != q.shape[-1]
     if q.dtype not in (torch.bfloat16, torch.float32) or not (
             q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention takes bf16 or fp32 q/k/v of one "
@@ -65,7 +96,8 @@ def _check(q, k, v):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dim")
-    _check_rows(q.dtype, q=q, k=k, v=v)
+    if not padded:      # padded copies are contiguous and aligned
+        _check_rows(q.dtype, q=q, k=k, v=v)
 
 
 def _rows_aligned(t) -> bool:
@@ -89,11 +121,12 @@ def _check_rows(dtype, **tensors):
 def flash_attention(q, k, v, prefix_length: int):
     """Fused prefix-bidirectional causal attention forward.
 
-    q, k, v [B, H, T, 64] bf16 or fp32, any strides with a contiguous last
-    dim (views into the fused qkv projection need no copy).  Returns
-    (out [B, H, T, 64] in q's dtype, lse [B, H, T] fp32).  On CUDA, ``out``
-    is a view whose memory is laid out [B, T, H, 64], so merging the heads
-    back into [B, T, H * 64] costs no copy.
+    q, k, v [B, H, T, d] bf16 or fp32 with d <= 128, any strides with a
+    contiguous last dim (views into the fused qkv projection need no copy
+    at d 64 and 128; other d are zero-padded).  Returns (out [B, H, T, d]
+    in q's dtype, lse [B, H, T] fp32).  On CUDA, ``out`` is a view whose
+    memory is laid out [B, T, H, d'] (d' = 64 or 128), so merging the heads
+    back into [B, T, H * d] costs no copy at d 64 and 128.
     """
     if q.device.type == "cpu":
         return prefix_causal_attention_plain(q, k, v, prefix_length)
@@ -104,7 +137,9 @@ def flash_attention(q, k, v, prefix_length: int):
     b, h, t, d = q.shape
     if prefix_length < 0:
         raise ValueError(f"prefix_length must be >= 0, got {prefix_length}")
-    out = torch.empty((b, t, h, d), dtype=q.dtype,
+    width = kernel_head_dim(d)
+    q, k, v = (pad_head_dim(x, width) for x in (q, k, v))
+    out = torch.empty((b, t, h, width), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
@@ -112,12 +147,12 @@ def flash_attention(q, k, v, prefix_length: int):
     lib = _build.library()
     status = lib.mas_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), strides, b, h, t, int(prefix_length),
-        int(q.dtype == torch.bfloat16),
+        lse.data_ptr(), strides, b, h, t, int(prefix_length), width,
+        q_scale(d, q.dtype), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_fwd")
     flash_attention.launches += 1
-    return out, lse
+    return (out if width == d else out[..., :d]), lse
 
 
 flash_attention.launches = 0
@@ -129,12 +164,13 @@ def split_qkv(qkv: torch.Tensor):
 
 
 def prefix_causal_attention_bwd_plain(q, k, v, out, lse, do,
-                                      prefix_length: int):
+                                      prefix_length: int, scale=None):
     """Plain twin of B6: the backward from the saved (out, lse) in fp32 ->
-    (dq, dk, dv) [B, H, T, d] in q's dtype."""
+    (dq, dk, dv) [B, H, T, d] in q's dtype.  ``scale`` defaults to
+    1/sqrt(d), in fp32 as the Pallas kernels."""
     d = q.shape[-1]
     t = q.shape[2]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf, kf, vf = q.float(), k.float(), v.float()
     gf = do.float()
     s = torch.matmul(qf * scale, kf.transpose(-1, -2))
@@ -151,9 +187,6 @@ def prefix_causal_attention_bwd_plain(q, k, v, out, lse, do,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-BWD_TILE = 64   # rows of a q tile and keys of a k tile in csrc/flash_bwd.cu
-
-
 def _check_bwd(q, k, v, out, lse, do):
     _check(q, k, v)
     b, h, t, _ = q.shape
@@ -164,26 +197,25 @@ def _check_bwd(q, k, v, out, lse, do):
                              f"{tuple(x.shape)} on {x.device}")
         if x.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dim")
-    _check_rows(q.dtype, out=out, do=do)
+    if kernel_head_dim(q.shape[-1]) == q.shape[-1]:
+        _check_rows(q.dtype, out=out, do=do)
     if (tuple(lse.shape) != (b, h, t) or lse.dtype != torch.float32
-            or not lse.is_contiguous() or lse.device != q.device
-            or lse.data_ptr() % 16):
-        raise ValueError(f"lse must be a contiguous 16-byte aligned fp32 "
-                         f"[{b}, {h}, {t}] tensor on {q.device}, got "
-                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
-    if t % BWD_TILE:
-        raise ValueError(f"flash_attention_bwd kernel takes T a multiple of "
-                         f"{BWD_TILE}, got {t}")
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous fp32 [{b}, {h}, {t}] "
+                         f"tensor on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, prefix_length: int):
     """Backward of ``flash_attention`` from its saved (out, lse).
 
-    q, k, v, out, do [B, H, T, 64] bf16 or fp32, any strides with a
-    contiguous last dim; lse [B, H, T] fp32.  Returns dqkv [B, T, 3, H, 64]
-    in q's dtype (dq, dk, dv along dim 2), the gradient of a fused qkv
-    projection's output.  Kernel B6 for CUDA tensors (T a multiple of 64),
-    plain twin for CPU tensors."""
+    q, k, v, out, do [B, H, T, d] bf16 or fp32 with d <= 128 (other than 64
+    and 128 zero-padded, as in ``flash_attention``), any T, any strides
+    with a contiguous last dim; lse [B, H, T] fp32.  Returns dqkv
+    [B, T, 3, H, d] in q's dtype (dq, dk, dv along dim 2), the gradient of
+    a fused qkv projection's output (a view of a [B, T, 3, H, d'] buffer
+    for padded d).  Kernel B6 for CUDA tensors, plain twin for CPU
+    tensors."""
     if q.device.type == "cpu":
         grads = prefix_causal_attention_bwd_plain(q, k, v, out, lse, do,
                                                   prefix_length)
@@ -195,7 +227,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, prefix_length: int):
     if prefix_length < 0:
         raise ValueError(f"prefix_length must be >= 0, got {prefix_length}")
     b, h, t, d = q.shape
-    dqkv = torch.empty((b, t, 3, h, d), dtype=q.dtype, device=q.device)
+    width = kernel_head_dim(d)
+    q, k, v, out, do = (pad_head_dim(x, width) for x in (q, k, v, out, do))
+    dqkv = torch.empty((b, t, 3, h, width), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 15)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
@@ -204,11 +238,12 @@ def flash_attention_bwd(q, k, v, out, lse, do, prefix_length: int):
     status = lib.mas_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
-        strides, b, h, t, int(prefix_length), int(q.dtype == torch.bfloat16),
+        strides, b, h, t, int(prefix_length), width, 1.0 / math.sqrt(d),
+        int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_bwd")
     flash_attention_bwd.launches += 1
-    return dqkv
+    return dqkv if width == d else dqkv[..., :d]
 
 
 flash_attention_bwd.launches = 0

@@ -5,10 +5,13 @@ Counterpart of ``mas_tpu/ops/decode_attention.py``: ``decode_attention_
 float`` is the Pallas ``_decode_kernel`` (``decode_attention(...,
 impl='pallas')``), hand-written for Hopper in ``csrc/decode_quant.cu`` as
 the float instance of kernel B2's template (``decode_float_kernel``: no
-scales, no dequantization); ``decode_attention_float_plain`` is its plain
-twin.  Both follow the Pallas kernel, not the jnp path, on where p is
-rounded: p stays fp32 and only the output is rounded to q's dtype (the jnp
-path rounds p to the cache dtype).  The q scale 1/8 is exact in any dtype.
+scales, no dequantization; the same split over a thread-block cluster);
+``decode_attention_float_plain`` is its plain twin.  Both follow the Pallas
+kernel, not the jnp path, on where p is rounded: p stays fp32 and only the
+output is rounded to q's dtype (the jnp path rounds p to the cache dtype).
+Both scale q by 1/sqrt(d) in q's dtype, as the JAX package's
+``q * jnp.asarray(scale, q.dtype)``: the scale is rounded to q's dtype
+(``q_scale``) and so is the product (exact for d 64, not for d 32 or 128).
 
 The port's cache layout is [B, H, T, d] (the JAX package's is the
 transposed [B, H, d, T], which suits TPU lanes), in the compute dtype,
@@ -23,13 +26,13 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import torch
 
 from .. import _build
-from .quant import check_index, check_query
+from .attention import q_scale
+from .quant import check_index, check_query, decode_split
 
 _NEG_INF = -1e30
 
@@ -67,8 +70,7 @@ def decode_attention_float_plain(q, k_cache: FloatCache, v_cache: FloatCache,
     """q [B, H, 1, d]; positions <= index (1-element int32 tensor) are
     visible.  Returns [B, H, 1, d] in q's dtype; fp32 scores, softmax and
     sum."""
-    d = q.shape[-1]
-    qs = (q * (1.0 / math.sqrt(d))).float()     # scaled in q's dtype
+    qs = (q * q_scale(q.shape[-1], q.dtype)).float()   # scaled in q's dtype
     s = torch.matmul(qs, k_cache.data.float().transpose(-1, -2))
     kpos = torch.arange(s.shape[-1], device=q.device)
     s = s.masked_fill(kpos > index.to(q.device), _NEG_INF)
@@ -98,10 +100,10 @@ def decode_attention_float(q, k_cache: FloatCache, v_cache: FloatCache,
     """Single-token attention over a float cache, masked to <= index; only
     positions <= index are read.
 
-    q [B, H, 1, 64] bf16 or fp32 (any batch/head strides, contiguous last
-    dim), caches contiguous bf16 or fp32 [B, H, T, 64], ``index`` a
-    1-element int32 tensor on q's device.  Returns a contiguous
-    [B, H, 1, 64] tensor in q's dtype.
+    q [B, H, 1, d] bf16 or fp32 with d in ``quant.DECODE_HEAD_DIMS`` (any
+    batch/head strides, contiguous last dim), caches contiguous bf16 or
+    fp32 [B, H, T, d], ``index`` a 1-element int32 tensor on q's device.
+    Returns a contiguous [B, H, 1, d] tensor in q's dtype.
     """
     if q.device.type == "cpu":
         return decode_attention_float_plain(q, k_cache, v_cache, index)
@@ -115,9 +117,9 @@ def decode_attention_float(q, k_cache: FloatCache, v_cache: FloatCache,
     status = lib.mas_decode_float(
         q.data_ptr(), k_cache.data.data_ptr(), v_cache.data.data_ptr(),
         index.data_ptr(), out.data_ptr(), b, h, k_cache.data.shape[2],
-        q.stride(0), q.stride(1), int(k_cache.data.dtype == torch.bfloat16),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.stride(0), q.stride(1), d, int(k_cache.data.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), decode_split(b * h),
+        q_scale(d, q.dtype), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "decode_float")
     decode_attention_float.launches += 1
     return out

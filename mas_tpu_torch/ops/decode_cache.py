@@ -20,10 +20,12 @@ kernel stores the one position directly.
 
 What bounds both on the H100: nothing but launch latency.  A call moves
 B * H * (2 * d + 8) bytes (about 260 KB at the serving batch) and does
-one small reduction over d = 64 per row.
+one small reduction over d per row.
 
 What the design does about it: one Triton program per block of 16 (b, h)
 rows handles both k and v, so the write is one launch per layer and step.
+The head dim d is a ``tl.constexpr``; the kernels work on the next power of
+two, DP, with the columns past d masked (zeros add nothing to the amax).
 Both kernels share ``_quantize_store``; they differ only in where values
 and scales go.  The division is ``tl.div_rn`` (IEEE round-to-nearest, as
 torch and XLA divide) and the rounding ``rint``, so the stored integers
@@ -47,7 +49,7 @@ from dataclasses import dataclass
 import torch
 
 from . import quant
-from .quant import (HEAD_DIM, QuantCache, check_caches, pack_int4, qmax_for,
+from .quant import (QuantCache, check_caches, pack_int4, qmax_for,
                     quantize_values)
 
 tl = None         # triton.language, bound on first launch
@@ -58,18 +60,20 @@ _JIT = {}
 
 def _quantize_store(src_ptr, s_sb, s_sh, q_ptr, sc_ptr, rows, rmask, heads,
                     t_len, idx, BITS: tl.constexpr, D: tl.constexpr,
-                    QPOS: tl.constexpr):
+                    DP: tl.constexpr, QPOS: tl.constexpr):
     """Quantize rows [R, D] of src (row r = b * heads + h) and store them at
     position idx of the [rows, T] values QPOS bytes apart (D int8 values or
-    D/2 bytes of int4 nibbles each) and of the [rows, T] scales."""
+    D/2 bytes of int4 nibbles each) and of the [rows, T] scales.  DP is the
+    power of two >= D the blocks are built on; columns past D are masked."""
     b = rows // heads
     h = rows % heads
     src = src_ptr + b.to(tl.int64) * s_sb + h.to(tl.int64) * s_sh
     dst = rows.to(tl.int64) * t_len + idx
     if BITS == 8:
         QMAX = 127.0
-        cols = tl.arange(0, D)
-        f = tl.load(src[:, None] + cols[None, :], mask=rmask[:, None],
+        cols = tl.arange(0, DP)
+        mask = rmask[:, None] & (cols < D)[None, :]
+        f = tl.load(src[:, None] + cols[None, :], mask=mask,
                     other=0.0).to(tl.float32)
         amax = tl.max(tl.abs(f), axis=1)
         scale = tl.div_rn(tl.maximum(amax, 1e-8),
@@ -77,14 +81,15 @@ def _quantize_store(src_ptr, s_sb, s_sh, q_ptr, sc_ptr, rows, rmask, heads,
         qv = libdevice.rint(tl.div_rn(f, scale[:, None]))
         qv = tl.minimum(tl.maximum(qv, -QMAX), QMAX)
         tl.store(q_ptr + dst[:, None] * QPOS + cols[None, :], qv.to(tl.int8),
-                 mask=rmask[:, None])
+                 mask=mask)
     else:
         QMAX = 7.0
-        half = tl.arange(0, D // 2)
-        fe = tl.load(src[:, None] + 2 * half[None, :], mask=rmask[:, None],
+        half = tl.arange(0, DP // 2)
+        mask = rmask[:, None] & (half < D // 2)[None, :]
+        fe = tl.load(src[:, None] + 2 * half[None, :], mask=mask,
                      other=0.0).to(tl.float32)
-        fo = tl.load(src[:, None] + 2 * half[None, :] + 1,
-                     mask=rmask[:, None], other=0.0).to(tl.float32)
+        fo = tl.load(src[:, None] + 2 * half[None, :] + 1, mask=mask,
+                     other=0.0).to(tl.float32)
         amax = tl.maximum(tl.max(tl.abs(fe), axis=1),
                           tl.max(tl.abs(fo), axis=1))
         scale = tl.div_rn(tl.maximum(amax, 1e-8),
@@ -95,36 +100,36 @@ def _quantize_store(src_ptr, s_sb, s_sh, q_ptr, sc_ptr, rows, rmask, heads,
         qo = tl.minimum(tl.maximum(qo, -QMAX), QMAX).to(tl.int32)
         byte = (qe & 0xF) | ((qo & 0xF) << 4)
         tl.store(q_ptr + dst[:, None] * QPOS + half[None, :],
-                 byte.to(tl.uint8), mask=rmask[:, None])
+                 byte.to(tl.uint8), mask=mask)
     tl.store(sc_ptr + dst, scale, mask=rmask)
 
 
 def _write_kernel(k_ptr, k_sb, k_sh, v_ptr, v_sb, v_sh, kq_ptr, ks_ptr,
                   vq_ptr, vs_ptr, idx_ptr, n_rows, heads, t_len,
-                  BITS: tl.constexpr, D: tl.constexpr, W: tl.constexpr,
-                  R: tl.constexpr):
+                  BITS: tl.constexpr, D: tl.constexpr, DP: tl.constexpr,
+                  W: tl.constexpr, R: tl.constexpr):
     """B3: k and v into two lane caches, W bytes per position."""
     rows = tl.program_id(0) * R + tl.arange(0, R)
     rmask = rows < n_rows
     idx = tl.load(idx_ptr).to(tl.int64)
     _quantize_store(k_ptr, k_sb, k_sh, kq_ptr, ks_ptr, rows, rmask, heads,
-                    t_len, idx, BITS, D, W)
+                    t_len, idx, BITS, D, DP, W)
     _quantize_store(v_ptr, v_sb, v_sh, vq_ptr, vs_ptr, rows, rmask, heads,
-                    t_len, idx, BITS, D, W)
+                    t_len, idx, BITS, D, DP, W)
 
 
 def _packed_write_kernel(k_ptr, k_sb, k_sh, v_ptr, v_sb, v_sh, kv_ptr,
                          ks_ptr, vs_ptr, idx_ptr, n_rows, heads, t_len,
-                         BITS: tl.constexpr, D: tl.constexpr, W: tl.constexpr,
-                         R: tl.constexpr):
+                         BITS: tl.constexpr, D: tl.constexpr,
+                         DP: tl.constexpr, W: tl.constexpr, R: tl.constexpr):
     """B10: k at byte 0 and v at byte W of each 2W-byte packed position."""
     rows = tl.program_id(0) * R + tl.arange(0, R)
     rmask = rows < n_rows
     idx = tl.load(idx_ptr).to(tl.int64)
     _quantize_store(k_ptr, k_sb, k_sh, kv_ptr, ks_ptr, rows, rmask, heads,
-                    t_len, idx, BITS, D, 2 * W)
+                    t_len, idx, BITS, D, DP, 2 * W)
     _quantize_store(v_ptr, v_sb, v_sh, kv_ptr + W, vs_ptr, rows, rmask, heads,
-                    t_len, idx, BITS, D, 2 * W)
+                    t_len, idx, BITS, D, DP, 2 * W)
 
 
 def _kernels():
@@ -147,9 +152,9 @@ def _kernels():
 
 def _check_new(k_new, v_new):
     b, h, d = k_new.shape
-    if d != HEAD_DIM or tuple(v_new.shape) != (b, h, d):
-        raise ValueError(f"k_new and v_new must be [B, H, {HEAD_DIM}], got "
-                         f"{tuple(k_new.shape)}, {tuple(v_new.shape)}")
+    if d % 2 or tuple(v_new.shape) != (b, h, d):
+        raise ValueError(f"k_new and v_new must be [B, H, d] with an even d, "
+                         f"got {tuple(k_new.shape)}, {tuple(v_new.shape)}")
     for t in (k_new, v_new):
         if t.dtype not in (torch.bfloat16, torch.float32):
             raise TypeError(f"new k/v must be bf16 or fp32, got {t.dtype}")
@@ -168,7 +173,8 @@ def _launch(kernel: str, k_new, v_new, caches, index, bits, t_len, width):
         jit[kernel][grid](
             k_new, k_new.stride(0), k_new.stride(1),
             v_new, v_new.stride(0), v_new.stride(1), *caches, index,
-            n_rows, h, t_len, BITS=bits, D=d, W=width, R=_ROWS, num_warps=4)
+            n_rows, h, t_len, BITS=bits, D=d,
+            DP=1 << (d - 1).bit_length(), W=width, R=_ROWS, num_warps=4)
 
 
 # --- B3: the lane caches ----------------------------------------------------
@@ -191,9 +197,10 @@ def _check(k_cache, v_cache, k_new, v_new, index, stride=None) -> None:
     """Raise unless the new k/v and the caches are what the write kernels
     take: positions ``stride`` bytes apart (default: contiguous caches)."""
     _check_new(k_new, v_new)
-    b, h, _ = k_new.shape
+    b, h, d = k_new.shape
     stride = stride or k_cache.q.shape[3]
-    if check_caches(k_cache, v_cache, b, h, k_new.device, index) != stride:
+    if check_caches(k_cache, v_cache, b, h, d, k_new.device,
+                    index) != stride:
         raise ValueError(f"the write kernels need cache positions {stride} "
                          "bytes apart")
 
@@ -201,7 +208,7 @@ def _check(k_cache, v_cache, k_new, v_new, index, stride=None) -> None:
 def write_quant_kv(k_cache: QuantCache, v_cache: QuantCache,
                    k_new: torch.Tensor, v_new: torch.Tensor,
                    index: torch.Tensor) -> None:
-    """Quantize one token's k and v ([B, H, 64], any batch/head strides)
+    """Quantize one token's k and v ([B, H, d], any batch/head strides)
     and write values and scales in place at ``index`` — a 1-element int32
     tensor on the same device, so no host value of the position is read."""
     if k_new.device.type == "cpu":
@@ -285,7 +292,7 @@ def write_packed_kv_plain(cache: PackedQuantCache, k_new: torch.Tensor,
 
 def write_packed_kv(cache: PackedQuantCache, k_new: torch.Tensor,
                     v_new: torch.Tensor, index: torch.Tensor) -> None:
-    """Quantize one token's k and v ([B, H, 64], any batch/head strides)
+    """Quantize one token's k and v ([B, H, d], any batch/head strides)
     and write values and both scales in place at ``index`` (1-element int32
     device tensor) of the packed cache.  Kernel B10 for CUDA tensors, plain
     twin for CPU tensors."""

@@ -20,10 +20,15 @@ read in place; the kernel takes the stride as its ``pos_stride`` argument.
 
 ``decode_attention_quant`` launches ``csrc/decode_quant.cu`` for CUDA
 tensors and takes ``decode_attention_quant_plain`` only for CPU tensors.
+The kernel splits each (b, h) row's positions over ``decode_split(B * H)``
+blocks of one thread-block cluster and merges their softmax states in
+shared memory (see the source); it is instantiated for head_dim 32, 64 and
+128 (``DECODE_HEAD_DIMS``), and other head dims raise on CUDA tensors.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -33,7 +38,26 @@ from .. import _build
 
 _NEG_INF = -1e30
 _EPS = 1e-8
-HEAD_DIM = 64
+DECODE_HEAD_DIMS = (32, 64, 128)   # the head dims the B2/B9 kernels take
+# blocks the decode kernels aim for: four on each of the H100's 132 SMs
+_TARGET_BLOCKS = 4 * 132
+MAX_SPLIT = 8                      # portable thread-block cluster size
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split(rows: int) -> int:
+    """Blocks per (b, h) row of the decode kernels B2 and B9, from the
+    number of rows B * H alone: the least power of two that gives
+    ``_TARGET_BLOCKS`` blocks, at most ``MAX_SPLIT`` (one cluster).  It
+    never depends on the decode position or the cache layout, so the launch
+    shape is fixed for a sampling run and the packed and lane reads of the
+    same values split alike."""
+    if rows < 1:
+        raise ValueError(f"rows must be >= 1, got {rows}")
+    split = 1
+    while split < MAX_SPLIT and split * rows < _TARGET_BLOCKS:
+        split *= 2
+    return split
 
 
 def qmax_for(bits: int) -> float:
@@ -142,15 +166,16 @@ def position_stride(values: torch.Tensor) -> int:
 
 
 def check_caches(k_cache: QuantCache, v_cache: QuantCache, batch: int,
-                 heads: int, device, index: torch.Tensor) -> int:
-    """Raise unless both caches are [batch, heads, T, 64] (int4: [.., 32]
-    uint8) with one position stride (``position_stride``) and contiguous
-    fp32 [batch, heads, T] scales on ``device``, of one bit width, and
-    ``index`` is a 1-element int32 tensor there.  Returns the position
-    stride in bytes."""
+                 heads: int, head_dim: int, device,
+                 index: torch.Tensor) -> int:
+    """Raise unless both caches are [batch, heads, T, head_dim] (int4:
+    [.., head_dim / 2] uint8) with one position stride
+    (``position_stride``) and contiguous fp32 [batch, heads, T] scales on
+    ``device``, of one bit width, and ``index`` is a 1-element int32 tensor
+    there.  Returns the position stride in bytes."""
     if k_cache.bits != v_cache.bits:
         raise ValueError("k and v caches must share one bit width")
-    width = HEAD_DIM // 2 if k_cache.bits == 4 else HEAD_DIM
+    width = head_dim // 2 if k_cache.bits == 4 else head_dim
     vdtype = torch.uint8 if k_cache.bits == 4 else torch.int8
     t = k_cache.q.shape[2]
     for c in (k_cache, v_cache):
@@ -183,11 +208,13 @@ def check_index(index: torch.Tensor, device) -> None:
 
 
 def check_query(q) -> None:
-    """Raise unless q is a bf16 or fp32 [B, H, 1, 64] decode query with a
-    contiguous last dim (the decode kernels B2 and B9 read it so)."""
+    """Raise unless q is a bf16 or fp32 [B, H, 1, d] decode query with d in
+    ``DECODE_HEAD_DIMS`` and a contiguous last dim (the decode kernels B2
+    and B9 read it so)."""
     _, _, one, d = q.shape
-    if one != 1 or d != HEAD_DIM:
-        raise ValueError(f"q must be [B, H, 1, {HEAD_DIM}], got "
+    if one != 1 or d not in DECODE_HEAD_DIMS:
+        raise ValueError(f"q must be [B, H, 1, d] with head_dim d in "
+                         f"{DECODE_HEAD_DIMS} (ROADMAP C3), got "
                          f"{tuple(q.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q must be bf16 or fp32, got {q.dtype}")
@@ -197,18 +224,19 @@ def check_query(q) -> None:
 
 def _check(q, k_cache, v_cache, index) -> int:
     check_query(q)
-    return check_caches(k_cache, v_cache, q.shape[0], q.shape[1], q.device,
-                        index)
+    b, h, _, d = q.shape
+    return check_caches(k_cache, v_cache, b, h, d, q.device, index)
 
 
 def decode_attention_quant(q, k_cache: QuantCache, v_cache: QuantCache,
                            index: torch.Tensor):
     """Single-token attention over quantized caches, masked to <= index.
 
-    q [B, H, 1, 64] (any batch/head strides, contiguous last dim), caches
-    as ``QuantCache`` whose values may be position-strided views (see the
-    module docstring), ``index`` a 1-element int32 tensor on q's device.
-    Returns a contiguous [B, H, 1, 64] tensor in q's dtype.
+    q [B, H, 1, d] with d in ``DECODE_HEAD_DIMS`` (any batch/head strides,
+    contiguous last dim), caches as ``QuantCache`` whose values may be
+    position-strided views (see the module docstring), ``index`` a
+    1-element int32 tensor on q's device.  Returns a contiguous
+    [B, H, 1, d] tensor in q's dtype.
     """
     if q.device.type == "cpu":
         return decode_attention_quant_plain(q, k_cache, v_cache, index)
@@ -223,7 +251,8 @@ def decode_attention_quant(q, k_cache: QuantCache, v_cache: QuantCache,
         q.data_ptr(), k_cache.q.data_ptr(), k_cache.scale.data_ptr(),
         v_cache.q.data_ptr(), v_cache.scale.data_ptr(), index.data_ptr(),
         out.data_ptr(), b, h, k_cache.q.shape[2], pos_stride, q.stride(0),
-        q.stride(1), k_cache.bits, int(q.dtype == torch.bfloat16),
+        q.stride(1), d, k_cache.bits, int(q.dtype == torch.bfloat16),
+        decode_split(b * h), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "decode_quant")
     decode_attention_quant.launches += 1

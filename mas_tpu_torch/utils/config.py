@@ -153,6 +153,27 @@ class VQModelConfig(_Base):
         return self.resolution // self.spatial_reduction
 
 
+def vq_seg_config(**overrides) -> VQModelConfig:
+    """VQ-SEG: 159-channel one-hot seg maps at 256^2 -> 16^2 tokens, K 1024
+    (``mas_tpu/utils/config.py::vq_seg_config``)."""
+    base = dict(in_channels=159, out_channels=159, resolution=256,
+                attn_resolutions=(16,),
+                codebook=CodebookConfig(codebook_size=1024))
+    base.update(overrides)
+    return VQModelConfig(**base)
+
+
+def vq_img_config(**overrides) -> VQModelConfig:
+    """VQ-IMG: RGB at 512^2 -> 32^2 tokens, K 8192
+    (``mas_tpu/utils/config.py::vq_img_config``)."""
+    base = dict(in_channels=3, out_channels=3, resolution=512,
+                attn_resolutions=(32,),
+                codebook=CodebookConfig(codebook_size=8192, init_steps=3000,
+                                        reservoir_size=12500))
+    base.update(overrides)
+    return VQModelConfig(**base)
+
+
 REMAT_POLICIES = ("mlp", "nothing", "dots")
 
 

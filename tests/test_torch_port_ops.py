@@ -467,7 +467,8 @@ def test_wrappers_reject_meta_tensors():
 
 
 def test_kernel_checks_reject_bad_inputs():
-    q = torch.zeros(1, 2, 8, 32)
+    attention._check(*[torch.zeros(1, 2, 8, 32)] * 3)   # padded to 64
+    q = torch.zeros(1, 2, 8, 160)
     with pytest.raises(ValueError, match="head_dim"):
         attention._check(q, q, q)
     x = torch.zeros(1, 4, 4, 96)
@@ -661,8 +662,10 @@ def test_b6_b7_wrappers_count_no_cpu_launch_and_reject_meta():
 def test_b6_b7_kernel_checks_reject_bad_inputs():
     q = torch.zeros(1, 2, 96, 64)
     lse = torch.zeros(1, 2, 96)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        attention._check_bwd(q, q, q, q, lse, q)
+    attention._check_bwd(q, q, q, q, lse, q)   # a ragged last tile
+    wide = torch.zeros(1, 2, 96, 192)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention._check_bwd(wide, wide, wide, wide, lse, wide)
     q = torch.zeros(1, 2, 128, 64)
     with pytest.raises(ValueError, match="lse"):
         attention._check_bwd(q, q, q, q, torch.zeros(1, 2, 128).double(), q)
