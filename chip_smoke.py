@@ -6,15 +6,18 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. print the card (nvidia-smi name and power limit) and the versions;
      no CUDA device is an error — there is no CPU path;
   2. build the CUDA kernels from ``mas_tpu_torch/csrc`` (nvcc, sm_90a);
-     print each kernel's registers and fail if a tensor-core or decode
-     kernel spills, or a bf16 flash kernel has no tensor-core instruction;
+     print each kernel's registers and fail if a tensor-core, decode or
+     cache-write kernel spills, or a bf16 flash kernel has no tensor-core
+     instruction;
   3. hold each hand-written kernel (B1-B11) against its plain PyTorch
      twin on the card at the main paths' shapes (the attention kernels
-     also at head dims 32 and 128, the decode reads over the edges of
-     their split), and time both, and one PyTorch library call that
+     also at head dims 32 to 256, padded ones included, the decode reads
+     over the edges of their split, the cache writes bit for bit at six
+     head dims), and time both, and one PyTorch library call that
      computes the same function where there is one (CUDA events, median;
      B2 and B9 also back to back and replayed from a CUDA graph, over
-     enough cache sets to keep the L2 cold); each kernel's bound is the
+     enough cache sets to keep the L2 cold; B3 and B10 from a CUDA graph
+     and by the host's time per call); each kernel's bound is the
      larger of its bytes over 3.35 TB/s and its operations over the peak
      for their type;
   4. run the serving path at full width — ``configs/sample_256.json``
@@ -63,9 +66,10 @@ The line before the last is a JSON object with one entry per kernel
 
     python3 chip_smoke.py --decode-times DIR
 
-times only the decode reads B2 and B9 of the ``mas_tpu_torch`` under DIR
-(for example a ``git archive`` of another commit) and prints one JSON
-line, so two trees compare on one card in one call.
+times only the decode reads B2 and B9 and the cache writes B3 and B10 of
+the ``mas_tpu_torch`` under DIR (for example a ``git archive`` of another
+commit) and prints one JSON line, so two trees compare on one card in one
+call.
 """
 
 from __future__ import annotations
@@ -258,7 +262,8 @@ def phase_build() -> None:
 
 
 # kernels that must not spill registers to local memory
-NO_SPILL_KERNELS = ("_bf16", "decode_quant_kernel", "decode_float_kernel")
+NO_SPILL_KERNELS = ("_bf16", "decode_quant_kernel", "decode_float_kernel",
+                    "kv_write_")
 
 
 def spill_check(log: str) -> None:
@@ -322,8 +327,8 @@ def check_b1(gen) -> dict:
     relative); lse is fp32: atol 1e-4.  The same bf16 tolerances hold at
     T = 200 (ragged) and at the training shape [8, 16, 1408, 64], which is
     also timed beside the library call and its bound, and at head dims 32
-    (zero-padded to 64) and 128 at T = 200; [8, 16, 1408, 128] is timed
-    back to back."""
+    (zero-padded to 64), 128, 160 (zero-padded to 256) and 256 at T = 200;
+    [8, 16, 1408, 128] and [8, 16, 1408, 256] are timed back to back."""
     from mas_tpu_torch.ops import attention
 
     def qkv_views(b, h, t, dtype, dim=64):
@@ -360,7 +365,7 @@ def check_b1(gen) -> dict:
             if dtype == torch.bfloat16:
                 err = max(err, e)
         print(f"B1 {dtype} T=200 prefix 0/37/100/200: ok")
-    for dim in (32, 128):
+    for dim in (32, 128, 160, 256):
         for dtype in (torch.bfloat16, torch.float32):
             q2, k2, v2 = qkv_views(2, 4, 200, dtype, dim)
             for prefix in (0, 37, 200):
@@ -406,6 +411,19 @@ def check_b1(gen) -> dict:
     bd = bound(4 * b * h * t2 * 128 * 2 + b * h * t2 * 4,
                4 * 128 * prefix_causal_pairs(t2, 384) * b * h, torch.bfloat16)
     print(f"B1 [{b},{h},{t2},128] bf16 prefix 384: out max err {e:.3e}; back "
+          f"to back kernel {run_ms(kernel):.4f} ms, library "
+          f"{run_ms(library):.4f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']})")
+    del q3, k3, v3
+    q3, k3, v3 = qkv_views(b, h, t2, torch.bfloat16, 256)
+    e, le = held(q3, k3, v3, 384, f"[{b},{h},{t2},256] prefix 384")
+    err = max(err, e)
+    kernel = lambda: attention.flash_attention(q3, k3, v3, 384)
+    library = lambda: F.scaled_dot_product_attention(q3, k3, v3,
+                                                     attn_mask=mask)
+    bd = bound(4 * b * h * t2 * 256 * 2 + b * h * t2 * 4,
+               4 * 256 * prefix_causal_pairs(t2, 384) * b * h, torch.bfloat16)
+    print(f"B1 [{b},{h},{t2},256] bf16 prefix 384: out max err {e:.3e}; back "
           f"to back kernel {run_ms(kernel):.4f} ms, library "
           f"{run_ms(library):.4f} ms, bound {bd['bound_ms']:.4f} ms "
           f"({bd['bound_by']})")
@@ -474,19 +492,21 @@ def check_b2(gen) -> dict:
     """Decode read: q [rows, 16, 1, d] bf16 (a view into qkv) at 128 rows
     (batch 64 with guidance: one block per (b, h)) and 8 rows (batch 4:
     eight blocks of one cluster per (b, h)), int4 and int8 caches with
-    T = 640, at every index of CHUNK_EDGES; head dims 32 and 128 too.
+    T = 640, at every index of CHUNK_EDGES; head dims 32, 128 and 256 too,
+    and 48 and 96 over caches padded to 64 and 128 values a position.
     Tolerance: both versions accumulate in fp32 and round to bf16 once:
     atol 1e-2, rtol 1e-2; fp32 q: only the fp32 summation order differs,
     atol 1e-5.  The packed cache is read through strided views of its k
     and v halves: it must give the lane read of the same values bit for
     bit (same kernel, same split, another position stride), and match its
-    plain twin.  Timed by ``b2_times`` at both row counts."""
+    plain twin (at d 64 and, padded, 96).  Timed by ``b2_times`` at both
+    row counts."""
     from mas_tpu_torch.ops import decode_cache, quant
 
     h, t = 16, 640
     err, out = 0.0, {}
     for rows, d in ((128, 64), (8, 64), (8, 32), (8, 128), (128, 32),
-                    (128, 128)):
+                    (128, 128), (8, 256), (128, 256), (8, 96), (128, 48)):
         indices = CHUNK_EDGES if d == 64 else (0, 6, 383, 639)
         q = _decode_q(gen, rows, h, d)
         for bits in (4, 8):
@@ -507,7 +527,7 @@ def check_b2(gen) -> dict:
                 err = max(err, max_err(o, p))
             print(f"B2 [{rows},{h},{t},{d}] int{bits}, bf16 and fp32 q, "
                   f"index {indices[0]}..{indices[-1]} ({len(indices)}): ok")
-            if d != 64:
+            if d not in (64, 96):
                 continue
             packed = decode_cache.seed_packed_cache(
                 torch.randn(rows, h, t, d, device="cuda", generator=gen),
@@ -529,6 +549,16 @@ def check_b2(gen) -> dict:
                 err = max(err, max_err(o, p))
             print(f"B2 packed [{rows}] int{bits}: bitwise equal to the lane "
                   "read at every index")
+    # head dim 256, not a speed goal: device time over one cache pair of
+    # 2 x 84 MB (more than the L2 holds)
+    q = _decode_q(gen, 128, h, 256)
+    kc, vc = _caches(gen, 4, 128, h, t, 256)
+    idx = torch.tensor([511], dtype=torch.int32, device="cuda")
+    out["d256_graph_ms"] = graph_ms(
+        lambda: quant.decode_attention_quant(q, kc, vc, idx))
+    print(f"B2 int4 [128,{h},{t},256] index 511: graph "
+          f"{out['d256_graph_ms']:.4f} ms")
+    del q, kc, vc
     for rows in (128, 8):
         res = b2_times(gen, rows)
         print(f"B2 int4 [{rows},{h},{t},64] index 511 ({res['sets']} cache "
@@ -548,46 +578,151 @@ def check_b2(gen) -> dict:
     return out
 
 
-def check_b3(gen) -> dict:
-    """Cache write into the same [128, 16, 640, *] caches: the kernel and
-    the plain twin must store identical bits (IEEE division and
-    round-half-even in both)."""
+def host_ms(fn, calls: int = 1000) -> float:
+    """Host time per call of ``fn`` in ms: wall clock over ``calls`` calls
+    issued with no synchronisation between them, after a warmup (the
+    device's queue absorbs a kernel shorter than its launch)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
+
+
+# head dims of the write checks: the four instances and two padded ones
+WRITE_HEAD_DIMS = (32, 48, 64, 96, 128, 256)
+
+
+def _new_kv(gen, rows, h, d, dtype=torch.bfloat16):
+    """New k and v [rows, h, d] as views into a fused qkv tensor, as the
+    model passes them (scaled by 3: the int4 grid's edges are reached)."""
+    qkv = torch.randn(rows, 1, 3, h, d, device="cuda", generator=gen,
+                      dtype=dtype) * 3
+    return qkv[:, 0, 1], qkv[:, 0, 2]
+
+
+def _held_writes(gen, rows, d, bits, t=640, dtype=torch.bfloat16):
+    """B3 and B10 into fresh lane and packed caches [rows, 16, t, *] at
+    indices 0, 384, t - 1 against their plain twins: bitwise equal values
+    and scales, B10's halves bitwise equal to B3's caches, and the columns
+    past d still zero."""
     from mas_tpu_torch.ops import decode_cache, quant
 
-    b, h, d = 128, 16, 64
-    qkv = torch.randn(b, 1, 3, h, d, device="cuda", generator=gen,
-                      dtype=torch.bfloat16) * 3
-    kn, vn = qkv[:, 0, 1], qkv[:, 0, 2]
+    h = 16
+    kn, vn = _new_kv(gen, rows, h, d, dtype)
+    kc, vc = _caches(gen, bits, rows, h, t, d)
+    pk, pv = (quant.QuantCache(c.q.clone(), c.scale.clone(), bits)
+              for c in (kc, vc))
+    seed = [torch.randn(rows, h, 384, d, device="cuda", generator=gen)
+            for _ in range(2)]
+    packed = decode_cache.seed_packed_cache(*seed, t, bits)
+    plain = decode_cache.PackedQuantCache(packed.kv.clone(),
+                                          packed.scale.clone(), bits)
+    for index in (0, 384, t - 1):
+        idx = torch.tensor([index], dtype=torch.int32, device="cuda")
+        decode_cache.write_quant_kv(kc, vc, kn, vn, idx)
+        decode_cache.write_quant_kv_plain(pk, pv, kn, vn, idx)
+        decode_cache.write_packed_kv(packed, kn, vn, idx)
+        decode_cache.write_packed_kv_plain(plain, kn, vn, idx)
+    torch.cuda.synchronize()
+    what = f"[{rows},{h},{t},{d}] {dtype} int{bits}"
+    for got, want in ((kc, pk), (vc, pv)):
+        require(torch.equal(got.q, want.q)
+                and torch.equal(got.scale, want.scale),
+                f"B3 {what}: kernel and plain twin stored different bits")
+        require(not got.values()[..., d:].any(), f"B3 {what}: the padding "
+                "was written")
+    require(torch.equal(packed.kv, plain.kv)
+            and torch.equal(packed.scale, plain.scale),
+            f"B10 {what}: kernel and plain twin stored different bits")
+    written = [0, 384, t - 1]
+    for view, lane in zip(packed.views(), (kc, vc)):
+        require(torch.equal(view.q[:, :, written], lane.q[:, :, written])
+                and torch.equal(view.scale[:, :, written],
+                                lane.scale[:, :, written]),
+                f"B10 {what}: packed halves differ from B3's lane caches")
+        require(not view.values()[..., d:].any(), f"B10 {what}: the "
+                "padding was written")
+
+
+def write_times(gen, rows: int) -> dict:
+    """B3 and B10 writing new k/v [rows, 16, 64] bf16 (views into qkv) into
+    int4 caches [rows, 16, 640, *] at index 511: one call at a time
+    (``timed_ms``), replayed from a CUDA graph (``graph_ms``, the device
+    time), and the host time per call (``host_ms``); the plain twins one
+    call at a time.  For whichever ``mas_tpu_torch`` is imported."""
+    from mas_tpu_torch.ops import decode_cache, quant
+
+    h, t, d, bits = 16, 640, 64, 4
+    kn, vn = _new_kv(gen, rows, h, d)
+    idx = torch.tensor([511], dtype=torch.int32, device="cuda")
+    kc, vc = (quant.QuantCache.empty(rows, h, t, d, bits, "cuda")
+              for _ in range(2))
+    packed = decode_cache.PackedQuantCache.empty(rows, h, t, d, bits, "cuda")
+    lane = lambda: decode_cache.write_quant_kv(kc, vc, kn, vn, idx)
+    pack = lambda: decode_cache.write_packed_kv(packed, kn, vn, idx)
     out = {}
-    for bits in (4, 8):
-        kc, vc = _caches(gen, bits)
-        clone = lambda c: quant.QuantCache(c.q.clone(), c.scale.clone(),
-                                           c.bits)
-        pk, pv = clone(kc), clone(vc)
-        for index in (384, 511, 639):
-            idx = torch.tensor([index], dtype=torch.int32, device="cuda")
-            decode_cache.write_quant_kv(kc, vc, kn, vn, idx)
-            decode_cache.write_quant_kv_plain(pk, pv, kn, vn, idx)
-        torch.cuda.synchronize()
-        for got, want in ((kc, pk), (vc, pv)):
-            require(torch.equal(got.q, want.q)
-                    and torch.equal(got.scale, want.scale),
-                    f"B3 int{bits}: kernel and plain twin stored different "
-                    "bits")
-        print(f"B3 int{bits}: bitwise equal")
-        if bits == 4:
-            idx = torch.tensor([511], dtype=torch.int32, device="cuda")
-            out["ms"] = timed_ms(
-                lambda: decode_cache.write_quant_kv(kc, vc, kn, vn, idx))
-            out["plain_ms"] = timed_ms(
-                lambda: decode_cache.write_quant_kv_plain(pk, pv, kn, vn,
-                                                          idx))
-    # int4: read k, v [b, h, d] bf16; write d/2 bytes and a scale each
-    out.update(bound(2 * b * h * d * 2 + 2 * b * h * (d // 2 + 4),
-                     2 * b * h * d * 4, torch.bfloat16))
-    out["library_ms"] = None
-    out["max_abs_err"] = 0.0
+    for kid, fn, plain in (
+            ("B3", lane, lambda: decode_cache.write_quant_kv_plain(
+                kc, vc, kn, vn, idx)),
+            ("B10", pack, lambda: decode_cache.write_packed_kv_plain(
+                packed, kn, vn, idx))):
+        out[kid] = {"ms": timed_ms(fn), "graph_ms": graph_ms(fn),
+                    "host_ms": host_ms(fn), "plain_ms": timed_ms(plain),
+                    **bound(2 * rows * h * d * 2 + 2 * rows * h * (d // 2 + 4),
+                            2 * rows * h * d * 4, torch.bfloat16)}
     return out
+
+
+def check_b3(gen) -> dict:
+    """Cache writes, B3 (lane) and B10 (packed): at 128 rows (batch 64 with
+    guidance) and 8 rows (batch 4), int4 and int8, bf16 new k/v, at every
+    head dim of WRITE_HEAD_DIMS (padded caches at 48 and 96), and fp32 new
+    k/v at d 64 and 96: each kernel and its plain twin must store identical
+    bits (IEEE division and round-half-even in both), B10's halves must
+    equal B3's caches, and the columns past d must stay zero
+    (``_held_writes``).  Timed by ``write_times`` at both row counts."""
+    cases = [(rows, d, bits, torch.bfloat16) for d in WRITE_HEAD_DIMS
+             for rows in (128, 8) for bits in (4, 8)]
+    cases += [(128, d, bits, torch.float32) for d in (64, 96)
+              for bits in (4, 8)]
+    for rows, d, bits, dtype in cases:
+        _held_writes(gen, rows, d, bits, dtype=dtype)
+    print(f"B3, B10: bitwise equal to their twins and to each other, padding "
+          f"untouched, at {len(cases)} cases: rows 128/8, d "
+          f"{'/'.join(map(str, WRITE_HEAD_DIMS))}, int4/int8, bf16 and fp32")
+    out = {}
+    for rows in (128, 8):
+        res = write_times(gen, rows)
+        for kid in ("B3", "B10"):
+            r = res[kid]
+            print(f"{kid} int4 [{rows},16,64] -> T 640, index 511: one call "
+                  f"{r['ms']:.4f} ms, graph {r['graph_ms']:.4f} ms, host per "
+                  f"call {r['host_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if rows == 128:
+            out = {kid: dict(res[kid], library_ms=None, max_abs_err=0.0)
+                   for kid in ("B3", "B10")}
+        else:
+            for kid in ("B3", "B10"):
+                out[kid]["rows8_graph_ms"] = res[kid]["graph_ms"]
+                out[kid]["rows8_host_ms"] = res[kid]["host_ms"]
+    _WRITE_ROWS.update(out)
+    return out["B3"]
+
+
+# B10's row of the kernel table, measured by check_b3 beside B3's
+_WRITE_ROWS = {}
+
+
+def check_b10(gen) -> dict:
+    """Packed cache write: held and timed beside B3 by ``check_b3``."""
+    require("B10" in _WRITE_ROWS, "check_b3 runs before check_b10")
+    return _WRITE_ROWS["B10"]
 
 
 def check_b4(gen) -> dict:
@@ -760,9 +895,9 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor, n: int) -> bool:
 def check_b6(gen) -> dict:
     """Attention backward at [8, 16, 1408, 64] bf16 at prefix 384 and 0
     (the training geometry) and [2, 16, 640, 64] fp32 at prefix 384; at
-    T = 200 (a ragged last tile) with head dims 64, 32 (zero-padded to 64)
-    and 128, bf16 and fp32; and [8, 16, 1408, 128] bf16, timed back to
-    back, q/k/v
+    T = 200 (a ragged last tile) with head dims 64, 32 (zero-padded to 64),
+    128, 160 (zero-padded to 256) and 256, bf16 and fp32; and [8, 16, 1408,
+    128] and [8, 16, 1408, 256] bf16, timed back to back, q/k/v
     as views into one fused qkv tensor, out and lse from B1 and dO laid out
     [B, T, H, d] as the model passes them.  Tolerances, per tensor against
     the plain twin: fp32 atol 1e-4 * max |grad| (both sum over up to T
@@ -780,7 +915,12 @@ def check_b6(gen) -> dict:
             ((2, 8, 200, 128), torch.bfloat16, 37),
             ((2, 8, 200, 128), torch.float32, 0),
             ((2, 8, 200, 32), torch.float32, 200),
-            ((8, 16, 1408, 128), torch.bfloat16, 384)):
+            ((2, 8, 200, 160), torch.bfloat16, 37),
+            ((2, 8, 200, 256), torch.bfloat16, 0),
+            ((2, 8, 200, 256), torch.float32, 37),
+            ((2, 8, 200, 160), torch.float32, 200),
+            ((8, 16, 1408, 128), torch.bfloat16, 384),
+            ((8, 16, 1408, 256), torch.bfloat16, 384)):
         qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen,
                           dtype=dtype)
         q, k, v = attention.split_qkv(qkv)
@@ -825,7 +965,7 @@ def check_b6(gen) -> dict:
             out.update(bound(8 * n * 2 + b * h * t * 4,
                              10 * d * prefix_causal_pairs(t, prefix) * b * h,
                              torch.bfloat16))
-        elif d == 128 and t == 1408:
+        elif d in (128, 256) and t == 1408:
             args = (q, k, v, o, lse, do, prefix)
             n = b * h * t * d
             bd = bound(8 * n * 2 + b * h * t * 4,
@@ -937,10 +1077,11 @@ def check_b9(gen) -> dict:
     """Float-cache decode read at the 512^2 serving shape: q [rows, 16, 1,
     64] bf16 (a view into qkv) against bf16 caches [rows, 16, 1408, 64] at
     128 rows (batch 64 with guidance) and 8 rows (batch 4), at the indices
-    of CHUNK_EDGES and 895 and 1407; head dims 32 and 128 too; fp32 q and
-    caches [8, 16, 640, 64] and [128, 16, 640, 64].  Tolerance: both
-    versions accumulate in fp32 and round the output to bf16 once: atol
-    1e-2, rtol 1e-2; fp32 q and caches: only the fp32 summation order
+    of CHUNK_EDGES and 895 and 1407; head dims 32, 128 and 256 too, and 96
+    and 160 over caches padded to 128 and 256 values a position; fp32 q and
+    caches [8, 16, 640, 64], [128, 16, 640, 64], d 128 and 256.  Tolerance:
+    both versions accumulate in fp32 and round the output to bf16 once:
+    atol 1e-2, rtol 1e-2; fp32 q and caches: only the fp32 summation order
     differs, atol 1e-5, rtol 1e-5.  Timed by ``b9_times`` at both row
     counts."""
     from mas_tpu_torch.ops import decode_attention as da
@@ -953,12 +1094,17 @@ def check_b9(gen) -> dict:
                               (8, 1408, 128, torch.bfloat16),
                               (128, 1408, 128, torch.bfloat16),
                               (128, 640, 32, torch.bfloat16),
+                              (8, 1408, 256, torch.bfloat16),
+                              (128, 640, 256, torch.bfloat16),
+                              (8, 640, 96, torch.bfloat16),
+                              (128, 640, 160, torch.bfloat16),
                               (8, 640, 64, torch.float32),
                               (128, 640, 64, torch.float32),
-                              (8, 640, 128, torch.float32)):
+                              (8, 640, 128, torch.float32),
+                              (8, 640, 256, torch.float32)):
         q = _decode_q(gen, rows, h, d, dtype)
-        kc, vc = (da.FloatCache(torch.randn(rows, h, t, d, device="cuda",
-                                            generator=gen, dtype=dtype))
+        kc, vc = (da.FloatCache.seeded(torch.randn(
+            rows, h, t, d, device="cuda", generator=gen, dtype=dtype), t)
                   for _ in range(2))
         indices = sorted({i for i in CHUNK_EDGES + (895, 1407) if i < t}
                          | {t - 1})
@@ -975,6 +1121,18 @@ def check_b9(gen) -> dict:
         print(f"B9 [{rows},{h},{t},{d}] {dtype}, index {indices[0]}.."
               f"{indices[-1]} ({len(indices)}): ok")
         del kc, vc
+    # head dim 256, not a speed goal: device time over one cache pair of
+    # 2 x 1.5 GB
+    q = _decode_q(gen, 128, h, 256)
+    kc, vc = (da.FloatCache(torch.randn(128, h, 1408, 256, device="cuda",
+                                        generator=gen, dtype=torch.bfloat16))
+              for _ in range(2))
+    idx = torch.tensor([1407], dtype=torch.int32, device="cuda")
+    out["d256_graph_ms"] = graph_ms(
+        lambda: da.decode_attention_float(q, kc, vc, idx))
+    print(f"B9 bf16 [128,{h},1408,256] index 1407: graph "
+          f"{out['d256_graph_ms']:.4f} ms")
+    del q, kc, vc
     for rows in (128, 8):
         res = b9_times(gen, rows)
         print(f"B9 bf16 [{rows},{h},1408,64] index 1407 ({res['sets']} cache "
@@ -996,63 +1154,18 @@ def check_b9(gen) -> dict:
 
 
 def decode_times() -> dict:
-    """``b2_times`` and ``b9_times`` at 128 and 8 rows, for whichever
-    ``mas_tpu_torch`` is imported: ``python3 chip_smoke.py --decode-times
-    DIR`` imports it from DIR (e.g. a ``git archive`` of the parent
-    commit), so two trees are timed on one card in one call."""
+    """``b2_times``, ``b9_times`` and ``write_times`` (B3, B10) at 128 and
+    8 rows, for whichever ``mas_tpu_torch`` is imported: ``python3
+    chip_smoke.py --decode-times DIR`` imports it from DIR (e.g. a ``git
+    archive`` of the parent commit), so two trees are timed on one card in
+    one call."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return {f"B{k}_{rows}": fn(gen, rows) for k, fn in (("2", b2_times),
-                                                        ("9", b9_times))
-            for rows in (128, 8)}
-
-
-def check_b10(gen) -> dict:
-    """Packed cache write, int8 and int4, at the 256^2 serving shape: new
-    k/v [128, 16, 64] bf16 (views into qkv) into [128, 16, 640, *] packed
-    caches at index 384, 511, 639.  The kernel and the plain twin must
-    store identical bits (IEEE division and round-half-even in both), and
-    so must B3 into lane caches: the packed halves equal the lane caches."""
-    from mas_tpu_torch.ops import decode_cache, quant
-
-    b, h, t, d = 128, 16, 640, 64
-    qkv = torch.randn(b, 1, 3, h, d, device="cuda", generator=gen,
-                      dtype=torch.bfloat16) * 3
-    kn, vn = qkv[:, 0, 1], qkv[:, 0, 2]
-    out = {}
-    for bits in (8, 4):
-        k0, v0 = (torch.randn(b, h, 384, d, device="cuda", generator=gen)
-                  for _ in range(2))
-        cache = decode_cache.seed_packed_cache(k0, v0, t, bits)
-        plain = decode_cache.PackedQuantCache(cache.kv.clone(),
-                                              cache.scale.clone(), bits)
-        lane = [quant.QuantCache(c.q.contiguous(), c.scale.contiguous(), bits)
-                for c in cache.views()]
-        for index in (384, 511, 639):
-            idx = torch.tensor([index], dtype=torch.int32, device="cuda")
-            decode_cache.write_packed_kv(cache, kn, vn, idx)
-            decode_cache.write_packed_kv_plain(plain, kn, vn, idx)
-            decode_cache.write_quant_kv(*lane, kn, vn, idx)
-        torch.cuda.synchronize()
-        require(torch.equal(cache.kv, plain.kv)
-                and torch.equal(cache.scale, plain.scale),
-                f"B10 int{bits}: kernel and plain twin stored different bits")
-        for view, want in zip(cache.views(), lane):
-            require(torch.equal(view.q, want.q)
-                    and torch.equal(view.scale, want.scale),
-                    f"B10 int{bits}: packed halves differ from B3's lane "
-                    "caches")
-        print(f"B10 int{bits}: bitwise equal to its twin and to B3")
-        if bits == 4:
-            idx = torch.tensor([511], dtype=torch.int32, device="cuda")
-            out["ms"] = timed_ms(
-                lambda: decode_cache.write_packed_kv(cache, kn, vn, idx))
-            out["plain_ms"] = timed_ms(
-                lambda: decode_cache.write_packed_kv_plain(plain, kn, vn,
-                                                           idx))
-    out.update(bound(2 * b * h * d * 2 + 2 * b * h * (d // 2 + 4),
-                     2 * b * h * d * 4, torch.bfloat16))
-    out["library_ms"] = None
-    out["max_abs_err"] = 0.0
+    out = {f"B{k}_{rows}": fn(gen, rows) for k, fn in (("2", b2_times),
+                                                       ("9", b9_times))
+           for rows in (128, 8)}
+    for rows in (128, 8):
+        for kid, res in write_times(gen, rows).items():
+            out[f"{kid}_{rows}"] = res
     return out
 
 
@@ -1100,7 +1213,7 @@ KERNELS = (
     ("B2", "B2 decode_attention_quant", "cuda",
      "mas_tpu_torch/csrc/decode_quant.cu", "mas_tpu/ops/quant.py:187",
      check_b2),
-    ("B3", "B3 write_quant_kv", "triton", "mas_tpu_torch/ops/decode_cache.py",
+    ("B3", "B3 write_quant_kv", "cuda", "mas_tpu_torch/csrc/kv_write.cu",
      "mas_tpu/ops/decode_cache.py:270", check_b3),
     ("B4", "B4 gn_swish", "triton", "mas_tpu_torch/ops/gn_swish.py",
      "mas_tpu/ops/pallas/gn_swish.py:50", check_b4),
@@ -1116,9 +1229,8 @@ KERNELS = (
     ("B9", "B9 decode_attention_float", "cuda",
      "mas_tpu_torch/csrc/decode_quant.cu", "mas_tpu/ops/decode_attention.py:69",
      check_b9),
-    ("B10", "B10 write_packed_kv", "triton",
-     "mas_tpu_torch/ops/decode_cache.py", "mas_tpu/ops/decode_cache.py:111",
-     check_b10),
+    ("B10", "B10 write_packed_kv", "cuda", "mas_tpu_torch/csrc/kv_write.cu",
+     "mas_tpu/ops/decode_cache.py:111", check_b10),
     ("B11", "B11 add_stats", "triton", "mas_tpu_torch/ops/ln_producer.py",
      "benchmarks/ln_producer.py:49", check_b11),
 )

@@ -20,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "mas_tpu_torch"
@@ -100,6 +102,7 @@ def build(verbose: bool = False) -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     # q k v out lse, strides, B H T prefix head_dim, scale, is_bf16, stream
     lib.mas_flash_fwd.argtypes = [p, p, p, p, p,
                                   ctypes.POINTER(ctypes.c_longlong),
@@ -111,16 +114,21 @@ def _declare(lib: ctypes.CDLL) -> None:
                                   ctypes.POINTER(ctypes.c_longlong),
                                   i, i, i, i, i, f, i, p]
     lib.mas_flash_bwd.restype = i
-    # q kq ks vq vs index out, B H T pos_stride q_sb q_sh head_dim bits
+    # q kq ks vq vs index out, B H T pos_stride q_sb q_sh width d bits
     # is_bf16 split, scale, stream
     lib.mas_decode_quant.argtypes = [p, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, i, i, i, i, f, p]
+                                     i, i, i, i, i, i, i, i, i, i, i, f, p]
     lib.mas_decode_quant.restype = i
-    # q k v index out, B H T q_sb q_sh head_dim cache_bf16 is_bf16 split,
+    # q k v index out, B H T q_sb q_sh width d cache_bf16 is_bf16 split,
     # scale, stream
     lib.mas_decode_float.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                     i, f, p]
+                                     i, i, f, p]
     lib.mas_decode_float.restype = i
+    # k_new v_new kq ks vq vs index, B H, k strides, v strides, T d width
+    # bits packed is_bf16, stream
+    lib.mas_kv_write.argtypes = [p, p, p, p, p, p, p, i, i, ll, ll, ll, ll,
+                                 i, i, i, i, i, i, p]
+    lib.mas_kv_write.restype = i
     # z codebook cb_sq out, N K D is_bf16, stream
     lib.mas_vq_argmin.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.mas_vq_argmin.restype = i
@@ -136,6 +144,15 @@ def library() -> ctypes.CDLL:
         _declare(lib)
         _LIB = lib
     return _LIB
+
+
+def stream(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device
+    ``device_index`` (the capturing stream inside ``torch.cuda.graph``):
+    what ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    making a Stream object, which costs several microseconds of host time
+    on every decode-step launch."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(status: int, what: str) -> None:

@@ -15,12 +15,15 @@
 // the Pallas kernel's q * asarray(scale, q.dtype) (the host passes the
 // scale rounded to that dtype; the product is rounded to it once).  p stays
 // fp32, as in the Pallas kernels; the output is rounded to q's dtype once.
-// Cache layout (the port's own): values [B, H, T, *] with the d values of a
-// position contiguous: int8 [.., d], int4 [.., d/2] uint8 with two nibbles
-// per byte (low nibble = even dim), bf16 or fp32 [.., d]; scales [B, H, T]
-// fp32.  Positions are ``pos_stride`` bytes apart and rows of one (b, h)
-// are T * pos_stride bytes apart, so the k and v halves of the packed
-// [B, H, T, 2d] cache are read in place through strided views; the lane
+// Cache layout (the port's own): values [B, H, T, *] with the D values of
+// a position contiguous: int8 [.., D], int4 [.., D/2] uint8 with two
+// nibbles per byte (low nibble = even dim), bf16 or fp32 [.., D]; scales
+// [B, H, T] fp32.  D is the instance that holds the head dim d (32, 64, 128
+// or 256); the columns past d are zero, q is read at its d columns (zeros
+// past them) and the output [B, H, 1, d] is written at d columns.
+// Positions are ``pos_stride`` bytes apart and rows of one (b, h) are T *
+// pos_stride bytes apart, so the k and v halves of the packed [B, H, T,
+// 2D] cache are read in place through strided views; the lane
 // caches have pos_stride = the bytes of one position.  ``index`` is a
 // 1-element int32 device tensor: no launch parameter depends on it.
 //
@@ -56,11 +59,14 @@
 //   bits.
 // - Lane mapping: every lane works on 16 bytes of one position (bf16: 8
 //   values, fp32: 4, int8: 16), 8 for int4 (16 values), so a warp's
-//   shared-memory reads are contiguous and free of bank conflicts.  Each lane group keeps its own online-softmax state and
-//   rescales once per tile.  int8 and int4 values become floats by the
-//   2^23 magic-number trick (exact for these small integers), not by the
-//   quarter-rate integer-to-float conversion.
-// - head_dim is a template parameter, instantiated for 32, 64 and 128.
+//   shared-memory reads are contiguous and free of bank conflicts (32
+//   bytes for an fp32 position of 256 values).  Each lane group keeps its
+//   own online-softmax state and rescales once per tile.  int8 and int4
+//   values become floats by the 2^23 magic-number trick (exact for these
+//   small integers), not by the quarter-rate integer-to-float conversion.
+// - The instance width D is a template parameter: 32, 64, 128 and 256.  At
+//   D = 256 a bf16 position is 512 bytes, a whole warp of 16-byte lanes; an
+//   fp32 one takes 32 bytes a lane.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -80,11 +86,13 @@ constexpr float NEG = -1e30f;     // masked score, as the Pallas kernels
 
 // geometry of one (bits, head dim) instance.  A lane works on 16 bytes of
 // a position, 8 for int4: 32 int4 values a lane took 109 registers (q and
-// accumulator alone 64), four blocks an SM; 16 values take 84, five.
+// accumulator alone 64), four blocks an SM; 16 values take 84, five.  An
+// fp32 position of 256 values (1 KB) takes 32 bytes a lane.
 template <int BITS, int D>
 struct Geo {
   static constexpr int W = D * BITS / 8;   // bytes of one position (k or v)
-  static constexpr int LB = BITS == 4 ? 8 : 16;  // bytes per lane
+  static constexpr int UNIT = BITS == 4 ? 8 : 16;  // bytes of one unpack
+  static constexpr int LB = W / 32 > UNIT ? W / 32 : UNIT;  // bytes a lane
   static constexpr int LPP = W / LB;       // lanes per position
   static constexpr int VPL = LB * 8 / BITS;  // values per lane
   static constexpr int PPW = 32 / LPP;     // positions per warp step
@@ -208,17 +216,27 @@ __device__ __forceinline__ void unpack<32>(const uint8_t* p, float* out) {
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
 }
 
+// a lane's LB bytes: LB / UNIT unpacks of UNIT bytes each
+template <int BITS, int D>
+__device__ __forceinline__ void unpack_lane(const uint8_t* p, float* out) {
+  using G = Geo<BITS, D>;
+  constexpr int VPU = G::UNIT * 8 / BITS;  // values of one unpack
+#pragma unroll
+  for (int u = 0; u < G::LB / G::UNIT; ++u)
+    unpack<BITS>(p + u * G::UNIT, out + u * VPU);
+}
+
 // The body of both kernels, for block rank j of the cluster of one (b, h).
 // BITS 8 / 4: a quantized cache with per-position scales (B2); 16 / 32: a
 // bf16 / fp32 cache without scales (B9).  pos_stride: bytes between
-// positions.
+// positions; d: the head dim (<= D), q's and out's columns.
 template <int BITS, int D, typename TQ>
 __device__ __forceinline__ void decode_block(
     const TQ* __restrict__ q, const uint8_t* __restrict__ kq,
     const float* __restrict__ ks, const uint8_t* __restrict__ vq,
     const float* __restrict__ vs, const int* __restrict__ index,
     TQ* __restrict__ out, int H, int t_len, int pos_stride, int q_sb,
-    int q_sh, float scale) {
+    int q_sh, int d, float scale) {
   using G = Geo<BITS, D>;
   constexpr bool SCALED = BITS <= 8;   // quantized: fold in the scales
   constexpr int VPL = G::VPL;
@@ -280,13 +298,14 @@ __device__ __forceinline__ void decode_block(
     cp_async_commit();
   }
 
-  // q' while the first tiles are in flight: VPL dims per lane
+  // q' while the first tiles are in flight: VPL dims per lane, zeros past
+  // the head dim d
   float qr[VPL];
   const TQ* qp = q + (long long)(bh / H) * q_sb + (long long)(bh % H) * q_sh +
                  part * VPL;
 #pragma unroll
   for (int c = 0; c < VPL; ++c) {
-    const float x = to_f(qp[c]) * scale;
+    const float x = part * VPL + c < d ? to_f(qp[c]) * scale : 0.f;
     qr[c] = SCALED ? x : round_to(x, q);
   }
 
@@ -312,7 +331,7 @@ __device__ __forceinline__ void decode_block(
     for (int j = 0; j < G::STEPS; ++j) {
       const int p = j * G::PPB + warp * G::PPW + grp;
       float kf[VPL];
-      unpack<BITS>(st + p * G::W + part * G::LB, kf);
+      unpack_lane<BITS, D>(st + p * G::W + part * G::LB, kf);
       // four partial sums: a chain of VPL dependent fmas would stall
       float dp[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -340,7 +359,7 @@ __device__ __forceinline__ void decode_block(
         l += pr;
         const float pv = SCALED ? pr * kss[G::P + p] : pr;
         float vf[VPL];
-        unpack<BITS>(st + G::P * G::W + p * G::W + part * G::LB, vf);
+        unpack_lane<BITS, D>(st + G::P * G::W + p * G::W + part * G::LB, vf);
 #pragma unroll
         for (int c = 0; c < VPL; ++c) acc[c] = fmaf(pv, vf[c], acc[c]);
       }
@@ -376,8 +395,9 @@ __device__ __forceinline__ void decode_block(
   }
   __syncthreads();
 
-  // merge the warps into this block's state; one thread per dim
-  if (tid < D) {
+  // merge the warps into this block's state; one thread per dim (two at
+  // D = 256)
+  for (int c = tid; c < D; c += NT) {
     float mm = sm_m[0];
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) mm = fmaxf(mm, sm_m[w]);
@@ -386,19 +406,19 @@ __device__ __forceinline__ void decode_block(
     for (int w = 0; w < WARPS; ++w) {
       const float e = expf(sm_m[w] - mm);
       ll += sm_l[w] * e;
-      a += sm_acc[w][tid] * e;
+      a += sm_acc[w][c] * e;
     }
-    part_acc[tid] = a;
-    if (tid == 0) {
+    part_acc[c] = a;
+    if (c == 0) {
       part_m = mm;
       part_l = ll;
     }
   }
   cluster.sync();  // every block's state is written
 
-  // rank 0 merges the cluster's states in rank order and writes out; the
-  // remote reads of all ranks are issued before any is used
-  if (rank == 0 && tid < D) {
+  // rank 0 merges the cluster's states in rank order and writes out the d
+  // columns; the remote reads of all ranks are issued before any is used
+  for (int c = tid; rank == 0 && c < d; c += NT) {
     float rm[MAX_SPLIT], rl[MAX_SPLIT], ra[MAX_SPLIT];
 #pragma unroll
     for (int r = 0; r < MAX_SPLIT; ++r) {
@@ -406,7 +426,7 @@ __device__ __forceinline__ void decode_block(
       const int rr = in ? r : 0;   // a rank of the cluster, read or not
       const float m_r = *cluster.map_shared_rank(&part_m, rr);
       const float l_r = *cluster.map_shared_rank(&part_l, rr);
-      const float a_r = cluster.map_shared_rank(part_acc, rr)[tid];
+      const float a_r = cluster.map_shared_rank(part_acc, rr)[c];
       rm[r] = in ? m_r : NEG;
       rl[r] = in ? l_r : 0.f;
       ra[r] = in ? a_r : 0.f;
@@ -421,7 +441,7 @@ __device__ __forceinline__ void decode_block(
       ll += rl[r] * e;
       a += ra[r] * e;
     }
-    store_f(out + (long long)bh * D + tid, a / ll);
+    store_f(out + (long long)bh * d + c, a / ll);
   }
   cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
@@ -432,9 +452,9 @@ __global__ void __launch_bounds__(NT)
 decode_quant_kernel(const TQ* q, const uint8_t* kq, const float* ks,
                     const uint8_t* vq, const float* vs, const int* index,
                     TQ* out, int H, int t_len, int pos_stride, int q_sb,
-                    int q_sh, float scale) {
+                    int q_sh, int d, float scale) {
   decode_block<BITS, D, TQ>(q, kq, ks, vq, vs, index, out, H, t_len,
-                            pos_stride, q_sb, q_sh, scale);
+                            pos_stride, q_sb, q_sh, d, scale);
 }
 
 // B9
@@ -442,9 +462,9 @@ template <int BITS, int D, typename TQ>
 __global__ void __launch_bounds__(NT)
 decode_float_kernel(const TQ* q, const uint8_t* k, const uint8_t* v,
                     const int* index, TQ* out, int H, int t_len, int q_sb,
-                    int q_sh, float scale) {
+                    int q_sh, int d, float scale) {
   decode_block<BITS, D, TQ>(q, k, nullptr, v, nullptr, index, out, H, t_len,
-                            D * BITS / 8, q_sb, q_sh, scale);
+                            D * BITS / 8, q_sb, q_sh, d, scale);
 }
 
 // rows * split blocks of NT threads, clusters of `split` blocks along x
@@ -470,7 +490,7 @@ cudaError_t launch_split(void (*kernel)(KArgs...), int rows, int split,
 struct QuantArgs {
   const void *q, *kq, *ks, *vq, *vs, *index;
   void* out;
-  int rows, heads, t_len, pos_stride, q_sb, q_sh, split;
+  int rows, heads, t_len, pos_stride, q_sb, q_sh, d, split;
   float scale;
   cudaStream_t s;
 };
@@ -483,7 +503,7 @@ cudaError_t launch_quant(const QuantArgs& a) {
       static_cast<const float*>(a.ks), static_cast<const uint8_t*>(a.vq),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.index),
       static_cast<TQ*>(a.out), a.heads, a.t_len, a.pos_stride, a.q_sb,
-      a.q_sh, a.scale);
+      a.q_sh, a.d, a.scale);
 }
 
 template <int BITS, int D>
@@ -498,6 +518,7 @@ cudaError_t launch_quant_d(const QuantArgs& a, int head_dim, int is_bf16) {
     case 32: return launch_quant_q<BITS, 32>(a, is_bf16);
     case 64: return launch_quant_q<BITS, 64>(a, is_bf16);
     case 128: return launch_quant_q<BITS, 128>(a, is_bf16);
+    case 256: return launch_quant_q<BITS, 256>(a, is_bf16);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -508,7 +529,8 @@ cudaError_t launch_float(const QuantArgs& a) {
       decode_float_kernel<BITS, D, TQ>, a.rows, a.split, a.s,
       static_cast<const TQ*>(a.q), static_cast<const uint8_t*>(a.kq),
       static_cast<const uint8_t*>(a.vq), static_cast<const int*>(a.index),
-      static_cast<TQ*>(a.out), a.heads, a.t_len, a.q_sb, a.q_sh, a.scale);
+      static_cast<TQ*>(a.out), a.heads, a.t_len, a.q_sb, a.q_sh, a.d,
+      a.scale);
 }
 
 template <int BITS, int D>
@@ -523,30 +545,33 @@ cudaError_t launch_float_d(const QuantArgs& a, int head_dim, int is_bf16) {
     case 32: return launch_float_q<BITS, 32>(a, is_bf16);
     case 64: return launch_float_q<BITS, 64>(a, is_bf16);
     case 128: return launch_float_q<BITS, 128>(a, is_bf16);
+    case 256: return launch_float_q<BITS, 256>(a, is_bf16);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// B2: bits 8 or 4, head_dim 32, 64 or 128; fp32 scales [B, H, T]; values
-// pos_stride bytes apart; q and out bf16 (is_bf16 = 1) or fp32; `split`
-// blocks per (b, h), 1 to 8; `scale` = 1 / sqrt(head_dim) in fp32.
+// B2: bits 8 or 4, instance width 32, 64, 128 or 256 holding head dim d;
+// fp32 scales [B, H, T]; values pos_stride bytes apart; q [B, H, 1, d] and
+// out (contiguous [B, H, 1, d]) bf16 (is_bf16 = 1) or fp32; `split` blocks
+// per (b, h), 1 to 8; `scale` = 1 / sqrt(d) in fp32.
 extern "C" int mas_decode_quant(const void* q, const void* kq, const void* ks,
                                 const void* vq, const void* vs,
                                 const void* index, void* out, int batch,
                                 int heads, int t_len, int pos_stride,
-                                int q_sb, int q_sh, int head_dim, int bits,
-                                int is_bf16, int split, float scale,
+                                int q_sb, int q_sh, int width, int d,
+                                int bits, int is_bf16, int split, float scale,
                                 void* stream) {
+  if (d < 1 || d > width) return static_cast<int>(cudaErrorInvalidValue);
   const QuantArgs a = {q, kq, ks, vq, vs, index, out, batch * heads, heads,
-                       t_len, pos_stride, q_sb, q_sh, split, scale,
+                       t_len, pos_stride, q_sb, q_sh, d, split, scale,
                        static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (bits == 4) {
-    err = launch_quant_d<4>(a, head_dim, is_bf16);
+    err = launch_quant_d<4>(a, width, is_bf16);
   } else if (bits == 8) {
-    err = launch_quant_d<8>(a, head_dim, is_bf16);
+    err = launch_quant_d<8>(a, width, is_bf16);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -554,19 +579,21 @@ extern "C" int mas_decode_quant(const void* q, const void* kq, const void* ks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B9: a contiguous bf16 (cache_bf16 = 1) or fp32 cache [B, H, T, head_dim]
-// with head_dim 32, 64 or 128; q and out bf16 (is_bf16 = 1) or fp32;
-// `scale` = 1 / sqrt(head_dim) rounded to q's dtype.
+// B9: a contiguous bf16 (cache_bf16 = 1) or fp32 cache [B, H, T, width]
+// with width 32, 64, 128 or 256 holding head dim d; q [B, H, 1, d] and out
+// (contiguous) bf16 (is_bf16 = 1) or fp32; `scale` = 1 / sqrt(d) rounded
+// to q's dtype.
 extern "C" int mas_decode_float(const void* q, const void* k, const void* v,
                                 const void* index, void* out, int batch,
                                 int heads, int t_len, int q_sb, int q_sh,
-                                int head_dim, int cache_bf16, int is_bf16,
+                                int width, int d, int cache_bf16, int is_bf16,
                                 int split, float scale, void* stream) {
+  if (d < 1 || d > width) return static_cast<int>(cudaErrorInvalidValue);
   const QuantArgs a = {q, k, nullptr, v, nullptr, index, out, batch * heads,
-                       heads, t_len, 0, q_sb, q_sh, split, scale,
+                       heads, t_len, 0, q_sb, q_sh, d, split, scale,
                        static_cast<cudaStream_t>(stream)};
-  const cudaError_t err = cache_bf16 ? launch_float_d<16>(a, head_dim, is_bf16)
-                                     : launch_float_d<32>(a, head_dim, is_bf16);
+  const cudaError_t err = cache_bf16 ? launch_float_d<16>(a, width, is_bf16)
+                                     : launch_float_d<32>(a, width, is_bf16);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

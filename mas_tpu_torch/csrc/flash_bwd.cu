@@ -4,8 +4,8 @@
 // (launched by _flash_bwd), the Pallas flash-attention backward of the
 // transformer train step.
 //
-// Computes, from q, k, v, out, dout [B, H, T, D] (bf16 or fp32, D = 64 or
-// 128: the wrapper zero-pads any head dim d <= 128 up to one of them and
+// Computes, from q, k, v, out, dout [B, H, T, D] (bf16 or fp32, D = 64, 128
+// or 256: the wrapper zero-pads any head dim d <= 256 up to one of them and
 // passes scale = 1/sqrt(d) of the true d; any T) and the forward's lse
 // [B, H, T] (fp32, kernel B1):
 //   P  = exp(q k^T scale - lse), masked: row i sees keys [0, bound) with
@@ -46,7 +46,11 @@
 // accumulator is live at a time; and the dQ kernel reloads its Q and dO
 // fragments from shared memory at each use instead of keeping them in
 // registers.  Both stay below 255 registers without spills.  At D = 64:
-// one pass of 64, one sweep, Q and dO fragments in registers.
+// one pass of 64, one sweep, Q and dO fragments in registers.  At D = 256
+// as at 128, and each accumulator covers 128 of the 256 columns: dK/dV
+// sweeps the q tiles four times (dV's halves, then dK's), dQ the key tiles
+// twice, each sweep recomputing S (and dP), so no thread holds more than
+// 64 accumulator registers; 192 KB of shared memory give one block an SM.
 //   dK/dV: K and V stay in shared memory; Q, dO, lse and delta tiles stream
 //   through a two-stage cp.async ring.  S^T = K Q^T and dP^T = V dO^T put
 //   the keys on the mma rows, so P^T = exp(S^T scale - lse) (masked) and
@@ -66,7 +70,11 @@
 // kernels: TF32 tensor cores would not hold the fp32 path to its tolerance,
 // and no configuration trains attention in fp32.  Every tile sits in shared
 // memory as fp32 rows with a stride of 68 floats, and 256 threads hold a
-// 4 x 4 register tile each of every 64 x 64 product.
+// 4 x 4 register tile each of every 64 x 64 product.  At D = 256 the four
+// 64 x 256 tiles would not fit the 227 KB a block may have: the head dim
+// is taken in two column chunks of 128, S and dP summed over the chunks
+// in column order, and each chunk's tiles reloaded for the dV, dK (dQ)
+// products.
 //
 // A ragged last tile (T not a multiple of 64) is zero-filled on load, its
 // lse and delta too: a padded q row then has P = 1 but dO = 0 and dP =
@@ -148,6 +156,10 @@ __host__ __device__ constexpr int dq_smem() {
 // taken at once
 template <int D>
 __host__ __device__ constexpr int pass_cols() { return D == 64 ? 64 : 32; }
+// head-dim columns of one accumulator: all of them up to D = 128, one half
+// at D = 256 (a sweep per half)
+template <int D>
+__host__ __device__ constexpr int acc_cols() { return D > 128 ? 128 : D; }
 
 template <int N>
 __device__ __forceinline__ void zero(float (&a)[N][4]) {
@@ -179,21 +191,22 @@ __device__ __forceinline__ void mma_rows_nk(float (&acc)[NN / 8][4],
   }
 }
 
-// acc (16 x D per warp) += A B over rows [k0, k0 + NK) of `b_tile` (held
-// [k][n]), with A the bf16 rounding of the C fragments `c` (16 x NK)
-template <int D, int NK>
-__device__ __forceinline__ void mma_regs_kn(float (&acc)[D / 8][4],
+// acc (16 x 8 NA per warp: columns [col0, col0 + 8 NA) of the head dim) +=
+// A B over rows [k0, k0 + NK) of `b_tile` (held [k][n]), with A the bf16
+// rounding of the C fragments `c` (16 x NK)
+template <int D, int NK, int NA>
+__device__ __forceinline__ void mma_regs_kn(float (&acc)[NA][4],
                                             const float (&c)[NK / 8][4],
                                             uint32_t b_tile, int k0,
-                                            int lane) {
+                                            int col0, int lane) {
 #pragma unroll
   for (int j = 0; j < NK / 16; ++j) {
     uint32_t a[4];
     c_to_a(a, c[2 * j], c[2 * j + 1]);
 #pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
+    for (int np = 0; np < NA / 2; ++np) {
       uint32_t bb[4];
-      load_b_kn<D>(bb, b_tile, 16 * np, k0 / 16 + j, lane);
+      load_b_kn<D>(bb, b_tile, col0 + 16 * np, k0 / 16 + j, lane);
       mma(acc[2 * np], a, bb[0], bb[1]);
       mma(acc[2 * np + 1], a, bb[2], bb[3]);
     }
@@ -213,6 +226,7 @@ flash_bwd_dkv_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   constexpr int TB = tile_bytes<D>();
   constexpr int QS = qstage_bytes<D>();
   constexpr int QC = pass_cols<D>();
+  constexpr int DA = acc_cols<D>();
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sk = smem_addr(smem), sv = sk + TB;
   const uint32_t ring = sv + TB;
@@ -249,13 +263,15 @@ flash_bwd_dkv_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   const int key_lo = k0 + warp * 16 + grp;  // and key_lo + 8
   const float sl2 = scale * LOG2E;
 
-  // One sweep over the q tiles, accumulating dV (what & 1) and / or dK
-  // (what & 2).  At D = 64 one sweep takes both.  At D = 128 the two
-  // 16 x 128 accumulators of a warp leave too few of the 255 registers for
-  // the rest and spill: dV takes a first sweep, dK a second, which
-  // recomputes S^T (one more of the four products per tile pair).
-  auto sweep = [&](auto what, float (&dk)[D / 8][4],
-                   float (&dv)[D / 8][4]) {
+  // One sweep over the q tiles, accumulating columns [col0, col0 + DA) of
+  // dV (what & 1) and / or dK (what & 2).  At D = 64 one sweep takes both.
+  // At D = 128 the two 16 x 128 accumulators of a warp leave too few of
+  // the 255 registers for the rest and spill: dV takes a first sweep, dK a
+  // second, which recomputes S^T (one more of the four products per tile
+  // pair).  At D = 256 each of the two takes two sweeps, one per half.
+  // (dk, dv: float [DA / 8][4]; spelled so, the parameter types made
+  // nvcc 12.9's front end, cudafe++, crash)
+  auto sweep = [&](auto what, int col0, auto& dk, auto& dv) {
     constexpr int W = decltype(what)::value;
     load_q(0, q_lo * BT);
     cp_async_commit();
@@ -305,23 +321,25 @@ flash_bwd_dkv_kernel_bf16(const __nv_bfloat16* __restrict__ q,
 
         // dV += P^T dO, dK += dS^T Q (q unscaled: dK takes the scale at
         // the end)
-        if constexpr ((W & 1) != 0) mma_regs_kn<D, QC>(dv, s, sg, c0, lane);
-        if constexpr ((W & 2) != 0) mma_regs_kn<D, QC>(dk, dpt, sq, c0, lane);
+        if constexpr ((W & 1) != 0)
+          mma_regs_kn<D, QC>(dv, s, sg, c0, col0, lane);
+        if constexpr ((W & 2) != 0)
+          mma_regs_kn<D, QC>(dk, dpt, sq, c0, col0, lane);
       }
       __syncthreads();  // every warp is done with this stage
     }
   };
 
-  // 64 rows of dK (which 0) or dV (which 1) from the swizzled shared tile
-  // at `tile` to dqkv, 16 bytes a thread at a time; rows past T are not
-  // stored
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  // columns [col0, col0 + DA) of 64 rows of dK (which 0) or dV (which 1)
+  // from the swizzled shared tile at `tile` to dqkv, 16 bytes a thread at a
+  // time; rows past T are not stored
+  constexpr int CPR = DA / 8;  // 16-byte chunks per row
   const long long row_stride = 3LL * H * D;
   __nv_bfloat16* base =
       dqkv + ((long long)b * t_len + k0) * row_stride + h * D;
-  auto write_rows = [&](int which, const unsigned char* tile) {
+  auto write_rows = [&](int which, const unsigned char* tile, int col0) {
     for (unsigned idx = threadIdx.x; idx < BT * CPR; idx += MT) {
-      const int r = idx / CPR, c = idx % CPR;
+      const int r = idx / CPR, c = col0 / 8 + idx % CPR;
       if (k0 + r < t_len)
         *reinterpret_cast<uint4*>(base + r * row_stride +
                                   (1 + which) * H * D + c * 8) =
@@ -333,28 +351,32 @@ flash_bwd_dkv_kernel_bf16(const __nv_bfloat16* __restrict__ q,
     float dk[D / 8][4], dv[D / 8][4];
     zero(dk);
     zero(dv);
-    sweep(std::integral_constant<int, 3>(), dk, dv);
+    sweep(std::integral_constant<int, 3>(), 0, dk, dv);
     // dK, dV rows through the (consumed) K and V tiles
     store_rows<D>(smem, dk, scale, scale, warp * 16, lane);
     store_rows<D>(smem + TB, dv, 1.f, 1.f, warp * 16, lane);
     __syncthreads();
-    write_rows(0, smem);
-    write_rows(1, smem + TB);
+    write_rows(0, smem, 0);
+    write_rows(1, smem + TB, 0);
   } else {
-    float acc[D / 8][4];
-    zero(acc);
-    sweep(std::integral_constant<int, 1>(), acc, acc);
-    // dV through the free ring, before the second sweep refills it
+    // each sweep's columns go out through the free ring before the next
+    // sweep refills it: dV's (which 1), then dK's (which 0, times scale)
+    float acc[DA / 8][4];
     unsigned char* stage = smem + (ring - sk);
-    store_rows<D>(stage, acc, 1.f, 1.f, warp * 16, lane);
-    __syncthreads();
-    write_rows(1, stage);
-    __syncthreads();
-    zero(acc);
-    sweep(std::integral_constant<int, 2>(), acc, acc);
-    store_rows<D>(smem, acc, scale, scale, warp * 16, lane);
-    __syncthreads();
-    write_rows(0, smem);
+    for (int which = 1; which >= 0; --which) {
+      for (int col0 = 0; col0 < D; col0 += DA) {
+        zero(acc);
+        if (which)
+          sweep(std::integral_constant<int, 1>(), col0, acc, acc);
+        else
+          sweep(std::integral_constant<int, 2>(), col0, acc, acc);
+        const float mul = which ? 1.f : scale;
+        store_rows<D>(stage, acc, mul, mul, warp * 16, lane, col0 / 8);
+        __syncthreads();
+        write_rows(which, stage, col0);
+        __syncthreads();
+      }
+    }
   }
 }
 
@@ -371,6 +393,7 @@ flash_bwd_dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   constexpr int TB = tile_bytes<D>();
   constexpr int NJ = D / 16;
   constexpr int KC = pass_cols<D>();
+  constexpr int DA = acc_cols<D>();
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sq = smem_addr(smem), sg = sq + TB;
   const uint32_t ring = sg + TB;
@@ -397,8 +420,8 @@ flash_bwd_dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
   __syncthreads();
   // Q and dO as A fragments (16 rows a warp): kept in registers at D = 64;
-  // at D = 128 they would take 64 registers more than the 255 allow, so
-  // they are loaded again from the resident Q and dO tiles at each use
+  // from D = 128 on they would take 64 registers more than the 255 allow,
+  // so they are loaded again from the resident Q and dO tiles at each use
   constexpr bool KEEP_A = D == 64;
   uint32_t qa[KEEP_A ? NJ : 1][4], ga[KEEP_A ? NJ : 1][4];
   if constexpr (KEEP_A) {
@@ -427,80 +450,91 @@ flash_bwd_dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   }
   const int tile_bound = row_bound(q0, pfx);
 
-  float dq[D / 8][4];
-  zero(dq);
-
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * BT;
-    if (t + 1 < nk) load_kv((t + 1) % STAGES, k0 + BT);
-    cp_async_commit();
-    cp_async_wait<1>();  // this K/V tile has landed
-    __syncthreads();
-    const uint32_t sk = ring + (t % STAGES) * 2 * TB;
-    const uint32_t sv = sk + TB;
-    const bool masked = k0 + BT > tile_bound;
-
-#pragma unroll
-    for (int c0 = 0; c0 < BT; c0 += KC) {
-      // S = Q K^T, dP = dO V^T: 16 q rows x KC keys per warp
-      float s[KC / 8][4], dp[KC / 8][4];
-      zero(s);
-      zero(dp);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t qj[4], gj[4];
-        if constexpr (KEEP_A) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            qj[e] = qa[j][e];
-            gj[e] = ga[j][e];
-          }
-        } else {
-          load_a<D>(qj, sq, warp * 16, j, lane);
-          load_a<D>(gj, sg, warp * 16, j, lane);
-        }
-#pragma unroll
-        for (int np = 0; np < KC / 16; ++np) {
-          uint32_t kb[4], vb[4];
-          load_b_nk<D>(kb, sk, c0 + 16 * np, j, lane);
-          mma(s[2 * np], qj, kb[0], kb[1]);
-          mma(s[2 * np + 1], qj, kb[2], kb[3]);
-          load_b_nk<D>(vb, sv, c0 + 16 * np, j, lane);
-          mma(dp[2 * np], gj, vb[0], vb[1]);
-          mma(dp[2 * np + 1], gj, vb[2], vb[3]);
-        }
-      }
-
-      // dS in place of S
-#pragma unroll
-      for (int nt = 0; nt < KC / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = exp2f(fmaf(s[nt][e], sl2, -lse2[e >> 1]));
-          if (masked &&
-              k0 + c0 + nt * 8 + 2 * tig + (e & 1) >= bnd[e >> 1])
-            p = 0.f;
-          s[nt][e] = p * (dp[nt][e] - dl[e >> 1]);
-        }
-
-      // dQ += dS K
-      mma_regs_kn<D, KC>(dq, s, sk, c0, lane);
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  // dQ * scale through the (consumed) Q tile, then 16-byte stores
-  store_rows<D>(smem, dq, scale, scale, warp * 16, lane);
-  __syncthreads();
-  constexpr int CPR = D / 8;
+  // columns [col0, col0 + DA) of dQ * scale through the free ring, then
+  // 16-byte stores
+  constexpr int CPR = DA / 8;
   const long long row_stride = 3LL * H * D;
   __nv_bfloat16* base =
       dqkv + ((long long)b * t_len + q0) * row_stride + h * D;
-  for (unsigned idx = threadIdx.x; idx < BT * CPR; idx += MT) {
-    const int r = idx / CPR, c = idx % CPR;
-    if (q0 + r < t_len)
-      *reinterpret_cast<uint4*>(base + r * row_stride + c * 8) =
-          *reinterpret_cast<const uint4*>(smem + swz<D>(r, c));
+  unsigned char* stage = smem + (ring - sq);
+  float dq[DA / 8][4];
+
+  // one sweep over the key tiles per DA columns of dQ (two at D = 256,
+  // each recomputing S and dP)
+  for (int col0 = 0; col0 < D; col0 += DA) {
+    if (col0 > 0) {
+      load_kv(0, 0);
+      cp_async_commit();
+    }
+    zero(dq);
+    for (int t = 0; t < nk; ++t) {
+      const int k0 = t * BT;
+      if (t + 1 < nk) load_kv((t + 1) % STAGES, k0 + BT);
+      cp_async_commit();
+      cp_async_wait<1>();  // this K/V tile has landed
+      __syncthreads();
+      const uint32_t sk = ring + (t % STAGES) * 2 * TB;
+      const uint32_t sv = sk + TB;
+      const bool masked = k0 + BT > tile_bound;
+
+#pragma unroll
+      for (int c0 = 0; c0 < BT; c0 += KC) {
+        // S = Q K^T, dP = dO V^T: 16 q rows x KC keys per warp
+        float s[KC / 8][4], dp[KC / 8][4];
+        zero(s);
+        zero(dp);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t qj[4], gj[4];
+          if constexpr (KEEP_A) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              qj[e] = qa[j][e];
+              gj[e] = ga[j][e];
+            }
+          } else {
+            load_a<D>(qj, sq, warp * 16, j, lane);
+            load_a<D>(gj, sg, warp * 16, j, lane);
+          }
+#pragma unroll
+          for (int np = 0; np < KC / 16; ++np) {
+            uint32_t kb[4], vb[4];
+            load_b_nk<D>(kb, sk, c0 + 16 * np, j, lane);
+            mma(s[2 * np], qj, kb[0], kb[1]);
+            mma(s[2 * np + 1], qj, kb[2], kb[3]);
+            load_b_nk<D>(vb, sv, c0 + 16 * np, j, lane);
+            mma(dp[2 * np], gj, vb[0], vb[1]);
+            mma(dp[2 * np + 1], gj, vb[2], vb[3]);
+          }
+        }
+
+        // dS in place of S
+#pragma unroll
+        for (int nt = 0; nt < KC / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(fmaf(s[nt][e], sl2, -lse2[e >> 1]));
+            if (masked &&
+                k0 + c0 + nt * 8 + 2 * tig + (e & 1) >= bnd[e >> 1])
+              p = 0.f;
+            s[nt][e] = p * (dp[nt][e] - dl[e >> 1]);
+          }
+
+        // dQ += dS K
+        mma_regs_kn<D, KC>(dq, s, sk, c0, col0, lane);
+      }
+      __syncthreads();  // every warp is done with this stage
+    }
+
+    store_rows<D>(stage, dq, scale, scale, warp * 16, lane, col0 / 8);
+    __syncthreads();
+    for (unsigned idx = threadIdx.x; idx < BT * CPR; idx += MT) {
+      const int r = idx / CPR, c = col0 / 8 + idx % CPR;
+      if (q0 + r < t_len)
+        *reinterpret_cast<uint4*>(base + r * row_stride + c * 8) =
+            *reinterpret_cast<const uint4*>(stage + swz<D>(r, c));
+    }
+    __syncthreads();  // the ring is free for the next sweep's loads
   }
 }
 
@@ -509,40 +543,44 @@ flash_bwd_dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
 constexpr int NT = 256;          // threads per block: 16 x 16
 constexpr int LDP = BT + 4;      // shared row stride of P, dS tiles (floats)
 
-// shared row stride of a [64][D] tile in floats
+// shared row stride of a [64][C] tile in floats
+template <int C>
+__host__ __device__ constexpr int ld_of() { return C + 4; }
+// head-dim columns of the tiles held in shared memory at once: all of
+// them up to D = 128, one chunk of 128 at D = 256
 template <int D>
-__host__ __device__ constexpr int ld_of() { return D + 4; }
-// dK/dV: K, V, Q, dO tiles [64][D + 4], P and dS [64][68]
+__host__ __device__ constexpr int chunk_cols() { return D > 128 ? 128 : D; }
+// dK/dV: K, V, Q, dO tiles [64][C + 4], P and dS [64][68]
 template <int D>
 __host__ __device__ constexpr int dkv_f32_smem() {
-  return (4 * BT * ld_of<D>() + 2 * BT * LDP) * 4;
+  return (4 * BT * ld_of<chunk_cols<D>()>() + 2 * BT * LDP) * 4;
 }
-// dQ: Q, dO, K, V tiles [64][D + 4], dS^T [64][68]
+// dQ: Q, dO, K, V tiles [64][C + 4], dS^T [64][68]
 template <int D>
 __host__ __device__ constexpr int dq_f32_smem() {
-  return (4 * BT * ld_of<D>() + BT * LDP) * 4;
+  return (4 * BT * ld_of<chunk_cols<D>()>() + BT * LDP) * 4;
 }
 
-// dst[r][c] = src[(row0 + r) * row_stride + c] * mul, for a 64 x D tile;
+// dst[r][c] = src[(row0 + r) * row_stride + c] * mul, for a 64 x C tile;
 // rows at or past t_len are zero
-template <int D>
+template <int C>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               long long row_stride, int row0,
                                               int t_len, float mul) {
-  for (int idx = threadIdx.x; idx < BT * D; idx += NT) {
-    const int r = idx / D, c = idx % D;
-    dst[r * ld_of<D>() + c] =
+  for (int idx = threadIdx.x; idx < BT * C; idx += NT) {
+    const int r = idx / C, c = idx % C;
+    dst[r * ld_of<C>() + c] =
         row0 + r < t_len ? src[(row0 + r) * row_stride + c] * mul : 0.f;
   }
 }
 
-// acc[a][b] += sum_c A[ty + 16a][c] * B[tx + 16b][c] over the head dim
-template <int D>
+// acc[a][b] += sum_c A[ty + 16a][c] * B[tx + 16b][c] over C columns
+template <int C>
 __device__ __forceinline__ void mma_nt(float (&acc)[4][4], const float* a,
                                        const float* b, int ty, int tx) {
-  constexpr int LD = ld_of<D>();
+  constexpr int LD = ld_of<C>();
 #pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
+  for (int c = 0; c < C; c += 4) {
     float4 av[4], bv[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -562,18 +600,18 @@ __device__ __forceinline__ void mma_nt(float (&acc)[4][4], const float* a,
 }
 
 // acc[a][4 g + b] += sum_r A[r][4 ty + a] * B[r][64 g + 4 tx + b] over the
-// 64 tile rows; A [64][LDP], B [64][D + 4], g < D / 64
-template <int D>
-__device__ __forceinline__ void mma_tn(float (&acc)[4][D / 16],
+// 64 tile rows; A [64][LDP], B [64][C + 4], g < C / 64
+template <int C>
+__device__ __forceinline__ void mma_tn(float (&acc)[4][C / 16],
                                        const float* a, const float* b,
                                        int ty, int tx) {
-  constexpr int LD = ld_of<D>();
+  constexpr int LD = ld_of<C>();
 #pragma unroll 8
   for (int r = 0; r < BT; ++r) {
     const float4 av = *reinterpret_cast<const float4*>(&a[r * LDP + 4 * ty]);
     const float ar[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
+    for (int g = 0; g < C / 64; ++g) {
       const float4 bv =
           *reinterpret_cast<const float4*>(&b[r * LD + 64 * g + 4 * tx]);
       const float br[4] = {bv.x, bv.y, bv.z, bv.w};
@@ -586,6 +624,16 @@ __device__ __forceinline__ void mma_tn(float (&acc)[4][D / 16],
   }
 }
 
+template <int NC, int N>
+__device__ __forceinline__ void zero_f32(float (&a)[NC][4][N]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) a[c][i][j] = 0.f;
+}
+
 template <int D>
 __global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -594,7 +642,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dqkv,
                      Strides st, int H, int t_len, int prefix, float scale) {
-  constexpr int LD = ld_of<D>();
+  constexpr int C = chunk_cols<D>();
+  constexpr int NC = D / C;     // column chunks of the head dim
+  constexpr int LD = ld_of<C>();
   extern __shared__ __align__(16) float smemf[];
   float* ks = smemf;            // K [key][c]
   float* vs = ks + BT * LD;     // V [key][c]
@@ -617,14 +667,15 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* lp = lse + (long long)bh * t_len;
   const float* dp_ = delta + (long long)bh * t_len;
 
-  load_tile_f32<D>(ks, kp, st.kt, k0, t_len, 1.f);
-  load_tile_f32<D>(vs, vp, st.vt, k0, t_len, 1.f);
+  // one chunk holds the head dim: K and V stay in shared memory
+  if constexpr (NC == 1) {
+    load_tile_f32<C>(ks, kp, st.kt, k0, t_len, 1.f);
+    load_tile_f32<C>(vs, vp, st.vt, k0, t_len, 1.f);
+  }
 
-  float dk[4][D / 16], dv[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) dk[i][j] = dv[i][j] = 0.f;
+  float dk[NC][4][C / 16], dv[NC][4][C / 16];
+  zero_f32(dk);
+  zero_f32(dv);
 
   // q-tiles that see a key of this tile: all when the keys meet the prefix,
   // else those from the tile holding row k0 on (rows i >= key)
@@ -632,23 +683,30 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nq = (t_len + BT - 1) / BT;
   for (int qi = q_lo; qi < nq; ++qi) {
     const int q0 = qi * BT;
-    __syncthreads();  // the previous tile's Q, dO, P, dS are consumed
-    load_tile_f32<D>(qs, qp, st.qt, q0, t_len, scale);
-    load_tile_f32<D>(gs, gp, st.gt, q0, t_len, 1.f);
-    if (threadIdx.x < BT) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < t_len ? lp[row] : 0.f;
-      delta_s[threadIdx.x] = row < t_len ? dp_[row] : 0.f;
-    }
-    __syncthreads();
-
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    mma_nt<D>(s, qs, ks, ty, tx);   // rows ty + 16i, keys tx + 16j
-    mma_nt<D>(dp, gs, vs, ty, tx);
+    // S = (Q scale) K^T and dP = dO V^T, summed over the chunks in order
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();  // the previous tiles' Q, dO, P, dS are consumed
+      if constexpr (NC > 1) {
+        load_tile_f32<C>(ks, kp + c * C, st.kt, k0, t_len, 1.f);
+        load_tile_f32<C>(vs, vp + c * C, st.vt, k0, t_len, 1.f);
+      }
+      load_tile_f32<C>(qs, qp + c * C, st.qt, q0, t_len, scale);
+      load_tile_f32<C>(gs, gp + c * C, st.gt, q0, t_len, 1.f);
+      if (c == 0 && threadIdx.x < BT) {
+        const int row = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = row < t_len ? lp[row] : 0.f;
+        delta_s[threadIdx.x] = row < t_len ? dp_[row] : 0.f;
+      }
+      __syncthreads();
+      mma_nt<C>(s, qs, ks, ty, tx);   // rows ty + 16i, keys tx + 16j
+      mma_nt<C>(dp, gs, vs, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -662,8 +720,19 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    mma_tn<D>(dv, ps, gs, ty, tx);   // keys 4ty + i, dims 64g + 4tx + j
-    mma_tn<D>(dk, dss, qs, ty, tx);
+    // dV += P^T dO, dK += dS^T (Q scale), chunk by chunk from the last
+    // (still in shared memory)
+#pragma unroll
+    for (int c = NC - 1; c >= 0; --c) {
+      if (c != NC - 1) {
+        __syncthreads();
+        load_tile_f32<C>(qs, qp + c * C, st.qt, q0, t_len, scale);
+        load_tile_f32<C>(gs, gp + c * C, st.gt, q0, t_len, 1.f);
+        __syncthreads();
+      }
+      mma_tn<C>(dv[c], ps, gs, ty, tx);   // keys 4ty + i, dims 64g + 4tx + j
+      mma_tn<C>(dk[c], dss, qs, ty, tx);
+    }
   }
 
   // dK = dS^T (Q scale) is complete: q was scaled on load
@@ -674,11 +743,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (key >= t_len) continue;
     float* base = dqkv + ((long long)b * t_len + key) * row_stride + h * D;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      const int c = 64 * (j / 4) + 4 * tx + j % 4;
-      base[H * D + c] = dk[i][j];
-      base[2 * H * D + c] = dv[i][j];
-    }
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < C / 16; ++j) {
+        const int col = c * C + 64 * (j / 4) + 4 * tx + j % 4;
+        base[H * D + col] = dk[c][i][j];
+        base[2 * H * D + col] = dv[c][i][j];
+      }
   }
 }
 
@@ -690,7 +761,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dqkv,
                     Strides st, int H, int t_len, int prefix, float scale) {
-  constexpr int LD = ld_of<D>();
+  constexpr int C = chunk_cols<D>();
+  constexpr int NC = D / C;     // column chunks of the head dim
+  constexpr int LD = ld_of<C>();
   extern __shared__ __align__(16) float smemf[];
   float* qs = smemf;            // Q * scale [row][c]
   float* gs = qs + BT * LD;     // dO [row][c]
@@ -705,10 +778,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int pfx = min(prefix, t_len);
 
+  const float* qp = q + b * st.qb + h * st.qh;
+  const float* gp = dout + b * st.gb + h * st.gh;
   const float* kp = k + b * st.kb + h * st.kh;
   const float* vp = v + b * st.vb + h * st.vh;
-  load_tile_f32<D>(qs, q + b * st.qb + h * st.qh, st.qt, q0, t_len, scale);
-  load_tile_f32<D>(gs, dout + b * st.gb + h * st.gh, st.gt, q0, t_len, 1.f);
+  // one chunk holds the head dim: Q and dO stay in shared memory
+  if constexpr (NC == 1) {
+    load_tile_f32<C>(qs, qp, st.qt, q0, t_len, scale);
+    load_tile_f32<C>(gs, gp, st.gt, q0, t_len, 1.f);
+  }
   if (threadIdx.x < BT) {
     const int row = q0 + threadIdx.x;
     const long long at = (long long)bh * t_len + row;
@@ -716,29 +794,32 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     delta_s[threadIdx.x] = row < t_len ? delta[at] : 0.f;
   }
 
-  float dq[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) dq[i][j] = 0.f;
+  float dq[NC][4][C / 16];
+  zero_f32(dq);
 
   // the last k-tile any row of this q tile can see
   int hi = (q0 + BT - 1) / BT + 1;
   if (q0 < pfx) hi = max(hi, (pfx + BT - 1) / BT);
   for (int kj = 0; kj < hi; ++kj) {
     const int k0 = kj * BT;
-    __syncthreads();  // the previous tile's K and dS^T are consumed
-    load_tile_f32<D>(ks, kp, st.kt, k0, t_len, 1.f);
-    load_tile_f32<D>(vs, vp, st.vt, k0, t_len, 1.f);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    mma_nt<D>(s, qs, ks, ty, tx);   // rows ty + 16i, keys tx + 16j
-    mma_nt<D>(dp, gs, vs, ty, tx);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();  // the previous tile's K and dS^T are consumed
+      if constexpr (NC > 1) {
+        load_tile_f32<C>(qs, qp + c * C, st.qt, q0, t_len, scale);
+        load_tile_f32<C>(gs, gp + c * C, st.gt, q0, t_len, 1.f);
+      }
+      load_tile_f32<C>(ks, kp + c * C, st.kt, k0, t_len, 1.f);
+      load_tile_f32<C>(vs, vp + c * C, st.vt, k0, t_len, 1.f);
+      __syncthreads();
+      mma_nt<C>(s, qs, ks, ty, tx);   // rows ty + 16i, keys tx + 16j
+      mma_nt<C>(dp, gs, vs, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -751,7 +832,16 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    mma_tn<D>(dq, dst, ks, ty, tx);  // rows 4ty + i, dims 64g + 4tx + j
+    // dQ += dS K, chunk by chunk from the last (still in shared memory)
+#pragma unroll
+    for (int c = NC - 1; c >= 0; --c) {
+      if (c != NC - 1) {
+        __syncthreads();
+        load_tile_f32<C>(ks, kp + c * C, st.kt, k0, t_len, 1.f);
+        __syncthreads();
+      }
+      mma_tn<C>(dq[c], dst, ks, ty, tx);  // rows 4ty + i, dims 64g + 4tx + j
+    }
   }
 
   const long long row_stride = 3LL * H * D;
@@ -761,8 +851,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= t_len) continue;
     float* base = dqkv + ((long long)b * t_len + row) * row_stride + h * D;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      base[64 * (j / 4) + 4 * tx + j % 4] = dq[i][j] * scale;
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < C / 16; ++j)
+        base[c * C + 64 * (j / 4) + 4 * tx + j % 4] = dq[c][i][j] * scale;
   }
 }
 
@@ -836,8 +928,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 
 // strides: (b, h, t) element strides of q, k, v, out and dout, in that
 // order; delta is fp32 scratch of B * H * T values; dqkv is a contiguous
-// [B, T, 3, H, head_dim] buffer in q's dtype; head_dim 64 or 128, any T;
-// scale = 1 / sqrt(d) of the true head dim d.
+// [B, T, 3, H, head_dim] buffer in q's dtype; head_dim 64, 128 or 256, any
+// T; scale = 1 / sqrt(d) of the true head dim d.
 extern "C" int mas_flash_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* dout,
                              const void* lse, void* delta, void* dqkv,
@@ -857,6 +949,9 @@ extern "C" int mas_flash_bwd(const void* q, const void* k, const void* v,
                          heads, t_len, prefix, scale, is_bf16, s);
   } else if (head_dim == 128) {
     err = launch_bwd<128>(q, k, v, out, dout, lse, delta, dqkv, st, batch,
+                          heads, t_len, prefix, scale, is_bf16, s);
+  } else if (head_dim == 256) {
+    err = launch_bwd<256>(q, k, v, out, dout, lse, delta, dqkv, st, batch,
                           heads, t_len, prefix, scale, is_bf16, s);
   } else {
     err = cudaErrorInvalidValue;

@@ -4,8 +4,8 @@
 // _flash_fwd), the Pallas flash-attention forward of the transformer
 // prefill and training step.
 //
-// Computes, for q, k, v [B, H, T, D] (bf16 or fp32, D = 64 or 128: the
-// wrapper zero-pads any head dim d <= 128 up to one of them and passes
+// Computes, for q, k, v [B, H, T, D] (bf16 or fp32, D = 64, 128 or 256: the
+// wrapper zero-pads any head dim d <= 256 up to one of them and passes
 // scale = 1/sqrt(d) of the true d), out = softmax(q k^T scale) v and lse =
 // logsumexp of the scaled scores, where row i sees the
 // keys [0, bound): bound = prefix for i < prefix, else i + 1 (the visible
@@ -37,6 +37,10 @@
 // tiles past max(causal bound, prefix bound) of the q tile are never
 // loaded (mas_tpu/ops/attention.py:173-177).  The epilogue divides by l,
 // rounds once, and writes out through shared memory as 16-byte rows.
+// At D = 256 the output accumulator alone takes 128 registers a thread, so
+// the scaled q tile is written back to shared memory once and its A
+// fragments are loaded again at each use instead of held in registers
+// (64 registers fewer); 160 KB of shared memory give one block an SM.
 //
 // fp32 (flash_fwd_kernel) keeps the CUDA-core kernel: TF32 tensor cores
 // would not hold the fp32 path to its 1e-5 tolerance, and no configuration
@@ -44,7 +48,10 @@
 // per q row, each with its fp32 accumulator in registers and every fourth
 // key of a 64-key tile; the scaled q rows and the K/V tiles sit in shared
 // memory.  The four partial softmax states of a row merge through
-// shuffles.
+// shuffles.  At D = 256 a thread's accumulator would take all 256
+// registers: each block computes the output columns of one half of the
+// head dim (blockIdx.z) over the full scores, so the two halves compute
+// the same softmax, bit for bit, and the first writes lse.
 //
 // Inputs are addressed by strides (last dim contiguous), so q, k, v can be
 // views into the fused qkv projection and out can be written in
@@ -74,7 +81,8 @@ constexpr int STAGES = 2;       // K/V ring depth
 
 // shared memory: the Q tile, then STAGES x (K tile, V tile); static at
 // D = 64 (40 KB, as the kernel was before head dims were templated),
-// dynamic at D = 128 (80 KB, above the 48 KB a static array may take)
+// dynamic at D = 128 and 256 (80 and 160 KB, above the 48 KB a static array
+// may take)
 template <int D>
 __host__ __device__ constexpr int fwd_smem() {
   return (1 + 2 * STAGES) * tile_bytes<D>();
@@ -124,13 +132,29 @@ flash_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<1>();
   __syncthreads();
 
-  // q * scale as A fragments: 16 rows x NJ slices of 16 dims
-  uint32_t qa[NJ][4];
+  // q * scale as A fragments: 16 rows x NJ slices of 16 dims, kept in
+  // registers up to D = 128; at D = 256 scaled in place in shared memory
+  // and loaded at each use
+  constexpr bool KEEP_Q = D <= 128;
+  uint32_t qa[KEEP_Q ? NJ : 1][4];
+  if constexpr (KEEP_Q) {
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    load_a<D>(qa[j], sq, warp * 16, j, lane);
+    for (int j = 0; j < NJ; ++j) {
+      load_a<D>(qa[j], sq, warp * 16, j, lane);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) qa[j][e] = scale_pair(qa[j][e], scale);
+      for (int e = 0; e < 4; ++e) qa[j][e] = scale_pair(qa[j][e], scale);
+    }
+  } else {
+    for (unsigned idx = threadIdx.x; idx < MQ * D / 8; idx += MT) {
+      uint4* p = reinterpret_cast<uint4*>(smem + 16 * idx);
+      uint4 x = *p;
+      x.x = scale_pair(x.x, scale);
+      x.y = scale_pair(x.y, scale);
+      x.z = scale_pair(x.z, scale);
+      x.w = scale_pair(x.w, scale);
+      *p = x;
+    }
+    __syncthreads();
   }
 
   // this thread's rows: grp and grp + 8 of the warp's 16
@@ -165,14 +189,22 @@ flash_fwd_kernel_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t qj[4];
+      if constexpr (KEEP_Q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qj[e] = qa[j][e];
+      } else {
+        load_a<D>(qj, sq, warp * 16, j, lane);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t kb[4];
         load_b_nk<D>(kb, sk, 16 * np, j, lane);
-        mma(s[2 * np], qa[j], kb[0], kb[1]);
-        mma(s[2 * np + 1], qa[j], kb[2], kb[3]);
+        mma(s[2 * np], qj, kb[0], kb[1]);
+        mma(s[2 * np + 1], qj, kb[2], kb[3]);
       }
+    }
 
     // mask only a tile that reaches past some row's bound (keys past T
     // included: every real row's bound is <= T)
@@ -265,10 +297,15 @@ constexpr int NT = BQ * SUB;   // threads per block
 constexpr int KPT = BK / SUB;  // keys per thread per tile
 constexpr float NEG = -1e30f;  // masked score, as the Pallas kernel
 
-// dynamic shared memory: K and V tiles [BK][D + 4], the q tile [BQ][D + 4]
+// output columns a block computes: all up to D = 128, one half at 256
+template <int D>
+__host__ __device__ constexpr int fwd_f32_cols() { return D > 128 ? 128 : D; }
+
+// dynamic shared memory: the K tile [BK][D + 4], the V tile [BK][DV + 4]
+// (this block's DV output columns), the q tile [BQ][D + 4]
 template <int D>
 __host__ __device__ constexpr int fwd_f32_smem() {
-  return (2 * BK + BQ) * (D + 4) * 4;
+  return ((BK + BQ) * (D + 4) + BK * (fwd_f32_cols<D>() + 4)) * 4;
 }
 
 template <int D>
@@ -278,10 +315,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ lse, Strides st, int H, int t_len,
                  int prefix, float scale) {
   constexpr int KPAD = D + 4;    // shared row stride in floats
+  constexpr int DV = fwd_f32_cols<D>();
+  constexpr int VPAD = DV + 4;
   extern __shared__ __align__(16) float smf[];
   float* ks = smf;
-  float* vs = ks + BK * KPAD;
-  float* qs = vs + BK * KPAD;    // q * scale [row][c]
+  float* vs = ks + BK * KPAD;    // V columns [v0, v0 + DV)
+  float* qs = vs + BK * VPAD;    // q * scale [row][c]
+  const int v0 = blockIdx.z * DV;
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -312,9 +352,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ntiles = (hi + BK - 1) / BK;
 
   float m = NEG, l = 0.f;
-  float acc[D];
+  float acc[DV];
 #pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
+  for (int c = 0; c < DV; ++c) acc[c] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * BK;
@@ -322,13 +362,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int idx = tid; idx < BK * D; idx += NT) {
       const int j = idx / D, c = idx % D;
       const int kj = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kj < t_len) {
-        kv = kp[kj * st.kt + c];
-        vv = vp[kj * st.vt + c];
-      }
-      ks[j * KPAD + c] = kv;
-      vs[j * KPAD + c] = vv;
+      ks[j * KPAD + c] = kj < t_len ? kp[kj * st.kt + c] : 0.f;
+      if (DV == D || (c >= v0 && c < v0 + DV))
+        vs[j * VPAD + c - v0] = kj < t_len ? vp[kj * st.vt + c] : 0.f;
     }
     __syncthreads();
 
@@ -339,7 +375,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int j = u * SUB + sub;
       const float4* kr = reinterpret_cast<const float4*>(&ks[j * KPAD]);
       float dot = 0.f;
-#pragma unroll
+      // all of q in registers at D = 256 would spill: 8 float4 at a time
+#pragma unroll (D > 128 ? 8 : D / 4)
       for (int c4 = 0; c4 < D / 4; ++c4) {
         const float4 kk = kr[c4];
         const float4 qq = qr[c4];
@@ -356,15 +393,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float alpha = expf(m - m_new);
       l *= alpha;
 #pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] *= alpha;
+      for (int c = 0; c < DV; ++c) acc[c] *= alpha;
 #pragma unroll
       for (int u = 0; u < KPT; ++u) {
         const float p = (s[u] > NEG) ? expf(s[u] - m_new) : 0.f;
         l += p;
         const float4* vr =
-            reinterpret_cast<const float4*>(&vs[(u * SUB + sub) * KPAD]);
+            reinterpret_cast<const float4*>(&vs[(u * SUB + sub) * VPAD]);
 #pragma unroll
-        for (int c4 = 0; c4 < D / 4; ++c4) {
+        for (int c4 = 0; c4 < DV / 4; ++c4) {
           const float4 vv = vr[c4];
           acc[4 * c4 + 0] = fmaf(p, vv.x, acc[4 * c4 + 0]);
           acc[4 * c4 + 1] = fmaf(p, vv.y, acc[4 * c4 + 1]);
@@ -387,7 +424,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int o = 1; o < SUB; o <<= 1) l_all += __shfl_xor_sync(full, l_all, o);
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
+  for (int c = 0; c < DV; ++c) {
     float a = acc[c] * f;
 #pragma unroll
     for (int o = 1; o < SUB; o <<= 1) a += __shfl_xor_sync(full, a, o);
@@ -395,11 +432,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   if (!row_ok) return;
   const float inv = 1.f / l_all;
-  float* op = out + b * st.ob + h * st.oh + i * st.ot;
+  float* op = out + b * st.ob + h * st.oh + i * st.ot + v0;
 #pragma unroll
-  for (int c = 0; c < D; ++c)
-    if (c / (D / SUB) == sub) op[c] = acc[c] * inv;
-  if (sub == 0) lse[(long long)bh * t_len + i] = m_all + logf(l_all);
+  for (int c = 0; c < DV; ++c)
+    if (c / (DV / SUB) == sub) op[c] = acc[c] * inv;
+  if (sub == 0 && blockIdx.z == 0)
+    lse[(long long)bh * t_len + i] = m_all + logf(l_all);
 }
 
 // launch kernel with smem bytes of dynamic shared memory
@@ -428,7 +466,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                       static_cast<float*>(lse), st, heads, t_len, prefix,
                       scale);
   }
-  const dim3 grid((t_len + BQ - 1) / BQ, batch * heads);
+  const dim3 grid((t_len + BQ - 1) / BQ, batch * heads,
+                  D / fwd_f32_cols<D>());
   return launch_big(flash_fwd_kernel<D>, grid, NT, fwd_f32_smem<D>(), s,
                     static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v), static_cast<float*>(out),
@@ -437,8 +476,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// head_dim 64 or 128; scale = 1 / sqrt(d) of the true head dim d (bf16:
-// rounded to bf16 by the caller)
+// head_dim 64, 128 or 256; scale = 1 / sqrt(d) of the true head dim d
+// (bf16: rounded to bf16 by the caller)
 extern "C" int mas_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const long long* strides,
                              int batch, int heads, int t_len, int prefix,
@@ -456,6 +495,9 @@ extern "C" int mas_flash_fwd(const void* q, const void* k, const void* v,
                          scale, is_bf16, s);
   } else if (head_dim == 128) {
     err = launch_fwd<128>(q, k, v, out, lse, st, batch, heads, t_len, prefix,
+                          scale, is_bf16, s);
+  } else if (head_dim == 256) {
+    err = launch_fwd<256>(q, k, v, out, lse, st, batch, heads, t_len, prefix,
                           scale, is_bf16, s);
   } else {
     err = cudaErrorInvalidValue;

@@ -1,11 +1,12 @@
 // Tensor-core building blocks of the bf16 flash-attention kernels (B1, B6).
 //
-// Tiles of D bf16 values per row (the head dim, D = 64 or 128, a template
-// parameter) sit in shared memory as 2D-byte rows of D / 8 16-byte chunks,
-// chunk c of row r stored at chunk c ^ (r & 7).  The eight rows an 8 x 8
-// ldmatrix reads at one logical chunk then fall on eight physical chunks
-// that differ in their low three bits, i.e. on all 32 banks: loads of A
-// fragments, B fragments and their transposes are free of bank conflicts.
+// Tiles of D bf16 values per row (the head dim, D = 64, 128 or 256, a
+// template parameter) sit in shared memory as 2D-byte rows of D / 8
+// 16-byte chunks, chunk c of row r stored at chunk c ^ (r & 7).  The eight
+// rows an 8 x 8 ldmatrix reads at one logical chunk then fall on eight
+// physical chunks that differ in their low three bits, i.e. on all 32
+// banks: loads of A fragments, B fragments and their transposes are free
+// of bank conflicts.
 //
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulate), per warp, with lane
 // = 4 * grp + tig:
@@ -69,9 +70,10 @@ __device__ __forceinline__ int opaque(int x) {
 
 // rows [row0, row0 + 64) of a [*, D] bf16 matrix with the given row stride
 // (elements, a multiple of 8) into a swizzled tile; rows at or past t_len
-// are zero-filled.  NTHREADS threads share the 8 D chunks.  At D = 128
-// the addresses are computed at each call: hoisted out of the callers'
-// loops they would hold 16 addresses per tile in registers.
+// are zero-filled.  NTHREADS threads share the 8 D chunks.  From D = 128
+// on the addresses are computed at each call: hoisted out of the callers'
+// loops they would hold 16 (32 at D = 256) addresses per tile in
+// registers.
 template <int NTHREADS, int D>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
@@ -177,19 +179,23 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// acc [16 rows x D] of this warp (C fragments of D / 8 n8 tiles) -> bf16
-// rows r0.. r0 + 15 of a swizzled tile at `tile` (generic pointer to shared)
-template <int D>
+// acc [16 rows x 8 N] of this warp (C fragments of N n8 tiles, N = D / 8
+// unless the accumulator holds a column slice) -> bf16 rows r0.. r0 + 15,
+// chunks [chunk0, chunk0 + N) of a swizzled tile at `tile` (generic pointer
+// to shared)
+template <int D, int N>
 __device__ __forceinline__ void store_rows(unsigned char* tile,
-                                           const float (&acc)[D / 8][4],
+                                           const float (&acc)[N][4],
                                            float mul_lo, float mul_hi,
-                                           int r0, int lane) {
+                                           int r0, int lane, int chunk0 = 0) {
   const int grp = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    *reinterpret_cast<uint32_t*>(tile + swz<D>(r0 + grp, nt) + 4 * tig) =
+  for (int nt = 0; nt < N; ++nt) {
+    *reinterpret_cast<uint32_t*>(tile + swz<D>(r0 + grp, chunk0 + nt) +
+                                 4 * tig) =
         pack_bf16(acc[nt][0] * mul_lo, acc[nt][1] * mul_lo);
-    *reinterpret_cast<uint32_t*>(tile + swz<D>(r0 + grp + 8, nt) + 4 * tig) =
+    *reinterpret_cast<uint32_t*>(tile + swz<D>(r0 + grp + 8, chunk0 + nt) +
+                                 4 * tig) =
         pack_bf16(acc[nt][2] * mul_hi, acc[nt][3] * mul_hi);
   }
 }

@@ -206,8 +206,10 @@ def test_cache_write_twin_other_head_dims_bitwise(d, bits):
 
 
 def test_decode_checks_take_the_instantiated_head_dims():
-    """The decode kernels are built for head dims 32, 64 and 128; other
-    head dims raise before any launch."""
+    """The decode kernels are built for D = 32, 64, 128 and 256; any head
+    dim up to 256 is taken at the instance that holds it (d 96 over caches
+    of 128-value positions), and a head dim above 256 raises before any
+    launch."""
     idx = torch.zeros(1, dtype=torch.int32)
     for d in quant.DECODE_HEAD_DIMS:
         q = torch.zeros(1, 2, 1, d)
@@ -217,5 +219,12 @@ def test_decode_checks_take_the_instantiated_head_dims():
                                 FloatCache(torch.zeros(1, 2, 16, d)), idx)
     q = torch.zeros(1, 2, 1, 96)
     kc, vc = (quant.QuantCache.empty(1, 2, 16, 96, 8) for _ in range(2))
+    assert kc.q.shape[-1] == 128
+    assert quant._check(q, kc, vc, idx) == 128
+    decode_attention._check(q, FloatCache(torch.zeros(1, 2, 16, 128)),
+                            FloatCache(torch.zeros(1, 2, 16, 128)), idx)
+    q = torch.zeros(1, 2, 1, 264)
     with pytest.raises(ValueError, match="head_dim"):
         quant._check(q, kc, vc, idx)
+    with pytest.raises(ValueError, match="head_dim"):
+        quant.QuantCache.empty(1, 2, 16, 264, 8)

@@ -468,7 +468,8 @@ def test_wrappers_reject_meta_tensors():
 
 def test_kernel_checks_reject_bad_inputs():
     attention._check(*[torch.zeros(1, 2, 8, 32)] * 3)   # padded to 64
-    q = torch.zeros(1, 2, 8, 160)
+    attention._check(*[torch.zeros(1, 2, 8, 160)] * 3)  # padded to 256
+    q = torch.zeros(1, 2, 8, 264)
     with pytest.raises(ValueError, match="head_dim"):
         attention._check(q, q, q)
     x = torch.zeros(1, 4, 4, 96)
@@ -664,6 +665,8 @@ def test_b6_b7_kernel_checks_reject_bad_inputs():
     lse = torch.zeros(1, 2, 96)
     attention._check_bwd(q, q, q, q, lse, q)   # a ragged last tile
     wide = torch.zeros(1, 2, 96, 192)
+    attention._check_bwd(wide, wide, wide, wide, lse, wide)   # padded to 256
+    wide = torch.zeros(1, 2, 96, 264)
     with pytest.raises(ValueError, match="head_dim"):
         attention._check_bwd(wide, wide, wide, wide, lse, wide)
     q = torch.zeros(1, 2, 128, 64)

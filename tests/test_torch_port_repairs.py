@@ -197,7 +197,10 @@ def test_flash_attention_function_other_head_dims_and_ragged_t(d):
 
 
 def test_attention_head_dim_above_128_raises():
-    """ROADMAP keeps head dims above 128 open: the CUDA route raises."""
+    """Head dims above 128 now take the D = 256 kernels (129 and 256 alike);
+    ROADMAP keeps head dims above 256 open: the CUDA route raises."""
     assert attention.kernel_head_dim(128) == 128
+    assert attention.kernel_head_dim(129) == 256
+    assert attention.kernel_head_dim(256) == 256
     with pytest.raises(ValueError, match="C3"):
-        attention.kernel_head_dim(129)
+        attention.kernel_head_dim(257)
