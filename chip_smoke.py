@@ -6,20 +6,20 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. print the card (nvidia-smi name and power limit) and the versions;
      no CUDA device is an error — there is no CPU path;
   2. build the CUDA kernels from ``mas_tpu_torch/csrc`` (nvcc, sm_90a);
-     print each kernel's registers and fail if a tensor-core, decode or
-     cache-write kernel spills, or a bf16 flash kernel has no tensor-core
-     instruction;
+     print each kernel's registers and fail if a tensor-core, decode,
+     cache-write, LayerNorm or GroupNorm-backward kernel spills, or a bf16
+     flash kernel has no tensor-core instruction;
   3. hold each hand-written kernel (B1-B11) against its plain PyTorch
      twin on the card at the main paths' shapes (the attention kernels
-     also at head dims 32 to 256, padded ones included, the decode reads
-     over the edges of their split, the cache writes bit for bit at six
-     head dims), and time both, and one PyTorch library call that
-     computes the same function where there is one (CUDA events, median;
-     B2 and B9 also back to back and replayed from a CUDA graph, over
-     enough cache sets to keep the L2 cold; B3 and B10 from a CUDA graph
-     and by the host's time per call); each kernel's bound is the
-     larger of its bytes over 3.35 TB/s and its operations over the peak
-     for their type;
+     also at head dims 32 to 512, padded and odd ones included, the decode
+     reads over the edges of their split, the cache writes bit for bit at
+     ten head dims, B7 and B8 bitwise equal from call to call), and time
+     both, and one PyTorch library call that computes the same function
+     where there is one (CUDA events, median; B2 and B9 also back to back
+     and replayed from a CUDA graph, over enough cache sets to keep the L2
+     cold; B3, B10 and B7 from a CUDA graph and by the host's time per
+     call; B8 from a CUDA graph); each kernel's bound is the larger of its
+     bytes over 3.35 TB/s and its operations over the peak for their type;
   4. run the serving path at full width — ``configs/sample_256.json``
      (24 layers, hidden 1024, int4 cache, guidance 3.0, top-k 64), seeded
      random weights, its 4 captions — through ``sample_images``, check the
@@ -70,6 +70,11 @@ times only the decode reads B2 and B9 and the cache writes B3 and B10 of
 the ``mas_tpu_torch`` under DIR (for example a ``git archive`` of another
 commit) and prints one JSON line, so two trees compare on one card in one
 call.
+
+    python3 chip_smoke.py --norm-times DIR
+
+does the same for B7 (LayerNorm forward + backward, with ``F.layer_norm``
+beside it) and B8 (GroupNorm+swish backward).
 """
 
 from __future__ import annotations
@@ -263,7 +268,7 @@ def phase_build() -> None:
 
 # kernels that must not spill registers to local memory
 NO_SPILL_KERNELS = ("_bf16", "decode_quant_kernel", "decode_float_kernel",
-                    "kv_write_")
+                    "kv_write_", "layer_norm_", "gn_swish_bwd_kernel")
 
 
 def spill_check(log: str) -> None:
@@ -327,8 +332,9 @@ def check_b1(gen) -> dict:
     relative); lse is fp32: atol 1e-4.  The same bf16 tolerances hold at
     T = 200 (ragged) and at the training shape [8, 16, 1408, 64], which is
     also timed beside the library call and its bound, and at head dims 32
-    (zero-padded to 64), 128, 160 (zero-padded to 256) and 256 at T = 200;
-    [8, 16, 1408, 128] and [8, 16, 1408, 256] are timed back to back."""
+    (zero-padded to 64), 128, 160 (zero-padded to 256), 256 and 320
+    (zero-padded to 512: column passes) at T = 200; [8, 16, 1408, d] at d
+    128, 256 and 320 are timed back to back."""
     from mas_tpu_torch.ops import attention
 
     def qkv_views(b, h, t, dtype, dim=64):
@@ -365,7 +371,7 @@ def check_b1(gen) -> dict:
             if dtype == torch.bfloat16:
                 err = max(err, e)
         print(f"B1 {dtype} T=200 prefix 0/37/100/200: ok")
-    for dim in (32, 128, 160, 256):
+    for dim in (32, 128, 160, 256, 320):
         for dtype in (torch.bfloat16, torch.float32):
             q2, k2, v2 = qkv_views(2, 4, 200, dtype, dim)
             for prefix in (0, 37, 200):
@@ -427,6 +433,18 @@ def check_b1(gen) -> dict:
           f"to back kernel {run_ms(kernel):.4f} ms, library "
           f"{run_ms(library):.4f} ms, bound {bd['bound_ms']:.4f} ms "
           f"({bd['bound_by']})")
+    del q3, k3, v3
+    # d 320: column passes over a head dim padded to 512 (not a speed goal)
+    q3, k3, v3 = qkv_views(b, h, t2, torch.bfloat16, 320)
+    e, le = held(q3, k3, v3, 384, f"[{b},{h},{t2},320] prefix 384")
+    err = max(err, e)
+    bd = bound(4 * b * h * t2 * 320 * 2 + b * h * t2 * 4,
+               4 * 320 * prefix_causal_pairs(t2, 384) * b * h, torch.bfloat16)
+    out["d320_b2b_ms"] = run_ms(
+        lambda: attention.flash_attention(q3, k3, v3, 384), calls=5)
+    print(f"B1 [{b},{h},{t2},320] bf16 prefix 384: out max err {e:.3e}; back "
+          f"to back kernel {out['d320_b2b_ms']:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     out["max_abs_err"] = err
     return out
 
@@ -493,7 +511,10 @@ def check_b2(gen) -> dict:
     (batch 64 with guidance: one block per (b, h)) and 8 rows (batch 4:
     eight blocks of one cluster per (b, h)), int4 and int8 caches with
     T = 640, at every index of CHUNK_EDGES; head dims 32, 128 and 256 too,
-    and 48 and 96 over caches padded to 64 and 128 values a position.
+    48 and 96 over caches padded to 64 and 128 values a position, the odd
+    33 and 47 (an int4 cache's last byte pairs column d - 1 with a zero
+    nibble), and 320 and 512 (positions of 512 values taken in chunks of
+    256).
     Tolerance: both versions accumulate in fp32 and round to bf16 once:
     atol 1e-2, rtol 1e-2; fp32 q: only the fp32 summation order differs,
     atol 1e-5.  The packed cache is read through strided views of its k
@@ -506,7 +527,8 @@ def check_b2(gen) -> dict:
     h, t = 16, 640
     err, out = 0.0, {}
     for rows, d in ((128, 64), (8, 64), (8, 32), (8, 128), (128, 32),
-                    (128, 128), (8, 256), (128, 256), (8, 96), (128, 48)):
+                    (128, 128), (8, 256), (128, 256), (8, 96), (128, 48),
+                    (8, 47), (128, 33), (8, 320), (128, 512)):
         indices = CHUNK_EDGES if d == 64 else (0, 6, 383, 639)
         q = _decode_q(gen, rows, h, d)
         for bits in (4, 8):
@@ -559,6 +581,14 @@ def check_b2(gen) -> dict:
     print(f"B2 int4 [128,{h},{t},256] index 511: graph "
           f"{out['d256_graph_ms']:.4f} ms")
     del q, kc, vc
+    q = _decode_q(gen, 128, h, 512)
+    kc, vc = _caches(gen, 4, 128, h, t, 512)
+    out["d512_graph_ms"] = graph_ms(
+        lambda: quant.decode_attention_quant(q, kc, vc, idx))
+    bd = bound(2 * 128 * h * 512 * (256 + 4), 0, torch.bfloat16)
+    print(f"B2 int4 [128,{h},{t},512] index 511: graph "
+          f"{out['d512_graph_ms']:.4f} ms (bound {bd['bound_ms']:.4f} ms)")
+    del q, kc, vc
     for rows in (128, 8):
         res = b2_times(gen, rows)
         print(f"B2 int4 [{rows},{h},{t},64] index 511 ({res['sets']} cache "
@@ -593,8 +623,9 @@ def host_ms(fn, calls: int = 1000) -> float:
     return (t1 - t0) * 1e3 / calls
 
 
-# head dims of the write checks: the four instances and two padded ones
-WRITE_HEAD_DIMS = (32, 48, 64, 96, 128, 256)
+# head dims of the write checks: the four instances, two padded ones, two
+# odd ones and two above 256 (chunks of 256)
+WRITE_HEAD_DIMS = (32, 48, 64, 96, 128, 256, 33, 47, 320, 512)
 
 
 def _new_kv(gen, rows, h, d, dtype=torch.bfloat16):
@@ -813,52 +844,85 @@ def check_b5(gen) -> dict:
     return out
 
 
+def _gn_inputs(gen, shape, dtype, groups=32, b4=True):
+    """x, g, scale, bias and B4's stats of x (the plain twin's if not
+    ``b4``) for a B8 call."""
+    from mas_tpu_torch.ops import gn_swish
+
+    c = shape[-1]
+    x = (torch.randn(*shape, device="cuda", generator=gen) * 2 + 0.5
+         ).to(dtype)
+    g = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    s = torch.randn(c, device="cuda", generator=gen) * 0.5 + 1.0
+    b = torch.randn(c, device="cuda", generator=gen) * 0.1
+    fwd = gn_swish.gn_swish if b4 else gn_swish.gn_swish_plain
+    return x, g, s, b, fwd(x, s, b, groups)[1]
+
+
 def check_b8(gen) -> dict:
     """GroupNorm+swish backward at [2,256,256,128] fp32 (the seg encoder's
-    largest), [2,16,16,512] fp32 and [4,256,256,128] bf16, against the
-    closed-form twin and against torch.autograd through gn_swish_plain.
+    largest), [2,16,16,512] fp32 (more blocks than rows to share: slices of
+    one or two rows), [4,16,16,512] bf16 and [4,256,256,128] bf16, and at
+    channel and group counts no model here uses: C 4096 (four slabs of
+    channels) with 32 and 256 groups, C 8192 in 4 groups (a group wider
+    than a slab), C 256 in 256 groups (a channel a group) and C 8 in 2
+    groups (a warp's lanes past C idle), against
+    the closed-form twin and against torch.autograd through gn_swish_plain.
     Tolerances: fp32 dx atol 1e-5 (elementwise work in another order; the
     per-group sums enter divided by N); dscale/dbias are sums over B*H*W
     rows, whose fp32 rounding grows like sqrt(rows): atol 1e-4 * sqrt(rows),
     rtol 1e-5; bf16 dx is rounded to bf16 once on each side: atol 3e-2,
-    rtol 1e-2, as the B4 check.  Also: GroupNormSwish's output carries a
-    grad_fn on the card and its gradients through GNSwishFunction (B4 +
-    B8) match autograd of the plain twin."""
+    rtol 1e-2, as the B4 check.  Two calls must give equal bits (no atomics
+    on the sums), also after replays from a CUDA graph.  Also:
+    GroupNormSwish's output carries a grad_fn on the card and its gradients
+    through GNSwishFunction (B4 + B8) match autograd of the plain twin.
+    Timed by ``b8_times``."""
     from mas_tpu_torch.models.layers import GroupNormSwish
     from mas_tpu_torch.ops import gn_swish
 
     err, out = 0.0, {}
-    for shape, dtype in (((2, 256, 256, 128), torch.float32),
-                         ((2, 16, 16, 512), torch.float32),
-                         ((4, 256, 256, 128), torch.bfloat16)):
+    for shape, dtype, groups in (((2, 256, 256, 128), torch.float32, 32),
+                                 ((2, 16, 16, 512), torch.float32, 32),
+                                 ((4, 16, 16, 512), torch.bfloat16, 32),
+                                 ((4, 256, 256, 128), torch.bfloat16, 32),
+                                 ((2, 16, 16, 4096), torch.float32, 32),
+                                 ((2, 16, 16, 4096), torch.bfloat16, 256),
+                                 ((1, 8, 8, 8192), torch.float32, 4),
+                                 ((2, 16, 16, 256), torch.float32, 256),
+                                 ((2, 32, 32, 8), torch.bfloat16, 2)):
         c = shape[-1]
         rows = shape[0] * shape[1] * shape[2]
-        x = (torch.randn(*shape, device="cuda", generator=gen) * 2 + 0.5
-             ).to(dtype)
-        g = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
-        s = torch.randn(c, device="cuda", generator=gen) * 0.5 + 1.0
-        b = torch.randn(c, device="cuda", generator=gen) * 0.1
-        _, stats = gn_swish.gn_swish(x, s, b)
-        got = gn_swish.gn_swish_bwd(x, g, s, b, stats)
-        plain = gn_swish.gn_swish_bwd_plain(x, g, s, b, stats)
+        # stats from B4 at the models' shapes, else from its twin
+        x, g, s, b, stats = _gn_inputs(gen, shape, dtype, groups,
+                                       b4=groups == 32 and c <= 512)
+        got = gn_swish.gn_swish_bwd(x, g, s, b, stats, groups)
+        plain = gn_swish.gn_swish_bwd_plain(x, g, s, b, stats, groups)
         leaves = [t.detach().clone().requires_grad_() for t in (x, s, b)]
-        auto = torch.autograd.grad(gn_swish.gn_swish_plain(*leaves)[0],
-                                   leaves, g)
+        auto = torch.autograd.grad(
+            gn_swish.gn_swish_plain(*leaves, groups)[0], leaves, g)
+        graph_ms(lambda: gn_swish.gn_swish_bwd(x, g, s, b, stats, groups),
+                 calls=2, reps=2)
+        again = gn_swish.gn_swish_bwd(x, g, s, b, stats, groups)
         torch.cuda.synchronize()
+        require(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
+                f"B8 {shape} {dtype}: two calls differ (one after graph "
+                "replays)")
         dx_tol = (1e-5, 0.0) if dtype == torch.float32 else (3e-2, 1e-2)
         p_tol = (1e-4 * rows ** 0.5, 1e-5)
         for name, want in (("plain twin", plain), ("autograd", auto)):
             require(close(got[0], want[0], *dx_tol),
-                    f"B8 {shape} {dtype} dx vs {name}: max err "
+                    f"B8 {shape} {dtype} G {groups} dx vs {name}: max err "
                     f"{max_err(got[0], want[0])}")
             for i, what in ((1, "dscale"), (2, "dbias")):
                 require(close(got[i], want[i], *p_tol),
-                        f"B8 {shape} {dtype} {what} vs {name}: max err "
+                        f"B8 {shape} {dtype} G {groups} {what} vs {name}: "
+                        f"max err "
                         f"{max_err(got[i], want[i])}")
         err = max(err, max_err(got[0], plain[0]))
-        print(f"B8 {shape} {dtype}: dx max err {max_err(got[0], plain[0]):.3e}"
+        print(f"B8 {shape} {dtype} G {groups}: dx max err "
+              f"{max_err(got[0], plain[0]):.3e}"
               f", dscale {max_err(got[1], plain[1]):.3e}, dbias "
-              f"{max_err(got[2], plain[2]):.3e}")
+              f"{max_err(got[2], plain[2]):.3e}; two calls bitwise equal")
         if shape == (2, 256, 256, 128):
             norm = GroupNormSwish(c).cuda()
             with torch.no_grad():
@@ -874,12 +938,18 @@ def check_b8(gen) -> dict:
                     and close(fn[1], auto[1], *p_tol)
                     and close(fn[2], auto[2], *p_tol),
                     "GNSwishFunction gradients vs autograd of the twin")
-            out["ms"] = timed_ms(
-                lambda: gn_swish.gn_swish_bwd(x, g, s, b, stats))
-            out["plain_ms"] = timed_ms(
-                lambda: gn_swish.gn_swish_bwd_plain(x, g, s, b, stats))
-            n = x.numel()
-            out.update(bound(3 * n * 4, 20 * n, torch.float32))
+        del x, g, got, plain, leaves, auto, again
+    res = b8_times(gen)
+    for key, r in res.items():
+        print(f"B8 {key}: one call {r['ms']:.4f} ms, back to back "
+              f"{r['b2b_ms']:.4f} ms, graph {r['graph_ms']:.4f} ms "
+              f"({100 * r['bound_share']:.1f}% of the bound "
+              f"{r['bound_ms']:.4f} ms, {r['bound_by']}); plain "
+              f"{r['plain_ms']:.4f} ms")
+    out.update(res["fp32"])
+    for key in ("bf16", "fp32_b4", "bf16_b2"):
+        out[f"{key}_graph_ms"] = res[key]["graph_ms"]
+        out[f"{key}_bound_ms"] = res[key]["bound_ms"]
     out["library_ms"] = None
     out["max_abs_err"] = err
     return out
@@ -896,8 +966,9 @@ def check_b6(gen) -> dict:
     """Attention backward at [8, 16, 1408, 64] bf16 at prefix 384 and 0
     (the training geometry) and [2, 16, 640, 64] fp32 at prefix 384; at
     T = 200 (a ragged last tile) with head dims 64, 32 (zero-padded to 64),
-    128, 160 (zero-padded to 256) and 256, bf16 and fp32; and [8, 16, 1408,
-    128] and [8, 16, 1408, 256] bf16, timed back to back, q/k/v
+    128, 160 (zero-padded to 256), 256 and 320 (zero-padded to 512: column
+    passes), bf16 and fp32; and [8, 16, 1408, d] bf16 at d 128, 256 and
+    320, timed back to back, q/k/v
     as views into one fused qkv tensor, out and lse from B1 and dO laid out
     [B, T, H, d] as the model passes them.  Tolerances, per tensor against
     the plain twin: fp32 atol 1e-4 * max |grad| (both sum over up to T
@@ -919,8 +990,11 @@ def check_b6(gen) -> dict:
             ((2, 8, 200, 256), torch.bfloat16, 0),
             ((2, 8, 200, 256), torch.float32, 37),
             ((2, 8, 200, 160), torch.float32, 200),
+            ((2, 8, 200, 320), torch.bfloat16, 37),
+            ((2, 8, 200, 320), torch.float32, 0),
             ((8, 16, 1408, 128), torch.bfloat16, 384),
-            ((8, 16, 1408, 256), torch.bfloat16, 384)):
+            ((8, 16, 1408, 256), torch.bfloat16, 384),
+            ((8, 16, 1408, 320), torch.bfloat16, 384)):
         qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen,
                           dtype=dtype)
         q, k, v = attention.split_qkv(qkv)
@@ -965,13 +1039,15 @@ def check_b6(gen) -> dict:
             out.update(bound(8 * n * 2 + b * h * t * 4,
                              10 * d * prefix_causal_pairs(t, prefix) * b * h,
                              torch.bfloat16))
-        elif d in (128, 256) and t == 1408:
+        elif d in (128, 256, 320) and t == 1408:
             args = (q, k, v, o, lse, do, prefix)
             n = b * h * t * d
             bd = bound(8 * n * 2 + b * h * t * 4,
                        10 * d * prefix_causal_pairs(t, prefix) * b * h,
                        torch.bfloat16)
-            ms = run_ms(lambda: attention.flash_attention_bwd(*args))
+            ms = run_ms(lambda: attention.flash_attention_bwd(*args),
+                        calls=20 if d < 320 else 3)
+            out[f"d{d}_b2b_ms"] = ms
             print(f"B6 [{b},{h},{t},{d}] bf16 prefix {prefix}, back to back: "
                   f"kernel {ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
                   f"({bd['bound_by']})")
@@ -980,62 +1056,166 @@ def check_b6(gen) -> dict:
     return out
 
 
-def check_b7(gen) -> dict:
-    """LayerNorm forward and backward at [11264, 1024] (the train step's
-    B * T rows) in bf16 and fp32 against the plain twins.  Tolerances: y
-    and dx are rounded to x's dtype once from fp32 values that differ only
-    in summation order: fp32 atol 1e-5, rtol 1e-5; bf16 atol 1e-2, rtol
-    1e-2 (one bf16 ulp is 2^-8 to 2^-7 relative).  dscale and dbias are
-    fp32 sums over 11264 rows, whose rounding grows like sqrt(rows): atol
-    1e-4 * sqrt(rows), rtol 1e-5, as for B8."""
+LN_TRAIN = (11264, 1024)   # the train step's B * T rows, hidden 1024
+
+
+def _ln_inputs(gen, n, d, dtype):
+    x = (torch.randn(n, d, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    g = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+    s = torch.randn(d, device="cuda", generator=gen) * 0.5 + 1.0
+    b = torch.randn(d, device="cuda", generator=gen) * 0.1
+    return x, g, s, b
+
+
+def b7_times(gen) -> dict:
+    """B7 forward + backward at [11264, 1024] bf16, for whichever
+    ``mas_tpu_torch`` is imported: the pair one call at a time
+    (``timed_ms``), back to back (``run_ms``) and replayed from a CUDA graph
+    (``graph_ms``, the device time; also each wrapper alone); each
+    wrapper's host time per call (``host_ms``); the plain twins; and
+    ``F.layer_norm`` forward +
+    backward (bf16 parameters: it refuses fp32 ones on a bf16 input) in
+    the same three ways."""
     from mas_tpu_torch.ops import layer_norm as ln
 
-    n, d = 11264, 1024
+    n, d = LN_TRAIN
+    x, g, s, b = _ln_inputs(gen, n, d, torch.bfloat16)
+    pair = lambda: (ln.layer_norm_fwd(x, s, b), ln.layer_norm_bwd(x, g, s))
+    lib_in = [t.detach().to(torch.bfloat16).requires_grad_()
+              for t in (x, s, b)]
+    library = lambda: torch.autograd.grad(
+        F.layer_norm(lib_in[0], (d,), lib_in[1], lib_in[2], 1e-5), lib_in, g)
+    out = {"ms": timed_ms(pair), "b2b_ms": run_ms(pair),
+           "graph_ms": graph_ms(pair),
+           "fwd_graph_ms": graph_ms(lambda: ln.layer_norm_fwd(x, s, b)),
+           "bwd_graph_ms": graph_ms(lambda: ln.layer_norm_bwd(x, g, s)),
+           "fwd_host_ms": host_ms(lambda: ln.layer_norm_fwd(x, s, b)),
+           "bwd_host_ms": host_ms(lambda: ln.layer_norm_bwd(x, g, s)),
+           "plain_ms": timed_ms(lambda: (ln.layer_norm_fwd_plain(x, s, b),
+                                         ln.layer_norm_bwd_plain(x, g, s))),
+           "library_ms": timed_ms(library), "library_b2b_ms": run_ms(library),
+           "library_graph_ms": graph_ms(library),
+           **bound(5 * n * d * 2, 20 * n * d, torch.bfloat16)}
+    out["bound_share"] = out["bound_ms"] / out["graph_ms"]
+    return out
+
+
+def check_b7(gen) -> dict:
+    """LayerNorm forward and backward at [11264, 1024] (the train step's
+    B * T rows) in bf16 and fp32 against the plain twins and against
+    autograd through the forward twin (on an fp32 copy of x); also, bf16
+    and fp32, at [3000, 1000] (a multiple of 8, not of a block's 256 or
+    1024 columns: vector loads of a partly covered row), [3000, 1001] (odd:
+    element loads, and element sums of the partials at both levels),
+    [4096, 1002] (even, not a multiple of 4: element loads, vector sums at
+    level 1 and element sums at level 2), [4096, 64] (one warp a row,
+    vector loads), [4096, 100] (one warp a row; element loads in bf16),
+    [2000, 37] (one warp a row, element loads), [2048, 4096] (eight warps
+    a row) and [300, 8192].  Tolerances: y and dx are
+    rounded to x's dtype once from fp32 values that differ only in
+    summation order: fp32 atol 1e-5, rtol 1e-5; bf16 atol 1e-2, rtol 1e-2
+    (one bf16 ulp is 2^-8 to 2^-7 relative).  dscale and dbias are fp32
+    sums over the rows, whose rounding grows like sqrt(rows): atol 1e-4 *
+    sqrt(rows), rtol 1e-5, as for B8.  Two calls must give equal bits (no
+    atomics on the sums), also after the pair was replayed from a CUDA
+    graph (the backward's ticket counters).  Timed by ``b7_times``."""
+    from mas_tpu_torch.ops import layer_norm as ln
+
     out, err = {}, 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        x = (torch.randn(n, d, device="cuda", generator=gen) * 2 + 0.5
-             ).to(dtype)
-        g = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
-        s = torch.randn(d, device="cuda", generator=gen) * 0.5 + 1.0
-        b = torch.randn(d, device="cuda", generator=gen) * 0.1
-        y = ln.layer_norm_fwd(x, s, b)
-        py = ln.layer_norm_fwd_plain(x, s, b)
-        got = ln.layer_norm_bwd(x, g, s)
-        want = ln.layer_norm_bwd_plain(x, g, s)
-        torch.cuda.synchronize()
-        tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
-        p_tol = (1e-4 * n ** 0.5, 1e-5)
-        require(y.dtype == dtype and close(y, py, *tol),
-                f"B7 fwd {dtype}: max err {max_err(y, py):.3e}")
-        require(got[0].dtype == dtype and close(got[0], want[0], *tol),
-                f"B7 dx {dtype}: max err {max_err(got[0], want[0]):.3e}")
-        for i, what in ((1, "dscale"), (2, "dbias")):
-            require(close(got[i], want[i], *p_tol), f"B7 {what} {dtype}: "
-                    f"max err {max_err(got[i], want[i]):.3e}")
-        err = max(err, max_err(y, py), max_err(got[0], want[0]))
-        print(f"B7 [{n},{d}] {dtype}: y max err {max_err(y, py):.3e}, dx "
-              f"{max_err(got[0], want[0]):.3e}, dscale "
-              f"{max_err(got[1], want[1]):.3e}, dbias "
-              f"{max_err(got[2], want[2]):.3e}")
-        if dtype == torch.bfloat16:
-            out["ms"] = timed_ms(lambda: (ln.layer_norm_fwd(x, s, b),
-                                          ln.layer_norm_bwd(x, g, s)))
-            out["plain_ms"] = timed_ms(lambda: (
-                ln.layer_norm_fwd_plain(x, s, b),
-                ln.layer_norm_bwd_plain(x, g, s)))
-            # the library call needs bf16 parameters on a bf16 input
-            lib_in = [t.detach().to(dtype).requires_grad_() for t in (x, s, b)]
-            out["library_ms"] = timed_ms(lambda: torch.autograd.grad(
-                F.layer_norm(lib_in[0], (d,), lib_in[1], lib_in[2], 1e-5),
-                lib_in, g))
-            out.update(bound(4 * n * d * 2, 20 * n * d, torch.bfloat16))
-            out["fwd_ms"] = timed_ms(lambda: ln.layer_norm_fwd(x, s, b))
-            out["fwd_plain_ms"] = timed_ms(
-                lambda: ln.layer_norm_fwd_plain(x, s, b))
-            print(f"B7 bf16 forward alone: kernel {out['fwd_ms']:.4f} ms, "
-                  f"plain {out['fwd_plain_ms']:.4f} ms")
+    for (n, d) in (LN_TRAIN, (3000, 1000), (3000, 1001), (4096, 1002),
+                   (4096, 64), (4096, 100), (2000, 37), (2048, 4096),
+                   (300, 8192)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g, s, b = _ln_inputs(gen, n, d, dtype)
+            y = ln.layer_norm_fwd(x, s, b)
+            py = ln.layer_norm_fwd_plain(x, s, b)
+            got = ln.layer_norm_bwd(x, g, s)
+            want = ln.layer_norm_bwd_plain(x, g, s)
+            leaves = [t.detach().float().requires_grad_() for t in (x, s, b)]
+            auto = torch.autograd.grad(
+                ln.layer_norm_fwd_plain(*leaves), leaves, g.float())
+            again = ln.layer_norm_bwd(x, g, s)
+            torch.cuda.synchronize()
+            tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+            p_tol = (1e-4 * n ** 0.5, 1e-5)
+            what = f"B7 [{n},{d}] {dtype}"
+            require(y.dtype == dtype and close(y, py, *tol),
+                    f"{what} fwd: max err {max_err(y, py):.3e}")
+            for name, ref in (("plain twin", want), ("autograd", auto)):
+                require(got[0].dtype == dtype and close(got[0], ref[0], *tol),
+                        f"{what} dx vs {name}: max err "
+                        f"{max_err(got[0], ref[0]):.3e}")
+                for i, part in ((1, "dscale"), (2, "dbias")):
+                    require(close(got[i], ref[i], *p_tol), f"{what} {part} vs "
+                            f"{name}: max err {max_err(got[i], ref[i]):.3e}")
+            require(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
+                    f"{what}: two backward calls differ")
+            err = max(err, max_err(y, py), max_err(got[0], want[0]))
+            print(f"{what}: y max err {max_err(y, py):.3e}, dx "
+                  f"{max_err(got[0], want[0]):.3e}, dscale "
+                  f"{max_err(got[1], want[1]):.3e}, dbias "
+                  f"{max_err(got[2], want[2]):.3e}; two calls bitwise equal")
+    x, g, s, b = _ln_inputs(gen, *LN_TRAIN, torch.bfloat16)
+    first = (ln.layer_norm_fwd(x, s, b), *ln.layer_norm_bwd(x, g, s))
+    graph_ms(lambda: (ln.layer_norm_fwd(x, s, b), ln.layer_norm_bwd(x, g, s)),
+             calls=3, reps=2)
+    after = (ln.layer_norm_fwd(x, s, b), *ln.layer_norm_bwd(x, g, s))
+    torch.cuda.synchronize()
+    require(all(torch.equal(a_, b_) for a_, b_ in zip(first, after)),
+            "B7: a call after graph replays differs from one before")
+    res = b7_times(gen)
+    print(f"B7 bf16 {list(LN_TRAIN)} fwd + bwd: one call {res['ms']:.4f} ms, "
+          f"back to back {res['b2b_ms']:.4f} ms, graph {res['graph_ms']:.4f} "
+          f"ms ({100 * res['bound_share']:.1f}% of the bound "
+          f"{res['bound_ms']:.4f} ms, {res['bound_by']}; graph fwd "
+          f"{res['fwd_graph_ms']:.4f}, bwd {res['bwd_graph_ms']:.4f}); host "
+          f"per call fwd "
+          f"{res['fwd_host_ms']:.4f} ms, bwd {res['bwd_host_ms']:.4f} ms; "
+          f"F.layer_norm one call {res['library_ms']:.4f} ms, back to back "
+          f"{res['library_b2b_ms']:.4f} ms, graph "
+          f"{res['library_graph_ms']:.4f} ms; plain {res['plain_ms']:.4f} ms")
+    out.update(res)
     out["max_abs_err"] = err
     return out
+
+
+def b8_times(gen) -> dict:
+    """B8 at [2, 256, 256, 128] fp32 (the seg encoder's largest) and [4,
+    256, 256, 128] bf16, for whichever ``mas_tpu_torch`` is imported: one
+    call (``timed_ms``), back to back (``run_ms``) and replayed from a CUDA
+    graph (``graph_ms``), and the plain twin one call at a time.  Also
+    [4, 256, 256, 128] fp32 and [2, 256, 256, 128] bf16 ("fp32_b4",
+    "bf16_b2"): with the two timed shapes, the same bytes at twice the
+    elements and the same elements at twice the bytes, which tell whether
+    a dtype's time follows its bytes or its elements."""
+    from mas_tpu_torch.ops import gn_swish
+
+    out = {}
+    for key, shape, dtype in (("fp32", (2, 256, 256, 128), torch.float32),
+                              ("bf16", (4, 256, 256, 128), torch.bfloat16),
+                              ("fp32_b4", (4, 256, 256, 128), torch.float32),
+                              ("bf16_b2", (2, 256, 256, 128),
+                               torch.bfloat16)):
+        x, g, s, b, stats = _gn_inputs(gen, shape, dtype)
+        fn = lambda: gn_swish.gn_swish_bwd(x, g, s, b, stats)
+        n = x.numel()
+        out[key] = {"ms": timed_ms(fn), "b2b_ms": run_ms(fn),
+                    "graph_ms": graph_ms(fn),
+                    "plain_ms": timed_ms(lambda: gn_swish.gn_swish_bwd_plain(
+                        x, g, s, b, stats)),
+                    **bound(3 * n * x.element_size(), 20 * n, dtype)}
+        out[key]["bound_share"] = out[key]["bound_ms"] / out[key]["graph_ms"]
+        del x, g
+    return out
+
+
+def norm_times() -> dict:
+    """``b7_times`` and ``b8_times`` for whichever ``mas_tpu_torch`` is
+    imported: ``python3 chip_smoke.py --norm-times DIR`` imports it from
+    DIR (e.g. a ``git archive`` of the parent commit), so two trees are
+    timed on one card in one call."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return {"B7": b7_times(gen), "B8": b8_times(gen)}
 
 
 def b9_times(gen, rows: int) -> dict:
@@ -1078,9 +1258,11 @@ def check_b9(gen) -> dict:
     64] bf16 (a view into qkv) against bf16 caches [rows, 16, 1408, 64] at
     128 rows (batch 64 with guidance) and 8 rows (batch 4), at the indices
     of CHUNK_EDGES and 895 and 1407; head dims 32, 128 and 256 too, and 96
-    and 160 over caches padded to 128 and 256 values a position; fp32 q and
-    caches [8, 16, 640, 64], [128, 16, 640, 64], d 128 and 256.  Tolerance:
-    both versions accumulate in fp32 and round the output to bf16 once:
+    and 160 over caches padded to 128 and 256 values a position, 47 (padded
+    to 64), 320 and 512 (positions of 512 values in chunks of 256); fp32 q
+    and caches [8, 16, 640, 64], [128, 16, 640, 64], d 128, 256 and 320.
+    Tolerance: both versions accumulate in fp32 and round the output to
+    bf16 once:
     atol 1e-2, rtol 1e-2; fp32 q and caches: only the fp32 summation order
     differs, atol 1e-5, rtol 1e-5.  Timed by ``b9_times`` at both row
     counts."""
@@ -1098,6 +1280,10 @@ def check_b9(gen) -> dict:
                               (128, 640, 256, torch.bfloat16),
                               (8, 640, 96, torch.bfloat16),
                               (128, 640, 160, torch.bfloat16),
+                              (8, 640, 47, torch.bfloat16),
+                              (8, 640, 320, torch.bfloat16),
+                              (128, 640, 512, torch.bfloat16),
+                              (8, 640, 320, torch.float32),
                               (8, 640, 64, torch.float32),
                               (128, 640, 64, torch.float32),
                               (8, 640, 128, torch.float32),
@@ -1132,6 +1318,16 @@ def check_b9(gen) -> dict:
         lambda: da.decode_attention_float(q, kc, vc, idx))
     print(f"B9 bf16 [128,{h},1408,256] index 1407: graph "
           f"{out['d256_graph_ms']:.4f} ms")
+    del q, kc, vc
+    q = _decode_q(gen, 128, h, 512)
+    kc, vc = (da.FloatCache(torch.randn(128, h, 1408, 512, device="cuda",
+                                        generator=gen, dtype=torch.bfloat16))
+              for _ in range(2))
+    out["d512_graph_ms"] = graph_ms(
+        lambda: da.decode_attention_float(q, kc, vc, idx))
+    bd = bound(2 * 128 * h * 1408 * 512 * 2, 0, torch.bfloat16)
+    print(f"B9 bf16 [128,{h},1408,512] index 1407: graph "
+          f"{out['d512_graph_ms']:.4f} ms (bound {bd['bound_ms']:.4f} ms)")
     del q, kc, vc
     for rows in (128, 8):
         res = b9_times(gen, rows)
@@ -1221,10 +1417,10 @@ KERNELS = (
      "mas_tpu/ops/vq.py:33", check_b5),
     ("B6", "B6 flash_attention_bwd", "cuda", "mas_tpu_torch/csrc/flash_bwd.cu",
      "mas_tpu/ops/attention.py:354", check_b6),
-    ("B7", "B7 layer_norm_fwd + layer_norm_bwd", "triton",
-     "mas_tpu_torch/ops/layer_norm.py", "mas_tpu/ops/pallas/layer_norm.py:47",
+    ("B7", "B7 layer_norm_fwd + layer_norm_bwd", "cuda",
+     "mas_tpu_torch/csrc/layer_norm.cu", "mas_tpu/ops/pallas/layer_norm.py:47",
      check_b7),
-    ("B8", "B8 gn_swish_bwd", "triton", "mas_tpu_torch/ops/gn_swish.py",
+    ("B8", "B8 gn_swish_bwd", "cuda", "mas_tpu_torch/csrc/gn_swish_bwd.cu",
      "mas_tpu/ops/pallas/gn_swish.py:117", check_b8),
     ("B9", "B9 decode_attention_float", "cuda",
      "mas_tpu_torch/csrc/decode_quant.cu", "mas_tpu/ops/decode_attention.py:69",
@@ -2073,12 +2269,17 @@ def phase_ln_producer(gen, smi: str) -> dict:
 
 
 def main(argv) -> int:
-    if argv[:1] == ["--decode-times"]:
-        # the decode reads of the mas_tpu_torch under argv[1] alone
+    if argv[:1] in (["--decode-times"], ["--norm-times"]):
+        # the decode reads and writes, or B7 and B8, of the mas_tpu_torch
+        # under argv[1] alone
         sys.path.insert(0, os.path.abspath(argv[1]))
         smi = phase_device()
-        print(json.dumps({"tree": argv[1], "card": smi,
-                          "decode_times": decode_times()}))
+        if argv[0] == "--decode-times":
+            print(json.dumps({"tree": argv[1], "card": smi,
+                              "decode_times": decode_times()}))
+        else:
+            print(json.dumps({"tree": argv[1], "card": smi,
+                              "norm_times": norm_times()}))
         return 0
     smi = phase_device()
     phase_build()

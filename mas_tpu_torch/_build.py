@@ -132,6 +132,28 @@ def _declare(lib: ctypes.CDLL) -> None:
     # z codebook cb_sq out, N K D is_bf16, stream
     lib.mas_vq_argmin.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.mas_vq_argmin.restype = i
+    # x w b y, n d eps is_bf16, stream
+    lib.mas_layer_norm_fwd.argtypes = [p, p, p, p, i, i, f, i, p]
+    lib.mas_layer_norm_fwd.restype = i
+    # n d -> fp32 partials the backward takes
+    lib.mas_layer_norm_bwd_scratch.argtypes = [i, i]
+    lib.mas_layer_norm_bwd_scratch.restype = ll
+    lib.mas_layer_norm_bwd_tickets.argtypes = []
+    lib.mas_layer_norm_bwd_tickets.restype = i
+    # x g w dx part tickets dscale dbias, n d eps is_bf16, stream
+    lib.mas_layer_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, f, i, p]
+    lib.mas_layer_norm_bwd.restype = i
+    # device is_bf16 -> blocks of a launch
+    lib.mas_gn_swish_bwd_grid.argtypes = [i, i]
+    lib.mas_gn_swish_bwd_grid.restype = i
+    # batch channels groups grid -> scratch floats
+    lib.mas_gn_swish_bwd_scratch.argtypes = [i, i, i, i]
+    lib.mas_gn_swish_bwd_scratch.restype = ll
+    # x g w b stats dx scratch dscale dbias, batch rows channels groups
+    # inv_count grid is_bf16, stream
+    lib.mas_gn_swish_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f,
+                                     i, i, p]
+    lib.mas_gn_swish_bwd.restype = i
     lib.mas_cuda_error_string.argtypes = [i]
     lib.mas_cuda_error_string.restype = ctypes.c_char_p
 

@@ -18,9 +18,10 @@
 // Cache layout (the port's own): values [B, H, T, *] with the D values of
 // a position contiguous: int8 [.., D], int4 [.., D/2] uint8 with two
 // nibbles per byte (low nibble = even dim), bf16 or fp32 [.., D]; scales
-// [B, H, T] fp32.  D is the instance that holds the head dim d (32, 64, 128
-// or 256); the columns past d are zero, q is read at its d columns (zeros
-// past them) and the output [B, H, 1, d] is written at d columns.
+// [B, H, T] fp32.  D is the width that holds the head dim d (32, 64, 128,
+// or the least multiple of 256 >= d); the columns past d are zero, q is
+// read at its d columns (zeros past them) and the output [B, H, 1, d] is
+// written at d columns.
 // Positions are ``pos_stride`` bytes apart and rows of one (b, h) are T *
 // pos_stride bytes apart, so the k and v halves of the packed [B, H, T,
 // 2D] cache are read in place through strided views; the lane
@@ -67,6 +68,13 @@
 // - The instance width D is a template parameter: 32, 64, 128 and 256.  At
 //   D = 256 a bf16 position is 512 bytes, a whole warp of 16-byte lanes; an
 //   fp32 one takes 32 bytes a lane.
+// - A wider position (256 nc columns) goes through the D = 256 instance in
+//   chunks: a tile's sub-tile c brings chunk c of its k values, and each
+//   lane sums its part of q . k over the chunks before the scores are
+//   reduced; the last sub-tile also brings the v values of the block's
+//   output pass (blockIdx.y: columns [256 pass, 256 pass + 256)), so the
+//   registers stay those of D = 256 and each pass recomputes the scores.
+//   The launch shape still depends on B * H (and the width) only.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -229,14 +237,17 @@ __device__ __forceinline__ void unpack_lane(const uint8_t* p, float* out) {
 // The body of both kernels, for block rank j of the cluster of one (b, h).
 // BITS 8 / 4: a quantized cache with per-position scales (B2); 16 / 32: a
 // bf16 / fp32 cache without scales (B9).  pos_stride: bytes between
-// positions; d: the head dim (<= D), q's and out's columns.
+// positions; d: the head dim (<= D nc), q's and out's columns.  A position
+// is nc chunks of D columns (nc > 1 only for the D = 256 instance); the
+// block computes output columns [D pass, D pass + D), pass = blockIdx.y,
+// from the scores over all nc chunks.
 template <int BITS, int D, typename TQ>
 __device__ __forceinline__ void decode_block(
     const TQ* __restrict__ q, const uint8_t* __restrict__ kq,
     const float* __restrict__ ks, const uint8_t* __restrict__ vq,
     const float* __restrict__ vs, const int* __restrict__ index,
     TQ* __restrict__ out, int H, int t_len, int pos_stride, int q_sb,
-    int q_sh, int d, float scale) {
+    int q_sh, int d, float scale, int nc_arg) {
   using G = Geo<BITS, D>;
   constexpr bool SCALED = BITS <= 8;   // quantized: fold in the scales
   constexpr int VPL = G::VPL;
@@ -249,6 +260,8 @@ __device__ __forceinline__ void decode_block(
   cg::cluster_group cluster = cg::this_cluster();
   const int split = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
+  const int nc = D == 256 ? nc_arg : 1;
+  const int pass = D == 256 ? static_cast<int>(blockIdx.y) : 0;
   const int bh = blockIdx.x / split;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -261,29 +274,34 @@ __device__ __forceinline__ void decode_block(
   const int lo = min(rank * chunk, valid);
   const int hi = min(lo + chunk, valid);
   const int ntiles = (hi - lo + G::P - 1) / G::P;
+  const int nsub = ntiles * nc;   // sub-tiles: a tile's nc column chunks
 
   const long long row = (long long)bh * t_len;
   const uint8_t* kb = kq + row * pos_stride;
-  const uint8_t* vb = vq + row * pos_stride;
+  const uint8_t* vb = vq + row * pos_stride + pass * G::W;
   const float* ksb = SCALED ? ks + row : nullptr;  // float caches: no scales
   const float* vsb = SCALED ? vs + row : nullptr;
 
-  // tile `tile` of the chunk -> ring slot `slot`: k values [P][W], v values
-  // [P][W], then k and v scales [P] each; positions past hi zero-filled
-  auto load_tile = [&](int tile, int slot) {
-    const int p0 = lo + tile * G::P;
+  // sub-tile u (chunk c = u % nc of tile u / nc) -> ring slot `slot`: chunk
+  // c of the k values [P][W]; with the last chunk, the v values of this
+  // block's pass [P][W], then k and v scales [P] each; positions past hi
+  // zero-filled
+  auto load_sub = [&](int u, int slot) {
+    const int c = u % nc;
+    const bool last = c == nc - 1;
+    const int p0 = lo + (u / nc) * G::P;
     const uint32_t st = smem_addr(ring + slot * G::STAGE_BYTES);
 #pragma unroll
     for (int i = 0; i < G::P * G::CPP / NT; ++i) {
-      const int c = tid + i * NT;
-      const int p = c / G::CPP, off = (c % G::CPP) * 16;
+      const int cc = tid + i * NT;
+      const int p = cc / G::CPP, off = (cc % G::CPP) * 16;
       const bool ok = p0 + p < hi;
       const long long src = (long long)(ok ? p0 + p : 0) * pos_stride + off;
-      cp_async16(st + p * G::W + off, kb + src, ok);
-      cp_async16(st + G::P * G::W + p * G::W + off, vb + src, ok);
+      cp_async16(st + p * G::W + off, kb + src + c * G::W, ok);
+      if (last) cp_async16(st + G::P * G::W + p * G::W + off, vb + src, ok);
     }
     if constexpr (SCALED) {
-      for (int p = tid; p < G::P; p += NT) {
+      for (int p = tid; last && p < G::P; p += NT) {
         const bool ok = p0 + p < hi;
         const int pos = ok ? p0 + p : 0;
         cp_async4(st + G::VAL_BYTES + 4 * p, ksb + pos, ok);
@@ -294,39 +312,41 @@ __device__ __forceinline__ void decode_block(
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ntiles) load_tile(s, s);
+    if (s < nsub) load_sub(s, s);
     cp_async_commit();
   }
 
-  // q' while the first tiles are in flight: VPL dims per lane, zeros past
-  // the head dim d
+  // q' of chunk c: VPL dims per lane, zeros past the head dim d
   float qr[VPL];
   const TQ* qp = q + (long long)(bh / H) * q_sb + (long long)(bh % H) * q_sh +
                  part * VPL;
+  auto load_q = [&](int c) {
 #pragma unroll
-  for (int c = 0; c < VPL; ++c) {
-    const float x = part * VPL + c < d ? to_f(qp[c]) * scale : 0.f;
-    qr[c] = SCALED ? x : round_to(x, q);
-  }
+    for (int i = 0; i < VPL; ++i) {
+      const int col = c * D + part * VPL + i;
+      const float x = col < d ? to_f(qp[c * D + i]) * scale : 0.f;
+      qr[i] = SCALED ? x : round_to(x, q);
+    }
+  };
+  load_q(0);   // while the first tiles are in flight
 
   float m = NEG, l = 0.f;
   float acc[VPL];
 #pragma unroll
   for (int c = 0; c < VPL; ++c) acc[c] = 0.f;
+  float dots[G::STEPS];   // this lane's part of each position's q . k
 
-  for (int t = 0; t < ntiles; ++t) {
-    if (t + STAGES - 1 < ntiles)
-      load_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+  for (int u = 0; u < nsub; ++u) {
+    if (u + STAGES - 1 < nsub)
+      load_sub(u + STAGES - 1, (u + STAGES - 1) % STAGES);
     cp_async_commit();
-    cp_async_wait<STAGES - 1>();  // tile t has landed
+    cp_async_wait<STAGES - 1>();  // sub-tile u has landed
     __syncthreads();
-    const uint8_t* st = ring + (t % STAGES) * G::STAGE_BYTES;
-    const float* kss = reinterpret_cast<const float*>(st + G::VAL_BYTES);
-    const int p0 = lo + t * G::P;
+    const int c = u % nc;
+    const uint8_t* st = ring + (u % STAGES) * G::STAGE_BYTES;
+    if (nc > 1 && u > 0) load_q(c);
 
-    // scores of this lane group's STEPS positions; one rescale per tile
-    float sc[G::STEPS];
-    float tmax = NEG;
+    // this lane's part of the dot products of its STEPS positions
 #pragma unroll
     for (int j = 0; j < G::STEPS; ++j) {
       const int p = j * G::PPB + warp * G::PPW + grp;
@@ -335,33 +355,48 @@ __device__ __forceinline__ void decode_block(
       // four partial sums: a chain of VPL dependent fmas would stall
       float dp[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int c = 0; c < VPL; ++c) dp[c % 4] = fmaf(qr[c], kf[c], dp[c % 4]);
-      float dot = (dp[0] + dp[1]) + (dp[2] + dp[3]);
-#pragma unroll
-      for (int o = 1; o < G::LPP; o <<= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      const float s = SCALED ? dot * kss[p] : dot;
-      sc[j] = p0 + p < hi ? s : NEG;
-      tmax = fmaxf(tmax, sc[j]);
+      for (int cc = 0; cc < VPL; ++cc)
+        dp[cc % 4] = fmaf(qr[cc], kf[cc], dp[cc % 4]);
+      const float dot = (dp[0] + dp[1]) + (dp[2] + dp[3]);
+      dots[j] = c == 0 ? dot : dots[j] + dot;
     }
-    if (tmax > m) {
-      const float alpha = expf(m - tmax);
-      l *= alpha;
+    if (c == nc - 1) {
+      // scores of this lane group's STEPS positions; one rescale per tile
+      const float* kss = reinterpret_cast<const float*>(st + G::VAL_BYTES);
+      const int p0 = lo + (u / nc) * G::P;
+      float sc[G::STEPS];
+      float tmax = NEG;
 #pragma unroll
-      for (int c = 0; c < VPL; ++c) acc[c] *= alpha;
-      m = tmax;
-    }
+      for (int j = 0; j < G::STEPS; ++j) {
+        const int p = j * G::PPB + warp * G::PPW + grp;
+        float dot = dots[j];
 #pragma unroll
-    for (int j = 0; j < G::STEPS; ++j) {
-      const int p = j * G::PPB + warp * G::PPW + grp;
-      if (p0 + p < hi) {
-        const float pr = expf(sc[j] - m);
-        l += pr;
-        const float pv = SCALED ? pr * kss[G::P + p] : pr;
-        float vf[VPL];
-        unpack_lane<BITS, D>(st + G::P * G::W + p * G::W + part * G::LB, vf);
+        for (int o = 1; o < G::LPP; o <<= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        const float s = SCALED ? dot * kss[p] : dot;
+        sc[j] = p0 + p < hi ? s : NEG;
+        tmax = fmaxf(tmax, sc[j]);
+      }
+      if (tmax > m) {
+        const float alpha = expf(m - tmax);
+        l *= alpha;
 #pragma unroll
-        for (int c = 0; c < VPL; ++c) acc[c] = fmaf(pv, vf[c], acc[c]);
+        for (int cc = 0; cc < VPL; ++cc) acc[cc] *= alpha;
+        m = tmax;
+      }
+#pragma unroll
+      for (int j = 0; j < G::STEPS; ++j) {
+        const int p = j * G::PPB + warp * G::PPW + grp;
+        if (p0 + p < hi) {
+          const float pr = expf(sc[j] - m);
+          l += pr;
+          const float pv = SCALED ? pr * kss[G::P + p] : pr;
+          float vf[VPL];
+          unpack_lane<BITS, D>(st + G::P * G::W + p * G::W + part * G::LB,
+                               vf);
+#pragma unroll
+          for (int cc = 0; cc < VPL; ++cc) acc[cc] = fmaf(pv, vf[cc], acc[cc]);
+        }
       }
     }
     __syncthreads();  // every warp is done with this slot
@@ -416,9 +451,11 @@ __device__ __forceinline__ void decode_block(
   }
   cluster.sync();  // every block's state is written
 
-  // rank 0 merges the cluster's states in rank order and writes out the d
-  // columns; the remote reads of all ranks are issued before any is used
-  for (int c = tid; rank == 0 && c < d; c += NT) {
+  // rank 0 merges the cluster's states in rank order and writes out this
+  // pass's columns below d; the remote reads of all ranks are issued before
+  // any is used
+  const int cols = min(D, d - pass * D);
+  for (int c = tid; rank == 0 && c < cols; c += NT) {
     float rm[MAX_SPLIT], rl[MAX_SPLIT], ra[MAX_SPLIT];
 #pragma unroll
     for (int r = 0; r < MAX_SPLIT; ++r) {
@@ -441,7 +478,7 @@ __device__ __forceinline__ void decode_block(
       ll += rl[r] * e;
       a += ra[r] * e;
     }
-    store_f(out + (long long)bh * d + c, a / ll);
+    store_f(out + (long long)bh * d + pass * D + c, a / ll);
   }
   cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
@@ -452,9 +489,9 @@ __global__ void __launch_bounds__(NT)
 decode_quant_kernel(const TQ* q, const uint8_t* kq, const float* ks,
                     const uint8_t* vq, const float* vs, const int* index,
                     TQ* out, int H, int t_len, int pos_stride, int q_sb,
-                    int q_sh, int d, float scale) {
+                    int q_sh, int d, float scale, int nc) {
   decode_block<BITS, D, TQ>(q, kq, ks, vq, vs, index, out, H, t_len,
-                            pos_stride, q_sb, q_sh, d, scale);
+                            pos_stride, q_sb, q_sh, d, scale, nc);
 }
 
 // B9
@@ -462,18 +499,19 @@ template <int BITS, int D, typename TQ>
 __global__ void __launch_bounds__(NT)
 decode_float_kernel(const TQ* q, const uint8_t* k, const uint8_t* v,
                     const int* index, TQ* out, int H, int t_len, int q_sb,
-                    int q_sh, int d, float scale) {
+                    int q_sh, int d, float scale, int nc) {
   decode_block<BITS, D, TQ>(q, k, nullptr, v, nullptr, index, out, H, t_len,
-                            D * BITS / 8, q_sb, q_sh, d, scale);
+                            D * BITS / 8 * nc, q_sb, q_sh, d, scale, nc);
 }
 
-// rows * split blocks of NT threads, clusters of `split` blocks along x
+// rows * split x passes blocks of NT threads, clusters of `split` blocks
+// along x
 template <typename... KArgs, typename... Args>
 cudaError_t launch_split(void (*kernel)(KArgs...), int rows, int split,
-                         cudaStream_t s, Args... args) {
+                         int passes, cudaStream_t s, Args... args) {
   if (split < 1 || split > MAX_SPLIT) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(rows * split);
+  cfg.gridDim = dim3(rows * split, passes);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = s;
@@ -490,7 +528,7 @@ cudaError_t launch_split(void (*kernel)(KArgs...), int rows, int split,
 struct QuantArgs {
   const void *q, *kq, *ks, *vq, *vs, *index;
   void* out;
-  int rows, heads, t_len, pos_stride, q_sb, q_sh, d, split;
+  int rows, heads, t_len, pos_stride, q_sb, q_sh, d, split, nc;
   float scale;
   cudaStream_t s;
 };
@@ -498,12 +536,12 @@ struct QuantArgs {
 template <int BITS, int D, typename TQ>
 cudaError_t launch_quant(const QuantArgs& a) {
   return launch_split(
-      decode_quant_kernel<BITS, D, TQ>, a.rows, a.split, a.s,
+      decode_quant_kernel<BITS, D, TQ>, a.rows, a.split, a.nc, a.s,
       static_cast<const TQ*>(a.q), static_cast<const uint8_t*>(a.kq),
       static_cast<const float*>(a.ks), static_cast<const uint8_t*>(a.vq),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.index),
       static_cast<TQ*>(a.out), a.heads, a.t_len, a.pos_stride, a.q_sb,
-      a.q_sh, a.d, a.scale);
+      a.q_sh, a.d, a.scale, a.nc);
 }
 
 template <int BITS, int D>
@@ -518,19 +556,20 @@ cudaError_t launch_quant_d(const QuantArgs& a, int head_dim, int is_bf16) {
     case 32: return launch_quant_q<BITS, 32>(a, is_bf16);
     case 64: return launch_quant_q<BITS, 64>(a, is_bf16);
     case 128: return launch_quant_q<BITS, 128>(a, is_bf16);
-    case 256: return launch_quant_q<BITS, 256>(a, is_bf16);
-    default: return cudaErrorInvalidValue;
+    default:   // 256 nc columns: the D = 256 instance, chunk by chunk
+      if (head_dim % 256) return cudaErrorInvalidValue;
+      return launch_quant_q<BITS, 256>(a, is_bf16);
   }
 }
 
 template <int BITS, int D, typename TQ>
 cudaError_t launch_float(const QuantArgs& a) {
   return launch_split(
-      decode_float_kernel<BITS, D, TQ>, a.rows, a.split, a.s,
+      decode_float_kernel<BITS, D, TQ>, a.rows, a.split, a.nc, a.s,
       static_cast<const TQ*>(a.q), static_cast<const uint8_t*>(a.kq),
       static_cast<const uint8_t*>(a.vq), static_cast<const int*>(a.index),
       static_cast<TQ*>(a.out), a.heads, a.t_len, a.q_sb, a.q_sh, a.d,
-      a.scale);
+      a.scale, a.nc);
 }
 
 template <int BITS, int D>
@@ -545,14 +584,16 @@ cudaError_t launch_float_d(const QuantArgs& a, int head_dim, int is_bf16) {
     case 32: return launch_float_q<BITS, 32>(a, is_bf16);
     case 64: return launch_float_q<BITS, 64>(a, is_bf16);
     case 128: return launch_float_q<BITS, 128>(a, is_bf16);
-    case 256: return launch_float_q<BITS, 256>(a, is_bf16);
-    default: return cudaErrorInvalidValue;
+    default:   // 256 nc columns: the D = 256 instance, chunk by chunk
+      if (head_dim % 256) return cudaErrorInvalidValue;
+      return launch_float_q<BITS, 256>(a, is_bf16);
   }
 }
 
 }  // namespace
 
-// B2: bits 8 or 4, instance width 32, 64, 128 or 256 holding head dim d;
+// B2: bits 8 or 4, width 32, 64, 128 or a multiple of 256 holding head dim
+// d (values a position);
 // fp32 scales [B, H, T]; values pos_stride bytes apart; q [B, H, 1, d] and
 // out (contiguous [B, H, 1, d]) bf16 (is_bf16 = 1) or fp32; `split` blocks
 // per (b, h), 1 to 8; `scale` = 1 / sqrt(d) in fp32.
@@ -565,7 +606,8 @@ extern "C" int mas_decode_quant(const void* q, const void* kq, const void* ks,
                                 void* stream) {
   if (d < 1 || d > width) return static_cast<int>(cudaErrorInvalidValue);
   const QuantArgs a = {q, kq, ks, vq, vs, index, out, batch * heads, heads,
-                       t_len, pos_stride, q_sb, q_sh, d, split, scale,
+                       t_len, pos_stride, q_sb, q_sh, d, split,
+                       width >= 256 ? width / 256 : 1, scale,
                        static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (bits == 4) {
@@ -580,7 +622,8 @@ extern "C" int mas_decode_quant(const void* q, const void* kq, const void* ks,
 }
 
 // B9: a contiguous bf16 (cache_bf16 = 1) or fp32 cache [B, H, T, width]
-// with width 32, 64, 128 or 256 holding head dim d; q [B, H, 1, d] and out
+// with width 32, 64, 128 or a multiple of 256 holding head dim d; q
+// [B, H, 1, d] and out
 // (contiguous) bf16 (is_bf16 = 1) or fp32; `scale` = 1 / sqrt(d) rounded
 // to q's dtype.
 extern "C" int mas_decode_float(const void* q, const void* k, const void* v,
@@ -590,7 +633,8 @@ extern "C" int mas_decode_float(const void* q, const void* k, const void* v,
                                 int split, float scale, void* stream) {
   if (d < 1 || d > width) return static_cast<int>(cudaErrorInvalidValue);
   const QuantArgs a = {q, k, nullptr, v, nullptr, index, out, batch * heads,
-                       heads, t_len, 0, q_sb, q_sh, d, split, scale,
+                       heads, t_len, 0, q_sb, q_sh, d, split,
+                       width >= 256 ? width / 256 : 1, scale,
                        static_cast<cudaStream_t>(stream)};
   const cudaError_t err = cache_bf16 ? launch_float_d<16>(a, width, is_bf16)
                                      : launch_float_d<32>(a, width, is_bf16);

@@ -4,10 +4,10 @@
 // (launched by _flash_bwd), the Pallas flash-attention backward of the
 // transformer train step.
 //
-// Computes, from q, k, v, out, dout [B, H, T, D] (bf16 or fp32, D = 64, 128
-// or 256: the wrapper zero-pads any head dim d <= 256 up to one of them and
-// passes scale = 1/sqrt(d) of the true d; any T) and the forward's lse
-// [B, H, T] (fp32, kernel B1):
+// Computes, from q, k, v, out, dout [B, H, T, D] (bf16 or fp32, D = 64,
+// 128, 256 or a multiple of 256: the wrapper zero-pads any head dim d up to
+// one of them and passes scale = 1/sqrt(d) of the true d; any T) and the
+// forward's lse [B, H, T] (fp32, kernel B1):
 //   P  = exp(q k^T scale - lse), masked: row i sees keys [0, bound) with
 //        bound = prefix for i < prefix, else i + 1
 //   dV = P^T dO     dP = dO V^T     delta = rowsum(dO * O)
@@ -76,6 +76,12 @@
 // in column order, and each chunk's tiles reloaded for the dV, dK (dQ)
 // products.
 //
+// Above d 256 (D = 256 nc): bf16 in the *_wide kernels, each block one
+// pass of 128 output columns with S and dP summed over the nc chunks of 256
+// dims, staged through shared memory in turn; fp32 in the same kernels as
+// D = 256, S and dP summed over all 2 nc chunks of 128 and blockIdx.z
+// picking the pass of 256 columns.  Every pass recomputes S (and dP).
+//
 // A ragged last tile (T not a multiple of 64) is zero-filled on load, its
 // lse and delta too: a padded q row then has P = 1 but dO = 0 and dP =
 // delta = 0, so it adds nothing to dK or dV; padded keys are masked, and
@@ -111,11 +117,11 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 // delta[bh][i] = sum_c dO[b, h, i, c] * O[b, h, i, c]; one warp per row
 constexpr int DELTA_THREADS = 256;
 
-template <typename T, int D>
+template <typename T>
 __global__ void __launch_bounds__(DELTA_THREADS)
 flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                        float* __restrict__ delta, Strides st, int H,
-                       int t_len, long long rows) {
+                       int t_len, long long rows, int width) {
   const long long row =
       (long long)blockIdx.x * (DELTA_THREADS / 32) + threadIdx.x / 32;
   if (row >= rows) return;
@@ -126,8 +132,7 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   const T* op = out + b * st.ob + h * st.oh + i * st.ot;
   const T* gp = dout + b * st.gb + h * st.gh + i * st.gt;
   float s = 0.f;
-#pragma unroll
-  for (int c = lane; c < D; c += 32) s += to_f(op[c]) * to_f(gp[c]);
+  for (int c = lane; c < width; c += 32) s += to_f(op[c]) * to_f(gp[c]);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   if (lane == 0) delta[row] = s;
@@ -538,6 +543,257 @@ flash_bwd_dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// --- bf16 above d 256: column passes ----------------------------------------
+
+// A head dim of 256 nc (nc > 1): each block computes PW = 128 output
+// columns (blockIdx.z) of dK and dV (one sweep over the q tiles each) or of
+// dQ, recomputing S (and dP) over the full head dim in every pass: the nc
+// chunks of 256 dims of each tile pair are staged through shared memory in
+// turn and their products summed in chunk order (mma_chunk), then the
+// pass's 128 columns of dO, Q (dK/dV) or K (dQ) take P or dS.  Loads are
+// not pipelined (speed above d 256 is not a goal).
+constexpr int PW = 128;   // output columns of a pass
+
+// acc (16 x NN per warp) += A B^T over one chunk of 256 dims: A fragments
+// from rows [r0, r0 + 16) of `a_tile`, B from rows [0, NN) of `b_tile`
+// (held [n][k]), one k16 slice at a time: unrolled over the 16 slices,
+// ptxas kept every slice's fragment addresses live and spilled
+template <int NN>
+__device__ __forceinline__ void mma_chunk(float (&acc)[NN / 8][4],
+                                          uint32_t a_tile, int r0,
+                                          uint32_t b_tile, int lane) {
+#pragma unroll 1
+  for (int j = 0; j < 256 / 16; ++j) {
+    uint32_t a[4];
+    load_a<256>(a, a_tile, r0, j, lane);
+#pragma unroll
+    for (int np = 0; np < NN / 16; ++np) {
+      uint32_t bb[4];
+      load_b_nk<256>(bb, b_tile, 16 * np, j, lane);
+      mma(acc[2 * np], a, bb[0], bb[1]);
+      mma(acc[2 * np + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// K, V, Q, dO chunk tiles, the pass's tile, lse and delta
+constexpr int wide_smem() {
+  return 4 * tile_bytes<256>() + tile_bytes<PW>() + 2 * BT * 4;
+}
+
+__global__ void __launch_bounds__(MT)
+flash_bwd_dkv_kernel_bf16_wide(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dqkv, Strides st,
+                               int H, int t_len, int prefix, float scale,
+                               int nc) {
+  constexpr int TB = tile_bytes<256>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sk = smem_addr(smem), sv = sk + TB, sq = sv + TB,
+                 sg = sq + TB, sp = sg + TB;
+  const float* lse_s =
+      reinterpret_cast<const float*>(smem + 4 * TB + tile_bytes<PW>());
+  const float* del_s = lse_s + BT;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BT;
+  const int col0 = blockIdx.z * PW;
+  const int width = 256 * nc;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int pfx = min(prefix, t_len);
+
+  const __nv_bfloat16* qp = q + b * st.qb + h * st.qh;
+  const __nv_bfloat16* kp = k + b * st.kb + h * st.kh;
+  const __nv_bfloat16* vp = v + b * st.vb + h * st.vh;
+  const __nv_bfloat16* gp = dout + b * st.gb + h * st.gh;
+  const float* lp = lse + (long long)bh * t_len;
+  const float* dp_ = delta + (long long)bh * t_len;
+
+  const int q_lo = k0 < pfx ? 0 : k0 / BT;
+  const int nq = (t_len + BT - 1) / BT - q_lo;
+  const int key_lo = k0 + warp * 16 + grp;  // and key_lo + 8
+  const float sl2 = scale * LOG2E;
+  const long long row_stride = 3LL * H * width;
+  __nv_bfloat16* base =
+      dqkv + ((long long)b * t_len + k0) * row_stride + h * width + col0;
+
+  // which 1: dV = P^T dO; which 0: dK = dS^T Q scale
+  for (int which = 1; which >= 0; --which) {
+    float acc[PW / 8][4];
+    zero(acc);
+    for (int i = 0; i < nq; ++i) {
+      const int q0 = (q_lo + i) * BT;
+      float s[BT / 8][4], dpt[BT / 8][4];
+      zero(s);
+      zero(dpt);
+      for (int c = 0; c < nc; ++c) {
+        __syncthreads();  // every warp is done with the previous tiles
+        load_tile_rolled<MT, 256>(sk, kp + c * 256, st.kt, k0, t_len);
+        load_tile_rolled<MT, 256>(sq, qp + c * 256, st.qt, q0, t_len);
+        if (which == 0) {
+          load_tile_rolled<MT, 256>(sv, vp + c * 256, st.vt, k0, t_len);
+          load_tile_rolled<MT, 256>(sg, gp + c * 256, st.gt, q0, t_len);
+        }
+        if (c == 0) {
+          if (which)
+            load_tile_rolled<MT, PW>(sp, gp + col0, st.gt, q0, t_len);
+          else
+            load_tile_rolled<MT, PW>(sp, qp + col0, st.qt, q0, t_len);
+          const int r = threadIdx.x & (BT - 1);  // 0-63 lse, 64-127 delta
+          const bool ok = q0 + r < t_len;
+          cp_async4(smem_addr(lse_s) + (threadIdx.x / BT) * BT * 4 + 4 * r,
+                    (threadIdx.x < BT ? lp : dp_) + (ok ? q0 + r : 0), ok);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        // S^T = K Q^T and dP^T = V dO^T over this chunk: 16 keys x 64 q
+        // rows per warp
+        mma_chunk<BT>(s, sk, warp * 16, sq, lane);
+        if (which == 0) mma_chunk<BT>(dpt, sv, warp * 16, sg, lane);
+      }
+      const bool masked = k0 + BT > row_bound(q0, pfx);
+#pragma unroll
+      for (int nt = 0; nt < BT / 8; ++nt) {
+        const int c = nt * 8 + 2 * tig;
+        const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 ds = *reinterpret_cast<const float2*>(del_s + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float l2 = (e & 1) ? ls.y : ls.x;
+          const float dl = (e & 1) ? ds.y : ds.x;
+          float p = exp2f(fmaf(s[nt][e], sl2, -l2 * LOG2E));
+          if (masked &&
+              key_lo + 8 * (e >> 1) >= row_bound(q0 + c + (e & 1), pfx))
+            p = 0.f;
+          s[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - dl);
+        }
+      }
+      // dV += P^T dO[:, pass], dK += dS^T Q[:, pass]
+      if (which)
+        mma_regs_kn<PW, BT>(acc, s, sp, 0, 0, lane);
+      else
+        mma_regs_kn<PW, BT>(acc, dpt, sp, 0, 0, lane);
+    }
+    // the pass's columns through the (consumed) Q chunk tile
+    __syncthreads();
+    const float mul = which ? 1.f : scale;
+    store_rows<PW>(smem + 2 * TB, acc, mul, mul, warp * 16, lane);
+    __syncthreads();
+    constexpr int CPR = PW / 8;
+    for (unsigned idx = threadIdx.x; idx < BT * CPR; idx += MT) {
+      const int r = idx / CPR, c = idx % CPR;
+      if (k0 + r < t_len)
+        *reinterpret_cast<uint4*>(base + r * row_stride +
+                                  (1 + which) * H * width + c * 8) =
+            *reinterpret_cast<const uint4*>(smem + 2 * TB + swz<PW>(r, c));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(MT)
+flash_bwd_dq_kernel_bf16_wide(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dqkv, Strides st,
+                              int H, int t_len, int prefix, float scale,
+                              int nc) {
+  constexpr int TB = tile_bytes<256>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sq = smem_addr(smem), sg = sq + TB, sk = sg + TB,
+                 sv = sk + TB, sp = sv + TB;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BT;  // heaviest first
+  const int col0 = blockIdx.z * PW;
+  const int width = 256 * nc;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int pfx = min(prefix, t_len);
+
+  const __nv_bfloat16* qp = q + b * st.qb + h * st.qh;
+  const __nv_bfloat16* gp = dout + b * st.gb + h * st.gh;
+  const __nv_bfloat16* kp = k + b * st.kb + h * st.kh;
+  const __nv_bfloat16* vp = v + b * st.vb + h * st.vh;
+
+  int hi = q0 + BT;
+  if (q0 < pfx) hi = max(hi, pfx);
+  const int nk = (hi + BT - 1) / BT;
+
+  const int row_lo = q0 + warp * 16 + grp;  // and row_lo + 8
+  const int bnd[2] = {row_bound(row_lo, pfx), row_bound(row_lo + 8, pfx)};
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];  // rows past T: zeros (they are not stored)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    const long long at = (long long)bh * t_len + row;
+    lse2[r] = row < t_len ? lse[at] * LOG2E : 0.f;
+    dl[r] = row < t_len ? delta[at] : 0.f;
+  }
+  const int tile_bound = row_bound(q0, pfx);
+
+  float dq[PW / 8][4];
+  zero(dq);
+  for (int t = 0; t < nk; ++t) {
+    const int k0 = t * BT;
+    float s[BT / 8][4], dp[BT / 8][4];
+    zero(s);
+    zero(dp);
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();  // every warp is done with the previous tiles
+      load_tile_rolled<MT, 256>(sq, qp + c * 256, st.qt, q0, t_len);
+      load_tile_rolled<MT, 256>(sg, gp + c * 256, st.gt, q0, t_len);
+      load_tile_rolled<MT, 256>(sk, kp + c * 256, st.kt, k0, t_len);
+      load_tile_rolled<MT, 256>(sv, vp + c * 256, st.vt, k0, t_len);
+      if (c == 0) load_tile_rolled<MT, PW>(sp, kp + col0, st.kt, k0, t_len);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      // S = Q K^T, dP = dO V^T over this chunk: 16 q rows x 64 keys a warp
+      mma_chunk<BT>(s, sq, warp * 16, sk, lane);
+      mma_chunk<BT>(dp, sg, warp * 16, sv, lane);
+    }
+    const bool masked = k0 + BT > tile_bound;
+#pragma unroll
+    for (int nt = 0; nt < BT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[nt][e], sl2, -lse2[e >> 1]));
+        if (masked && k0 + nt * 8 + 2 * tig + (e & 1) >= bnd[e >> 1])
+          p = 0.f;
+        s[nt][e] = p * (dp[nt][e] - dl[e >> 1]);
+      }
+    // dQ += dS K[:, pass]
+    mma_regs_kn<PW, BT>(dq, s, sp, 0, 0, lane);
+  }
+
+  __syncthreads();
+  store_rows<PW>(smem, dq, scale, scale, warp * 16, lane);
+  __syncthreads();
+  const long long row_stride = 3LL * H * width;
+  __nv_bfloat16* base =
+      dqkv + ((long long)b * t_len + q0) * row_stride + h * width + col0;
+  constexpr int CPR = PW / 8;
+  for (unsigned idx = threadIdx.x; idx < BT * CPR; idx += MT) {
+    const int r = idx / CPR, c = idx % CPR;
+    if (q0 + r < t_len)
+      *reinterpret_cast<uint4*>(base + r * row_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + swz<PW>(r, c));
+  }
+}
+
 // --- fp32: CUDA cores --------------------------------------------------------
 
 constexpr int NT = 256;          // threads per block: 16 x 16
@@ -641,10 +897,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dqkv,
-                     Strides st, int H, int t_len, int prefix, float scale) {
+                     Strides st, int H, int t_len, int prefix, float scale,
+                     int nc_arg) {
   constexpr int C = chunk_cols<D>();
-  constexpr int NC = D / C;     // column chunks of the head dim
+  constexpr int NC = D / C;     // column chunks of a pass
   constexpr int LD = ld_of<C>();
+  // a head dim of 256 nc: S and dP are summed over all 2 nc chunks, and
+  // blockIdx.z picks the pass of D columns (NC chunks) this block writes
+  const int nct = D == 256 ? 2 * nc_arg : NC;
+  const int c_lo = D == 256 ? static_cast<int>(blockIdx.z) * NC : 0;
+  const int width = C * nct;
   extern __shared__ __align__(16) float smemf[];
   float* ks = smemf;            // K [key][c]
   float* vs = ks + BT * LD;     // V [key][c]
@@ -689,8 +951,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
     // S = (Q scale) K^T and dP = dO V^T, summed over the chunks in order
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
+    for (int c = 0; c < nct; ++c) {
       __syncthreads();  // the previous tiles' Q, dO, P, dS are consumed
       if constexpr (NC > 1) {
         load_tile_f32<C>(ks, kp + c * C, st.kt, k0, t_len, 1.f);
@@ -720,35 +981,37 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    // dV += P^T dO, dK += dS^T (Q scale), chunk by chunk from the last
-    // (still in shared memory)
+    // dV += P^T dO, dK += dS^T (Q scale), this pass's chunks from the last
+    // (the last chunk of the head dim is still in shared memory)
 #pragma unroll
-    for (int c = NC - 1; c >= 0; --c) {
-      if (c != NC - 1) {
+    for (int cc = NC - 1; cc >= 0; --cc) {
+      const int c = c_lo + cc;
+      if (c != nct - 1) {
         __syncthreads();
         load_tile_f32<C>(qs, qp + c * C, st.qt, q0, t_len, scale);
         load_tile_f32<C>(gs, gp + c * C, st.gt, q0, t_len, 1.f);
         __syncthreads();
       }
-      mma_tn<C>(dv[c], ps, gs, ty, tx);   // keys 4ty + i, dims 64g + 4tx + j
-      mma_tn<C>(dk[c], dss, qs, ty, tx);
+      mma_tn<C>(dv[cc], ps, gs, ty, tx);  // keys 4ty + i, dims 64g + 4tx + j
+      mma_tn<C>(dk[cc], dss, qs, ty, tx);
     }
   }
 
   // dK = dS^T (Q scale) is complete: q was scaled on load
-  const long long row_stride = 3LL * H * D;
+  const long long row_stride = 3LL * H * width;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + 4 * ty + i;
     if (key >= t_len) continue;
-    float* base = dqkv + ((long long)b * t_len + key) * row_stride + h * D;
+    float* base = dqkv + ((long long)b * t_len + key) * row_stride +
+                  h * width + c_lo * C;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int j = 0; j < C / 16; ++j) {
         const int col = c * C + 64 * (j / 4) + 4 * tx + j % 4;
-        base[H * D + col] = dk[c][i][j];
-        base[2 * H * D + col] = dv[c][i][j];
+        base[H * width + col] = dk[c][i][j];
+        base[2 * H * width + col] = dv[c][i][j];
       }
   }
 }
@@ -760,10 +1023,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dqkv,
-                    Strides st, int H, int t_len, int prefix, float scale) {
+                    Strides st, int H, int t_len, int prefix, float scale,
+                    int nc_arg) {
   constexpr int C = chunk_cols<D>();
-  constexpr int NC = D / C;     // column chunks of the head dim
+  constexpr int NC = D / C;     // column chunks of a pass
   constexpr int LD = ld_of<C>();
+  // a head dim of 256 nc: as the dK/dV kernel
+  const int nct = D == 256 ? 2 * nc_arg : NC;
+  const int c_lo = D == 256 ? static_cast<int>(blockIdx.z) * NC : 0;
+  const int width = C * nct;
   extern __shared__ __align__(16) float smemf[];
   float* qs = smemf;            // Q * scale [row][c]
   float* gs = qs + BT * LD;     // dO [row][c]
@@ -807,8 +1075,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
+    for (int c = 0; c < nct; ++c) {
       __syncthreads();  // the previous tile's K and dS^T are consumed
       if constexpr (NC > 1) {
         load_tile_f32<C>(qs, qp + c * C, st.qt, q0, t_len, scale);
@@ -832,24 +1099,27 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    // dQ += dS K, chunk by chunk from the last (still in shared memory)
+    // dQ += dS K, this pass's chunks from the last (the last chunk of the
+    // head dim is still in shared memory)
 #pragma unroll
-    for (int c = NC - 1; c >= 0; --c) {
-      if (c != NC - 1) {
+    for (int cc = NC - 1; cc >= 0; --cc) {
+      const int c = c_lo + cc;
+      if (c != nct - 1) {
         __syncthreads();
         load_tile_f32<C>(ks, kp + c * C, st.kt, k0, t_len, 1.f);
         __syncthreads();
       }
-      mma_tn<C>(dq[c], dst, ks, ty, tx);  // rows 4ty + i, dims 64g + 4tx + j
+      mma_tn<C>(dq[cc], dst, ks, ty, tx);  // rows 4ty + i, dims 64g + 4tx + j
     }
   }
 
-  const long long row_stride = 3LL * H * D;
+  const long long row_stride = 3LL * H * width;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= t_len) continue;
-    float* base = dqkv + ((long long)b * t_len + row) * row_stride + h * D;
+    float* base = dqkv + ((long long)b * t_len + row) * row_stride +
+                  h * width + c_lo * C;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -869,16 +1139,16 @@ cudaError_t launch_big(Kernel kernel, dim3 grid, int threads, int smem,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T>
 cudaError_t launch_delta(const void* out, const void* dout, void* delta,
                          const Strides& st, int batch, int heads, int t_len,
-                         cudaStream_t s) {
+                         int width, cudaStream_t s) {
   const long long rows = (long long)batch * heads * t_len;
   const int rows_per_block = DELTA_THREADS / 32;
-  flash_bwd_delta_kernel<T, D><<<(rows + rows_per_block - 1) / rows_per_block,
-                                 DELTA_THREADS, 0, s>>>(
+  flash_bwd_delta_kernel<T><<<(rows + rows_per_block - 1) / rows_per_block,
+                              DELTA_THREADS, 0, s>>>(
       static_cast<const T*>(out), static_cast<const T*>(dout),
-      static_cast<float*>(delta), st, heads, t_len, rows);
+      static_cast<float*>(delta), st, heads, t_len, rows, width);
   return cudaGetLastError();
 }
 
@@ -887,19 +1157,30 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const void* lse,
                        void* delta, void* dqkv, const Strides& st, int batch,
                        int heads, int t_len, int prefix, float scale,
-                       int is_bf16, cudaStream_t s) {
+                       int is_bf16, cudaStream_t s, int nc = 1) {
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const int tiles = (t_len + BT - 1) / BT;
   cudaError_t err;
   if (is_bf16) {
     using bf = __nv_bfloat16;
-    err = launch_delta<bf, D>(out, dout, delta, st, batch, heads, t_len, s);
+    err = launch_delta<bf>(out, dout, delta, st, batch, heads, t_len, D * nc,
+                           s);
     if (err != cudaSuccess) return err;
-    const dim3 grid(batch * heads, tiles);
     const bf *qb = static_cast<const bf*>(q), *kb = static_cast<const bf*>(k),
              *vb = static_cast<const bf*>(v), *gb = static_cast<const bf*>(dout);
     bf* g = static_cast<bf*>(dqkv);
+    if (nc > 1) {
+      const dim3 grid(batch * heads, tiles, D * nc / PW);
+      err = launch_big(flash_bwd_dkv_kernel_bf16_wide, grid, MT, wide_smem(),
+                       s, qb, kb, vb, gb, l, dl, g, st, heads, t_len, prefix,
+                       scale, nc);
+      if (err != cudaSuccess) return err;
+      return launch_big(flash_bwd_dq_kernel_bf16_wide, grid, MT, wide_smem(),
+                        s, qb, kb, vb, gb, l, dl, g, st, heads, t_len, prefix,
+                        scale, nc);
+    }
+    const dim3 grid(batch * heads, tiles);
     err = launch_big(flash_bwd_dkv_kernel_bf16<D>, grid, MT, dkv_smem<D>(),
                      s, qb, kb, vb, gb, l, dl, g, st, heads, t_len, prefix,
                      scale);
@@ -908,28 +1189,30 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                       qb, kb, vb, gb, l, dl, g, st, heads, t_len, prefix,
                       scale);
   }
-  err = launch_delta<float, D>(out, dout, delta, st, batch, heads, t_len, s);
+  err = launch_delta<float>(out, dout, delta, st, batch, heads, t_len, D * nc,
+                            s);
   if (err != cudaSuccess) return err;
-  const dim3 grid(tiles, batch * heads);
+  const dim3 grid(tiles, batch * heads, nc);
   const float *qf = static_cast<const float*>(q),
               *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v),
               *gf = static_cast<const float*>(dout);
   float* g = static_cast<float*>(dqkv);
   err = launch_big(flash_bwd_dkv_kernel<D>, grid, NT, dkv_f32_smem<D>(), s,
-                   qf, kf, vf, gf, l, dl, g, st, heads, t_len, prefix, scale);
+                   qf, kf, vf, gf, l, dl, g, st, heads, t_len, prefix, scale,
+                   nc);
   if (err != cudaSuccess) return err;
   return launch_big(flash_bwd_dq_kernel<D>, grid, NT, dq_f32_smem<D>(), s,
                     qf, kf, vf, gf, l, dl, g, st, heads, t_len, prefix,
-                    scale);
+                    scale, nc);
 }
 
 }  // namespace
 
 // strides: (b, h, t) element strides of q, k, v, out and dout, in that
 // order; delta is fp32 scratch of B * H * T values; dqkv is a contiguous
-// [B, T, 3, H, head_dim] buffer in q's dtype; head_dim 64, 128 or 256, any
-// T; scale = 1 / sqrt(d) of the true head dim d.
+// [B, T, 3, H, head_dim] buffer in q's dtype; head_dim 64, 128 or a
+// multiple of 256, any T; scale = 1 / sqrt(d) of the true head dim d.
 extern "C" int mas_flash_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* dout,
                              const void* lse, void* delta, void* dqkv,
@@ -950,9 +1233,10 @@ extern "C" int mas_flash_bwd(const void* q, const void* k, const void* v,
   } else if (head_dim == 128) {
     err = launch_bwd<128>(q, k, v, out, dout, lse, delta, dqkv, st, batch,
                           heads, t_len, prefix, scale, is_bf16, s);
-  } else if (head_dim == 256) {
+  } else if (head_dim >= 256 && head_dim % 256 == 0) {
     err = launch_bwd<256>(q, k, v, out, dout, lse, delta, dqkv, st, batch,
-                          heads, t_len, prefix, scale, is_bf16, s);
+                          heads, t_len, prefix, scale, is_bf16, s,
+                          head_dim / 256);
   } else {
     err = cudaErrorInvalidValue;
   }

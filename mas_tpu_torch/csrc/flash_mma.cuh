@@ -94,6 +94,25 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
+// load_tile without unrolling, for kernels that hold many accumulators
+// across several tile loads (the backward's passes above d 256): the
+// unrolled copies' addresses did not fit beside them
+template <int NTHREADS, int D>
+__device__ __forceinline__ void load_tile_rolled(uint32_t dst,
+                                                 const __nv_bfloat16* src,
+                                                 long long row_stride,
+                                                 int row0, int t_len) {
+  constexpr int CPR = D / 8;  // chunks per row
+#pragma unroll 1
+  for (unsigned idx = threadIdx.x; idx < 64 * CPR; idx += NTHREADS) {
+    const int r = idx / CPR, c = idx % CPR;
+    const bool ok = row0 + r < t_len;
+    const __nv_bfloat16* g =
+        src + (ok ? row0 + r : 0) * row_stride + c * 8;
+    cp_async16(dst + swz<D>(r, c), g, ok);
+  }
+}
+
 // 4 bytes global -> shared (through L1); zero-filled when !valid
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool valid) {

@@ -20,12 +20,13 @@
 // reciprocal, which can differ in the last bit).
 //
 // Cache layout (the port's own, ops/quant.py): values [B, H, T, W] with W =
-// D (int8) or D / 2 (int4) bytes a position, D the instance that holds d
-// (32, 64, 128 or 256) and the bytes of columns past d left as they are
-// (zero); scales [B, H, T] fp32.  The lane caches (B3) are two such
-// buffers, positions W bytes apart.  The packed cache (B10) is one buffer
-// of 2W-byte positions, k at byte 0 and v at byte W, and its scales [2, B,
-// H, T] (k's, then v's); the host passes the v pointers into it.
+// D (int8) or D / 2 (int4) bytes a position, D the width that holds d (32,
+// 64, 128, or the least multiple of 256 >= d) and the bytes of columns past
+// d left as they are (zero: an odd d's last byte of int4 pairs column d - 1
+// with a zero nibble); scales [B, H, T] fp32.  The lane caches (B3) are two
+// such buffers, positions W bytes apart.  The packed cache (B10) is one
+// buffer of 2W-byte positions, k at byte 0 and v at byte W, and its scales
+// [2, B, H, T] (k's, then v's); the host passes the v pointers into it.
 //
 // What bounds it on the H100: nothing but the launch.  A call reads B * H
 // * 2 d values and writes B * H * 2 (W + 4) bytes (~130 KB at the 256^2
@@ -44,6 +45,9 @@
 //   its int4 bytes in registers: no strided gathers.  Each lane stores its
 //   bytes once (lanes whose columns all lie past d store nothing, so the
 //   padding stays as it is); lane 0 stores the two scales.
+// - Above 256 columns the warp takes a position in chunks of 256 (the D =
+//   256 instance and a chunk count): one sweep over the chunks for the
+//   amax, a second that loads each chunk again, quantizes and stores it.
 // - The host reaches it through ctypes with a plain C interface and no
 //   Python launcher: the caches' layouts are checked once and kept
 //   (ops/quant.py::QuantCache.layout), so a call checks only the new k, v
@@ -164,18 +168,22 @@ __device__ __forceinline__ void quantize_store(const float (&x)[VPL],
 }
 
 // The body of both kernels: rows of new k and v [B, H, d] in T (strides
-// in elements, last dim contiguous) -> caches at *index.  PACKED: one
-// 2W-byte position holds k and v (B10), else W bytes (B3).
+// in elements, last dim contiguous) -> caches at *index.  A position is nc
+// chunks of D columns (nc > 1 only for the D = 256 instance, which serves
+// every width 256 nc); PACKED: one position holds k and v (B10), else k or
+// v alone (B3).
 template <int BITS, int D, bool PACKED, typename T>
 __device__ __forceinline__ void write_row(
     const T* __restrict__ k_new, const T* __restrict__ v_new,
     uint8_t* __restrict__ kq, float* __restrict__ ks,
     uint8_t* __restrict__ vq, float* __restrict__ vs,
     const int* __restrict__ index, int rows, int heads, long long k_sb,
-    long long k_sh, long long v_sb, long long v_sh, int t_len, int d) {
+    long long k_sh, long long v_sb, long long v_sh, int t_len, int d,
+    int nc_arg) {
   using L = Lanes<D>;
-  constexpr int W = BITS == 4 ? D / 2 : D;      // bytes of k (or v)
-  constexpr int STRIDE = PACKED ? 2 * W : W;    // bytes between positions
+  constexpr int W = BITS == 4 ? D / 2 : D;      // bytes of a chunk of k
+  const int nc = D == 256 ? nc_arg : 1;
+  const long long stride = (PACKED ? 2LL : 1LL) * W * nc;  // position bytes
   const int row = blockIdx.x * WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int idx = *index;
@@ -183,16 +191,21 @@ __device__ __forceinline__ void write_row(
   const int b = row / heads, h = row % heads;
   const int c0 = lane * L::VPL;
   const bool has = lane < L::ACTIVE;
+  const T* kr = k_new + b * k_sb + h * k_sh;
+  const T* vr = v_new + b * v_sb + h * v_sh;
 
+  // amax over every chunk; with one chunk its values stay in registers
   float kx[L::VPL], vx[L::VPL];
   float ka = 0.f, va = 0.f;
-  if (has) {
-    load_chunk<T, L::VPL>(k_new + b * k_sb + h * k_sh, c0, d, kx);
-    load_chunk<T, L::VPL>(v_new + b * v_sb + h * v_sh, c0, d, vx);
+  for (int ch = 0; ch < nc; ++ch) {
+    if (has) {
+      load_chunk<T, L::VPL>(kr, ch * D + c0, d, kx);
+      load_chunk<T, L::VPL>(vr, ch * D + c0, d, vx);
 #pragma unroll
-    for (int i = 0; i < L::VPL; ++i) {
-      ka = fmaxf(ka, fabsf(kx[i]));
-      va = fmaxf(va, fabsf(vx[i]));
+      for (int i = 0; i < L::VPL; ++i) {
+        ka = fmaxf(ka, fabsf(kx[i]));
+        va = fmaxf(va, fabsf(vx[i]));
+      }
     }
   }
   constexpr float QMAX = BITS == 4 ? 7.f : 127.f;
@@ -200,9 +213,18 @@ __device__ __forceinline__ void write_row(
   const float v_scale = __fdiv_rn(fmaxf(warp_max(va), 1e-8f), QMAX);
 
   const long long pos = (long long)row * t_len + idx;
-  if (has && c0 < d) {
-    quantize_store<BITS, L::VPL>(kx, k_scale, kq + pos * STRIDE, c0);
-    quantize_store<BITS, L::VPL>(vx, v_scale, vq + pos * STRIDE, c0);
+  for (int ch = 0; ch < nc; ++ch) {
+    const int col = ch * D + c0;
+    if (has && col < d) {
+      if (nc > 1) {
+        load_chunk<T, L::VPL>(kr, col, d, kx);
+        load_chunk<T, L::VPL>(vr, col, d, vx);
+      }
+      quantize_store<BITS, L::VPL>(kx, k_scale, kq + pos * stride + ch * W,
+                                   c0);
+      quantize_store<BITS, L::VPL>(vx, v_scale, vq + pos * stride + ch * W,
+                                   c0);
+    }
   }
   if (lane == 0) {
     ks[pos] = k_scale;
@@ -216,9 +238,10 @@ __global__ void __launch_bounds__(NT)
 kv_write_lane_kernel(const T* k_new, const T* v_new, uint8_t* kq, float* ks,
                      uint8_t* vq, float* vs, const int* index, int rows,
                      int heads, long long k_sb, long long k_sh,
-                     long long v_sb, long long v_sh, int t_len, int d) {
+                     long long v_sb, long long v_sh, int t_len, int d,
+                     int nc) {
   write_row<BITS, D, false, T>(k_new, v_new, kq, ks, vq, vs, index, rows,
-                               heads, k_sb, k_sh, v_sb, v_sh, t_len, d);
+                               heads, k_sb, k_sh, v_sb, v_sh, t_len, d, nc);
 }
 
 // B10
@@ -227,9 +250,10 @@ __global__ void __launch_bounds__(NT)
 kv_write_packed_kernel(const T* k_new, const T* v_new, uint8_t* kq,
                        float* ks, uint8_t* vq, float* vs, const int* index,
                        int rows, int heads, long long k_sb, long long k_sh,
-                       long long v_sb, long long v_sh, int t_len, int d) {
+                       long long v_sb, long long v_sh, int t_len, int d,
+                       int nc) {
   write_row<BITS, D, true, T>(k_new, v_new, kq, ks, vq, vs, index, rows,
-                              heads, k_sb, k_sh, v_sb, v_sh, t_len, d);
+                              heads, k_sb, k_sh, v_sb, v_sh, t_len, d, nc);
 }
 
 struct WriteArgs {
@@ -238,7 +262,7 @@ struct WriteArgs {
   const void* index;
   int rows, heads;
   long long k_sb, k_sh, v_sb, v_sh;
-  int t_len, d;
+  int t_len, d, nc;
   cudaStream_t s;
 };
 
@@ -251,7 +275,7 @@ cudaError_t launch(const WriteArgs& a, int packed) {
       static_cast<uint8_t*>(a.kq), static_cast<float*>(a.ks),
       static_cast<uint8_t*>(a.vq), static_cast<float*>(a.vs),
       static_cast<const int*>(a.index), a.rows, a.heads, a.k_sb, a.k_sh,
-      a.v_sb, a.v_sh, a.t_len, a.d);
+      a.v_sb, a.v_sh, a.t_len, a.d, a.nc);
   return cudaGetLastError();
 }
 
@@ -268,8 +292,9 @@ cudaError_t launch_d(const WriteArgs& a, int width, int packed,
     case 32: return launch_t<BITS, 32>(a, packed, is_bf16);
     case 64: return launch_t<BITS, 64>(a, packed, is_bf16);
     case 128: return launch_t<BITS, 128>(a, packed, is_bf16);
-    case 256: return launch_t<BITS, 256>(a, packed, is_bf16);
-    default: return cudaErrorInvalidValue;
+    default:   // 256 nc columns: the D = 256 instance, chunk by chunk
+      if (width % 256) return cudaErrorInvalidValue;
+      return launch_t<BITS, 256>(a, packed, is_bf16);
   }
 }
 
@@ -277,19 +302,19 @@ cudaError_t launch_d(const WriteArgs& a, int width, int packed,
 
 // B3 (packed = 0) and B10 (packed = 1).  k_new, v_new: [B, H, d] bf16
 // (is_bf16 = 1) or fp32, element strides (b, h), last dim contiguous; kq,
-// vq: value caches of instance `width` (32, 64, 128, 256), bits 8 or 4; ks,
-// vs: fp32 scales [B, H, T]; index: 1-element int32 device tensor.  Packed:
-// vq = kq + W, vs = ks + B * H * T.
+// vq: value caches of `width` values a position (32, 64, 128 or a multiple
+// of 256, >= d), bits 8 or 4; ks, vs: fp32 scales [B, H, T]; index:
+// 1-element int32 device tensor.  Packed: vq = kq + W, vs = ks + B * H * T.
 extern "C" int mas_kv_write(const void* k_new, const void* v_new, void* kq,
                             void* ks, void* vq, void* vs, const void* index,
                             int batch, int heads, long long k_sb,
                             long long k_sh, long long v_sb, long long v_sh,
                             int t_len, int d, int width, int bits, int packed,
                             int is_bf16, void* stream) {
-  if (d < 1 || d > width || (bits == 4 && d % 2))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1 || d > width) return static_cast<int>(cudaErrorInvalidValue);
   const WriteArgs a = {k_new, v_new, kq, ks, vq, vs, index, batch * heads,
                        heads, k_sb, k_sh, v_sb, v_sh, t_len, d,
+                       width >= 256 ? width / 256 : 1,
                        static_cast<cudaStream_t>(stream)};
   cudaError_t err = cudaErrorInvalidValue;
   if (bits == 4) err = launch_d<4>(a, width, packed, is_bf16);

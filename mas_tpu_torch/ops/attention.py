@@ -15,13 +15,16 @@ i + 1 — causal, and bidirectional inside the text+seg prefix.  The
 reference's PB-relax max shift is a per-row constant that softmax cancels,
 so both versions compute the plain masked softmax with fp32 statistics.
 
-Head dims: the kernels are instantiated for d = 64, 128 and 256.  For any
-other d <= 256 the wrappers zero-pad q, k, v (and out, dO) to the next of
-the three and drop the extra output columns; this is exact: zero columns
-add nothing to q . k, the scale stays 1/sqrt(d) of the true d, and the
-output and gradient columns they produce are dropped.  A head dim above
-256 raises (ROADMAP C3: more than 256 accumulator columns do not fit a
-warp's registers).  Any T: both kernels take a ragged last tile.
+Head dims: the kernels are instantiated for d = 64, 128 and 256, and
+take any multiple of 256 above in column passes (more than 256
+accumulator columns do not fit a warp's registers): each pass computes
+128 output columns, with the scores summed over the whole head dim in
+chunks of 256 staged through shared memory.  For any other d the wrappers
+zero-pad q, k, v (and out, dO) to the next width (``kernel_head_dim``) and
+drop the extra output columns; this is exact: zero columns add nothing to
+q . k, the scale stays 1/sqrt(d) of the true d, and the output and
+gradient columns they produce are dropped.  Any T: both kernels take a
+ragged last tile.
 
 The wrapper takes the plain twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.
@@ -49,11 +52,13 @@ def q_scale(d: int, dtype: torch.dtype) -> float:
 
 
 def kernel_head_dim(d: int) -> int:
-    """The instantiated head dim of B1/B6 that holds d: 64, 128 or 256;
-    raise above 256 (ROADMAP C3)."""
-    if not 1 <= d <= KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"the flash attention kernels take head_dim <= "
-                         f"{KERNEL_HEAD_DIMS[-1]}, got {d} (ROADMAP C3)")
+    """The head dim B1/B6 run at for d: 64, 128 or 256, or above 256 the
+    least multiple of 256 >= d (taken in column passes)."""
+    if d < 1:
+        raise ValueError(f"head_dim must be >= 1, got {d}")
+    top = KERNEL_HEAD_DIMS[-1]
+    if d > top:
+        return -(-d // top) * top
     return next(w for w in KERNEL_HEAD_DIMS if d <= w)
 
 
@@ -122,12 +127,12 @@ def _check_rows(dtype, **tensors):
 def flash_attention(q, k, v, prefix_length: int):
     """Fused prefix-bidirectional causal attention forward.
 
-    q, k, v [B, H, T, d] bf16 or fp32 with d <= 256, any strides with a
-    contiguous last dim (views into the fused qkv projection need no copy
-    at d 64, 128 and 256; other d are zero-padded).  Returns (out [B, H, T,
+    q, k, v [B, H, T, d] bf16 or fp32, any strides with a contiguous last
+    dim (views into the fused qkv projection need no copy at d 64, 128 and
+    multiples of 256; other d are zero-padded).  Returns (out [B, H, T,
     d] in q's dtype, lse [B, H, T] fp32).  On CUDA, ``out`` is a view whose
-    memory is laid out [B, T, H, d'] (d' = 64, 128 or 256), so merging the
-    heads back into [B, T, H * d] costs no copy at those d.
+    memory is laid out [B, T, H, d'] (d' = ``kernel_head_dim(d)``), so
+    merging the heads back into [B, T, H * d] costs no copy at those d.
     """
     if q.device.type == "cpu":
         return prefix_causal_attention_plain(q, k, v, prefix_length)
@@ -210,8 +215,8 @@ def _check_bwd(q, k, v, out, lse, do):
 def flash_attention_bwd(q, k, v, out, lse, do, prefix_length: int):
     """Backward of ``flash_attention`` from its saved (out, lse).
 
-    q, k, v, out, do [B, H, T, d] bf16 or fp32 with d <= 256 (other than
-    64, 128 and 256 zero-padded, as in ``flash_attention``), any T, any
+    q, k, v, out, do [B, H, T, d] bf16 or fp32 (zero-padded to
+    ``kernel_head_dim(d)``, as in ``flash_attention``), any T, any
     strides with a contiguous last dim; lse [B, H, T] fp32.  Returns dqkv
     [B, T, 3, H, d] in q's dtype (dq, dk, dv along dim 2), the gradient of
     a fused qkv projection's output (a view of a [B, T, 3, H, d'] buffer

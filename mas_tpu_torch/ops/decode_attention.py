@@ -16,12 +16,12 @@ Both scale q by 1/sqrt(d) in q's dtype, as the JAX package's
 The port's cache layout is [B, H, T, D] (the JAX package's is the
 transposed [B, H, d, T], which suits TPU lanes), in the compute dtype,
 allocated at full length with zeros beyond the prefix (``FloatCache``).
-D is the kernel instance that holds the head dim d (``quant.decode_width``:
-32, 64, 128 or 256); the columns past d stay zero, add nothing to q . k and
-give output columns the kernel never writes: it reads q's d columns and
-returns [B, H, 1, d].  The new token is written with an in-place
-``index_copy_`` into the first d columns at the device position
-(``write_float_kv``): the JAX package writes it with a
+D is the width that holds the head dim d (``quant.decode_width``: 32, 64,
+128, or a multiple of 256 taken in chunks); the columns past d stay zero,
+add nothing to q . k and give output columns the kernel never writes: it
+reads q's d columns and returns [B, H, 1, d].  The new token is written
+with an in-place ``index_copy_`` into the first d columns at the device
+position (``write_float_kv``): the JAX package writes it with a
 ``dynamic_update_slice`` outside any kernel, so no kernel is needed here.
 
 The wrapper takes the plain twin only for CPU tensors; for CUDA tensors it
@@ -114,8 +114,8 @@ def decode_attention_float(q, k_cache: FloatCache, v_cache: FloatCache,
     """Single-token attention over a float cache, masked to <= index; only
     positions <= index are read.
 
-    q [B, H, 1, d] bf16 or fp32 with d <= 256 (any batch/head strides,
-    contiguous last dim), caches contiguous bf16 or fp32 [B, H, T, D] with
+    q [B, H, 1, d] bf16 or fp32 (any batch/head strides, contiguous last
+    dim), caches contiguous bf16 or fp32 [B, H, T, D] with
     D = ``decode_width(d)``, ``index`` a 1-element int32 tensor on q's
     device.  Returns a contiguous [B, H, 1, d] tensor in q's dtype.
     """

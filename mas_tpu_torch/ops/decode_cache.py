@@ -59,9 +59,8 @@ _NEW_DTYPES = (torch.bfloat16, torch.float32)
 
 def _check_new(k_new, v_new):
     shape = k_new.shape
-    _, _, d = shape
-    if d % 2 or v_new.shape != shape:
-        raise ValueError(f"k_new and v_new must be [B, H, d] with an even d, "
+    if len(shape) != 3 or v_new.shape != shape:
+        raise ValueError(f"k_new and v_new must be [B, H, d] of one shape, "
                          f"got {tuple(k_new.shape)}, {tuple(v_new.shape)}")
     for t in (k_new, v_new):
         if t.dtype not in _NEW_DTYPES:
@@ -196,7 +195,7 @@ def seed_packed_cache(k: torch.Tensor, v: torch.Tensor, total: int,
     beyond it (``mas_tpu/ops/decode_cache.py::seed_packed_cache``)."""
     b, h, prefix, d = k.shape
     cache = PackedQuantCache.empty(b, h, total, d, bits, k.device)
-    width = decode_width(d, bits)
+    width = decode_width(d)
     vals, scales = [], []
     for t in (k, v):
         q, s = quantize_values(pad_values(t, width), bits)

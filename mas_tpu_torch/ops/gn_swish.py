@@ -23,8 +23,7 @@ writes it once with ~10 flops in between (~100 MB at the decoder's largest
 [4, 256, 256, 128] bf16).  B8 reads x and g twice each and writes dx once
 (~335 MB at the seg encoder's [2, 256, 256, 128] fp32).
 
-What the design does about it: three Triton launches each, with one tiling.
-B4:
+B4 is three Triton launches, with one tiling:
   1. partial: one program per (b, chunk of rows) holds a [rows, C] tile in
      registers and writes each channel's chunk mean and sum of squared
      deviations from it (two passes over registers, not over memory);
@@ -34,30 +33,34 @@ B4:
      uses that form);
   3. apply: one program per (b, chunk) re-reads the tile, normalizes with
      the group stats, applies the affine and swish, and stores.
-B8:
-  1. reduce: one program per (b, chunk) recomputes x^ and dx^ from x, g and
-     the stats, and writes per-channel partial sums of dx^, dx^ x^, g
-     swish'(a) and g swish'(a) x^ in fp32;
-  2. merge: one program per group sums the chunk partials into S1, S2 per
-     (b, g) and dscale, dbias per channel (a loop over b: no atomics, so
-     the result does not depend on the launch order);
-  3. apply: one program per (b, chunk) recomputes x^ and dx^ and writes dx
-     in x's dtype.
-The partial sums are 2 * C (B4) or 4 * C (B8) fp32 values per chunk of
-8192 or 4096 elements: ~0.1% of the traffic.
+Its partials are 2 * C fp32 values per chunk of 8192 elements: 1/32 of
+x's elements at C = 128.
+
+B8 is one cooperative CUDA launch, ``csrc/gn_swish_bwd.cu``: a grid of the
+blocks that can be resident at once walks x and g once for the per-channel
+partial sums (one [4, C] fp32 partial per slice of an image: 0.8% of x's
+elements at the seg encoder's [2, 256, 256, 128] on a grid of 264 blocks),
+merges them across all blocks after a grid barrier, and after a second
+barrier walks its rows again in reverse order, so that the rows read last
+in the first walk, still in the L2, are read first, and writes dx.  No
+atomics: the sums follow a fixed order, so two calls on one card give
+equal bits.  The host path is a ctypes call on the current stream's raw
+handle (``_build.stream``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .norms import _normalize, group_norm_stats, swish
+from .. import _build
+from .norms import _normalize, f32_param, group_norm_stats, swish
 
 tl = None  # triton.language, bound on first launch
 _TILE = 8192          # elements of x per program in passes 1 and 3 (B4)
-_BWD_TILE = 4096      # elements of x (and of g) per program in B8
 _REDUCE_CHUNKS = 64   # chunk statistics merged per loop step in pass 2
 _JIT = {}
+_GRID = {}      # B8's blocks a launch by (device, bf16)
+_SCRATCH = {}   # B8's scratch floats by (device, batch, C, groups, bf16)
 
 
 def _gn_partial_kernel(x_ptr, part_ptr, n_rows, n_chunks,
@@ -133,113 +136,18 @@ def _gn_apply_kernel(x_ptr, y_ptr, stats_ptr, scale_ptr, bias_ptr, n_rows,
     tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=rmask[:, None])
 
 
-def _recompute(x_ptr, g_ptr, stats_ptr, scale_ptr, bias_ptr, offs, rmask, b,
-               G: tl.constexpr, C: tl.constexpr, CPG: tl.constexpr):
-    """[rows, C] tile -> (x^, g swish'(a), dx^, rstd per column) in fp32."""
-    cols = tl.arange(0, C)
-    x = tl.load(x_ptr + offs, mask=rmask[:, None], other=0.0).to(tl.float32)
-    g = tl.load(g_ptr + offs, mask=rmask[:, None], other=0.0).to(tl.float32)
-    grp = cols // CPG
-    mean = tl.load(stats_ptr + b * 2 * G + grp)
-    rstd = tl.load(stats_ptr + b * 2 * G + G + grp)
-    w = tl.load(scale_ptr + cols).to(tl.float32)
-    bias = tl.load(bias_ptr + cols).to(tl.float32)
-    xhat = (x - mean[None, :]) * rstd[None, :]
-    a = xhat * w[None, :] + bias[None, :]
-    s = tl.sigmoid(a)
-    ga = g * (s * (1.0 + a * (1.0 - s)))     # masked rows: g = 0, so ga = 0
-    return xhat, ga, ga * w[None, :], rstd
-
-
-def _gn_bwd_reduce_kernel(x_ptr, g_ptr, stats_ptr, scale_ptr, bias_ptr,
-                          part_ptr, n_rows, n_chunks, G: tl.constexpr,
-                          C: tl.constexpr, CPG: tl.constexpr,
-                          ROWS: tl.constexpr):
-    b = tl.program_id(0)
-    ch = tl.program_id(1)
-    r = ch * ROWS + tl.arange(0, ROWS)
-    cols = tl.arange(0, C)
-    rmask = r < n_rows
-    offs = ((b.to(tl.int64) * n_rows + r.to(tl.int64))[:, None] * C
-            + cols[None, :])
-    xhat, ga, dxhat, _ = _recompute(x_ptr, g_ptr, stats_ptr, scale_ptr,
-                                    bias_ptr, offs, rmask, b, G, C, CPG)
-    out = part_ptr + (b.to(tl.int64) * n_chunks + ch) * 4 * C
-    tl.store(out + cols, tl.sum(dxhat, axis=0))
-    tl.store(out + C + cols, tl.sum(dxhat * xhat, axis=0))
-    tl.store(out + 2 * C + cols, tl.sum(ga, axis=0))
-    tl.store(out + 3 * C + cols, tl.sum(ga * xhat, axis=0))
-
-
-def _gn_bwd_merge_kernel(part_ptr, sums_ptr, dscale_ptr, dbias_ptr, n_batch,
-                         n_chunks, G: tl.constexpr, C: tl.constexpr,
-                         CPG: tl.constexpr, NB: tl.constexpr):
-    g = tl.program_id(0)
-    cols = g * CPG + tl.arange(0, CPG)
-    dscale = tl.zeros([CPG], tl.float32)
-    dbias = tl.zeros([CPG], tl.float32)
-    for b in range(0, n_batch):
-        base = part_ptr + b.to(tl.int64) * n_chunks * 4 * C
-        s1 = tl.zeros([NB, CPG], tl.float32)
-        s2 = tl.zeros([NB, CPG], tl.float32)
-        sb = tl.zeros([NB, CPG], tl.float32)
-        sg = tl.zeros([NB, CPG], tl.float32)
-        for start in range(0, n_chunks, NB):
-            ci = start + tl.arange(0, NB)
-            cm = ci < n_chunks
-            ptr = base + (ci.to(tl.int64) * 4 * C)[:, None] + cols[None, :]
-            s1 += tl.load(ptr, mask=cm[:, None], other=0.0)
-            s2 += tl.load(ptr + C, mask=cm[:, None], other=0.0)
-            sb += tl.load(ptr + 2 * C, mask=cm[:, None], other=0.0)
-            sg += tl.load(ptr + 3 * C, mask=cm[:, None], other=0.0)
-        tl.store(sums_ptr + b * 2 * G + g, tl.sum(tl.sum(s1, axis=1), axis=0))
-        tl.store(sums_ptr + b * 2 * G + G + g,
-                 tl.sum(tl.sum(s2, axis=1), axis=0))
-        dbias += tl.sum(sb, axis=0)
-        dscale += tl.sum(sg, axis=0)
-    tl.store(dscale_ptr + cols, dscale)
-    tl.store(dbias_ptr + cols, dbias)
-
-
-def _gn_bwd_apply_kernel(x_ptr, g_ptr, dx_ptr, stats_ptr, sums_ptr,
-                         scale_ptr, bias_ptr, n_rows, inv_count,
-                         G: tl.constexpr, C: tl.constexpr, CPG: tl.constexpr,
-                         ROWS: tl.constexpr):
-    b = tl.program_id(0)
-    ch = tl.program_id(1)
-    r = ch * ROWS + tl.arange(0, ROWS)
-    cols = tl.arange(0, C)
-    rmask = r < n_rows
-    offs = ((b.to(tl.int64) * n_rows + r.to(tl.int64))[:, None] * C
-            + cols[None, :])
-    xhat, _, dxhat, rstd = _recompute(x_ptr, g_ptr, stats_ptr, scale_ptr,
-                                      bias_ptr, offs, rmask, b, G, C, CPG)
-    grp = cols // CPG
-    s1 = tl.load(sums_ptr + b * 2 * G + grp)
-    s2 = tl.load(sums_ptr + b * 2 * G + G + grp)
-    dx = rstd[None, :] * (dxhat - (s1[None, :] + xhat * s2[None, :])
-                          * inv_count)
-    tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty),
-             mask=rmask[:, None])
-
-
 def _kernels():
     """Import triton and JIT-wrap the kernels on first launch (the CPU tests
     import this module where triton does not exist)."""
-    global tl, _recompute
+    global tl
     if not _JIT:
         import triton
         import triton.language as language
 
         tl = language
-        # the kernels call _recompute by its global name
-        _recompute = triton.jit(_recompute)
         _JIT["partial"] = triton.jit(_gn_partial_kernel)
         _JIT["reduce"] = triton.jit(_gn_reduce_kernel)
         _JIT["apply"] = triton.jit(_gn_apply_kernel)
-        _JIT["bwd_reduce"] = triton.jit(_gn_bwd_reduce_kernel)
-        _JIT["bwd_merge"] = triton.jit(_gn_bwd_merge_kernel)
-        _JIT["bwd_apply"] = triton.jit(_gn_bwd_apply_kernel)
     return _JIT
 
 
@@ -357,31 +265,33 @@ def gn_swish_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"gn_swish_bwd runs on cpu or cuda, got {x.device}")
     _check_bwd(x, g, scale, bias, stats, num_groups)
-    jit = _kernels()
     b, h, w, c = x.shape
-    n_rows = h * w
-    rows = max(1, min(_BWD_TILE // c, 1 << (n_rows - 1).bit_length()))
-    n_chunks = (n_rows + rows - 1) // rows
-    cpg = c // num_groups
-    part = torch.empty((b, n_chunks, 4, c), dtype=torch.float32,
+    if c < 4:
+        raise ValueError(f"the gn_swish_bwd kernel takes C >= 4, got {c}")
+    bf16 = int(x.dtype == torch.bfloat16)
+    dev = x.get_device()
+    lib = _build.library()
+    grid = _GRID.get((dev, bf16))
+    if grid is None:
+        grid = _GRID[dev, bf16] = lib.mas_gn_swish_bwd_grid(dev, bf16)
+        if grid < 1:
+            raise RuntimeError(f"gn_swish_bwd: no resident grid on cuda:{dev}")
+    key = (dev, b, c, num_groups, bf16)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        scratch = _SCRATCH[key] = lib.mas_gn_swish_bwd_scratch(
+            b, c, num_groups, grid)
+    work = torch.empty(scratch + 2 * c, dtype=torch.float32,
                        device=x.device)
-    sums = torch.empty((b, 2, num_groups), dtype=torch.float32,
-                       device=x.device)
-    dscale = torch.empty(c, dtype=torch.float32, device=x.device)
-    dbias = torch.empty(c, dtype=torch.float32, device=x.device)
+    dscale, dbias = work[scratch:].view(2, c)
     dx = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        jit["bwd_reduce"][(b, n_chunks)](x, g, stats, scale, bias, part,
-                                         n_rows, n_chunks, G=num_groups, C=c,
-                                         CPG=cpg, ROWS=rows, num_warps=8)
-        jit["bwd_merge"][(num_groups,)](part, sums, dscale, dbias, b,
-                                        n_chunks, G=num_groups, C=c,
-                                        CPG=cpg, NB=_REDUCE_CHUNKS,
-                                        num_warps=4)
-        jit["bwd_apply"][(b, n_chunks)](x, g, dx, stats, sums, scale, bias,
-                                        n_rows, 1.0 / (n_rows * cpg),
-                                        G=num_groups, C=c, CPG=cpg,
-                                        ROWS=rows, num_warps=8)
+    status = lib.mas_gn_swish_bwd(
+        x.data_ptr(), g.data_ptr(), f32_param(scale).data_ptr(),
+        f32_param(bias).data_ptr(), stats.data_ptr(), dx.data_ptr(),
+        work.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), b, h * w, c,
+        num_groups, 1.0 / (h * w * (c // num_groups)), grid, bf16,
+        _build.stream(dev))
+    _build.check(status, "gn_swish_bwd")
     gn_swish_bwd.launches += 1
     return dx, dscale.to(scale.dtype), dbias.to(bias.dtype)
 

@@ -16,103 +16,33 @@ all rows in fp32.
 
 What bounds both on the H100: bytes.  At the train step's [11264, 1024]
 bf16 the forward reads and writes 23 MB each, the backward reads x and g
-and writes dx, with ~10 flops per element in between.
+and writes dx, with ~10 flops per element in between.  The training step
+waits for the host, so each launch's host time counts as well.
 
-What the design does about it, in Triton (a row of d <= 8192 values fits
-in one program):
-  * forward: one program per row: one read, the two-pass mean and
-    variance over registers, one write;
-  * backward, pass 1: one program per 16 rows recomputes each row's
-    statistics, writes dx, and keeps fp32 partial sums of g x^ and g per
-    column, stored once per program;
-  * backward, pass 2: one program per 128 columns sums the partials of all
-    programs in a fixed order — no atomics, so dscale and dbias do not
-    depend on the launch order (B8 does the same).
+B7 is ``csrc/layer_norm.cu``: one launch each way, a row in registers (a
+warp, four or eight warps a row by d), and a backward whose blocks each
+own 24 rows and write one [2, d] fp32 partial of dscale and dbias; the
+last blocks to finish (ticket counters in device memory) sum the
+partials in a fixed order, so two calls give equal bits.  The host path is
+a ctypes call on the current stream's raw handle (``_build.stream``).  The
+backward's geometry lives in the C library: it says how many partials a
+call needs (``mas_layer_norm_bwd_scratch``), which each call allocates
+(stream-ordered, and from the graph's own pool under CUDA-graph capture).
+Only the ticket counters are kept, per device and stream (``_tickets``),
+and every launch leaves them at zero, so a CUDA graph can hold the
+backward.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-tl = None  # triton.language, bound on first launch
-_BWD_ROWS = 16        # rows per program in backward pass 1
-_REDUCE_COLS = 128    # columns per program in backward pass 2
-_REDUCE_PARTS = 32    # partial rows summed per loop step in pass 2
-_JIT = {}
+from .. import _build
+from .norms import f32_param
 
-
-def _ln_fwd_kernel(x_ptr, y_ptr, w_ptr, b_ptr, d, eps, BLOCK: tl.constexpr):
-    row = tl.program_id(0).to(tl.int64)
-    cols = tl.arange(0, BLOCK)
-    m = cols < d
-    x = tl.load(x_ptr + row * d + cols, mask=m, other=0.0).to(tl.float32)
-    mean = tl.sum(x, axis=0) / d
-    xc = tl.where(m, x - mean, 0.0)
-    rstd = tl.rsqrt(tl.sum(xc * xc, axis=0) / d + eps)
-    w = tl.load(w_ptr + cols, mask=m, other=0.0).to(tl.float32)
-    b = tl.load(b_ptr + cols, mask=m, other=0.0).to(tl.float32)
-    y = xc * rstd * w + b
-    tl.store(y_ptr + row * d + cols, y.to(y_ptr.dtype.element_ty), mask=m)
-
-
-def _ln_bwd_kernel(x_ptr, g_ptr, w_ptr, dx_ptr, part_ptr, n_rows, d, eps,
-                   ROWS: tl.constexpr, BLOCK: tl.constexpr):
-    pid = tl.program_id(0)
-    cols = tl.arange(0, BLOCK)
-    m = cols < d
-    w = tl.load(w_ptr + cols, mask=m, other=0.0).to(tl.float32)
-    acc_gx = tl.zeros([BLOCK], tl.float32)
-    acc_g = tl.zeros([BLOCK], tl.float32)
-    start = pid * ROWS
-    for row in range(start, tl.minimum(start + ROWS, n_rows)):
-        offs = row.to(tl.int64) * d + cols
-        x = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
-        g = tl.load(g_ptr + offs, mask=m, other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=0) / d
-        xc = tl.where(m, x - mean, 0.0)
-        rstd = tl.rsqrt(tl.sum(xc * xc, axis=0) / d + eps)
-        xhat = xc * rstd
-        gs = g * w
-        m1 = tl.sum(gs, axis=0) / d
-        m2 = tl.sum(gs * xhat, axis=0) / d
-        dx = rstd * (gs - m1 - xhat * m2)
-        tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=m)
-        acc_gx += g * xhat
-        acc_g += g
-    out = part_ptr + pid.to(tl.int64) * 2 * d + cols
-    tl.store(out, acc_gx, mask=m)
-    tl.store(out + d, acc_g, mask=m)
-
-
-def _ln_bwd_reduce_kernel(part_ptr, dw_ptr, db_ptr, n_parts, d,
-                          COLS: tl.constexpr, NB: tl.constexpr):
-    cols = tl.program_id(0) * COLS + tl.arange(0, COLS)
-    cm = cols < d
-    acc_w = tl.zeros([NB, COLS], tl.float32)
-    acc_b = tl.zeros([NB, COLS], tl.float32)
-    for start in range(0, n_parts, NB):
-        pi = start + tl.arange(0, NB)
-        mask = (pi < n_parts)[:, None] & cm[None, :]
-        ptr = part_ptr + (pi.to(tl.int64) * 2 * d)[:, None] + cols[None, :]
-        acc_w += tl.load(ptr, mask=mask, other=0.0)
-        acc_b += tl.load(ptr + d, mask=mask, other=0.0)
-    tl.store(dw_ptr + cols, tl.sum(acc_w, axis=0), mask=cm)
-    tl.store(db_ptr + cols, tl.sum(acc_b, axis=0), mask=cm)
-
-
-def _kernels():
-    """Import triton and JIT-wrap the kernels on first launch (the CPU tests
-    import this module where triton does not exist)."""
-    global tl
-    if not _JIT:
-        import triton
-        import triton.language as language
-
-        tl = language
-        _JIT["fwd"] = triton.jit(_ln_fwd_kernel)
-        _JIT["bwd"] = triton.jit(_ln_bwd_kernel)
-        _JIT["reduce"] = triton.jit(_ln_bwd_reduce_kernel)
-    return _JIT
+_TICKETS = {}   # (device, stream) -> the backward's ticket counters
 
 
 def _stats(xf: torch.Tensor, eps: float):
@@ -152,23 +82,39 @@ def _check(x, scale, bias=None, g=None):
     d = x.shape[1]
     if d > 8192:
         raise ValueError(f"layer_norm kernel takes d <= 8192, got {d}")
-    params = [("scale", scale)] + ([("bias", bias)] if bias is not None
-                                   else [])
-    for name, p in params:
-        if tuple(p.shape) != (d,) or not p.is_contiguous():
+    dev = x.get_device()   # an int: cheaper to compare than device objects
+    for name, p in (("scale", scale), ("bias", bias)):
+        if p is None:
+            continue
+        if p.shape != (d,) or not p.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [{d}] tensor")
-        if p.device != x.device:
+        if p.get_device() != dev:
             raise ValueError(f"{name} is on {p.device}, x on {x.device}")
     if g is not None and (g.shape != x.shape or g.dtype != x.dtype
-                          or not g.is_contiguous() or g.device != x.device):
+                          or not g.is_contiguous() or g.get_device() != dev):
         raise ValueError(f"g must be a contiguous {x.dtype} "
                          f"{tuple(x.shape)} tensor on {x.device}, got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
 
 
-def _block(d: int):
-    block = 1 << (d - 1).bit_length()
-    return block, 4 if block <= 1024 else 8
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(n: int, d: int) -> int:
+    return _build.library().mas_layer_norm_bwd_scratch(n, d)
+
+
+def _tickets(device_index: int, stream: int) -> torch.Tensor:
+    """The backward's ticket counters for one device and stream, zeroed
+    once and kept: launches on one stream take turns with them, each leaves
+    them at zero (the last block of each level resets its counter), and a
+    CUDA graph replays them."""
+    key = (device_index, stream)
+    kept = _TICKETS.get(key)
+    if kept is None:
+        kept = torch.zeros(_build.library().mas_layer_norm_bwd_tickets(),
+                           dtype=torch.int32,
+                           device=torch.device("cuda", device_index))
+        _TICKETS[key] = kept
+    return kept
 
 
 def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -181,14 +127,16 @@ def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"layer_norm_fwd runs on cpu or cuda, got "
                          f"{x.device}")
     _check(x, scale, bias)
-    jit = _kernels()
     n, d = x.shape
     y = torch.empty_like(x)
-    block, warps = _block(d)
-    with torch.cuda.device(x.device):
-        jit["fwd"][(n,)](x, y, scale, bias, d, float(eps), BLOCK=block,
-                         num_warps=warps)
-    layer_norm_fwd.launches += 1
+    if n:
+        status = _build.library().mas_layer_norm_fwd(
+            x.data_ptr(), f32_param(scale).data_ptr(),
+            f32_param(bias).data_ptr(), y.data_ptr(), n, d, eps,
+            int(x.dtype == torch.bfloat16),
+            _build.stream(x.get_device()))
+        _build.check(status, "layer_norm_fwd")
+        layer_norm_fwd.launches += 1
     return y
 
 
@@ -205,21 +153,24 @@ def layer_norm_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"layer_norm_bwd runs on cpu or cuda, got "
                          f"{x.device}")
     _check(x, scale, g=g)
-    jit = _kernels()
     n, d = x.shape
-    n_parts = -(-n // _BWD_ROWS)
-    part = torch.empty((n_parts, 2, d), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    dscale = torch.empty(d, dtype=torch.float32, device=x.device)
-    dbias = torch.empty(d, dtype=torch.float32, device=x.device)
-    block, warps = _block(d)
-    with torch.cuda.device(x.device):
-        jit["bwd"][(n_parts,)](x, g, scale, dx, part, n, d, float(eps),
-                               ROWS=_BWD_ROWS, BLOCK=block, num_warps=warps)
-        jit["reduce"][(-(-d // _REDUCE_COLS),)](
-            part, dscale, dbias, n_parts, d, COLS=_REDUCE_COLS,
-            NB=_REDUCE_PARTS, num_warps=4)
-    layer_norm_bwd.launches += 1
+    sums = (torch.zeros if n == 0 else torch.empty)(
+        2 * d, dtype=torch.float32, device=x.device)
+    if n:
+        dev = x.get_device()
+        stream = _build.stream(dev)
+        part = torch.empty(_scratch_floats(n, d), dtype=torch.float32,
+                           device=x.device)
+        ptr = sums.data_ptr()
+        status = _build.library().mas_layer_norm_bwd(
+            x.data_ptr(), g.data_ptr(), f32_param(scale).data_ptr(),
+            dx.data_ptr(), part.data_ptr(), _tickets(dev, stream).data_ptr(),
+            ptr, ptr + 4 * d, n, d, eps, int(x.dtype == torch.bfloat16),
+            stream)
+        _build.check(status, "layer_norm_bwd")
+        layer_norm_bwd.launches += 1
+    dscale, dbias = sums.view(2, d).unbind(0)
     return dx, dscale, dbias
 
 

@@ -13,6 +13,11 @@ import torch
 from torch.nn import functional as F
 
 
+def f32_param(p: torch.Tensor) -> torch.Tensor:
+    """A scale or bias as the B7 and B8 kernels read it: fp32."""
+    return p if p.dtype == torch.float32 else p.float()
+
+
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 

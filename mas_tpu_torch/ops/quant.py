@@ -10,14 +10,15 @@ per-(batch, head, position) quantization over the d feature dim,
 with qmax 127 (int8) or 7 (int4).  The port's cache layout is its own:
 values [B, H, T, D] int8, or [B, H, T, D/2] uint8 for int4 (torch has no
 int4: two nibbles per byte, low nibble = even dim); scales [B, H, T] fp32.
-D is the width of the kernel instance that holds the head dim d
-(``decode_width``: the least of ``DECODE_HEAD_DIMS`` >= d): a position is
-allocated at D values and the columns past d stay zero, as B1/B6 pad q, k
-and v (``ops/attention.py::pad_head_dim``).  Zero k columns add nothing to
-q . k, zero v columns give output columns that are never written, and
-zeros do not change a position's amax, so the padded cache holds the JAX
-package's values in its first d columns.  Each position's values are
-contiguous, which is what the kernel reads.
+D is the width that holds the head dim d (``decode_width``: the least of
+``DECODE_HEAD_DIMS`` >= d, or the least multiple of 256 >= d above 256): a
+position is allocated at D values and the columns past d stay zero, as
+B1/B6 pad q, k and v (``ops/attention.py::pad_head_dim``).  An odd d's last
+int4 byte pairs column d - 1 with a zero nibble.  Zero k columns add
+nothing to q . k, zero v columns give output columns that are never
+written, and zeros do not change a position's amax, so the padded cache
+holds the JAX package's values in its first d columns.  Each position's
+values are contiguous, which is what the kernel reads.
 
 The values may also be a view whose positions lie further apart than one
 position's bytes: ``stride(2)`` bytes apart, with ``stride(1) = T *
@@ -30,9 +31,9 @@ tensors and takes ``decode_attention_quant_plain`` only for CPU tensors.
 The kernel splits each (b, h) row's positions over ``decode_split(B * H)``
 blocks of one thread-block cluster and merges their softmax states in
 shared memory (see the source); it is instantiated for D = 32, 64, 128
-and 256 (``DECODE_HEAD_DIMS``), reads q's first d columns and writes an
-output of d columns.  A head dim above 256 raises (ROADMAP C3), and so
-does an int4 cache of an odd head dim.
+and 256 (``DECODE_HEAD_DIMS``), takes a wider position in chunks of 256
+columns through the D = 256 instance, reads q's first d columns and
+writes an output of d columns.
 
 A cache's layout is checked at its first use by a kernel and kept on the
 cache (``QuantCache.layout``); each call then compares that record with
@@ -76,17 +77,16 @@ def decode_split(rows: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def decode_width(head_dim: int, bits: int = 0) -> int:
-    """D, the decode kernels' instance that holds head dim d: the least of
-    ``DECODE_HEAD_DIMS`` >= d.  Raises for d above 256 (ROADMAP C3) and,
-    with ``bits`` 4, for an odd d (two values a byte)."""
-    if not 1 <= head_dim <= DECODE_HEAD_DIMS[-1]:
-        raise ValueError(f"the decode kernels take head_dim <= "
-                         f"{DECODE_HEAD_DIMS[-1]}, got {head_dim} "
-                         f"(ROADMAP C3)")
-    if bits == 4 and head_dim % 2:
-        raise ValueError(f"an int4 cache needs an even head_dim, got "
-                         f"{head_dim}")
+def decode_width(head_dim: int) -> int:
+    """D, the values a decode cache position holds for head dim d: the
+    least of ``DECODE_HEAD_DIMS`` >= d, or above 256 the least multiple of
+    256 >= d (the decode kernels take it in chunks of 256).  D is even, so
+    an int4 cache of an odd d pairs its last column with a zero nibble."""
+    if head_dim < 1:
+        raise ValueError(f"head_dim must be >= 1, got {head_dim}")
+    top = DECODE_HEAD_DIMS[-1]
+    if head_dim > top:
+        return -(-head_dim // top) * top
     return next(w for w in DECODE_HEAD_DIMS if head_dim <= w)
 
 
@@ -94,7 +94,7 @@ def decode_width(head_dim: int, bits: int = 0) -> int:
 def cache_width(head_dim: int, bits: int) -> int:
     """Bytes of one position of a k or v value cache for head dim d: D
     int8 values or D/2 bytes of int4 nibbles (``decode_width``)."""
-    width = decode_width(head_dim, bits)
+    width = decode_width(head_dim)
     return width // 2 if bits == 4 else width
 
 
@@ -188,7 +188,7 @@ def pad_values(f: torch.Tensor, width: int) -> torch.Tensor:
 def quantize_kv(kv: torch.Tensor, bits: int = 8) -> QuantCache:
     """[B, H, T, d] float -> QuantCache (values packed for int4), each
     position padded with zeros to ``decode_width(d)`` values."""
-    kv = pad_values(kv, decode_width(kv.shape[-1], bits))
+    kv = pad_values(kv, decode_width(kv.shape[-1]))
     q, scale = quantize_values(kv, bits)
     return QuantCache(pack_int4(q) if bits == 4 else q, scale, bits)
 
@@ -312,12 +312,11 @@ def check_index(index: torch.Tensor, device) -> None:
 
 def check_query(q) -> None:
     """Raise unless q is a bf16 or fp32 [B, H, 1, d] decode query with
-    d <= 256 (``decode_width``) and a contiguous last dim (the decode
-    kernels B2 and B9 read it so)."""
+    d >= 1 and a contiguous last dim (the decode kernels B2 and B9 read it
+    so)."""
     _, _, one, d = q.shape
-    if one != 1 or not 1 <= d <= DECODE_HEAD_DIMS[-1]:
-        raise ValueError(f"q must be [B, H, 1, d] with head_dim d <= "
-                         f"{DECODE_HEAD_DIMS[-1]} (ROADMAP C3), got "
+    if one != 1 or d < 1:
+        raise ValueError(f"q must be [B, H, 1, d] with head_dim d >= 1, got "
                          f"{tuple(q.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q must be bf16 or fp32, got {q.dtype}")
@@ -339,8 +338,8 @@ def decode_attention_quant(q, k_cache: QuantCache, v_cache: QuantCache,
                            index: torch.Tensor):
     """Single-token attention over quantized caches, masked to <= index.
 
-    q [B, H, 1, d] with d <= 256 (any batch/head strides, contiguous last
-    dim), caches as ``QuantCache`` [B, H, T, cache_width(d)] whose values
+    q [B, H, 1, d] (any batch/head strides, contiguous last dim), caches as
+    ``QuantCache`` [B, H, T, cache_width(d)] whose values
     may be position-strided views (see the module docstring), ``index`` a
     1-element int32 tensor on q's device.  Returns a contiguous
     [B, H, 1, d] tensor in q's dtype.

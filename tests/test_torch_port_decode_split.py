@@ -208,8 +208,10 @@ def test_cache_write_twin_other_head_dims_bitwise(d, bits):
 def test_decode_checks_take_the_instantiated_head_dims():
     """The decode kernels are built for D = 32, 64, 128 and 256; any head
     dim up to 256 is taken at the instance that holds it (d 96 over caches
-    of 128-value positions), and a head dim above 256 raises before any
-    launch."""
+    of 128-value positions), and a head dim above 256 at the least multiple
+    of 256 that holds it (d 264 over caches of 512-value positions, taken
+    in chunks of 256); a query that does not fit its caches' width raises
+    before any launch."""
     idx = torch.zeros(1, dtype=torch.int32)
     for d in quant.DECODE_HEAD_DIMS:
         q = torch.zeros(1, 2, 1, d)
@@ -224,7 +226,12 @@ def test_decode_checks_take_the_instantiated_head_dims():
     decode_attention._check(q, FloatCache(torch.zeros(1, 2, 16, 128)),
                             FloatCache(torch.zeros(1, 2, 16, 128)), idx)
     q = torch.zeros(1, 2, 1, 264)
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match="cache must be"):
         quant._check(q, kc, vc, idx)
+    kc, vc = (quant.QuantCache.empty(1, 2, 16, 264, 8) for _ in range(2))
+    assert kc.q.shape[-1] == 512
+    assert quant._check(q, kc, vc, idx) == 512
+    decode_attention._check(q, FloatCache(torch.zeros(1, 2, 16, 512)),
+                            FloatCache(torch.zeros(1, 2, 16, 512)), idx)
     with pytest.raises(ValueError, match="head_dim"):
-        quant.QuantCache.empty(1, 2, 16, 264, 8)
+        quant.check_query(torch.zeros(1, 2, 1, 0))

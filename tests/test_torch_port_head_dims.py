@@ -1,20 +1,25 @@
-"""Head dims up to 256 in the port (ROADMAP C3) vs the JAX package, on CPU.
+"""Every head dim in the port (ROADMAP C3) vs the JAX package, on CPU.
 
-The decode caches are allocated at the width of the kernel instance that
-holds the head dim d (``quant.decode_width``: D = 32, 64, 128 or 256) and
-keep the columns past d at zero; B1/B6 zero-pad q, k, v to D = 64, 128 or
-256.  Held here, on the same numpy inputs (2 heads, T <= 128):
+The decode caches are allocated at the width that holds the head dim d
+(``quant.decode_width``: D = 32, 64, 128, 256, or the least multiple of
+256 above) and keep the columns past d at zero; B1/B6 zero-pad q, k, v to
+``attention.kernel_head_dim(d)`` (64, 128, 256, or a multiple of 256 taken
+in column passes).  Held here, on the same numpy inputs (2 heads, T <=
+128):
 
   * the lane caches (int8, int4), the packed cache (int8, int4) and the
-    float cache at d 48, 96 and 256: seeded and written values and scales
-    bit for bit equal to the JAX package's (the Pallas writes in interpret
-    mode; int4 nibbles unpacked), the columns past d still zero after the
-    writes, and the reads within fp32 atol 1e-5 of ``decode_attention_int8``
-    (Pallas, interpret mode), ``decode_attention_packed`` and
+    float cache at d 48, 96, 256, the odd 33 and 47 (an int4 position's
+    last byte pairs column d - 1 with a zero nibble), 264 and 320 (512-value
+    positions): seeded and written values and scales bit for bit equal to
+    the JAX package's (the Pallas writes in interpret mode; int4 nibbles
+    unpacked), the columns past d still zero after the writes, and the
+    reads within fp32 atol 1e-5 of ``decode_attention_int8`` (Pallas,
+    interpret mode), ``decode_attention_packed`` and
     ``decode_attention_jnp``;
-  * the B1/B6 padded route at d 160 and 256 (the twins on q, k, v, out, dO
-    zero-padded to 256 with the true d's scale), forward and gradients,
-    against the Pallas flash attention in interpret mode: fp32 atol 1e-5;
+  * the B1/B6 padded route at d 160, 256, 264 and 320 (the twins on q, k,
+    v, out, dO zero-padded to 256 or 512 with the true d's scale), forward
+    and gradients, against the Pallas flash attention in interpret mode:
+    fp32 atol 1e-5;
   * the cache layout kept at first use (``QuantCache.layout``): kept while
     the tensors stay, made anew when one is replaced, and a cache the
     kernels cannot read still raises ``check_caches``' own ``ValueError``.
@@ -45,7 +50,9 @@ from mas_tpu_torch.ops import attention, decode_attention, decode_cache, quant
 from mas_tpu_torch.ops.decode_attention import FloatCache
 
 B, H, T, PREFIX = 1, 2, 128, 40
-DIMS = (48, 96, 256)
+# padded to 64, 128; an instance; odd (int4: a last byte of one value and a
+# zero nibble); above 256 (positions of 512 values, read in chunks of 256)
+DIMS = (48, 96, 256, 33, 47, 264, 320)
 WRITES = (PREFIX, PREFIX + 1, 77, T - 1)
 
 
@@ -241,24 +248,28 @@ def test_float_cache_padded_seed_write_and_read_match_jax(d):
 
 @pytest.mark.parametrize("d", [264, 512])
 def test_decode_caches_above_256_and_odd_int4_raise(d):
-    with pytest.raises(ValueError, match="C3"):
-        quant.QuantCache.empty(B, H, T, d, 8)
-    with pytest.raises(ValueError, match="C3"):
-        decode_cache.PackedQuantCache.empty(B, H, T, d, 4)
-    with pytest.raises(ValueError, match="C3"):
-        FloatCache.seeded(torch.zeros(B, H, 4, d), T)
-    with pytest.raises(ValueError, match="even head_dim"):
-        quant.QuantCache.empty(B, H, T, 47, 4)
+    """Such caches no longer raise: a head dim above 256 takes positions of
+    the least multiple of 256 that holds it, an odd int4 head dim the next
+    instance (its last byte pairs column d - 1 with a zero nibble); only a
+    head dim below 1 raises."""
+    assert quant.QuantCache.empty(B, H, T, d, 8).q.shape[-1] == 512
+    assert decode_cache.PackedQuantCache.empty(B, H, T, d, 4).kv.shape[-1] \
+        == 512
+    assert FloatCache.seeded(torch.zeros(B, H, 4, d), T).data.shape[-1] == 512
+    assert quant.QuantCache.empty(B, H, T, 47, 4).q.shape[-1] == 32
+    with pytest.raises(ValueError, match="head_dim"):
+        quant.QuantCache.empty(B, H, T, 0, 4)
 
 
 # --- B1/B6: the padded route at d 160 and 256 --------------------------------
 
 @pytest.mark.parametrize("t,prefix", [(64, 20), (128, 64)])
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 256, 264, 320])
 def test_attention_padded_route_above_128_matches_jax(d, t, prefix):
-    """The route of the D = 256 kernels: the twins on inputs zero-padded
-    to 256 with the true d's scale, extra columns dropped, against the
-    Pallas flash attention (interpret mode) and its gradient."""
+    """The route of the D = 256 kernels and of the column passes above: the
+    twins on inputs zero-padded to 256 or 512 with the true d's scale,
+    extra columns dropped, against the Pallas flash attention (interpret
+    mode) and its gradient."""
     r = _rng(50 + d, t)
     q, k, v, do = (r.standard_normal((1, 2, t, d)).astype(np.float32)
                    for _ in range(4))
@@ -268,7 +279,7 @@ def test_attention_padded_route_above_128_matches_jax(d, t, prefix):
     ref_grads = [np.asarray(g) for g in vjp(jnp.asarray(do))]
 
     width = attention.kernel_head_dim(d)
-    assert width == 256
+    assert width == (256 if d <= 256 else 512)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     attention._check(tq, tk, tv)
     pq, pk, pv, pdo = (attention.pad_head_dim(x, width)
@@ -365,6 +376,8 @@ def test_kept_layout_still_checks_the_call():
     with pytest.raises(ValueError, match="int32"):
         decode_cache._check(kc, vc, torch.zeros(B, H, 96),
                             torch.zeros(B, H, 96), torch.zeros(2).int())
-    with pytest.raises(ValueError, match="even d"):
-        decode_cache._check(kc, vc, torch.zeros(B, H, 95),
+    decode_cache._check(kc, vc, torch.zeros(B, H, 95),   # odd d fits 128
+                        torch.zeros(B, H, 95), _idx(3))
+    with pytest.raises(ValueError, match="one shape"):
+        decode_cache._check(kc, vc, torch.zeros(B, H, 96),
                             torch.zeros(B, H, 95), _idx(3))

@@ -470,6 +470,9 @@ def test_kernel_checks_reject_bad_inputs():
     attention._check(*[torch.zeros(1, 2, 8, 32)] * 3)   # padded to 64
     attention._check(*[torch.zeros(1, 2, 8, 160)] * 3)  # padded to 256
     q = torch.zeros(1, 2, 8, 264)
+    attention._check(q, q, q)   # padded to 512: two column passes of 256
+    assert attention.kernel_head_dim(264) == 512
+    q = torch.zeros(1, 2, 8, 0)
     with pytest.raises(ValueError, match="head_dim"):
         attention._check(q, q, q)
     x = torch.zeros(1, 4, 4, 96)
@@ -667,8 +670,10 @@ def test_b6_b7_kernel_checks_reject_bad_inputs():
     wide = torch.zeros(1, 2, 96, 192)
     attention._check_bwd(wide, wide, wide, wide, lse, wide)   # padded to 256
     wide = torch.zeros(1, 2, 96, 264)
+    attention._check_bwd(wide, wide, wide, wide, lse, wide)   # padded to 512
+    empty = torch.zeros(1, 2, 96, 0)
     with pytest.raises(ValueError, match="head_dim"):
-        attention._check_bwd(wide, wide, wide, wide, lse, wide)
+        attention._check_bwd(empty, empty, empty, empty, lse, empty)
     q = torch.zeros(1, 2, 128, 64)
     with pytest.raises(ValueError, match="lse"):
         attention._check_bwd(q, q, q, q, torch.zeros(1, 2, 128).double(), q)

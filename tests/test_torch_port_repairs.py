@@ -197,10 +197,13 @@ def test_flash_attention_function_other_head_dims_and_ragged_t(d):
 
 
 def test_attention_head_dim_above_128_raises():
-    """Head dims above 128 now take the D = 256 kernels (129 and 256 alike);
-    ROADMAP keeps head dims above 256 open: the CUDA route raises."""
+    """Head dims above 128 take the D = 256 kernels (129 and 256 alike),
+    and above 256 the least multiple of 256 in column passes; only a head
+    dim below 1 raises."""
     assert attention.kernel_head_dim(128) == 128
     assert attention.kernel_head_dim(129) == 256
     assert attention.kernel_head_dim(256) == 256
-    with pytest.raises(ValueError, match="C3"):
-        attention.kernel_head_dim(257)
+    assert attention.kernel_head_dim(257) == 512
+    assert attention.kernel_head_dim(768) == 768
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.kernel_head_dim(0)
