@@ -7,19 +7,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      no CUDA device is an error — there is no CPU path;
   2. build the CUDA kernels from ``mas_tpu_torch/csrc`` (nvcc, sm_90a);
      print each kernel's registers and fail if a tensor-core, decode,
-     cache-write, LayerNorm or GroupNorm-backward kernel spills, or a bf16
-     flash kernel has no tensor-core instruction;
+     cache-write, LayerNorm, GroupNorm or VQ kernel spills, or a bf16
+     flash kernel or B5's bf16 kernel has no tensor-core instruction;
   3. hold each hand-written kernel (B1-B11) against its plain PyTorch
      twin on the card at the main paths' shapes (the attention kernels
      also at head dims 32 to 512, padded and odd ones included, the decode
      reads over the edges of their split, the cache writes bit for bit at
-     ten head dims, B7 and B8 bitwise equal from call to call), and time
-     both, and one PyTorch library call that computes the same function
-     where there is one (CUDA events, median; B2 and B9 also back to back
-     and replayed from a CUDA graph, over enough cache sets to keep the L2
-     cold; B3, B10 and B7 from a CUDA graph and by the host's time per
-     call; B8 from a CUDA graph); each kernel's bound is the larger of its
-     bytes over 3.35 TB/s and its operations over the peak for their type;
+     ten head dims, B4 and B8 at channel counts no power of two, B5 at
+     code widths 72 to 512 and on exact copies of a code across the
+     codebook's split, B4, B5, B7 and B8 bitwise equal from call to call),
+     and time both, and one PyTorch library call that computes the same
+     function where there is one (CUDA events, median; B2 and B9 also back
+     to back and replayed from a CUDA graph, over enough cache sets to
+     keep the L2 cold; B3, B10 and B7 from a CUDA graph and by the host's
+     time per call; B4, B5 and B8 from a CUDA graph); each kernel's bound
+     is the larger of its bytes over 3.35 TB/s and its operations over the
+     peak for their type;
   4. run the serving path at full width — ``configs/sample_256.json``
      (24 layers, hidden 1024, int4 cache, guidance 3.0, top-k 64), seeded
      random weights, its 4 captions — through ``sample_images``, check the
@@ -73,8 +76,18 @@ call.
 
     python3 chip_smoke.py --norm-times DIR
 
-does the same for B7 (LayerNorm forward + backward, with ``F.layer_norm``
-beside it) and B8 (GroupNorm+swish backward).
+does the same for B4 (GroupNorm+swish forward), B7 (LayerNorm forward +
+backward, with ``F.layer_norm`` beside it) and B8 (GroupNorm+swish
+backward), and
+
+    python3 chip_smoke.py --vq-times DIR
+
+for B5 (VQ argmin) at the tokenization and seg training shapes, and
+
+    python3 chip_smoke.py --vq-paths DIR
+
+profiles the two paths that B4 and B5 carry outside training:
+tokenization of 8 x 512^2 images and the VQ decode of 4 256^2 images.
 """
 
 from __future__ import annotations
@@ -268,7 +281,8 @@ def phase_build() -> None:
 
 # kernels that must not spill registers to local memory
 NO_SPILL_KERNELS = ("_bf16", "decode_quant_kernel", "decode_float_kernel",
-                    "kv_write_", "layer_norm_", "gn_swish_bwd_kernel")
+                    "kv_write_", "layer_norm_", "gn_swish_bwd_kernel",
+                    "gn_swish_fwd_kernel", "vq_argmin_")
 
 
 def spill_check(log: str) -> None:
@@ -293,9 +307,10 @@ def spill_check(log: str) -> None:
     require(not bad, f"register spills in {bad}")
 
 
-# the bf16 flash kernels must run their products on the tensor cores
+# the bf16 flash kernels and B5's bf16 kernel must run their products on
+# the tensor cores
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel_bf16", "flash_bwd_dkv_kernel_bf16",
-                       "flash_bwd_dq_kernel_bf16")
+                       "flash_bwd_dq_kernel_bf16", "vq_argmin_mma_kernel")
 
 
 def sass_check(lib, nvcc: str) -> None:
@@ -756,117 +771,303 @@ def check_b10(gen) -> dict:
     return _WRITE_ROWS["B10"]
 
 
+# the GroupNorm shapes of check_b4 beyond the decoder's two: C not a power
+# of two (96, 192, 384 in 32 groups), C not a multiple of a thread's
+# channels (element loads: 36 in 4 groups, 6 in 3), several slabs of
+# channels (4096 fp32, 8192 bf16), and few rows (one slice an image).  B4
+# takes images of few rows without a grid barrier (slabs of whole groups,
+# "local") and larger ones with two: each kind of C is held in both.
+GN_SHAPES = (((4, 256, 256, 128), torch.bfloat16, 32),
+             ((4, 16, 16, 512), torch.bfloat16, 32),
+             ((4, 16, 16, 512), torch.float32, 32),
+             ((2, 32, 32, 96), torch.bfloat16, 32),
+             ((2, 32, 32, 96), torch.float32, 32),
+             ((2, 64, 64, 96), torch.float32, 32),
+             ((2, 64, 64, 192), torch.bfloat16, 32),
+             ((2, 16, 16, 384), torch.bfloat16, 32),
+             ((2, 16, 16, 384), torch.float32, 32),
+             ((2, 64, 64, 384), torch.bfloat16, 32),
+             ((2, 16, 16, 36), torch.bfloat16, 4),
+             ((2, 64, 64, 36), torch.bfloat16, 4),
+             ((1, 8, 8, 6), torch.float32, 3),
+             ((2, 16, 16, 4096), torch.float32, 32),
+             ((1, 8, 8, 8192), torch.bfloat16, 4),
+             ((8, 2, 2, 512), torch.bfloat16, 32))
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    boundary: the kernels must take their element-load instance."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def check_b4(gen) -> dict:
-    """GroupNorm+swish at [4, 256, 256, 128] and [4, 16, 16, 512] bf16.
-    Tolerance: outputs are rounded to bf16 once from fp32 values that
-    differ only in summation order: atol 3e-2, rtol 1e-2 (two bf16 ulps at
-    |y| < 4); stats are fp32 sums of up to 2^21 terms: rtol 1e-4."""
+    """GroupNorm+swish forward at ``GN_SHAPES`` (the decoder's [4, 256, 256,
+    128] and [4, 16, 16, 512] bf16 first) and on bf16 x whose data is not
+    16-byte aligned (element loads, with and without a grid barrier),
+    against the plain twin.  Tolerances: bf16 outputs are
+    rounded to bf16 once from fp32 values that differ only in summation
+    order and the sigmoid's few ulps: atol 3e-2, rtol 1e-2 (two bf16 ulps
+    at |y| < 4); fp32 outputs atol 1e-5, rtol 1e-5; stats are fp32 sums of
+    up to 2^21 terms in another order: rtol 1e-4 (bf16 inputs), 1e-5
+    (fp32).  Two calls must give equal bits (no atomics), also after
+    replays from a CUDA graph.  Timed by ``b4_times``."""
     from mas_tpu_torch.ops import gn_swish
 
     err, out = 0.0, {}
-    for shape in ((4, 256, 256, 128), (4, 16, 16, 512)):
+    cases = [(shape, dtype, groups, False) for shape, dtype, groups
+             in GN_SHAPES] + [((2, 32, 32, 128), torch.bfloat16, 32, True),
+                              ((2, 64, 64, 128), torch.bfloat16, 32, True)]
+    for shape, dtype, groups, shifted in cases:
         c = shape[-1]
         x = (torch.randn(*shape, device="cuda", generator=gen) * 2 + 0.5
-             ).to(torch.bfloat16)
+             ).to(dtype)
+        if shifted:
+            x = _misaligned(x)
         s = torch.randn(c, device="cuda", generator=gen)
         bias = torch.randn(c, device="cuda", generator=gen)
-        y, st = gn_swish.gn_swish(x, s, bias)
-        py, pst = gn_swish.gn_swish_plain(x, s, bias)
+        y, st = gn_swish.gn_swish(x, s, bias, groups)
+        py, pst = gn_swish.gn_swish_plain(x, s, bias, groups)
+        graph_ms(lambda: gn_swish.gn_swish(x, s, bias, groups), calls=2,
+                 reps=2)
+        y2, st2 = gn_swish.gn_swish(x, s, bias, groups)
         torch.cuda.synchronize()
-        require(close(y, py, 3e-2, 1e-2), f"B4 {shape} out: max err "
-                f"{max_err(y, py)}")
-        require(close(st, pst, 1e-6, 1e-4), f"B4 {shape} stats: max err "
+        what = f"B4 {shape} {dtype} G {groups}{' misaligned' if shifted else ''}"
+        tol = (3e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+        s_tol = (1e-6, 1e-4) if dtype == torch.bfloat16 else (1e-6, 1e-5)
+        require(y.dtype == dtype and close(y, py, *tol),
+                f"{what} out: max err {max_err(y, py)}")
+        require(close(st, pst, *s_tol), f"{what} stats: max err "
                 f"{max_err(st, pst)}")
+        require(torch.equal(y, y2) and torch.equal(st, st2),
+                f"{what}: two calls differ (one after graph replays)")
         err = max(err, max_err(y, py))
-        print(f"B4 {shape}: out max err {max_err(y, py):.3e}, stats max err "
-              f"{max_err(st, pst):.3e}")
-        if c == 512:
-            # fp32 input: only the summation order differs, atol 1e-5
-            x32 = x.float()
-            y32, st32 = gn_swish.gn_swish(x32, s, bias)
-            py32, pst32 = gn_swish.gn_swish_plain(x32, s, bias)
-            require(close(y32, py32, 1e-5, 1e-5)
-                    and close(st32, pst32, 1e-6, 1e-5), "B4 fp32 [4,16,16,512]")
-        if c == 128:
-            out["ms"] = timed_ms(lambda: gn_swish.gn_swish(x, s, bias))
-            out["plain_ms"] = timed_ms(
-                lambda: gn_swish.gn_swish_plain(x, s, bias))
-            n = x.numel()
-            out.update(bound(2 * n * 2 + shape[0] * 32 * 2 * 4, 12 * n,
-                             torch.bfloat16))
+        print(f"{what}: out max err {max_err(y, py):.3e}, stats max err "
+              f"{max_err(st, pst):.3e}; two calls bitwise equal")
+        del x, y, py, y2
+    res = b4_times(gen)
+    for key, r in res.items():
+        print(f"B4 {key}: one call {r['ms']:.4f} ms, back to back "
+              f"{r['b2b_ms']:.4f} ms, graph {r['graph_ms']:.4f} ms "
+              f"({100 * r['bound_share']:.1f}% of the bound "
+              f"{r['bound_ms']:.4f} ms, {r['bound_by']}); plain "
+              f"{r['plain_ms']:.4f} ms")
+    out.update(res["bf16"])
+    for key in ("small", "mid", "fp32"):
+        out[f"{key}_graph_ms"] = res[key]["graph_ms"]
+        out[f"{key}_bound_ms"] = res[key]["bound_ms"]
     out["library_ms"] = None
     out["max_abs_err"] = err
     return out
 
 
+def b4_times(gen) -> dict:
+    """B4 at [4, 256, 256, 128] bf16 (the VQ decoder's largest), [4, 16,
+    16, 512] bf16 (its smallest, "small"), [4, 32, 32, 512] bf16 ("mid")
+    and [2, 256, 256, 128] fp32 (the seg encoder's largest), for whichever ``mas_tpu_torch`` is imported:
+    one call (``timed_ms``), back to back (``run_ms``) and replayed from a
+    CUDA graph (``graph_ms``), and the plain twin one call at a time.
+    Bound: x read once, y written once, the stats."""
+    from mas_tpu_torch.ops import gn_swish
+
+    out = {}
+    for key, shape, dtype in (("bf16", (4, 256, 256, 128), torch.bfloat16),
+                              ("small", (4, 16, 16, 512), torch.bfloat16),
+                              ("mid", (4, 32, 32, 512), torch.bfloat16),
+                              ("fp32", (2, 256, 256, 128), torch.float32)):
+        c = shape[-1]
+        x = (torch.randn(*shape, device="cuda", generator=gen) * 2 + 0.5
+             ).to(dtype)
+        s = torch.randn(c, device="cuda", generator=gen)
+        b = torch.randn(c, device="cuda", generator=gen)
+        fn = lambda: gn_swish.gn_swish(x, s, b)
+        n = x.numel()
+        out[key] = {"ms": timed_ms(fn), "b2b_ms": run_ms(fn),
+                    "graph_ms": graph_ms(fn),
+                    "plain_ms": timed_ms(
+                        lambda: gn_swish.gn_swish_plain(x, s, b)),
+                    **bound(2 * n * x.element_size() + shape[0] * 32 * 2 * 4,
+                            12 * n, dtype)}
+        out[key]["bound_share"] = out[key]["bound_ms"] / out[key]["graph_ms"]
+        del x
+    return out
+
+
+def vq_paths() -> dict:
+    """The paths that B4 and B5 carry outside training, for whichever
+    ``mas_tpu_torch`` is imported (``python3 chip_smoke.py --vq-paths
+    DIR``): ``encode_tokens`` of 8 random 512^2 images (``configs/
+    img_512.json``, bf16) and ``decode_code`` of 4 random 16 x 16 code
+    grids (the VQ model of ``configs/sample_256.json``), seeded random
+    weights, each profiled over 4 calls after 2 warm-up calls by
+    ``mas_tpu_torch.breakdown._profile``: host ms per call, device-busy ms
+    per call, idle share and each kernel id's device ms per call."""
+    from mas_tpu_torch.breakdown import _profile
+    from mas_tpu_torch.cli import load_vq
+    from mas_tpu_torch.utils.config import VQModelConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for key, path in (("tokenize", IMG_CONFIG), ("vq_decode", CONFIG)):
+        with open(path) as f:
+            cfg = VQModelConfig.from_dict(json.load(f)["model"])
+        model = load_vq(cfg, None, "cuda", gen)
+        side = cfg.latent_resolution
+        if key == "tokenize":
+            x = torch.rand(8, cfg.resolution, cfg.resolution,
+                           cfg.in_channels, device="cuda", generator=gen)
+            fn = lambda: model.encode_tokens(x)
+        else:
+            codes = torch.randint(0, cfg.codebook.codebook_size,
+                                  (4, side, side), device="cuda",
+                                  generator=gen)
+            fn = lambda: model.decode_code(codes)
+        with torch.inference_mode():
+            for _ in range(2):
+                fn()
+            out[key] = _profile(fn, 4)
+        del model
+    return out
+
+
+def _vq_inputs(gen, n, k, d, dtype):
+    z = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+    cb = torch.randn(k, d, device="cuda", generator=gen).to(dtype)
+    return z, cb
+
+
 def check_b5(gen) -> dict:
     """VQ argmin at (N=512, K=1024, D=256) fp32, the seg training shape,
-    and (N=8192, K=8192, D=256) bf16 z and codebook, the img_512
-    tokenization shape, against the plain twin.  Tolerance: the agreement
-    rule of ``mas_tpu_torch/ops/vq.py`` (where the indices differ, the
-    twin's distance of the kernel's choice within 1e-5 * (||z||^2 + max
-    ||e||^2) of the minimum; every chosen code the first of its exact
-    copies), since the kernel sums each dot product in another order.
-    Exactly duplicated codebook rows must resolve to the first index.
-    max_abs_err is the largest such distance gap."""
+    and (N=8192, K=8192, D=256) bf16, the img_512 tokenization shape; at
+    D 320 and 512, bf16 and fp32 (2048 rows and codes); and at (1000, 3000)
+    with D 72 (a dim chunk of 8) and 100 (bf16: zero-padded to 104), against
+    the plain twin.  Tolerance: the agreement rule of
+    ``mas_tpu_torch/ops/vq.py`` (where the indices differ, the twin's
+    distance of the kernel's choice within 1e-5 * (||z||^2 + max ||e||^2)
+    of the minimum; every chosen code the first of its exact copies),
+    since the kernel sums each dot product in another order.  At the two
+    main shapes, codebook rows 700 and K - 3 are copies of row 5, in other
+    tiles and another run of the split than row 5; latent rows equal to
+    row 5 must pick 5.  Two calls must give equal bits.  max_abs_err is
+    the largest such distance gap.  Timed by ``b5_times``."""
     from mas_tpu_torch.ops import vq
 
-    out, gap = {}, 0.0
-    for n, k, dtype in ((512, 1024, torch.float32),
-                        (8192, 8192, torch.bfloat16)):
-        z = torch.randn(n, 256, device="cuda", generator=gen).to(dtype)
-        cb = torch.randn(k, 256, device="cuda", generator=gen).to(dtype)
+    gap = 0.0
+    for n, k, d, dtype in ((512, 1024, 256, torch.float32),
+                           (8192, 8192, 256, torch.bfloat16),
+                           (2048, 2048, 320, torch.bfloat16),
+                           (2048, 2048, 320, torch.float32),
+                           (2048, 2048, 512, torch.bfloat16),
+                           (2048, 2048, 512, torch.float32),
+                           (1000, 3000, 72, torch.bfloat16),
+                           (1000, 3000, 100, torch.bfloat16),
+                           (1000, 3000, 100, torch.float32)):
+        z, cb = _vq_inputs(gen, n, k, d, dtype)
+        ties = d == 256
+        if ties:
+            cb[700] = cb[5]
+            cb[k - 3] = cb[5]
+            z[0] = cb[5]
+            z[n - 1] = cb[5]
+            z[1] = cb[17]
         got = vq.vq_argmin(z, cb)
         want = vq.vq_argmin_plain(z, cb)
+        again = vq.vq_argmin(z, cb)
         torch.cuda.synchronize()
+        what = f"B5 ({n}, {k}, {d}) {dtype}"
         require(got.dtype == torch.int32 and got.shape == (n,),
-                f"B5 output {got.dtype} {tuple(got.shape)}")
+                f"{what}: output {got.dtype} {tuple(got.shape)}")
+        require(torch.equal(got, again), f"{what}: two calls differ")
         require(vq.argmin_agrees(z, cb, got, want),
-                f"B5 ({n}, {k}, {dtype}): indices disagree beyond near-ties "
+                f"{what}: indices disagree beyond near-ties "
                 f"({int((got != want).sum())} rows differ)")
+        if ties:
+            picked = [int(got[0]), int(got[n - 1]), int(got[1])]
+            require(picked == [5, 5, 17], f"{what} ties: {picked}")
         dist = vq.vq_distances(z, cb)
         gap = max(gap, float((dist.gather(1, got.long()[:, None])[:, 0]
                               - dist.min(dim=1).values).max()))
-        print(f"B5 ({n}, {k}, 256) {dtype}: agreement "
-              f"{float((got == want).float().mean()):.6f}")
-    # z and cb are the tokenization shape now: time both there
-    out["ms"] = timed_ms(lambda: vq.vq_argmin(z, cb))
-    out["plain_ms"] = timed_ms(lambda: vq.vq_argmin_plain(z, cb))
-    out.update(bound((n + k) * 256 * 2 + n * 4, 2 * n * k * 256 + 2 * k * 256,
-                     torch.bfloat16))
+        print(f"{what}: agreement {float((got == want).float().mean()):.6f}"
+              f"{', ties to row 5 across runs' if ties else ''}; two calls "
+              "bitwise equal")
+        del z, cb, dist
+    res = b5_times(gen)
+    for key, r in res.items():
+        print(f"B5 {key}: one call {r['ms']:.4f} ms, back to back "
+              f"{r['b2b_ms']:.4f} ms, graph {r['graph_ms']:.4f} ms "
+              f"({100 * r['bound_share']:.1f}% of the bound "
+              f"{r['bound_ms']:.4f} ms, {r['bound_by']}); plain "
+              f"{r['plain_ms']:.4f} ms")
+    out = dict(res["bf16"])
+    out["fp32_graph_ms"] = res["fp32"]["graph_ms"]
+    out["fp32_bound_ms"] = res["fp32"]["bound_ms"]
     out["library_ms"] = None
-    dup = torch.randn(1024, 256, device="cuda", generator=gen)
-    dup[700] = dup[5]
-    dup[900] = dup[5]
-    ties = vq.vq_argmin(dup[[900, 700, 5, 17]].contiguous(), dup)
-    require(ties.tolist() == [5, 5, 5, 17], f"B5 ties: {ties.tolist()}")
     out["max_abs_err"] = gap
     return out
 
 
-def _gn_inputs(gen, shape, dtype, groups=32, b4=True):
-    """x, g, scale, bias and B4's stats of x (the plain twin's if not
-    ``b4``) for a B8 call."""
+def b5_times(gen) -> dict:
+    """B5 at (8192, 8192, 256) bf16 (tokenization, "bf16") and (512, 1024,
+    256) fp32 (seg training, "fp32"), for whichever ``mas_tpu_torch`` is
+    imported: one call, back to back and replayed from a CUDA graph, and
+    the plain twin one call at a time.  Bound: z and the codebook read
+    once, the indices written, 2 N K D products at the peak of the inputs'
+    type."""
+    from mas_tpu_torch.ops import vq
+
+    out = {}
+    for key, (n, k, d), dtype in (("bf16", (8192, 8192, 256), torch.bfloat16),
+                                  ("fp32", (512, 1024, 256), torch.float32)):
+        z, cb = _vq_inputs(gen, n, k, d, dtype)
+        fn = lambda: vq.vq_argmin(z, cb)
+        out[key] = {"ms": timed_ms(fn), "b2b_ms": run_ms(fn),
+                    "graph_ms": graph_ms(fn),
+                    "plain_ms": timed_ms(lambda: vq.vq_argmin_plain(z, cb)),
+                    **bound((n + k) * d * z.element_size() + n * 4,
+                            2 * n * k * d + 2 * k * d, dtype)}
+        out[key]["bound_share"] = out[key]["bound_ms"] / out[key]["graph_ms"]
+    return out
+
+
+def vq_times() -> dict:
+    """``b5_times`` for whichever ``mas_tpu_torch`` is imported: ``python3
+    chip_smoke.py --vq-times DIR`` imports it from DIR (e.g. a ``git
+    archive`` of the parent commit), so two trees are timed on one card in
+    one call."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return {"B5": b5_times(gen)}
+
+
+def _gn_inputs(gen, shape, dtype, groups=32, shifted=False):
+    """x, g, scale, bias and B4's stats of x for a B8 call; x and g not
+    16-byte aligned if ``shifted``."""
     from mas_tpu_torch.ops import gn_swish
 
     c = shape[-1]
     x = (torch.randn(*shape, device="cuda", generator=gen) * 2 + 0.5
          ).to(dtype)
     g = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    if shifted:
+        x, g = _misaligned(x), _misaligned(g)
     s = torch.randn(c, device="cuda", generator=gen) * 0.5 + 1.0
     b = torch.randn(c, device="cuda", generator=gen) * 0.1
-    fwd = gn_swish.gn_swish if b4 else gn_swish.gn_swish_plain
-    return x, g, s, b, fwd(x, s, b, groups)[1]
+    return x, g, s, b, gn_swish.gn_swish(x, s, b, groups)[1]
 
 
 def check_b8(gen) -> dict:
     """GroupNorm+swish backward at [2,256,256,128] fp32 (the seg encoder's
     largest), [2,16,16,512] fp32 (more blocks than rows to share: slices of
     one or two rows), [4,16,16,512] bf16 and [4,256,256,128] bf16, and at
-    channel and group counts no model here uses: C 4096 (four slabs of
+    channel and group counts no model here uses: C 96 and 384 in 32 groups
+    (no power of two), C 4096 (four slabs of
     channels) with 32 and 256 groups, C 8192 in 4 groups (a group wider
-    than a slab), C 256 in 256 groups (a channel a group) and C 8 in 2
-    groups (a warp's lanes past C idle), against
+    than a slab), C 256 in 256 groups (a channel a group), C 8 in 2
+    groups (a warp's lanes past C idle), C 6 and 18 in 3 groups (not a
+    multiple of a thread's four channels: element loads) and bf16 x and g
+    not 16-byte aligned (element loads), against
     the closed-form twin and against torch.autograd through gn_swish_plain.
     Tolerances: fp32 dx atol 1e-5 (elementwise work in another order; the
     per-group sums enter divided by N); dscale/dbias are sums over B*H*W
@@ -881,20 +1082,26 @@ def check_b8(gen) -> dict:
     from mas_tpu_torch.ops import gn_swish
 
     err, out = 0.0, {}
-    for shape, dtype, groups in (((2, 256, 256, 128), torch.float32, 32),
-                                 ((2, 16, 16, 512), torch.float32, 32),
-                                 ((4, 16, 16, 512), torch.bfloat16, 32),
-                                 ((4, 256, 256, 128), torch.bfloat16, 32),
-                                 ((2, 16, 16, 4096), torch.float32, 32),
-                                 ((2, 16, 16, 4096), torch.bfloat16, 256),
-                                 ((1, 8, 8, 8192), torch.float32, 4),
-                                 ((2, 16, 16, 256), torch.float32, 256),
-                                 ((2, 32, 32, 8), torch.bfloat16, 2)):
+    for shape, dtype, groups, shifted in (
+            ((2, 256, 256, 128), torch.float32, 32, False),
+            ((2, 16, 16, 512), torch.float32, 32, False),
+            ((4, 16, 16, 512), torch.bfloat16, 32, False),
+            ((4, 256, 256, 128), torch.bfloat16, 32, False),
+            ((2, 32, 32, 96), torch.float32, 32, False),
+            ((2, 32, 32, 96), torch.bfloat16, 32, False),
+            ((2, 16, 16, 384), torch.float32, 32, False),
+            ((2, 16, 16, 384), torch.bfloat16, 32, False),
+            ((2, 16, 16, 4096), torch.float32, 32, False),
+            ((2, 16, 16, 4096), torch.bfloat16, 256, False),
+            ((1, 8, 8, 8192), torch.float32, 4, False),
+            ((2, 16, 16, 256), torch.float32, 256, False),
+            ((2, 32, 32, 8), torch.bfloat16, 2, False),
+            ((1, 8, 8, 6), torch.float32, 3, False),
+            ((2, 16, 16, 18), torch.bfloat16, 3, False),
+            ((2, 32, 32, 128), torch.bfloat16, 32, True)):
         c = shape[-1]
         rows = shape[0] * shape[1] * shape[2]
-        # stats from B4 at the models' shapes, else from its twin
-        x, g, s, b, stats = _gn_inputs(gen, shape, dtype, groups,
-                                       b4=groups == 32 and c <= 512)
+        x, g, s, b, stats = _gn_inputs(gen, shape, dtype, groups, shifted)
         got = gn_swish.gn_swish_bwd(x, g, s, b, stats, groups)
         plain = gn_swish.gn_swish_bwd_plain(x, g, s, b, stats, groups)
         leaves = [t.detach().clone().requires_grad_() for t in (x, s, b)]
@@ -919,7 +1126,8 @@ def check_b8(gen) -> dict:
                         f"max err "
                         f"{max_err(got[i], want[i])}")
         err = max(err, max_err(got[0], plain[0]))
-        print(f"B8 {shape} {dtype} G {groups}: dx max err "
+        print(f"B8 {shape} {dtype} G {groups}"
+              f"{' misaligned' if shifted else ''}: dx max err "
               f"{max_err(got[0], plain[0]):.3e}"
               f", dscale {max_err(got[1], plain[1]):.3e}, dbias "
               f"{max_err(got[2], plain[2]):.3e}; two calls bitwise equal")
@@ -1210,12 +1418,12 @@ def b8_times(gen) -> dict:
 
 
 def norm_times() -> dict:
-    """``b7_times`` and ``b8_times`` for whichever ``mas_tpu_torch`` is
-    imported: ``python3 chip_smoke.py --norm-times DIR`` imports it from
-    DIR (e.g. a ``git archive`` of the parent commit), so two trees are
-    timed on one card in one call."""
+    """``b4_times``, ``b7_times`` and ``b8_times`` for whichever
+    ``mas_tpu_torch`` is imported: ``python3 chip_smoke.py --norm-times
+    DIR`` imports it from DIR (e.g. a ``git archive`` of the parent
+    commit), so two trees are timed on one card in one call."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return {"B7": b7_times(gen), "B8": b8_times(gen)}
+    return {"B4": b4_times(gen), "B7": b7_times(gen), "B8": b8_times(gen)}
 
 
 def b9_times(gen, rows: int) -> dict:
@@ -1411,7 +1619,7 @@ KERNELS = (
      check_b2),
     ("B3", "B3 write_quant_kv", "cuda", "mas_tpu_torch/csrc/kv_write.cu",
      "mas_tpu/ops/decode_cache.py:270", check_b3),
-    ("B4", "B4 gn_swish", "triton", "mas_tpu_torch/ops/gn_swish.py",
+    ("B4", "B4 gn_swish", "cuda", "mas_tpu_torch/csrc/gn_swish_fwd.cu",
      "mas_tpu/ops/pallas/gn_swish.py:50", check_b4),
     ("B5", "B5 vq_argmin", "cuda", "mas_tpu_torch/csrc/vq_argmin.cu",
      "mas_tpu/ops/vq.py:33", check_b5),
@@ -2269,17 +2477,15 @@ def phase_ln_producer(gen, smi: str) -> dict:
 
 
 def main(argv) -> int:
-    if argv[:1] in (["--decode-times"], ["--norm-times"]):
-        # the decode reads and writes, or B7 and B8, of the mas_tpu_torch
-        # under argv[1] alone
+    modes = {"--decode-times": decode_times, "--norm-times": norm_times,
+             "--vq-times": vq_times, "--vq-paths": vq_paths}
+    if argv[:1] and argv[0] in modes:
+        # the decode reads and writes, B4, B7 and B8, B5, or the paths of
+        # B4 and B5, of the mas_tpu_torch under argv[1] alone
         sys.path.insert(0, os.path.abspath(argv[1]))
         smi = phase_device()
-        if argv[0] == "--decode-times":
-            print(json.dumps({"tree": argv[1], "card": smi,
-                              "decode_times": decode_times()}))
-        else:
-            print(json.dumps({"tree": argv[1], "card": smi,
-                              "norm_times": norm_times()}))
+        print(json.dumps({"tree": argv[1], "card": smi,
+                          argv[0][2:].replace("-", "_"): modes[argv[0]]()}))
         return 0
     smi = phase_device()
     phase_build()

@@ -129,8 +129,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mas_kv_write.argtypes = [p, p, p, p, p, p, p, i, i, ll, ll, ll, ll,
                                  i, i, i, i, i, i, p]
     lib.mas_kv_write.restype = i
-    # z codebook cb_sq out, N K D is_bf16, stream
-    lib.mas_vq_argmin.argtypes = [p, p, p, p, i, i, i, i, p]
+    # device -> its SM count, after the one-time set-up there
+    lib.mas_vq_argmin_prepare.argtypes = [i]
+    lib.mas_vq_argmin_prepare.restype = i
+    # N K D is_bf16 sms -> scratch floats
+    lib.mas_vq_argmin_scratch.argtypes = [i, i, i, i, i]
+    lib.mas_vq_argmin_scratch.restype = ll
+    # z codebook scratch out, N K D is_bf16 sms, stream
+    lib.mas_vq_argmin.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.mas_vq_argmin.restype = i
     # x w b y, n d eps is_bf16, stream
     lib.mas_layer_norm_fwd.argtypes = [p, p, p, p, i, i, f, i, p]
@@ -143,11 +149,21 @@ def _declare(lib: ctypes.CDLL) -> None:
     # x g w dx part tickets dscale dbias, n d eps is_bf16, stream
     lib.mas_layer_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, f, i, p]
     lib.mas_layer_norm_bwd.restype = i
+    # device is_bf16 -> resident blocks
+    lib.mas_gn_swish_fwd_grid.argtypes = [i, i]
+    lib.mas_gn_swish_fwd_grid.restype = i
+    # batch rows channels groups resident is_bf16 -> scratch floats
+    lib.mas_gn_swish_fwd_scratch.argtypes = [i, i, i, i, i, i]
+    lib.mas_gn_swish_fwd_scratch.restype = ll
+    # x w b y stats scratch, batch rows channels groups, eps, resident
+    # is_bf16, stream
+    lib.mas_gn_swish_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, p]
+    lib.mas_gn_swish_fwd.restype = i
     # device is_bf16 -> blocks of a launch
     lib.mas_gn_swish_bwd_grid.argtypes = [i, i]
     lib.mas_gn_swish_bwd_grid.restype = i
-    # batch channels groups grid -> scratch floats
-    lib.mas_gn_swish_bwd_scratch.argtypes = [i, i, i, i]
+    # batch rows channels groups grid -> scratch floats
+    lib.mas_gn_swish_bwd_scratch.argtypes = [i, i, i, i, i]
     lib.mas_gn_swish_bwd_scratch.restype = ll
     # x g w b stats dx scratch dscale dbias, batch rows channels groups
     # inv_count grid is_bf16, stream

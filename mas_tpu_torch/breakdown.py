@@ -56,8 +56,8 @@ from .utils.config import TransformerConfig, VQModelConfig
 _KERNEL_IDS = (("flash_fwd_kernel", "B1"), ("decode_quant_kernel", "B2"),
                ("kv_write_packed_kernel", "B10"),
                ("kv_write_lane_kernel", "B3"),
-               ("gn_swish_bwd_kernel", "B8"), ("_gn_", "B4"),
-               ("vq_argmin_kernel", "B5"), ("flash_bwd_", "B6"),
+               ("gn_swish_bwd_kernel", "B8"), ("gn_swish_fwd_kernel", "B4"),
+               ("vq_", "B5"), ("flash_bwd_", "B6"),
                ("layer_norm_fwd_kernel", "B7"),
                ("layer_norm_bwd_kernel", "B7"),
                ("decode_float_kernel", "B9"), ("_add_stats_kernel", "B11"))

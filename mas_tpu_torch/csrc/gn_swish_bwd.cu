@@ -26,8 +26,11 @@
 //   channels' constants did not fit beside four rows in flight); a slab is
 //   the channels 256 threads cover, or all of C.  The rows of image b are
 //   cut into S = max(1, grid / (B slabs)) slices; item ((b S + s) slabs + k)
-//   is slab k of slice s of image b, and block i takes items i, i + grid,
-//   ...  The map depends on the grid size only.
+//   is slab k of slice s of image b (gn_swish.cuh's map, shared with B4),
+//   and block i takes items i, i + grid, ...  The map depends on the grid
+//   size only.  Any C that the groups divide: where C is not a multiple of
+//   E, or x, g or dx is not aligned for the vector, an instance with
+//   element loads (the slab's ragged tail masked) takes the call.
 // - Phase 1: a block walks its items' rows, 256 / (slab vectors) rows at a
 //   time, loading four rows' x and g before it uses any.  It recomputes x^
 //   and dx^ (scale, bias, mean and rstd of its four channels in registers;
@@ -57,57 +60,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gn_swish.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 256;                // threads a block
+using gn::NT;
 constexpr int E = 4;                   // channels a thread
 constexpr int MAX_BLOCKS_PER_SM = 2;
 constexpr int U = 4;                   // rows whose loads are in flight
-
-constexpr int SLAB = NT * E;           // widest slab of channels
-
-// E values as they are loaded: one 16-byte word (fp32) or 8-byte (bf16)
-template <typename T>
-struct Raw {
-  using type = uint4;
-};
-template <>
-struct Raw<__nv_bfloat16> {
-  using type = uint2;
-};
-
-template <typename T>
-__device__ __forceinline__ void unpack(const typename Raw<T>::type w,
-                                       float* v) {
-  if constexpr (sizeof(T) == 2) {   // bf16 -> fp32 is exact
-    v[0] = __uint_as_float(w.x << 16);
-    v[1] = __uint_as_float(w.x & 0xffff0000u);
-    v[2] = __uint_as_float(w.y << 16);
-    v[3] = __uint_as_float(w.y & 0xffff0000u);
-  } else {
-    v[0] = __uint_as_float(w.x);
-    v[1] = __uint_as_float(w.y);
-    v[2] = __uint_as_float(w.z);
-    v[3] = __uint_as_float(w.w);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ typename Raw<T>::type pack(const float* v) {
-  if constexpr (sizeof(T) == 2)
-    return make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
-  else
-    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                      __float_as_uint(v[2]), __float_as_uint(v[3]));
-}
 
 struct Params {
   const void* x;
@@ -120,12 +82,13 @@ struct Params {
   float* bc;            // [B, 2, C]
   float* dscale;
   float* dbias;
-  int batch, rows, channels, groups, slices, slabs;
+  gn::Items items;
+  int batch, groups;
   float inv_count;      // 1 / (HW * C / G)
 };
 
 // Shared memory: the per-thread sums [NT][4 E], combined in row order (in
-// phase 3: S1, S2 of the groups of a slab, at most 2 SLAB values).
+// phase 3: S1, S2 of the groups of a slab, at most 2 NT E values).
 constexpr int SMEM_FLOATS = NT * 4 * E;
 
 // the constants of a thread's E channels for one image
@@ -147,40 +110,37 @@ __device__ __forceinline__ void recompute(const float* xv, const float* gv,
   }
 }
 
-template <typename T>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(NT, MAX_BLOCKS_PER_SM)
 gn_swish_bwd_kernel(Params p) {
-  using W = typename Raw<T>::type;
+  using Row = gn::Row<T, E, VEC>;
   extern __shared__ __align__(16) float smem[];   // SMEM_FLOATS
   cg::grid_group grid = cg::this_grid();
-  const int C = p.channels, R = p.rows, G = p.groups;
-  const int slab = C / p.slabs;           // channels of a slab
-  const int vps = slab / E;               // threads a slab row (<= NT)
+  const gn::Items& map = p.items;
+  const int C = map.channels, R = map.rows, G = p.groups;
+  const int vps = map.width / E;          // threads a slab row (<= NT)
   const int tid = threadIdx.x;
   const int step = NT / vps;              // rows at once
   const int trow = tid / vps;
   const int j = (tid % vps) * E;          // this thread's channels in the slab
   const int cpg = C / G;
-  const int items = p.batch * p.slices * p.slabs;
+  const int items = p.batch * map.slices * map.slabs;
   const T* x = static_cast<const T*>(p.x);
   const T* g = static_cast<const T*>(p.g);
   T* dx = static_cast<T*>(p.dx);
 
-  // item -> image b, rows [lo, hi), first channel c0 of its slab
-  auto bounds = [&](int item, int& b, int& lo, int& hi, int& c0) {
-    const int k = item % p.slabs;
-    const int bs = item / p.slabs;
-    b = bs / p.slices;
-    const int s = bs % p.slices;
-    lo = (int)((long long)R * s / p.slices);
-    hi = (int)((long long)R * (s + 1) / p.slices);
-    c0 = k * slab;
+  // rows of [lo, hi) this thread takes: lo + trow + r step, r < mine
+  auto rows_of = [&](int lo, int hi, int valid) {
+    return valid > 0 && trow < step && hi - lo > trow
+               ? (hi - lo - trow - 1) / step + 1
+               : 0;
   };
-  // scale, bias, mean and rstd of this thread's channels of image b
-  auto consts = [&](int b, int c0, Consts& k) {
+  // scale, bias, mean and rstd of this thread's channels of image b (a
+  // channel past the slab repeats its last, and is not stored)
+  auto consts = [&](int b, int c0, int c1, Consts& k) {
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      const int c = c0 + j + e, gr = c / cpg;
+      const int c = min(c0 + j + e, c1 - 1), gr = c / cpg;
       k.w[e] = __ldg(p.w + c);
       k.b[e] = __ldg(p.b + c);
       k.mean[e] = __ldg(p.stats + (long long)b * 2 * G + gr);
@@ -190,34 +150,35 @@ gn_swish_bwd_kernel(Params p) {
 
   // --- phase 1: per-item partial sums -------------------------------------
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    int b, lo, hi, c0;
-    bounds(item, b, lo, hi, c0);
+    int b, lo, hi, c0, c1;
+    map.bounds(item, b, lo, hi, c0, c1);
+    const int valid = min(E, c1 - c0 - j);
     Consts k;
-    consts(b, c0, k);
+    consts(b, c0, c1, k);
     float acc[4][E];
 #pragma unroll
     for (int f = 0; f < 4; ++f)
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[f][e] = 0.f;
     const long long base = (long long)b * R * C + c0 + j;
-    const int mine = hi - lo > trow ? (hi - lo - trow - 1) / step + 1 : 0;
+    const int mine = rows_of(lo, hi, valid);
     for (int r0 = 0; r0 < mine; r0 += U) {
-      W xr[U], gr[U];
+      Row xr[U], gr[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (r0 + u < mine) {
           const long long off =
               base + (long long)(lo + trow + (r0 + u) * step) * C;
-          xr[u] = *reinterpret_cast<const W*>(x + off);
-          gr[u] = *reinterpret_cast<const W*>(g + off);
+          xr[u].fetch(x + off, valid);
+          gr[u].fetch(g + off, valid);
         }
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (r0 + u < mine) {
           float xv[E], gv[E], xh[E], ga[E], dxh[E];
-          unpack<T>(xr[u], xv);
-          unpack<T>(gr[u], gv);
+          xr[u].get(xv);
+          gr[u].get(gv);
           recompute(xv, gv, k, xh, ga, dxh);
 #pragma unroll
           for (int e = 0; e < E; ++e) {
@@ -237,9 +198,10 @@ gn_swish_bwd_kernel(Params p) {
     __syncthreads();
     // field f, slab channel c: the sum over the row slots in order, into
     // the (b, s) partial
-    float* out = p.part + (long long)(item / p.slabs) * 4 * C + c0;
-    for (int i = tid; i < 4 * slab; i += NT) {
-      const int f = i / slab, c = i % slab;
+    const int width = c1 - c0;
+    float* out = p.part + (long long)(item / map.slabs) * 4 * C + c0;
+    for (int i = tid; i < 4 * width; i += NT) {
+      const int f = i / width, c = i % width;
       const int v = c / E, e = c % E;
       float s = 0.f;
       for (int r = 0; r < step; ++r) s += smem[(f * NT + r * vps + v) * E + e];
@@ -254,12 +216,12 @@ gn_swish_bwd_kernel(Params p) {
     const int warp = tid / 32, lane = tid % 32;
     const int chunks = (C + 31) / 32;
     const int units = (p.batch + 1) * chunks;
-    const int per_b = p.slices;              // (b, s) partials of an image
+    const int per_b = map.slices;            // (b, s) partials of an image
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
       const int b = u / chunks;   // b == batch: dscale and dbias
       const int c = (u % chunks) * 32 + lane;
-      // C < 32: lanes past C read channel 0 and write nothing, so the
-      // loop below is the same for every lane
+      // lanes past C read channel 0 and write nothing, so the loop below
+      // is the same for every lane
       const bool live = c < C;
       const bool params = b == p.batch;
       const int first = params ? 0 : b * per_b;
@@ -302,17 +264,19 @@ gn_swish_bwd_kernel(Params p) {
                         : 0;
   for (int it = count - 1; it >= 0; --it) {
     const int item = blockIdx.x + it * gridDim.x;
-    int b, lo, hi, c0;
-    bounds(item, b, lo, hi, c0);
+    int b, lo, hi, c0, c1;
+    map.bounds(item, b, lo, hi, c0, c1);
+    const int valid = min(E, c1 - c0 - j);
     Consts k;
-    consts(b, c0, k);
+    consts(b, c0, c1, k);
     // S1, S2 of the ng groups that the slab's channels belong to, from
-    // the per-(b, c) sums (in L2): L lanes a (field, group), each adding
-    // every L-th channel of the group in order, then a shuffle tree over
-    // the L lanes (aligned within a warp), into smem [2][ng]
+    // the per-(b, c) sums (in L2): L lanes a (field, group), L the largest
+    // power of two up to min(C / G, 32), each adding every L-th channel of
+    // the group in order, then a shuffle tree over the L lanes (aligned
+    // within a warp), into smem [2][ng]
     const int g0 = c0 / cpg;
-    const int ng = slab >= cpg ? slab / cpg : 1;
-    const int lanes = cpg < 32 ? cpg : 32;
+    const int ng = (c1 - 1) / cpg - g0 + 1;
+    const int lanes = 1 << (31 - __clz(cpg < 32 ? cpg : 32));
     __syncthreads();   // the previous item is done with smem
     for (int v0 = 0; v0 < 2 * ng * lanes; v0 += NT) {
       const int v = v0 + tid, pair = v / lanes, l = v % lanes;
@@ -330,29 +294,29 @@ gn_swish_bwd_kernel(Params p) {
     float sa[E], sb[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      const int gr = (c0 + j + e) / cpg - g0;
+      const int gr = min(c0 + j + e, c1 - 1) / cpg - g0;
       sa[e] = smem[gr];
       sb[e] = smem[ng + gr];
     }
     const long long base = (long long)b * R * C + c0 + j;
-    const int mine = hi - lo > trow ? (hi - lo - trow - 1) / step + 1 : 0;
+    const int mine = rows_of(lo, hi, valid);
     for (int r0 = mine - 1; r0 >= 0; r0 -= U) {
-      W xr[U], gr[U];
+      Row xr[U], gr[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (r0 - u >= 0) {
           const long long off =
               base + (long long)(lo + trow + (r0 - u) * step) * C;
-          xr[u] = *reinterpret_cast<const W*>(x + off);
-          gr[u] = *reinterpret_cast<const W*>(g + off);
+          xr[u].fetch(x + off, valid);
+          gr[u].fetch(g + off, valid);
         }
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (r0 - u >= 0) {
           float xv[E], gv[E], xh[E], ga[E], dxh[E];
-          unpack<T>(xr[u], xv);
-          unpack<T>(gr[u], gv);
+          xr[u].get(xv);
+          gr[u].get(gv);
           recompute(xv, gv, k, xh, ga, dxh);
 #pragma unroll
           for (int e = 0; e < E; ++e)
@@ -360,7 +324,7 @@ gn_swish_bwd_kernel(Params p) {
                     (dxh[e] - (sa[e] + xh[e] * sb[e]) * p.inv_count);
           const long long off =
               base + (long long)(lo + trow + (r0 - u) * step) * C;
-          *reinterpret_cast<W*>(dx + off) = pack<T>(xv);
+          gn::put<T, E, VEC>(dx + off, valid, xv);
         }
       }
     }
@@ -371,67 +335,60 @@ gn_swish_bwd_kernel(Params p) {
 // MAX_BLOCKS_PER_SM an SM), slabs of an image's channels and slices of its
 // rows.
 struct Geometry {
-  int grid, slabs, slices;
+  int grid, slabs, width, slices;
 };
 
-Geometry geometry(int batch, int channels, int grid) {
+Geometry geometry(int batch, int rows, int channels, int grid) {
   Geometry geo;
   geo.grid = grid;
-  geo.slabs = channels > SLAB ? channels / SLAB : 1;
+  gn::slab_split(channels, E, geo.slabs, geo.width);
   const int per_slice = batch * geo.slabs;
-  geo.slices = per_slice >= grid ? 1 : grid / per_slice;
+  geo.slices = gn::slice_cap(rows, per_slice >= grid ? 1 : grid / per_slice);
   return geo;
 }
 
-template <typename T>
-cudaError_t launch(Params p, int grid, cudaStream_t s) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = SMEM_FLOATS * 4;   // below the 48 KB default
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, gn_swish_bwd_kernel<T>, p);
+// any C that the groups divide
+bool valid(int batch, int channels, int groups) {
+  return batch >= 1 && channels >= 1 && groups >= 1 &&
+         channels % groups == 0;
 }
 
-// C a power of two of at least E (a thread's channels), C / G channels a
-// group
-bool valid(int batch, int channels, int groups) {
-  return batch >= 1 && channels >= E && (channels & (channels - 1)) == 0 &&
-         groups >= 1 && channels % groups == 0;
+template <typename T, bool VEC>
+int resident_of(int device) {
+  return gn::resident(device, gn_swish_bwd_kernel<T, VEC>, SMEM_FLOATS * 4,
+                      MAX_BLOCKS_PER_SM);
+}
+
+template <typename T>
+cudaError_t launch(const Params& p, bool vec, int grid, cudaStream_t s) {
+  // below the 48 KB default of dynamic shared memory
+  return vec ? gn::launch_cooperative(gn_swish_bwd_kernel<T, true>, p, grid,
+                                      SMEM_FLOATS * 4, s)
+             : gn::launch_cooperative(gn_swish_bwd_kernel<T, false>, p, grid,
+                                      SMEM_FLOATS * 4, s);
 }
 
 }  // namespace
 
 // The grid of a launch on CUDA device `device`: the blocks that can be
-// resident there at once, at most MAX_BLOCKS_PER_SM an SM; 0 if a query
-// fails.  Ask once per device and dtype.
+// resident there at once, the fewer of the vector and the element kernel's
+// (at most MAX_BLOCKS_PER_SM an SM); 0 if a query fails.  Ask once per
+// device and dtype.
 extern "C" int mas_gn_swish_bwd_grid(int device, int is_bf16) {
-  int sms = 0, per_sm = 0, was = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess ||
-      cudaGetDevice(&was) != cudaSuccess || cudaSetDevice(device) != cudaSuccess)
-    return 0;
-  const cudaError_t err =
-      is_bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &per_sm, gn_swish_bwd_kernel<__nv_bfloat16>, NT,
-                    SMEM_FLOATS * 4)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &per_sm, gn_swish_bwd_kernel<float>, NT, SMEM_FLOATS * 4);
-  if (cudaSetDevice(was) != cudaSuccess || err != cudaSuccess) return 0;
-  return sms * (per_sm < MAX_BLOCKS_PER_SM ? per_sm : MAX_BLOCKS_PER_SM);
+  const int a = is_bf16 ? resident_of<__nv_bfloat16, true>(device)
+                        : resident_of<float, true>(device);
+  const int b = is_bf16 ? resident_of<__nv_bfloat16, false>(device)
+                        : resident_of<float, false>(device);
+  return a < b ? a : b;
 }
 
 // Scratch floats a launch of `grid` blocks needs: partials [B, S, 4, C] and
 // the per-(b, c) sums [B, 2, C]; -1 for a shape the kernel does not take.
-extern "C" long long mas_gn_swish_bwd_scratch(int batch, int channels,
-                                              int groups, int grid) {
-  if (!valid(batch, channels, groups) || grid < 1) return -1;
-  const Geometry geo = geometry(batch, channels, grid);
+extern "C" long long mas_gn_swish_bwd_scratch(int batch, int rows,
+                                              int channels, int groups,
+                                              int grid) {
+  if (!valid(batch, channels, groups) || rows < 1 || grid < 1) return -1;
+  const Geometry geo = geometry(batch, rows, channels, grid);
   return ((long long)batch * geo.slices * 4 + (long long)batch * 2) *
          channels;
 }
@@ -439,7 +396,7 @@ extern "C" long long mas_gn_swish_bwd_scratch(int batch, int channels,
 // x, g, dx [B, HW, C] contiguous bf16 (is_bf16 = 1) or fp32, with C and
 // groups as `valid` takes them; w, b fp32 [C]; stats fp32 [B, 2, groups];
 // grid from mas_gn_swish_bwd_grid for the stream's device; scratch of
-// mas_gn_swish_bwd_scratch(B, C, groups, grid) floats; dscale, dbias fp32
+// mas_gn_swish_bwd_scratch(B, HW, C, groups, grid) floats; dscale, dbias fp32
 // [C].
 extern "C" int mas_gn_swish_bwd(const void* x, const void* g, const void* w,
                                 const void* b, const void* stats, void* dx,
@@ -449,7 +406,7 @@ extern "C" int mas_gn_swish_bwd(const void* x, const void* g, const void* w,
                                 void* stream) {
   if (!valid(batch, channels, groups) || rows < 1 || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geometry geo = geometry(batch, channels, grid);
+  const Geometry geo = geometry(batch, rows, channels, grid);
   Params p;
   p.x = x;
   p.g = g;
@@ -461,14 +418,19 @@ extern "C" int mas_gn_swish_bwd(const void* x, const void* g, const void* w,
   p.bc = p.part + (long long)batch * geo.slices * 4 * channels;
   p.dscale = static_cast<float*>(dscale);
   p.dbias = static_cast<float*>(dbias);
+  p.items.rows = rows;
+  p.items.channels = channels;
+  p.items.slices = geo.slices;
+  p.items.slabs = geo.slabs;
+  p.items.width = geo.width;
   p.batch = batch;
-  p.rows = rows;
-  p.channels = channels;
   p.groups = groups;
-  p.slices = geo.slices;
-  p.slabs = geo.slabs;
   p.inv_count = inv_count;
+  // vector loads: C a multiple of E, x, g and dx aligned for E values
+  const int bytes = E * (is_bf16 ? 2 : 4);
+  const bool vec = channels % E == 0 && gn::aligned(x, bytes) &&
+                   gn::aligned(g, bytes) && gn::aligned(dx, bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? launch<__nv_bfloat16>(p, grid, s)
-                                  : launch<float>(p, grid, s));
+  return static_cast<int>(is_bf16 ? launch<__nv_bfloat16>(p, vec, grid, s)
+                                  : launch<float>(p, vec, grid, s));
 }

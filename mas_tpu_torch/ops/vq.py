@@ -3,7 +3,10 @@ quantize step built on it, as ``mas_tpu/ops/vq.py``.
 
 ``vq_argmin`` launches ``csrc/vq_argmin.cu`` for CUDA tensors and its plain
 twin ``vq_argmin_plain`` (the counterpart of ``vq_argmin_jnp``) for CPU
-tensors.  Inputs are detached, as the JAX package stop-gradients them:
+tensors.  On the card, bf16 inputs run on the tensor cores (bf16 products,
+exact in fp32, summed in fp32) and fp32 inputs keep fp32 products on the
+CUDA cores; any code width D (bf16 rows are zero-padded to a multiple of 8
+values where D is not one, which changes no distance).  Inputs are detached, as the JAX package stop-gradients them:
 indices carry no gradient.  The gather of the chosen rows is
 ``F.embedding``, outside the kernel, so the codebook gets its gradient
 through it.
@@ -32,7 +35,8 @@ from torch.nn import functional as F
 
 from .. import _build
 
-MAX_DIM = 256   # the kernel stages two [64, D + 1] fp32 tiles (<= 130 KB)
+_SMS = {}       # SM count by device, after the kernel's set-up there
+_SCRATCH = {}   # scratch floats by (device, N, K, D, bf16)
 
 
 def vq_distances(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -77,9 +81,9 @@ def _check(z, codebook):
         raise ValueError(f"z must be [N, D] and codebook [K, D], got "
                          f"{tuple(z.shape)} and {tuple(codebook.shape)}")
     n, d = z.shape
-    if n == 0 or codebook.shape[0] == 0 or d > MAX_DIM:
-        raise ValueError(f"vq_argmin needs N, K >= 1 and D <= {MAX_DIM}, got "
-                         f"N={n}, K={codebook.shape[0]}, D={d}")
+    if n == 0 or codebook.shape[0] == 0 or d == 0:
+        raise ValueError(f"vq_argmin needs N, K and D >= 1, got N={n}, "
+                         f"K={codebook.shape[0]}, D={d}")
     if z.dtype not in (torch.float32, torch.bfloat16) or \
             codebook.dtype != z.dtype:
         raise TypeError(f"z and codebook must share one dtype, fp32 or bf16; "
@@ -88,6 +92,15 @@ def _check(z, codebook):
         raise ValueError("z and codebook must be contiguous")
     if codebook.device != z.device:
         raise ValueError(f"codebook is on {codebook.device}, z on {z.device}")
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """A fresh (16-byte aligned) copy of t with zero columns up to a
+    multiple of 8: the bf16 kernel loads rows in 16-byte pieces."""
+    width = -(-t.shape[1] // 8) * 8
+    out = t.new_zeros(t.shape[0], width)
+    out[:, :t.shape[1]] = t
+    return out
 
 
 def vq_argmin(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -100,14 +113,27 @@ def vq_argmin(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if z.device.type != "cuda":
         raise ValueError(f"vq_argmin runs on cpu or cuda, got {z.device}")
     _check(z, codebook)
-    n, d = z.shape
-    cb_sq = codebook.float().square().sum(dim=1)
-    out = torch.empty(n, dtype=torch.int32, device=z.device)
+    bf16 = int(z.dtype == torch.bfloat16)
+    if bf16 and (z.shape[1] % 8 or z.data_ptr() % 16
+                 or codebook.data_ptr() % 16):
+        z, codebook = _padded(z), _padded(codebook)
+    (n, d), k = z.shape, codebook.shape[0]
+    dev = z.get_device()
     lib = _build.library()
+    sms = _SMS.get(dev)
+    if sms is None:
+        sms = _SMS[dev] = lib.mas_vq_argmin_prepare(dev)
+        if sms < 1:
+            raise RuntimeError(f"vq_argmin: set-up failed on cuda:{dev}")
+    key = (dev, n, k, d, bf16)
+    floats = _SCRATCH.get(key)
+    if floats is None:
+        floats = _SCRATCH[key] = lib.mas_vq_argmin_scratch(n, k, d, bf16, sms)
+    scratch = torch.empty(floats, dtype=torch.float32, device=z.device)
+    out = torch.empty(n, dtype=torch.int32, device=z.device)
     status = lib.mas_vq_argmin(
-        z.data_ptr(), codebook.data_ptr(), cb_sq.data_ptr(), out.data_ptr(),
-        n, codebook.shape[0], d, int(z.dtype == torch.bfloat16),
-        torch.cuda.current_stream(z.device).cuda_stream)
+        z.data_ptr(), codebook.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        n, k, d, bf16, sms, _build.stream(dev))
     _build.check(status, "vq_argmin")
     vq_argmin.launches += 1
     return out

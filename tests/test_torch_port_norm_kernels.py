@@ -1,14 +1,16 @@
-"""The host side of kernels B7 (LayerNorm, ``csrc/layer_norm.cu``) and B8
-(GroupNorm+swish backward, ``csrc/gn_swish_bwd.cu``), on CPU.
+"""The host side of kernels B7 (LayerNorm, ``csrc/layer_norm.cu``), B4 and
+B8 (GroupNorm+swish forward and backward, ``csrc/gn_swish_fwd.cu``,
+``csrc/gn_swish_bwd.cu``), on CPU.
 
 The kernels run only on the card (``chip_smoke.py`` holds them against
 their twins there, at the same widths as below).  Held here: the twins,
 which the wrappers take on CPU, against the JAX package's Pallas kernels
 in interpret mode at the widths whose code paths differ in the kernels
 (B7: odd d, d even but not a multiple of 4, one warp a row, several warps
-a row; B8: any power-of-two C and any number of groups), that CPU calls
-take the plain twins and count no launch, and that the wrappers hold no
-Triton kernel of B7 or B8 any more.
+a row; B4/B8: any C that the groups divide, powers of two or not, and any
+number of groups), that the card path's argument checks take those C,
+that CPU calls take the plain twins and count no launch, and that the
+wrappers hold no Triton kernel of B4, B7 or B8 any more.
 """
 
 import inspect
@@ -100,10 +102,44 @@ def test_cpu_calls_take_the_twins_and_count_no_launch():
     assert dx.shape == x.shape and dscale.shape == dbias.shape == (128,)
 
 
-def test_b7_and_b8_kernels_are_cuda_not_triton():
-    """B7's module holds no Triton; B8's Triton kernels are gone and the
-    GroupNorm module keeps Triton for B4 (the forward) alone."""
-    assert "triton" not in inspect.getsource(layer_norm)
-    src = inspect.getsource(gn_swish)
-    assert "_gn_bwd_" not in src and "mas_gn_swish_bwd" in src
-    assert "mas_layer_norm_bwd" in inspect.getsource(layer_norm)
+@pytest.mark.parametrize("module,symbol,gone", [
+    (layer_norm, "mas_layer_norm_bwd", "triton"),
+    (gn_swish, "mas_gn_swish_bwd", "_gn_bwd_"),
+    (gn_swish, "mas_gn_swish_fwd", "triton"),
+], ids=["B7", "B8", "B4"])
+def test_b7_and_b8_kernels_are_cuda_not_triton(module, symbol, gone):
+    """Each kernel's module names its ctypes symbol and keeps none of the
+    Triton code it replaced: no Triton in B7's module, B8's Triton kernels
+    gone, and, since B4 is CUDA C++ too, no Triton in the GroupNorm
+    module."""
+    src = inspect.getsource(module)
+    assert gone not in src and symbol in src
+
+
+@pytest.mark.parametrize("c", [96, 192, 384])
+def test_gn_swish_any_channels_check_and_twins_match_pallas(c):
+    """C4: the card path's argument checks (``_check`` for B4, through
+    ``_check_bwd`` for B8) take any C that the 32 groups divide, powers of
+    two or not, and B4's and B8's twins (the wrappers on CPU) match the
+    Pallas forward and backward in interpret mode on [1, 4, 4, C] fp32:
+    y, stats and dx atol 1e-5 (fp32, sums in another order); dscale and
+    dbias atol 1e-4 (sums of 16 rows), as the other GroupNorm tests."""
+    r = np.random.default_rng(c)
+    shape = (1, 4, 4, c)
+    x = (r.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    g = r.standard_normal(shape).astype(np.float32)
+    s = (r.standard_normal(c) * 0.5 + 1.0).astype(np.float32)
+    b = (r.standard_normal(c) * 0.1).astype(np.float32)
+    t, j = torch.from_numpy, jnp.asarray
+    gn_swish._check(t(x), t(s), t(b), 32)
+    y, stats = gn_swish.gn_swish(t(x), t(s), t(b), 32)
+    gn_swish._check_bwd(t(x), t(g), t(s), t(b), stats, 32)
+    got = gn_swish.gn_swish_bwd(t(x), t(g), t(s), t(b), stats, 32)
+    jy, jstats = _gn_swish_fwd_stats_pallas(j(x), j(s), j(b), 32, 1e-6,
+                                            interpret=True)
+    ref = _gn_swish_bwd_pallas(j(x), j(g), j(s), j(b), jstats, 32,
+                               interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-5)
+    np.testing.assert_allclose(stats.numpy(), np.asarray(jstats), atol=1e-5)
+    for a, w, tol in zip(got, ref, (1e-5, 1e-4, 1e-4)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=tol)

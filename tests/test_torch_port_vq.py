@@ -23,6 +23,7 @@ from mas_tpu.models.layers import Downsample as JDownsample
 from mas_tpu.models.layers import SyncBatchNorm as JSyncBatchNorm
 from mas_tpu.models.vqvae import VQModel as JVQModel
 from mas_tpu.ops.kmeans import kmeans as jkmeans
+from mas_tpu.ops.vq import _vq_argmin_pallas, vq_argmin_jnp
 from mas_tpu.utils.config import CodebookConfig as JCodebookConfig
 from mas_tpu.utils.config import SegLossConfig as JSegLossConfig
 from mas_tpu.utils.config import VQModelConfig as JVQModelConfig
@@ -187,6 +188,24 @@ def test_bf16_latents_quantize_against_the_bf16_codebook():
     init = codebook.codebook_init_embedding(64, 32,
                                             torch.Generator().manual_seed(0))
     assert float(init.abs().max()) <= 1 / 64 and init.shape == (64, 32)
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_vq_argmin_any_code_width_matches_jax(d):
+    """C5: the card path's argument check takes code widths above 256,
+    and ``vq_argmin`` (its twin on CPU) equals the JAX reference and the
+    Pallas kernel in interpret mode exactly, fp32 (random rows: no
+    near-ties)."""
+    r = np.random.default_rng(d)
+    z = r.standard_normal((200, d)).astype(np.float32)
+    cb = r.standard_normal((96, d)).astype(np.float32)
+    vq._check(torch.from_numpy(z), torch.from_numpy(cb))
+    got = vq.vq_argmin(torch.from_numpy(z), torch.from_numpy(cb))
+    assert got.dtype == torch.int32 and got.shape == (200,)
+    for ref in (vq_argmin_jnp(jnp.asarray(z), jnp.asarray(cb)),
+                _vq_argmin_pallas(jnp.asarray(z), jnp.asarray(cb),
+                                  interpret=True)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 def test_trigger_schedule_matches_jax():
