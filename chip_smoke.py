@@ -61,7 +61,17 @@ Phases, in order; any failure raises and the script exits non-zero:
  10. the producer-fused LayerNorm harness of ``benchmarks/ln_producer.py``
      at its shape (rows 16 x 1408, d 1024, bf16, 20 chained steps of
      ``x + LN(a + b) @ W``): parity, then the plain and the B11 path,
-     forward and forward + backward.
+     forward and forward + backward;
+ 11. train VQ-IMG (the VQGAN) at full width — ``configs/img_512.json`` as
+     shipped, cut in time only (``img_training_configs``) — for 16
+     micro-steps through ``run_pretrain_image``: pass-through, reservoir,
+     k-means at counters 12, 14 and 16, B5 from 12, the GAN terms gated
+     to micro-step 8 and active after, two Adam updates a side; check the
+     losses, the gate, the parameter updates, fp32 parameters and bf16
+     convolutions, the launch floors of B4/B5/B8, a bitwise resume and
+     one micro-step through the kernels against the plain twins; print
+     the micro-step's host time, device busy time and idle share, B4/B5/B8
+     time and launches, and peak device memory.
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -778,6 +788,7 @@ def check_b10(gen) -> dict:
 # takes images of few rows without a grid barrier (slabs of whole groups,
 # "local") and larger ones with two: each kind of C is held in both.
 GN_SHAPES = (((4, 256, 256, 128), torch.bfloat16, 32),
+             ((2, 512, 512, 128), torch.bfloat16, 32),
              ((4, 16, 16, 512), torch.bfloat16, 32),
              ((4, 16, 16, 512), torch.float32, 32),
              ((2, 32, 32, 96), torch.bfloat16, 32),
@@ -806,7 +817,8 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
 
 def check_b4(gen) -> dict:
     """GroupNorm+swish forward at ``GN_SHAPES`` (the decoder's [4, 256, 256,
-    128] and [4, 16, 16, 512] bf16 first) and on bf16 x whose data is not
+    128], the img_512 training encoder's and decoder's [2, 512, 512, 128]
+    and [4, 16, 16, 512] bf16 first) and on bf16 x whose data is not
     16-byte aligned (element loads, with and without a grid barrier),
     against the plain twin.  Tolerances: bf16 outputs are
     rounded to bf16 once from fp32 values that differ only in summation
@@ -941,14 +953,15 @@ def _vq_inputs(gen, n, k, d, dtype):
 
 def check_b5(gen) -> dict:
     """VQ argmin at (N=512, K=1024, D=256) fp32, the seg training shape,
-    and (N=8192, K=8192, D=256) bf16, the img_512 tokenization shape; at
+    (N=8192, K=8192, D=256) bf16, the img_512 tokenization shape, and
+    (N=2048, K=8192, D=256) bf16, the img_512 training shape; at
     D 320 and 512, bf16 and fp32 (2048 rows and codes); and at (1000, 3000)
     with D 72 (a dim chunk of 8) and 100 (bf16: zero-padded to 104), against
     the plain twin.  Tolerance: the agreement rule of
     ``mas_tpu_torch/ops/vq.py`` (where the indices differ, the twin's
     distance of the kernel's choice within 1e-5 * (||z||^2 + max ||e||^2)
     of the minimum; every chosen code the first of its exact copies),
-    since the kernel sums each dot product in another order.  At the two
+    since the kernel sums each dot product in another order.  At the three
     main shapes, codebook rows 700 and K - 3 are copies of row 5, in other
     tiles and another run of the split than row 5; latent rows equal to
     row 5 must pick 5.  Two calls must give equal bits.  max_abs_err is
@@ -958,6 +971,7 @@ def check_b5(gen) -> dict:
     gap = 0.0
     for n, k, d, dtype in ((512, 1024, 256, torch.float32),
                            (8192, 8192, 256, torch.bfloat16),
+                           (2048, 8192, 256, torch.bfloat16),
                            (2048, 2048, 320, torch.bfloat16),
                            (2048, 2048, 320, torch.float32),
                            (2048, 2048, 512, torch.bfloat16),
@@ -1060,7 +1074,8 @@ def _gn_inputs(gen, shape, dtype, groups=32, shifted=False):
 def check_b8(gen) -> dict:
     """GroupNorm+swish backward at [2,256,256,128] fp32 (the seg encoder's
     largest), [2,16,16,512] fp32 (more blocks than rows to share: slices of
-    one or two rows), [4,16,16,512] bf16 and [4,256,256,128] bf16, and at
+    one or two rows), [4,16,16,512] bf16, [4,256,256,128] bf16 and
+    [2,512,512,128] bf16 (the img_512 training's largest), and at
     channel and group counts no model here uses: C 96 and 384 in 32 groups
     (no power of two), C 4096 (four slabs of
     channels) with 32 and 256 groups, C 8192 in 4 groups (a group wider
@@ -1087,6 +1102,7 @@ def check_b8(gen) -> dict:
             ((2, 16, 16, 512), torch.float32, 32, False),
             ((4, 16, 16, 512), torch.bfloat16, 32, False),
             ((4, 256, 256, 128), torch.bfloat16, 32, False),
+            ((2, 512, 512, 128), torch.bfloat16, 32, False),
             ((2, 32, 32, 96), torch.float32, 32, False),
             ((2, 32, 32, 96), torch.bfloat16, 32, False),
             ((2, 16, 16, 384), torch.float32, 32, False),
@@ -1581,7 +1597,10 @@ def check_b11(gen) -> dict:
     bf16, and at [1000, 1000] fp32 (no power of two, no multiple of the
     TPU kernel's 512-row tile).  x must be bitwise equal (one fp32 add,
     rounded once); the stats are fp32 row sums in another order, and
-    rstd a reciprocal square root: atol 1e-6, rtol 1e-6."""
+    rstd a reciprocal square root: atol 1e-6, rtol 1e-6.  At the harness
+    shape, kernel and twin are timed one call at a time (``ms``), back to
+    back (``run_ms``) and replayed from a CUDA graph (``graph_ms``, the
+    device time without the Triton launch's host time)."""
     from mas_tpu_torch.ops import ln_producer
 
     out, err = {}, 0.0
@@ -1600,11 +1619,21 @@ def check_b11(gen) -> dict:
         print(f"B11 [{rows},{d}] {dtype}: x bitwise equal, stats max err "
               f"{max_err(st, pst):.3e}")
         if dtype == torch.bfloat16:
-            out["ms"] = timed_ms(lambda: ln_producer.add_stats(a, b))
-            out["plain_ms"] = timed_ms(
-                lambda: ln_producer.add_stats_plain(a, b))
+            kernel = lambda: ln_producer.add_stats(a, b)
+            plain = lambda: ln_producer.add_stats_plain(a, b)
+            out["ms"] = timed_ms(kernel)
+            out["plain_ms"] = timed_ms(plain)
+            for key, fn in (("", kernel), ("plain_", plain)):
+                out[f"{key}graph_ms"] = graph_ms(fn)
+                out[f"{key}run_ms"] = run_ms(fn)
             n = rows * d
             out.update(bound(3 * n * 2 + rows * 8, 6 * n, torch.bfloat16))
+            print(f"B11 [{rows},{d}] bf16 device time: graph "
+                  f"{out['graph_ms']:.4f} ms, back to back "
+                  f"{out['run_ms']:.4f} ms; plain graph "
+                  f"{out['plain_graph_ms']:.4f} ms, back to back "
+                  f"{out['plain_run_ms']:.4f} ms; bound "
+                  f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
     out["library_ms"] = None
     out["max_abs_err"] = err
     return out
@@ -2476,6 +2505,410 @@ def phase_ln_producer(gen, smi: str) -> dict:
     return counts
 
 
+# --- phase 11: VQ-IMG (VQGAN) training at full width -----------------------
+
+IMG_STEPS = 16
+IMG_DISC_START = 8
+
+
+def img_training_configs(tmp: str):
+    """configs/img_512.json as shipped (512^2 RGB, batch 2, channels (128,
+    128, 128, 256, 512, 512), attention at 32^2, K 8192, D 256, bf16 with
+    fp32 master weights, both Adams at accumulation 8, LPIPS, face loss and
+    PatchGAN), cut in time only, in memory: total_steps 16 (2 Adam updates
+    a side); codebook.init_steps 4 and samples_per_image 640, so 16
+    micro-steps run pass-through (counters 1-11), reservoir collection
+    (counter > 4: 10,240 rows of the 12,500 by counter 12, more than
+    K = 8192), k-means re-inits at 12, 14 and 16 and quantization through
+    B5 from 12 (micro-steps 13 and 15 without k-means); loss.disc_start 8,
+    so the GAN terms are gated for micro-steps 1-8 and active for 9-16;
+    lpips_weights and face_weights null as shipped (seeded random towers);
+    checkpoints under ``tmp``."""
+    from mas_tpu_torch.utils.config import (TrainConfig, VQGANLossConfig,
+                                            VQModelConfig)
+
+    with open(IMG_CONFIG) as f:
+        raw = json.load(f)
+    model = dict(raw["model"])
+    model["codebook"] = dict(model["codebook"], init_steps=4,
+                             samples_per_image=640)
+    train = dict(raw["train"], total_steps=IMG_STEPS,
+                 checkpoint_dir=os.path.join(tmp, "ckpt_img"))
+    loss = dict(raw["loss"], disc_start=IMG_DISC_START)
+    return (TrainConfig.from_dict(train), VQModelConfig.from_dict(model),
+            VQGANLossConfig.from_dict(loss), raw)
+
+
+def _changed(module, prev) -> list:
+    """Names of ``module``'s parameters that differ from ``prev``."""
+    names = [n for n, _ in module.named_parameters()]
+    flags = torch.stack([(p != prev[n]).any()
+                         for n, p in module.named_parameters()]).tolist()
+    return [n for n, f in zip(names, flags) if f]
+
+
+def phase_train_image(smi: str, tmp: str) -> dict:
+    """16 micro-steps of img_512 VQGAN training through
+    ``run_pretrain_image`` (``img_training_configs``), with B4, B5 and B8.
+    Checks: every loss finite; disc_factor 0 for micro-steps 1-8 and 1
+    after, d_loss 0 while gated and > 0 after; d_weight finite, and > 0
+    once active; the parameters move only at the Adam updates (micro-steps
+    8 and 16) and the k-means write-backs (the codebook at 12 and 14): at
+    update 1 every VQ parameter but the codebook (no gradient in the
+    pass-through window) and no discriminator parameter (its loss is gated
+    to 0), at update 2 every parameter of both; fp32 parameters; the
+    launch floors of B4, B5 and B8 and no launch of another kernel; a
+    bitwise resume; one micro-step through the kernels against the plain
+    twins (``img_kernels_vs_twins``).  Prints the micro-step's host time,
+    its device busy time and idle share and B4/B5/B8 time and launches
+    from a profile (``breakdown._profile``), and the peak device memory.
+    Returns the launch counts of the 16 micro-steps."""
+    from mas_tpu_torch.breakdown import _profile
+    from mas_tpu_torch.data.dataset import SyntheticImgBatches
+    from mas_tpu_torch.train.loop import (build_img_state, frozen_towers,
+                                          run_pretrain_image)
+    from mas_tpu_torch.train.steps import make_img_train_step
+    from mas_tpu_torch.utils.logging import Logger
+
+    train_cfg, model_cfg, loss_cfg, raw = img_training_configs(tmp)
+    cb = model_cfg.codebook
+    data = raw["data"]
+    source = iter(SyntheticImgBatches(train_cfg.batch_size,
+                                      data["resolution"],
+                                      seed=data.get("seed", 0)))
+    batches = [{k: torch.from_numpy(v).to(DEVICE)
+                for k, v in next(source).items()} for _ in range(IMG_STEPS)]
+    init = build_img_state(train_cfg, model_cfg, DEVICE)
+    prev = {m: {n: p.detach().clone() for n, p in mod.named_parameters()}
+            for m, mod in (("model", init.model), ("disc", init.disc))}
+    del init
+    record, snap, bad = [], {}, []
+    every = {m: len(p) for m, p in prev.items()}
+
+    def on_step(step_no, state, metrics):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        counter = state.vq_state.counter
+        rec = dict(t=t, step=step_no, counter=counter,
+                   trig=bool(metrics["kmeans_triggered"]),
+                   g_update=state.opt.mini_step == 0,
+                   d_update=state.disc_opt.mini_step == 0,
+                   **{k: float(metrics[k]) for k in (
+                       "loss", "nll_loss", "g_loss", "face_loss",
+                       "d_weight", "disc_factor", "q_loss", "d_loss",
+                       "logits_real", "logits_fake")})
+        for m, mod in (("model", state.model), ("disc", state.disc)):
+            moved = _changed(mod, prev[m])
+            update = rec["g_update" if m == "model" else "d_update"]
+            if not update:
+                want = (["quantize.embedding.weight"]
+                        if m == "model" and rec["trig"] else [])
+            elif step_no == IMG_STEPS:
+                want = [n for n, _ in mod.named_parameters()]
+            elif m == "model":
+                want = [n for n, _ in mod.named_parameters()
+                        if n != "quantize.embedding.weight"]
+            else:
+                want = []
+            if sorted(moved) != sorted(want):
+                bad.append(f"micro-step {step_no} {m}: moved "
+                           f"{sorted(set(moved) ^ set(want))[:4]} "
+                           f"({len(moved)} moved, {len(want)} expected)")
+            rec[f"{m}_moved"] = len(moved)
+            prev[m] = {n: p.detach().clone()
+                       for n, p in mod.named_parameters()}
+        if counter == cb.q_init:
+            snap["state"] = copy.deepcopy(state)
+        record.append(rec)
+        rec["t_out"] = time.perf_counter()
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = run_pretrain_image(
+        train_cfg, model_cfg, batches, loss_cfg, raw.get("lpips_weights"),
+        raw.get("face_weights"), DEVICE,
+        logger=Logger(os.path.join(tmp, "logs_img")), on_step=on_step)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train_image: {IMG_STEPS} micro-steps in "
+          f"{time.perf_counter() - t0:.2f} s (first run, includes cuDNN "
+          f"autotuning); launches {counts}; peak device memory "
+          f"{peak_gb:.2f} GiB [{smi}]")
+    for r in record:
+        print("train_image step {step} counter {counter}: loss {loss:.5f} "
+              "nll {nll_loss:.5f} g {g_loss:.5f} face {face_loss:.5f} "
+              "d_weight {d_weight:.4g} disc_factor {disc_factor:g} q "
+              "{q_loss:.5f} d_loss {d_loss:.5f} kmeans {trig} moved "
+              "{model_moved}/{disc_moved}".format(**r))
+
+    require(len(record) == IMG_STEPS and state.step == IMG_STEPS,
+            f"ran {len(record)} micro-steps")
+    keys = ("loss", "nll_loss", "g_loss", "face_loss", "d_weight", "q_loss",
+            "d_loss", "logits_real", "logits_fake")
+    require(all(math.isfinite(r[k]) for r in record for k in keys),
+            "losses are finite")
+    gated = [r for r in record if r["step"] <= IMG_DISC_START]
+    active = [r for r in record if r["step"] > IMG_DISC_START]
+    require(all(r["disc_factor"] == 0.0 and r["d_loss"] == 0.0
+                for r in gated), "disc_factor and d_loss 0 while gated")
+    require(all(r["disc_factor"] == 1.0 and r["d_loss"] > 0.0
+                and r["d_weight"] > 0.0 for r in active),
+            "disc_factor 1, d_loss > 0 and d_weight > 0 once active")
+    fired = [r["counter"] for r in record if r["trig"]]
+    require(fired == [12, 14, 16], f"k-means fired at {fired}")
+    require(state.opt.count == state.disc_opt.count == 2,
+            f"Adam updates {state.opt.count} / {state.disc_opt.count}")
+    require(not bad, "parameter updates: " + "; ".join(bad))
+    print(f"parameters: all {every['model']} VQ and {every['disc']} "
+          "discriminator parameters moved exactly at their updates")
+    require(all(p.dtype == torch.float32 for p in
+                list(state.model.parameters())
+                + list(state.disc.parameters())), "fp32 parameters")
+    n_gns = count_gns(state.model)
+    quantizing = sum(r["counter"] >= cb.q_init for r in record)
+    floors = {"B4": n_gns * IMG_STEPS, "B5": quantizing,
+              "B8": n_gns * IMG_STEPS}
+    for kid, floor in floors.items():
+        require(counts[kid] >= floor, f"{kid} launched {counts[kid]} times "
+                f"in image training, expected >= {floor}")
+    others = {k: v for k, v in counts.items() if k not in floors and v}
+    require(not others, f"other kernels launched in image training: "
+            f"{others}")
+
+    step_ms = {r["step"]: 1e3 * (r["t"] - prev_r["t_out"])
+               for prev_r, r in zip(record, record[1:])}
+    quant = [step_ms[s] for s in (13, 15)]
+    passing = [step_ms[s] for s in range(3, 8)]
+    print(f"train_image micro-step, host clock between synchronized steps: "
+          f"quantize phase (13, 15) {quant[0]:.1f} / {quant[1]:.1f} ms; "
+          f"pass-through (3-7, GAN gated) median "
+          f"{statistics.median(passing):.1f} ms; Adam update micro-step 8 "
+          f"{step_ms[8]:.1f} ms; k-means micro-steps 12 / 14 "
+          f"{step_ms[12]:.1f} / {step_ms[14]:.1f} ms [{smi}]")
+
+    img_resume_check(train_cfg, model_cfg, state)
+    lpips, face = frozen_towers(loss_cfg, DEVICE)
+    batch = batches[-1]
+    for tf32 in (False, True):
+        # TF32 off as this script runs everything; on is PyTorch's
+        # default for cuDNN convolutions, as the CLI runs the step
+        torch.backends.cudnn.allow_tf32 = tf32
+        prof = copy.deepcopy(state)
+        prof.vq_state = dataclasses.replace(prof.vq_state,
+                                            counter=cb.q_re_end)
+        step = make_img_train_step(prof.model, prof.disc, prof.opt,
+                                   prof.disc_opt, loss_cfg, lpips, face)
+        gen = torch.Generator(device=DEVICE).manual_seed(17)
+        res = _profile(lambda: step(prof, batch["image"], batch["bbox_obj"],
+                                    batch["bbox_face"], gen), 3)
+        torch.backends.cudnn.allow_tf32 = False
+        ported = res["ported_kernels_ms_per_call"]
+        mode = "on" if tf32 else "off"
+        print(f"train_image GAN micro-step, cudnn tf32 {mode}, quantize "
+              "phase past the k-means window, profiled "
+              f"over 3 (no Adam update): host {res['host_ms']:.1f} ms, "
+              f"device busy {res['device_busy_ms']:.1f} ms, idle share "
+              f"{100 * res['device_idle_share']:.1f}%; per micro-step "
+              + ", ".join(f"{k} {ported[k][0]:.3f} ms / {ported[k][1]} "
+                          "launches" for k in ("B4", "B5", "B8")
+                          if k in ported) + f"; peak device memory "
+              f"{peak_gb:.2f} GiB [{smi}]")
+        print("train_image top kernels (name, ms, launches per "
+              "micro-step): " + json.dumps(res["top_kernels_ms_per_call"]))
+        for kid in ("B4", "B5", "B8"):
+            require(kid in ported, f"{kid} not in the profile of the "
+                    "micro-step")
+        del prof, step
+    img_kernels_vs_twins(snap.pop("state"), batches[IMG_STEPS // 2 + 4],
+                         loss_cfg, lpips, face)
+    return counts
+
+
+def img_resume_check(train_cfg, model_cfg, state) -> None:
+    """The checkpoint written at the end resumes bitwise: both models (BN
+    statistics included), the codebook state and both Adams."""
+    from mas_tpu_torch.train.loop import build_img_state
+
+    resumed = build_img_state(dataclasses.replace(train_cfg, resume=True),
+                              model_cfg, DEVICE)
+    require(resumed.step == state.step
+            and resumed.vq_state.counter == state.vq_state.counter
+            and resumed.vq_state.filled == state.vq_state.filled
+            and torch.equal(resumed.vq_state.reservoir,
+                            state.vq_state.reservoir), "resume: codebook")
+    for what in ("model", "disc"):
+        mine, theirs = (getattr(s, what).state_dict()
+                        for s in (resumed, state))
+        for k, v in theirs.items():
+            require(torch.equal(mine[k], v), f"resume: {what} {k}")
+    for what in ("opt", "disc_opt"):
+        a, b = (getattr(s, what).state_dict() for s in (resumed, state))
+        require((a["count"], a["mini_step"]) == (b["count"], b["mini_step"]),
+                f"resume: {what} counters")
+        for part in ("mu", "nu", "acc"):
+            for k, v in b[part].items():
+                require(torch.equal(a[part][k], v),
+                        f"resume: {what} {part} {k}")
+    print(f"resume: step {resumed.step}, counter {resumed.vq_state.counter}:"
+          " VQ model, discriminator, codebook state and both Adams bitwise "
+          "equal")
+
+
+def img_kernels_vs_twins(state, batch, loss_cfg, lpips, face) -> None:
+    """One generator micro-step at counter 13 (quantized, no k-means, GAN
+    active) from copies of the state after micro-step 12, four times:
+    through B4/B5/B8 in bf16 ("kernel"); with the plain twins of B4 and B8
+    patched in ("twin"); and both again with the VQ model computing in
+    fp32 ("kernel fp32", "fp32", the reference).  All but the first take
+    its indices: latents that differ by the GroupNorms' rounding pick other
+    codes among near-ties, which would move the decoder's input and every
+    gradient after it; B5 itself is held to its rule
+    (``vq.argmin_agrees``) against the plain twin on the first run's own
+    latents.
+
+    The adaptive weight d_weight is a ratio of gradient norms through
+    VGG16's ReLUs, and the total loss carries it some 15-fold (d_weight
+    ~17 x g ~0.44 against a total of ~3.5), so the total is compared at
+    one d_weight, the fp32 run's.  bf16 leaves the step ill-conditioned:
+    in either bf16 run the gradients lie ~16% (median over tensors, up to
+    40%) from the fp32 ones and d_weight 0.1-4.2% from its fp32 value
+    (PERF.md, section 6).  Tolerances:
+      * bf16, kernel vs twin: the nll, g, face and q losses and the total
+        at the fp32 d_weight rel <= 1e-2 (phase 7's bound); d_weight
+        within 10% of the fp32 value; the median over tensors of ||g -
+        g32|| / ||g32|| at most 1.25 x the twin's plus 0.01, and no tensor
+        off by more than 3 x the twin's error plus 5% of ||g32|| plus
+        1e-4 x the largest ||g32|| (gradients that are zero up to
+        rounding);
+      * fp32, kernel vs twin (phase 5's setting, the kernels' fp32
+        instances): the loss terms and the total at the fp32 d_weight rel
+        <= 1e-3, d_weight rel <= 1e-2, each gradient within 2% of its
+        norm plus 1e-4 x the largest gradient norm.
+    Also: the conv outputs of the VQ model are bf16 and the towers'
+    fp32."""
+    from mas_tpu_torch.ops import gn_swish, vq
+    from mas_tpu_torch.train.steps import img_generator_loss_and_grads
+
+    dtypes = {"model": set(), "towers": set()}
+    hooks = []
+    for what, mods in (("model", [state.model]), ("towers", [lpips, face])):
+        for mod in mods:
+            for m in mod.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    hooks.append(m.register_forward_hook(
+                        lambda m_, i, o, w=what: dtypes[w].add(o.dtype)))
+
+    def run(fp32=False, **patches):
+        st = copy.deepcopy(state)
+        if fp32:
+            st.model.dtype = torch.float32
+        gen = torch.Generator(device=DEVICE).manual_seed(13)
+        st.model.train()
+        with ExitStack() as stack:
+            for name, fn in patches.items():
+                mod = vq if name == "vq_argmin" else gn_swish
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            m, aux, grads = img_generator_loss_and_grads(
+                st.model, st.disc, lpips, face, st.vq_state, batch["image"],
+                batch["bbox_obj"], batch["bbox_face"], st.step, gen,
+                loss_cfg)
+        m = {k: float(v) for k, v in m.items()}
+        m["q_loss"] = float(aux["q_loss"])
+        return m, aux, grads
+
+    km, aux, kg = run()
+    for h in hooks:
+        h.remove()
+    idx = aux["indices"].reshape(-1)
+    same = dict(vq_argmin=lambda z, cb: idx)
+    twins = dict(same, gn_swish=gn_swish.gn_swish_plain,
+                 gn_swish_bwd=gn_swish.gn_swish_bwd_plain)
+    tm, _, tg = run(**twins)
+    k32m, _, k32g = run(fp32=True, **same)
+    rm, _, rg = run(fp32=True, **twins)
+    torch.cuda.synchronize()
+    require(aux["vq_state"].counter == 13 and not aux["kmeans_triggered"]
+            and km["disc_factor"] == 1.0, "kernels-vs-twins micro-step runs "
+            "at counter 13 with the GAN active")
+    emb = state.model.quantize.embedding.weight
+    z = aux["latent"].reshape(-1, emb.shape[1])
+    own = vq.vq_argmin_plain(z, emb.to(z.dtype))
+    require(vq.argmin_agrees(z, emb.to(z.dtype), idx, own),
+            f"B5 indices vs the twin on the kernel's latents "
+            f"({int((idx != own).sum())} of {len(own)} rows differ)")
+    terms = ("loss", "nll_loss", "g_loss", "face_loss", "q_loss",
+             "d_weight")
+    for name, m in (("kernel", km), ("twin", tm), ("kernel fp32", k32m),
+                    ("fp32", rm)):
+        print(f"kernels vs twins, {name}: "
+              + ", ".join(f"{k} {m[k]!r}" for k in terms))
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def total(m):
+        """The loss at the fp32 run's d_weight."""
+        return (m["nll_loss"] + rm["d_weight"] * m["disc_factor"]
+                * m["g_loss"] + loss_cfg.codebook_weight * m["q_loss"]
+                + m["face_loss"])
+
+    for m in (km, tm, k32m, rm):
+        m["total"] = total(m)
+    checked = ("total", "nll_loss", "g_loss", "face_loss", "q_loss")
+    bad = [f"bf16 {k} rel {rel(km[k], tm[k]):.2e}" for k in checked
+           if rel(km[k], tm[k]) > 1e-2]
+    bad += [f"fp32 {k} rel {rel(k32m[k], rm[k]):.2e}" for k in checked
+            if rel(k32m[k], rm[k]) > 1e-3]
+    dw16 = rel(km["d_weight"], rm["d_weight"])
+    if dw16 > 0.1:
+        bad.append(f"bf16 d_weight rel {dw16:.2e} to fp32")
+    dw32 = rel(k32m["d_weight"], rm["d_weight"])
+    if dw32 > 1e-2:
+        bad.append(f"fp32 d_weight rel {dw32:.2e}")
+    top = max(float(g.norm()) for g in rg)
+    worst16 = worst32 = 0.0
+    k_rel, t_rel = [], []
+    names = [n for n, _ in state.model.named_parameters()]
+    for name, g, pg, g32k, g32 in zip(names, kg, tg, k32g, rg):
+        ref = float(g32.norm())
+        dk, dt = float((g - g32).norm()), float((pg - g32).norm())
+        k_rel.append(dk / max(ref, 1e-30))
+        t_rel.append(dt / max(ref, 1e-30))
+        allowed = 3 * dt + 0.05 * ref + 1e-4 * top
+        worst16 = max(worst16, dk / allowed)
+        if dk > allowed:
+            bad.append(f"bf16 {name}: ||g - g32|| {dk:.3e}, twin {dt:.3e},"
+                       f" ||g32|| {ref:.3e}")
+        d32, allowed = float((g32k - g32).norm()), 0.02 * ref + 1e-4 * top
+        worst32 = max(worst32, d32 / allowed)
+        if d32 > allowed:
+            bad.append(f"fp32 {name}: ||g - g32|| {d32:.3e}, ||g32|| "
+                       f"{ref:.3e}")
+    med_k, med_t = statistics.median(k_rel), statistics.median(t_rel)
+    if med_k > 1.25 * med_t + 0.01:
+        bad.append(f"bf16 gradients off fp32, median {med_k:.3f} (twin "
+                   f"{med_t:.3f})")
+    print(f"kernels vs twins, one GAN micro-step at counter 13: bf16 loss "
+          f"rel {rel(km['loss'], tm['loss']):.2e}, at the fp32 d_weight "
+          f"{rel(km['total'], tm['total']):.2e}; bf16 d_weight rel to fp32 "
+          f"{dw16:.2e} (twin {rel(tm['d_weight'], rm['d_weight']):.2e}); "
+          f"bf16 gradients off fp32, median over tensors {med_k:.3f} (twin "
+          f"{med_t:.3f}), worst / allowed {worst16:.3f}; fp32 loss rel "
+          f"{rel(k32m['loss'], rm['loss']):.2e}, at one d_weight "
+          f"{rel(k32m['total'], rm['total']):.2e}, d_weight rel {dw32:.2e},"
+          f" gradients worst / allowed {worst32:.3f}; B5 rows equal to the "
+          f"twin's on the same latents "
+          f"{float((idx == own).float().mean()):.4f}; conv outputs "
+          f"{sorted(map(str, dtypes['model']))} (VQ model), "
+          f"{sorted(map(str, dtypes['towers']))} (LPIPS, FaceNet)")
+    require(dtypes["model"] == {torch.bfloat16}
+            and dtypes["towers"] == {torch.float32}, "conv compute dtypes")
+    require(not bad, "kernels-vs-twins: " + "; ".join(bad))
+
+
 def main(argv) -> int:
     modes = {"--decode-times": decode_times, "--norm-times": norm_times,
              "--vq-times": vq_times, "--vq-paths": vq_paths}
@@ -2496,6 +2929,8 @@ def main(argv) -> int:
         counts, checkpoint = phase_train_transformer(smi, tmp)
         paths += [counts, phase_serve_512(gen, smi, checkpoint)]
     paths += [phase_packed(gen, smi), phase_ln_producer(gen, smi)]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.append(phase_train_image(smi, tmp))
     for row in rows:
         row["launches"] = sum(counts[row["id"]] for counts in paths)
         require(row["launches"] > 0, f"{row['id']} launched on no path")

@@ -1,5 +1,6 @@
 """Command-line entry point of the PyTorch port: ``--mode sample``,
-``--mode pretrain_segmentation`` and ``--mode train_transformer``.
+``--mode pretrain_segmentation``, ``--mode pretrain_image`` and ``--mode
+train_transformer``.
 
 ``sample`` is the counterpart of ``mas_tpu/cli.py::_run_sample``: it
 tokenizes the config's captions, samples image tokens with guidance and
@@ -9,10 +10,13 @@ does.  ``transformer_checkpoint`` / ``vq_checkpoint`` may name a
 reference-layout ``.pt``, as the JAX package's ``--mode export`` writes
 it, or a checkpoint of the port's VQ-SEG or transformer training.
 
-``pretrain_segmentation`` trains VQ-SEG and ``train_transformer`` the
-transformer (``train/loop.py``) on the config's ``data`` section; only
-``kind: synthetic`` is ported (ROADMAP A13).  Every other mode raises: it
-is not ported yet (ROADMAP A10, A11).
+``pretrain_segmentation`` trains VQ-SEG, ``pretrain_image`` VQ-IMG (the
+VQGAN, with the config's ``loss`` section and the LPIPS and face towers
+from the torch checkpoints ``lpips_weights`` / ``face_weights``, seeded
+random where those are null) and ``train_transformer`` the transformer
+(``train/loop.py``) on the config's ``data`` section; only ``kind:
+synthetic`` is ported (ROADMAP A13).  Every other mode raises: it is not
+ported yet (ROADMAP A11).
 
 As in ``mas_tpu/cli.py::main``, every mode builds a ``TrainConfig`` from
 the whole ``train`` section (a mode that does not train validates as
@@ -24,6 +28,8 @@ Usage:
     python -m mas_tpu_torch.cli --config configs/sample_256.json --device cuda
     python -m mas_tpu_torch.cli --config configs/seg_256.json \
         --mode pretrain_segmentation --device cuda
+    python -m mas_tpu_torch.cli --config configs/img_512.json \
+        --mode pretrain_image --device cuda
     python -m mas_tpu_torch.cli --config configs/transformer_512.json \
         --mode train_transformer --device cuda
 
@@ -45,7 +51,8 @@ from .models.sampler import sample_images
 from .models.transformer import MakeAScene
 from .models.vqvae import VQModel
 from .utils.config import (SegLossConfig, TrainConfig, TransformerConfig,
-                           VQModelConfig, vq_seg_config)
+                           VQGANLossConfig, VQModelConfig, vq_img_config,
+                           vq_seg_config)
 from .utils.logging import make_grid, save_image
 from .utils.weights import init_random_, load_reference_pt, serving_state
 
@@ -125,10 +132,11 @@ def run_sample(raw: Dict[str, Any], train_cfg: TrainConfig, device) -> str:
 
 def data_iter(data_cfg: Dict[str, Any], batch_size: int, model_cfg):
     """The host batch iterator of the config's ``data`` section, as
-    ``mas_tpu/cli.py::_data_iter``: seg maps for a ``VQModelConfig``
-    (VQ-SEG training), tokens for a ``TransformerConfig``; the port has the
-    synthetic kind."""
-    from .data.dataset import SyntheticSegBatches, SyntheticTokenBatches
+    ``mas_tpu/cli.py::_data_iter``: RGB images and boxes for a 3-channel
+    ``VQModelConfig`` (VQ-IMG training), seg maps for another one (VQ-SEG),
+    tokens for a ``TransformerConfig``; the port has the synthetic kind."""
+    from .data.dataset import (SyntheticImgBatches, SyntheticSegBatches,
+                               SyntheticTokenBatches)
 
     kind = data_cfg.get("kind", "synthetic")
     if kind != "synthetic":
@@ -139,6 +147,8 @@ def data_iter(data_cfg: Dict[str, Any], batch_size: int, model_cfg):
     if isinstance(model_cfg, TransformerConfig):
         return iter(SyntheticTokenBatches(batch_size, model_cfg, seed))
     res = data_cfg.get("resolution", model_cfg.resolution)
+    if model_cfg.in_channels == 3:
+        return iter(SyntheticImgBatches(batch_size, res, seed=seed))
     return iter(SyntheticSegBatches(batch_size, res, seed))
 
 
@@ -153,6 +163,18 @@ def run_pretrain_segmentation(raw: Dict[str, Any], train_cfg: TrainConfig,
     return run(train_cfg, model_cfg, batches, loss_cfg, device)
 
 
+def run_pretrain_image(raw: Dict[str, Any], train_cfg: TrainConfig,
+                       device):
+    from .train.loop import run_pretrain_image as run
+
+    model_cfg = (VQModelConfig.from_dict(raw["model"]) if "model" in raw
+                 else vq_img_config())
+    loss_cfg = VQGANLossConfig.from_dict(raw.get("loss", {}))
+    batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
+    return run(train_cfg, model_cfg, batches, loss_cfg,
+               raw.get("lpips_weights"), raw.get("face_weights"), device)
+
+
 def run_train_transformer(raw: Dict[str, Any], train_cfg: TrainConfig,
                           device):
     from .train.loop import run_train_transformer as run
@@ -164,6 +186,7 @@ def run_train_transformer(raw: Dict[str, Any], train_cfg: TrainConfig,
 
 
 _TRAIN_MODES = {"pretrain_segmentation": run_pretrain_segmentation,
+                "pretrain_image": run_pretrain_image,
                 "train_transformer": run_train_transformer}
 
 
@@ -191,8 +214,8 @@ def main(argv=None) -> int:
     if mode != "sample":
         raise NotImplementedError(
             f"mode {mode!r} is not ported to mas_tpu_torch yet (ROADMAP "
-            "A10, A11); only 'sample', 'pretrain_segmentation' and "
-            "'train_transformer' are")
+            "A11); only 'sample', 'pretrain_segmentation', "
+            "'pretrain_image' and 'train_transformer' are")
     print(run_sample(raw, train_cfg, device))
     return 0
 

@@ -7,6 +7,9 @@ contiguous NHWC tensor for the GroupNorm+swish kernel (``x.permute(0, 2,
 3, 1)`` costs no copy) and the layout cuDNN prefers for the convs.  Conv
 weights keep the reference's OIHW layout and ``.weight`` names.
 
+Convs are ``Conv2d``: an ``nn.Conv2d`` that casts its weight and bias to
+the input's dtype at use, so a model trained with fp32 master weights
+computes in bf16 (a no-op where the weights already have that dtype).
 Conv 3x3 "SAME" is padding 1; Upsample is nearest 2x then a 3x3 conv;
 Downsample pads bottom/right by one, then a stride-2 VALID 3x3 conv;
 AttnBlock is plain matmul -> fp32 softmax -> matmul, as the JAX einsums.
@@ -55,8 +58,17 @@ class GroupNorm(_Norm):
                                 self.num_groups, self.eps))
 
 
-def conv(cin: int, cout: int, kernel: int = 3) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, padding=kernel // 2)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype: weight and bias are
+    cast at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def conv(cin: int, cout: int, kernel: int = 3) -> Conv2d:
+    return Conv2d(cin, cout, kernel, padding=kernel // 2)
 
 
 class ResnetBlock(nn.Module):
@@ -121,7 +133,7 @@ class Downsample(nn.Module):
 
     def __init__(self, c: int):
         super().__init__()
-        self.conv = nn.Conv2d(c, c, 3, stride=2)
+        self.conv = Conv2d(c, c, 3, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.pad(x, (0, 1, 0, 1))
@@ -147,18 +159,25 @@ class SyncBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """x NCHW; ``train``: batch statistics, and update the running
-        ones in place."""
+    def batch_stats(self, xf: torch.Tensor):
+        """fp32 NCHW -> per-channel (mean, biased variance)."""
+        mean = xf.mean(dim=(0, 2, 3))
+        return mean, xf.square().mean(dim=(0, 2, 3)) - mean.square()
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update: bool = True) -> torch.Tensor:
+        """x NCHW; ``train``: batch statistics, and with ``update`` the
+        running ones updated in place."""
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
-            m = self.momentum
-            with torch.no_grad():
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            mean, var = self.batch_stats(xf)
+            if update:
+                m = self.momentum
+                with torch.no_grad():
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight

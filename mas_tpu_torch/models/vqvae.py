@@ -18,6 +18,13 @@ separate Swish module after ``norm_out`` is fused into ``norm_out`` here,
 and its index holds an ``nn.Identity`` so the later indices keep their
 numbers.
 
+``fp32_params=True`` (training) keeps the conv weights in fp32 and casts
+them to the compute dtype at use (``layers.Conv2d``), as flax keeps fp32
+params under a bf16 ``dtype``; otherwise a bf16 model casts them once
+(serving).  ``decode_trunk`` / ``decode_final`` split the decoder before
+its last conv, whose fp32 weight (``last_layer``) the VQGAN loss's
+adaptive weight differentiates against.
+
 Public tensors are NHWC, as in the JAX package.  Training-mode
 quantization lives in the train step (``codebook.quantize_train``: it
 carries the phase state and a generator).
@@ -134,6 +141,14 @@ class Decoder(nn.Module):
                 layers.append(conv(block_in, cfg.out_channels))
         self.model = nn.Sequential(*layers)
 
+    def trunk(self, z: torch.Tensor) -> torch.Tensor:
+        """Everything up to ``norm_out`` (and its Identity)."""
+        return self.model[:-1](z)
+
+    def final(self, h: torch.Tensor) -> torch.Tensor:
+        """``conv_out`` alone."""
+        return self.model[-1](h)
+
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.model(z)
 
@@ -147,7 +162,7 @@ class VQModel(nn.Module):
     """encode -> quant_conv (+SyncBatchNorm) -> codebook ->
     post_quant_conv -> decode."""
 
-    def __init__(self, cfg: VQModelConfig):
+    def __init__(self, cfg: VQModelConfig, fp32_params: bool = False):
         super().__init__()
         if cfg.embed_dim != cfg.codebook.codebook_dim:
             raise ValueError("embed_dim must equal codebook.codebook_dim")
@@ -161,9 +176,15 @@ class VQModel(nn.Module):
         self.quantize = Codebook(cfg.codebook.codebook_size,
                                  cfg.codebook.codebook_dim)
         # convs run in the compute dtype; norms and the codebook stay fp32
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                m.to(self.dtype)
+        if not fp32_params:
+            for m in self.modules():
+                if isinstance(m, nn.Conv2d):
+                    m.to(self.dtype)
+
+    @property
+    def last_layer(self) -> torch.Tensor:
+        """The decoder's ``conv_out`` weight."""
+        return self.decoder.model[-1].weight
 
     def encode_latent(self, x: torch.Tensor,
                       train: bool = False) -> torch.Tensor:
@@ -175,6 +196,17 @@ class VQModel(nn.Module):
     def decode_latent(self, z_q: torch.Tensor) -> torch.Tensor:
         """NHWC quantized latent -> NHWC fp32 reconstruction."""
         out = self.decoder(self.post_quant_conv(_to_nchw(z_q, self.dtype)))
+        return out.float().permute(0, 2, 3, 1).contiguous()
+
+    def decode_trunk(self, z_q: torch.Tensor) -> torch.Tensor:
+        """NHWC quantized latent -> NHWC activations ahead of the final
+        conv, in the compute dtype."""
+        h = self.decoder.trunk(self.post_quant_conv(_to_nchw(z_q, self.dtype)))
+        return h.permute(0, 2, 3, 1)
+
+    def decode_final(self, h: torch.Tensor) -> torch.Tensor:
+        """NHWC ``decode_trunk`` output -> NHWC fp32 reconstruction."""
+        out = self.decoder.final(_to_nchw(h, self.dtype))
         return out.float().permute(0, 2, 3, 1).contiguous()
 
     def encode(self, x: torch.Tensor):

@@ -1,9 +1,10 @@
-"""Training loops of the VQ-SEG stage and of the transformer, as
-``mas_tpu/train/loop.py::run_pretrain_segmentation`` and
-``run_train_transformer`` with their shared ``_loop``: build the state,
-resume from the latest checkpoint when asked, then step, log scalars and
+"""Training loops of the VQ-SEG and VQ-IMG stages and of the transformer,
+as ``mas_tpu/train/loop.py::run_pretrain_segmentation``,
+``run_pretrain_image`` and ``run_train_transformer`` with their shared
+``_loop``: build the state, resume from the latest checkpoint when asked,
+then step, log scalars (and VQ-IMG's input / reconstruction grids) and
 checkpoint.  Batches are dicts of numpy arrays or tensors; they are moved
-to the device in the loop.  Image grids (``Visualizer``) are not ported
+to the device in the loop.  Seg-map grids (``Visualizer``) are not ported
 yet (ROADMAP A11).
 """
 
@@ -16,14 +17,18 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..losses.face_loss import FaceNet, load_face_params_from_torch
+from ..losses.lpips import LPIPS, load_lpips_params_from_torch
 from ..utils.checkpoint import latest_step, restore_checkpoint, \
     save_checkpoint
 from ..utils.config import (SegLossConfig, TrainConfig, TransformerConfig,
-                            VQModelConfig)
+                            VQGANLossConfig, VQModelConfig)
 from ..utils.logging import Logger
+from ..utils.weights import init_random_
 from .state import (TransformerTrainState, VQTrainState,
                     create_transformer_train_state, create_vq_train_state)
-from .steps import make_seg_train_step, make_transformer_train_step
+from .steps import (make_img_train_step, make_seg_train_step,
+                    make_transformer_train_step, to_float_image)
 
 
 def step_generator(seed: int, start: int, device) -> torch.Generator:
@@ -44,11 +49,12 @@ def _scalars(metrics: Dict) -> Dict[str, float]:
 
 def _loop(cfg: TrainConfig, state, step_fn: Callable, batches: Iterable,
           to_step_args: Callable[[Dict], Tuple], device, logger: Logger,
-          on_step: Optional[Callable] = None):
+          on_step: Optional[Callable] = None,
+          image_fn: Optional[Callable] = None):
     """Step ``step_fn(state, *to_step_args(batch), generator)`` until
-    ``total_steps``; log every ``log_period``, checkpoint every
-    ``save_period`` and at the end.  ``on_step(step, state, metrics)`` runs
-    after every micro-step."""
+    ``total_steps``; log every ``log_period`` (and call ``image_fn(step,
+    state, batch)`` there), checkpoint every ``save_period`` and at the
+    end.  ``on_step(step, state, metrics)`` runs after every micro-step."""
     start = state.step
     if start >= cfg.total_steps:
         print(f"resume at step {start} >= total_steps {cfg.total_steps}; "
@@ -70,6 +76,8 @@ def _loop(cfg: TrainConfig, state, step_fn: Callable, batches: Iterable,
             rate = cfg.log_period / max(time.perf_counter() - t0, 1e-9)
             t0 = time.perf_counter()
             logger.log(step_no + 1, steps_per_sec=rate, **scalars)
+            if image_fn is not None:
+                image_fn(step_no + 1, state, batch)
         if (step_no + 1) % cfg.save_period == 0 or \
                 step_no + 1 == cfg.total_steps:
             save_checkpoint(cfg.checkpoint_dir, state)
@@ -119,6 +127,76 @@ def run_pretrain_segmentation(train_cfg: TrainConfig,
     key = "seg_packed" if packed else "mask"
     return _loop(train_cfg, state, step, rest, lambda b: (b[key],), device,
                  logger or Logger(), on_step)
+
+
+def build_img_state(train_cfg: TrainConfig, model_cfg: VQModelConfig,
+                    device) -> VQTrainState:
+    """Seeded initial VQ-IMG state (VQ model, discriminator, both Adams at
+    the lr divided by their accumulation, as the reference's image stage),
+    or the latest checkpoint's (``_maybe_resume``)."""
+    init = torch.Generator(device=device).manual_seed(train_cfg.seed)
+    return _maybe_resume(train_cfg, create_vq_train_state(
+        model_cfg, train_cfg.optimizer, init, device,
+        disc_opt_cfg=train_cfg.disc_optimizer))
+
+
+def frozen_towers(loss_cfg: VQGANLossConfig, device,
+                  lpips_params_path: Optional[str] = None,
+                  face_params_path: Optional[str] = None):
+    """(LPIPS, FaceNet or None) on ``device``, in eval mode with no
+    gradient to their weights: from the torch checkpoints named, or a
+    seeded random init (seeds 1 and 2) where a path is absent."""
+    def build(cls, path, load, seed):
+        with torch.device(device):
+            tower = cls()
+        if path:
+            tower.load_state_dict(load(path), strict=True)
+        else:
+            init_random_(tower, torch.Generator(device=device)
+                         .manual_seed(seed))
+        return tower.eval().requires_grad_(False)
+
+    lpips = build(LPIPS, lpips_params_path, load_lpips_params_from_torch, 1)
+    face = (build(FaceNet, face_params_path, load_face_params_from_torch, 2)
+            if loss_cfg.face_loss else None)
+    return lpips, face
+
+
+def run_pretrain_image(train_cfg: TrainConfig, model_cfg: VQModelConfig,
+                       batches: Iterable[Dict],
+                       loss_cfg: VQGANLossConfig = VQGANLossConfig(),
+                       lpips_params_path: Optional[str] = None,
+                       face_params_path: Optional[str] = None,
+                       device="cuda", logger: Optional[Logger] = None,
+                       on_step: Optional[Callable] = None) -> VQTrainState:
+    """VQ-IMG stage.  Batches carry ``image`` [B, H, W, 3] (uint8 or
+    float) and padded ``bbox_obj`` / ``bbox_face`` [B, M, 4].  Every
+    ``logger.image_period`` steps at a log step, the first 4 images and
+    their eval-mode reconstructions go to the logger, unquantized during
+    the codebook's pass-through window, as the train step decodes
+    them."""
+    state = build_img_state(train_cfg, model_cfg, device)
+    lpips, face = frozen_towers(loss_cfg, device, lpips_params_path,
+                                face_params_path)
+    step = make_img_train_step(state.model, state.disc, state.opt,
+                               state.disc_opt, loss_cfg, lpips, face)
+    logger = logger or Logger()
+
+    def image_fn(step_no, st, batch):
+        if step_no % logger.image_period:
+            return
+        images = to_float_image(torch.as_tensor(batch["image"][:4])
+                                .to(device))
+        quantize = st.vq_state.counter >= model_cfg.codebook.q_init
+        st.model.eval()
+        with torch.no_grad():
+            recon = st.model.reconstruct(images, quantize=quantize)
+        logger.log(step_no, img=images.cpu().numpy(),
+                   img_rec=recon.clamp(0.0, 1.0).cpu().numpy())
+
+    return _loop(train_cfg, state, step, batches,
+                 lambda b: (b["image"], b["bbox_obj"], b["bbox_face"]),
+                 device, logger, on_step, image_fn)
 
 
 def build_transformer_state(train_cfg: TrainConfig,

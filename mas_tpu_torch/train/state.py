@@ -11,10 +11,11 @@ change in between.  Updates are in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
+from ..losses.discriminator import PatchDiscriminator
 from ..models.codebook import CodebookState, codebook_init_state
 from ..models.transformer import MakeAScene
 from ..models.vqvae import VQModel
@@ -98,27 +99,37 @@ def make_adam(cfg: OptimizerConfig,
 @dataclass
 class VQTrainState:
     step: int                  # micro-steps taken
-    model: VQModel             # parameters and BN running statistics
+    model: VQModel             # fp32 parameters and BN running statistics
     vq_state: CodebookState
     opt: Adam
+    # VQ-IMG only: the discriminator (parameters and BN statistics) and
+    # its optimizer
+    disc: Optional[PatchDiscriminator] = None
+    disc_opt: Optional[Adam] = None
 
 
 def create_vq_train_state(cfg: VQModelConfig, opt_cfg: OptimizerConfig,
                           generator: torch.Generator, device,
-                          rescale_lr: bool = True) -> VQTrainState:
-    """A VQModel on ``device`` with seeded random weights, a fresh codebook
-    state and Adam.  The port trains in fp32: its bf16 models hold bf16
-    conv weights, with no fp32 master copy (ROADMAP A10)."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "training a bfloat16 VQModel (fp32 master weights) is not "
-            "ported to mas_tpu_torch (ROADMAP A10)")
+                          rescale_lr: bool = True,
+                          disc_opt_cfg: Optional[OptimizerConfig] = None
+                          ) -> VQTrainState:
+    """A VQModel on ``device`` with fp32 parameters (cast to the compute
+    dtype at use), seeded random weights, a fresh codebook state and Adam;
+    with ``disc_opt_cfg`` (VQ-IMG) also a ``PatchDiscriminator`` over the
+    model's output channels with its Adam, at the same ``rescale_lr``."""
     with torch.device(device):
-        model = VQModel(cfg)
+        model = VQModel(cfg, fp32_params=True)
     init_random_(model, generator)
     opt = make_adam(opt_cfg, model.named_parameters(), rescale_lr)
-    return VQTrainState(0, model, codebook_init_state(cfg.codebook, device),
-                        opt)
+    state = VQTrainState(0, model, codebook_init_state(cfg.codebook, device),
+                         opt)
+    if disc_opt_cfg is not None:
+        with torch.device(device):
+            state.disc = PatchDiscriminator(cfg.out_channels)
+        state.disc.init_weights_(generator)
+        state.disc_opt = make_adam(disc_opt_cfg,
+                                   state.disc.named_parameters(), rescale_lr)
+    return state
 
 
 @dataclass

@@ -7,23 +7,35 @@ the codebook when this micro-step re-initialized it.  On such a micro-step
 the codebook gets a zero gradient: the centroids it was quantized with are
 detached.
 
+``make_img_train_step`` (VQ-IMG, the VQGAN's two optimizers): the
+generator micro-step as the seg one, with the VQGAN generator loss
+(``losses/vqgan.py``: L1, object-aware LPIPS, face loss, the adaptively
+weighted GAN term, codebook loss) over ``decode_trunk`` /
+``decode_final``, the discriminator run on batch statistics whose update
+is discarded and no gradient reaching it; then the discriminator
+micro-step on the detached reconstruction, its running statistics updated
+by the real batch, then the fake one.
+
 ``make_transformer_train_step``: CFG text dropout, the image-token
 cross-entropy, backward, the optimizer micro-step.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
 
 from ..data.segmap import one_hot_seg_packed
+from ..losses.discriminator import PatchDiscriminator
 from ..losses.seg import bce_loss_with_quant
+from ..losses.vqgan import (PerceptualFns, discriminator_step_loss,
+                            generator_step_loss)
 from ..models.codebook import CodebookState, quantize_train
 from ..models.transformer import MakeAScene
 from ..models.vqvae import VQModel
-from ..utils.config import SegLossConfig
+from ..utils.config import SegLossConfig, VQGANLossConfig
 from .state import Adam, TransformerTrainState, VQTrainState
 
 
@@ -80,6 +92,101 @@ def make_seg_train_step(model: VQModel, opt: Adam,
         state.step += 1
         state.vq_state = aux["vq_state"]
         metrics = dict(loss=loss, q_loss=aux["q_loss"],
+                       kmeans_triggered=triggered)
+        if triggered:
+            metrics["centroids"] = aux["emb_writeback"]
+        return metrics
+
+    return step
+
+
+def to_float_image(images: torch.Tensor) -> torch.Tensor:
+    """uint8 [0, 255] -> fp32 [0, 1]; float images pass through."""
+    if images.dtype == torch.uint8:
+        return images.float() / 255.0
+    return images
+
+
+def img_generator_loss_and_grads(
+        model: VQModel, disc: PatchDiscriminator, lpips: torch.nn.Module,
+        facenet: Optional[torch.nn.Module], vq_state: CodebookState,
+        images: torch.Tensor, bbox_obj: torch.Tensor,
+        bbox_face: torch.Tensor, step_no: int, generator: torch.Generator,
+        loss_cfg: VQGANLossConfig) -> Tuple[Dict, Dict, List[torch.Tensor]]:
+    """Forward and backward of the generator's micro-step on float
+    images [B, H, W, 3] -> (metrics, aux, gradients in
+    ``model.named_parameters()`` order).  The discriminator runs on batch
+    statistics, their update discarded; ``facenet`` None drops the face
+    term.  Updates the VQ model's BN running statistics and the reservoir
+    in place."""
+    z = model.encode_latent(images, train=True)
+    z_q, q_loss, idx, vq_state, emb_wb, triggered = quantize_train(
+        z, model.quantize.embedding.weight, vq_state, model.cfg.codebook,
+        generator)
+    recon = model.decode_final(model.decode_trunk(z_q))
+    fns = PerceptualFns(
+        lpips=lpips, facenet=facenet,
+        disc=lambda x: disc(x, train=True, update_stats=False))
+    m = generator_step_loss(fns, loss_cfg, images, recon, q_loss, step_no,
+                            bbox_obj, bbox_face, model.last_layer)
+    grads = _grads(m["loss"], model)
+    m["loss"] = m["loss"].detach()
+    aux = dict(q_loss=q_loss.detach(), latent=z.detach(),
+               recon=recon.detach(), indices=idx, vq_state=vq_state,
+               emb_writeback=emb_wb, kmeans_triggered=triggered)
+    return m, aux, grads
+
+
+def img_discriminator_loss_and_grads(
+        disc: PatchDiscriminator, images: torch.Tensor, recon: torch.Tensor,
+        step_no: int, loss_cfg: VQGANLossConfig
+) -> Tuple[Dict, List[torch.Tensor]]:
+    """The discriminator's micro-step: (metrics, gradients in
+    ``disc.named_parameters()`` order); updates its running statistics."""
+    m = discriminator_step_loss(lambda x: disc(x, train=True), loss_cfg,
+                                images, recon, step_no)
+    grads = _grads(m["loss"], disc)
+    m["loss"] = m["loss"].detach()
+    return m, grads
+
+
+def make_img_train_step(model: VQModel, disc: PatchDiscriminator, opt: Adam,
+                        disc_opt: Adam, loss_cfg: VQGANLossConfig,
+                        lpips: torch.nn.Module,
+                        facenet: Optional[torch.nn.Module] = None
+                        ) -> Callable:
+    """Returns ``step(state, image, bbox_obj, bbox_face, generator) ->
+    metrics``, which advances ``state`` in place (``mas_tpu/train/
+    steps.py::make_img_train_step``).  ``image``: [B, H, W, 3] uint8 or
+    float; boxes [B, M, 4] padded.  ``lpips`` and ``facenet`` are the
+    frozen towers (``facenet`` None, or ``loss_cfg.face_loss`` false,
+    drops the face term).  ``metrics``: ``loss``, ``nll_loss``,
+    ``g_loss``, ``face_loss``, ``d_weight``, ``disc_factor``, ``q_loss``,
+    ``d_loss``, ``logits_real``, ``logits_fake``, ``kmeans_triggered``
+    and, on a k-means micro-step, the ``centroids`` written back."""
+    facenet = facenet if loss_cfg.face_loss else None
+
+    def step(state: VQTrainState, image: torch.Tensor,
+             bbox_obj: torch.Tensor, bbox_face: torch.Tensor,
+             generator: torch.Generator) -> Dict:
+        images = to_float_image(image)
+        model.train()
+        g_m, aux, grads = img_generator_loss_and_grads(
+            model, disc, lpips, facenet, state.vq_state, images, bbox_obj,
+            bbox_face, state.step, generator, loss_cfg)
+        opt.step(grads)
+        triggered = aux["kmeans_triggered"]
+        if triggered:
+            with torch.no_grad():
+                model.quantize.embedding.weight.copy_(aux["emb_writeback"])
+        d_m, d_grads = img_discriminator_loss_and_grads(
+            disc, images, aux["recon"], state.step, loss_cfg)
+        disc_opt.step(d_grads)
+        state.step += 1
+        state.vq_state = aux["vq_state"]
+        metrics = dict(g_m, q_loss=aux["q_loss"], d_loss=d_m["loss"],
+                       logits_real=d_m["logits_real"],
+                       logits_fake=d_m["logits_fake"],
                        kmeans_triggered=triggered)
         if triggered:
             metrics["centroids"] = aux["emb_writeback"]

@@ -8,6 +8,9 @@
   * ``codebook`` (VQ states only): the phase counter, ``filled`` and the
     reservoir;
   * ``optimizer``: Adam's moments, update count and accumulation buffers;
+  * ``disc`` and ``disc_optimizer`` (VQ-IMG states only): the
+    discriminator's ``state_dict`` (BN running statistics included) and
+    its Adam;
   * ``step``: micro-steps taken.
 
 Restoring puts every part back, so a resumed run continues the phase
@@ -51,6 +54,9 @@ def save_checkpoint(directory: str, state) -> str:
         vq = state.vq_state
         payload["codebook"] = {"counter": vq.counter, "filled": vq.filled,
                                "reservoir": vq.reservoir}
+    if getattr(state, "disc", None) is not None:
+        payload["disc"] = state.disc.state_dict()
+        payload["disc_optimizer"] = state.disc_opt.state_dict()
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -72,5 +78,8 @@ def restore_checkpoint(directory: str, state):
             counter=cb["counter"], filled=cb["filled"],
             reservoir=cb["reservoir"].to(state.vq_state.reservoir.device))
     state.opt.load_state_dict(payload["optimizer"])
+    if getattr(state, "disc", None) is not None:
+        state.disc.load_state_dict(payload["disc"], strict=True)
+        state.disc_opt.load_state_dict(payload["disc_optimizer"])
     state.step = payload["step"]
     return state

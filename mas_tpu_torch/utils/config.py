@@ -2,9 +2,11 @@
 
 Same field names, defaults and validation as ``mas_tpu/utils/config.py``
 (``CodebookConfig``, ``VQModelConfig``, ``TransformerConfig``,
-``SegLossConfig``, ``OptimizerConfig``, ``TrainConfig``), so the JAX
-package's JSON configs (``configs/sample_256.json``, ``configs/seg_256.json``)
-load unchanged.  The
+``SegLossConfig``, ``VQGANLossConfig``, ``OptimizerConfig``,
+``TrainConfig``), so the JAX package's JSON configs
+(``configs/sample_256.json``, ``configs/seg_256.json``,
+``configs/img_512.json``, ``configs/transformer_512.json``) load
+unchanged.  The
 port cannot import that module: importing anything under ``mas_tpu`` pulls
 in jax (``mas_tpu/__init__.py`` -> ``mas_tpu/eval.py``).
 
@@ -335,6 +337,21 @@ class SegLossConfig(_Base):
 
 
 @dataclass(frozen=True)
+class VQGANLossConfig(_Base):
+    """VQ-IMG composite loss (``losses/vqgan.py``)."""
+
+    disc_start: int = 250_001
+    codebook_weight: float = 1.0
+    pixelloss_weight: float = 1.0
+    disc_factor: float = 1.0
+    disc_weight: float = 0.8
+    perceptual_weight: float = 1.0
+    face_loss: bool = True
+    object_weight: float = 2.0   # gradient weight inside object boxes
+    max_faces: int = 6
+
+
+@dataclass(frozen=True)
 class OptimizerConfig(_Base):
     lr: float = 4.5e-6
     beta1: float = 0.5
@@ -354,10 +371,11 @@ class MeshConfig(_Base):
 
 @dataclass(frozen=True)
 class TrainConfig(_Base):
-    """Training run settings.  The port trains VQ-SEG and the transformer
+    """Training run settings.  The port trains VQ-SEG, VQ-IMG (generator
+    ``optimizer`` and discriminator ``disc_optimizer``) and the transformer
     (with CFG text dropout: ``uncond_p``, from step ``start_uncond``); the
-    VQ-IMG mode, and the fields only it or a device mesh reads, raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them."""
+    fields only a device mesh reads raise ``NotImplementedError`` naming
+    the ROADMAP item that ports them."""
 
     mode: str = "pretrain_segmentation"
     total_steps: int = 100
@@ -384,9 +402,6 @@ class TrainConfig(_Base):
                 cls = MeshConfig if name == "mesh" else OptimizerConfig
                 object.__setattr__(self, name, cls.from_dict(v))
         checks = (
-            (self.mode == "pretrain_image", "mode 'pretrain_image'", "A10"),
-            (self.disc_optimizer != OptimizerConfig(),
-             "disc_optimizer (VQ-IMG discriminator)", "A10"),
             (self.mesh != MeshConfig(), "mesh (multi-device training)",
              "A12"),
             (self.allow_replicated_batch, "allow_replicated_batch", "A12"),

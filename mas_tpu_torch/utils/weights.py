@@ -9,6 +9,10 @@ layout:
     nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``) and
     apply the exporter's transforms: conv kernels HWIO -> OIHW, linear
     kernels [in, out] -> [out, in], flax ``scale`` -> ``weight``;
+  * ``disc_from_flax``, ``lpips_from_flax`` and ``face_from_flax`` do the
+    same for the VQ-IMG loss towers (``losses/discriminator.py``,
+    ``losses/lpips.py``, ``losses/face_loss.py``), BN ``batch_stats``
+    included;
   * ``load_reference_pt`` reads a ``.pt`` written by the JAX package's
     ``--mode export`` (or a reference checkpoint).
 
@@ -89,6 +93,14 @@ def _sequential(out: State, torch_prefix: str, plan,
             _norm(out, prefix, params[name])
 
 
+def _bn_stats(out: State, prefix: str, p: Mapping[str, Any],
+              stats: Mapping[str, Any]) -> None:
+    _norm(out, prefix, p)
+    out[f"{prefix}.running_mean"] = _t(stats["mean"])
+    out[f"{prefix}.running_var"] = _t(stats["var"])
+    out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
 def vq_from_flax(variables: Mapping[str, Any], cfg: VQModelConfig) -> State:
     """flax VQModel variables (numpy; ``params`` and ``batch_stats``) ->
     the ``state_dict`` of ``models.vqvae.VQModel``."""
@@ -98,13 +110,60 @@ def vq_from_flax(variables: Mapping[str, Any], cfg: VQModelConfig) -> State:
     _sequential(out, "encoder.model", encoder_layout(cfg), params["encoder"])
     _sequential(out, "decoder.model", decoder_layout(cfg), params["decoder"])
     _conv(out, "quant_conv.0", params["quant_conv"])
-    _norm(out, "quant_conv.1", params["quant_bn"])
-    out["quant_conv.1.running_mean"] = _t(stats["mean"])
-    out["quant_conv.1.running_var"] = _t(stats["var"])
-    out["quant_conv.1.num_batches_tracked"] = torch.zeros((),
-                                                          dtype=torch.long)
+    _bn_stats(out, "quant_conv.1", params["quant_bn"], stats)
     _conv(out, "post_quant_conv", params["post_quant_conv"])
     out["quantize.embedding.weight"] = _t(params["codebook_embedding"])
+    return out
+
+
+def disc_from_flax(variables: Mapping[str, Any]) -> State:
+    """flax ``PatchDiscriminator`` variables (numpy; ``params`` and
+    ``batch_stats``) -> the ``state_dict`` of
+    ``losses.discriminator.PatchDiscriminator``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: State = {}
+    for name, p in params.items():
+        if name.startswith("conv_"):
+            _conv(out, name, p)
+        else:
+            _bn_stats(out, name, p, stats[name])
+    return out
+
+
+def lpips_from_flax(params: Mapping[str, Any]) -> State:
+    """flax ``LPIPS`` params (numpy) -> the ``state_dict`` of
+    ``losses.lpips.LPIPS``."""
+    p = params["params"] if "params" in params else params
+    out: State = {}
+    for name, conv_p in p["vgg"].items():
+        _conv(out, f"vgg.{name}", conv_p)
+    for i in range(5):
+        out[f"lin{i}"] = _t(p[f"lin{i}"])
+    return out
+
+
+def face_from_flax(variables: Mapping[str, Any]) -> State:
+    """flax ``FaceNet`` variables (numpy; ``params`` and ``batch_stats``)
+    -> the ``state_dict`` of ``losses.face_loss.FaceNet``, whose keys are
+    the VGGFace2 ResNet50's (``layer{i}_{b}`` -> ``layer{i}.{b}``,
+    ``down_conv`` / ``down_bn`` -> ``downsample.0`` / ``.1``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: State = {}
+    _conv(out, "conv1", params["conv1"])
+    _bn_stats(out, "bn1", params["bn1"], stats["bn1"])
+    for block, p in params.items():
+        if not block.startswith("layer"):
+            continue
+        layer, b = block[len("layer"):].split("_")
+        prefix = f"layer{layer}.{b}"
+        for name, sub in p.items():
+            torch_name = {"down_conv": "downsample.0",
+                          "down_bn": "downsample.1"}.get(name, name)
+            if "conv" in name:
+                _conv(out, f"{prefix}.{torch_name}", sub)
+            else:
+                _bn_stats(out, f"{prefix}.{torch_name}", sub,
+                          stats[block][name])
     return out
 
 
@@ -193,4 +252,5 @@ def init_random_(module: torch.nn.Module, generator: torch.Generator) -> None:
                 fan_in = m.weight[0].numel()
                 init.normal_(m.weight, 0.0, fan_in ** -0.5,
                              generator=generator)
-                init.zeros_(m.bias)
+                if m.bias is not None:
+                    init.zeros_(m.bias)

@@ -264,8 +264,7 @@ def test_cli_refuses_unported_data_and_train_fields(tmp_path):
     with pytest.raises(NotImplementedError, match="A13"):
         main(["--config", str(path), "--device", "cpu"])
     for field, item in ((dict(mesh={"data": 2}), "A12"),
-                        (dict(allow_replicated_batch=True), "A12"),
-                        (dict(mode="pretrain_image"), "A10")):
+                        (dict(allow_replicated_batch=True), "A12")):
         with pytest.raises(NotImplementedError, match=item):
             TrainConfig(**field)
 
