@@ -71,7 +71,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      convolutions, the launch floors of B4/B5/B8, a bitwise resume and
      one micro-step through the kernels against the plain twins; print
      the micro-step's host time, device busy time and idle share, B4/B5/B8
-     time and launches, and peak device memory.
+     time and launches, and peak device memory;
+ 12. after training, through the CLI as a user runs it: ``--mode eval``
+     of ``configs/eval_256.json`` (VQ-SEG, fp32, 256^2) with
+     ``train.resume`` on phase 5's checkpoint dir and ``--mode show`` of
+     ``configs/show_256.json`` from it (10 colorized panels); an eval of
+     the ``model`` section of ``configs/img_512.json`` (bf16, 512^2, 4
+     batches of 2, seeded random LPIPS) with a real-vs-recon FID on the
+     pooled VGG16 taps; ``--mode export`` of phase 5's and phase 7's
+     checkpoint dirs.  Checks: exact B4/B5 launch counts (the model's
+     GroupNorms x batches, one B5 call a batch) and no other kernel; the
+     metrics through the kernels against the plain twins on the same
+     batches (l1, mse, lpips rel 1e-3 fp32 / 1e-2 bf16, psnr 0.05 dB, FID
+     1e-2 x max(1, FID)); the tokens by B5's rule on their own latents,
+     at least 99% equal to the twin's on those latents in bf16, and each
+     difference from the twins' whole pass explained by the latents';
+     the panels written and finite; each export bitwise equal to its
+     checkpoint's model and loadable.  Prints images/s, device busy time
+     and idle share, B4/B5 ms per batch (cuDNN TF32 off and on), and peak
+     device memory at 512^2.
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -1869,83 +1887,83 @@ def seg_training_configs(tmp: str):
             SegLossConfig.from_dict(raw["loss"]), raw["data"])
 
 
-def phase_train(smi: str) -> dict:
+def phase_train(smi: str, tmp: str) -> dict:
     """16 micro-steps of seg_256 training through ``run_pretrain_
-    segmentation`` with B4, B5 and B8; returns the launch counts."""
+    segmentation`` with B4, B5 and B8, checkpoints under ``tmp`` (phase 12
+    evaluates, shows and exports them); returns the launch counts."""
     from mas_tpu_torch.data.dataset import SyntheticSegBatches
     from mas_tpu_torch.train.loop import (build_seg_state,
                                           run_pretrain_segmentation)
     from mas_tpu_torch.utils.logging import Logger
 
-    with tempfile.TemporaryDirectory() as tmp:
-        train_cfg, model_cfg, loss_cfg, data = seg_training_configs(tmp)
-        cb = model_cfg.codebook
-        source = iter(SyntheticSegBatches(train_cfg.batch_size,
-                                          data["resolution"],
-                                          data.get("seed", 0)))
-        batches = [{"mask": torch.from_numpy(next(source)["mask"]).to(DEVICE)}
-                   for _ in range(TRAIN_STEPS)]
-        record, snap = [], {}
+    train_cfg, model_cfg, loss_cfg, data = seg_training_configs(tmp)
+    cb = model_cfg.codebook
+    source = iter(SyntheticSegBatches(train_cfg.batch_size,
+                                      data["resolution"],
+                                      data.get("seed", 0)))
+    batches = [{"mask": torch.from_numpy(next(source)["mask"]).to(DEVICE)}
+               for _ in range(TRAIN_STEPS)]
+    record, snap = [], {}
 
-        def on_step(step_no, state, metrics):
-            torch.cuda.synchronize()
-            counter = state.vq_state.counter
-            trig = metrics["kmeans_triggered"]
-            record.append(dict(t=time.perf_counter(), counter=counter,
-                               loss=float(metrics["loss"]), trig=trig,
-                               filled=state.vq_state.filled))
-            if trig:
-                require(torch.equal(state.model.quantize.embedding.weight,
-                                    metrics["centroids"]),
-                        f"codebook != k-means centroids after counter "
-                        f"{counter}")
-            if counter == cb.q_init:
-                snap["state"] = copy.deepcopy(state)
-
-        reset_counts()
+    def on_step(step_no, state, metrics):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = run_pretrain_segmentation(
-            train_cfg, model_cfg, batches, loss_cfg, DEVICE,
-            logger=Logger(os.path.join(tmp, "logs")), on_step=on_step)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        print(f"train: {TRAIN_STEPS} micro-steps in "
-              f"{time.perf_counter() - t0:.2f} s (first run, includes "
-              f"kernel JIT); launches {counts}")
+        counter = state.vq_state.counter
+        trig = metrics["kmeans_triggered"]
+        record.append(dict(t=time.perf_counter(), counter=counter,
+                           loss=float(metrics["loss"]), trig=trig,
+                           filled=state.vq_state.filled))
+        if trig:
+            require(torch.equal(state.model.quantize.embedding.weight,
+                                metrics["centroids"]),
+                    f"codebook != k-means centroids after counter "
+                    f"{counter}")
+        if counter == cb.q_init:
+            snap["state"] = copy.deepcopy(state)
 
-        losses = [r["loss"] for r in record]
-        print("train losses: " + " ".join(f"{v:.5f}" for v in losses))
-        require(len(record) == TRAIN_STEPS and state.step == TRAIN_STEPS,
-                f"ran {len(record)} micro-steps")
-        require(all(math.isfinite(v) for v in losses), "losses are finite")
-        fired = [r["counter"] for r in record if r["trig"]]
-        require(fired == [12, 14, 16], f"k-means fired at {fired}")
-        require(record[11]["filled"] == 4096,
-                f"reservoir rows at counter 12: {record[11]['filled']}")
-        require(state.opt.count == TRAIN_STEPS // 3, "optimizer updates")
-        n_gns = count_gns(state.model)
-        quantizing = sum(r["counter"] >= cb.q_init for r in record)
-        floors = {"B4": n_gns * TRAIN_STEPS, "B5": quantizing,
-                  "B8": n_gns * TRAIN_STEPS}
-        for name, floor in floors.items():
-            require(counts[name] >= floor, f"{name} launched "
-                    f"{counts[name]} times in training, expected >= {floor}")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = run_pretrain_segmentation(
+        train_cfg, model_cfg, batches, loss_cfg, DEVICE,
+        logger=Logger(os.path.join(tmp, "logs")), on_step=on_step)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"train: {TRAIN_STEPS} micro-steps in "
+          f"{time.perf_counter() - t0:.2f} s (first run, includes "
+          f"kernel JIT); launches {counts}")
 
-        step_ms = {r["counter"]: 1e3 * (r["t"] - prev["t"])
-                   for prev, r in zip(record, record[1:])}
-        quant = sorted(step_ms[c] for c in (13, 15))
-        print(f"train micro-step, quantize phase (counters 13, 15): median "
-              f"{statistics.median(quant):.1f} ms; k-means micro-step "
-              f"(counters 14, 16): {step_ms[14]:.1f} / {step_ms[16]:.1f} ms;"
-              f" pass-through (counters 6-11) median "
-              f"{statistics.median(step_ms[c] for c in range(6, 12)):.1f} "
-              f"ms [{smi}]")
+    losses = [r["loss"] for r in record]
+    print("train losses: " + " ".join(f"{v:.5f}" for v in losses))
+    require(len(record) == TRAIN_STEPS and state.step == TRAIN_STEPS,
+            f"ran {len(record)} micro-steps")
+    require(all(math.isfinite(v) for v in losses), "losses are finite")
+    fired = [r["counter"] for r in record if r["trig"]]
+    require(fired == [12, 14, 16], f"k-means fired at {fired}")
+    require(record[11]["filled"] == 4096,
+            f"reservoir rows at counter 12: {record[11]['filled']}")
+    require(state.opt.count == TRAIN_STEPS // 3, "optimizer updates")
+    n_gns = count_gns(state.model)
+    quantizing = sum(r["counter"] >= cb.q_init for r in record)
+    floors = {"B4": n_gns * TRAIN_STEPS, "B5": quantizing,
+              "B8": n_gns * TRAIN_STEPS}
+    for name, floor in floors.items():
+        require(counts[name] >= floor, f"{name} launched "
+                f"{counts[name]} times in training, expected >= {floor}")
 
-        resume_check(train_cfg, model_cfg, state)
-        kmeans_repeat_check(state, cb)
-        kernels_vs_twins_step(snap["state"], batches[TRAIN_STEPS // 2],
-                              loss_cfg)
+    step_ms = {r["counter"]: 1e3 * (r["t"] - prev["t"])
+               for prev, r in zip(record, record[1:])}
+    quant = sorted(step_ms[c] for c in (13, 15))
+    print(f"train micro-step, quantize phase (counters 13, 15): median "
+          f"{statistics.median(quant):.1f} ms; k-means micro-step "
+          f"(counters 14, 16): {step_ms[14]:.1f} / {step_ms[16]:.1f} ms;"
+          f" pass-through (counters 6-11) median "
+          f"{statistics.median(step_ms[c] for c in range(6, 12)):.1f} "
+          f"ms [{smi}]")
+
+    resume_check(train_cfg, model_cfg, state)
+    kmeans_repeat_check(state, cb)
+    kernels_vs_twins_step(snap["state"], batches[TRAIN_STEPS // 2],
+                          loss_cfg)
     return counts
 
 
@@ -2909,6 +2927,379 @@ def img_kernels_vs_twins(state, batch, loss_cfg, lpips, face) -> None:
     require(not bad, "kernels-vs-twins: " + "; ".join(bad))
 
 
+# --- phase 12: VQ eval, show and export at full width -----------------------
+
+EVAL_CONFIG = os.path.join(ROOT, "configs", "eval_256.json")
+SHOW_CONFIG = os.path.join(ROOT, "configs", "show_256.json")
+EXPORT_CONFIG = os.path.join(ROOT, "configs", "export_vq.json")
+RGB_EVAL_BATCHES = 4
+EVAL_KEYS = {"l1", "mse", "psnr", "perplexity", "entropy", "used_fraction",
+             "max_usage"}
+
+
+@contextlib.contextmanager
+def eval_twins():
+    """B4 and B5 replaced by their plain twins."""
+    from mas_tpu_torch.ops import gn_swish, vq
+
+    with mock.patch.object(gn_swish, "gn_swish", gn_swish.gn_swish_plain), \
+            mock.patch.object(vq, "vq_argmin", vq.vq_argmin_plain):
+        yield
+
+
+def write_config(tmp: str, name: str, raw: dict) -> str:
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def run_cli(config: str, cwd=None):
+    """``mas_tpu_torch.cli.main`` on DEVICE, as ``python -m mas_tpu_torch
+    --config ... --device cuda`` runs it: (its stdout lines, seconds)."""
+    from mas_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), \
+            (contextlib.chdir(cwd) if cwd else contextlib.nullcontext()):
+        rc = cli_main(["--config", config, "--device", DEVICE])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    require(rc == 0, f"cli --config {config}: exit {rc}")
+    return out.getvalue().strip().splitlines(), secs
+
+
+def exact_counts(counts: dict, want: dict, what: str) -> None:
+    for kid, n in counts.items():
+        require(n == want.get(kid, 0), f"{kid} launched {n} times in {what},"
+                f" expected {want.get(kid, 0)}")
+
+
+def eval_batch(model, x, lpips=None) -> dict:
+    """What ``evaluate_vq_model`` computes for one batch, left on the
+    device."""
+    from mas_tpu_torch.eval import codebook_stats, eval_step, recon_metrics
+
+    recon, tokens = eval_step(model, x)
+    with torch.no_grad():
+        m = recon_metrics(x, recon, lpips)
+    m.update(codebook_stats(tokens, model.cfg.codebook.codebook_size))
+    return m
+
+
+def metrics_vs_twins(what: str, got: dict, twin: dict, rel: float) -> None:
+    """l1, mse (and lpips) within ``rel`` of the twins', psnr within 0.05
+    dB; the codebook stats are printed (they move only with the tokens)."""
+    bad = [f"{k} {got[k]!r} vs {twin[k]!r}" for k in ("l1", "mse", "lpips")
+           if k in twin and abs(got[k] - twin[k]) > rel * abs(twin[k])]
+    if abs(got["psnr"] - twin["psnr"]) > 0.05:
+        bad.append(f"psnr {got['psnr']!r} vs {twin['psnr']!r}")
+    print(f"{what} kernels vs twins: " + ", ".join(
+        f"{k} {got[k]:.6g} / {twin[k]:.6g}" for k in sorted(twin)))
+    require(not bad, f"{what} metrics vs twins: " + "; ".join(bad))
+
+
+def tokens_check(model, x, what: str):
+    """The kernels' tokens obey B5's rule against the plain twin on their
+    own latents (``vq.argmin_agrees``).  Where they differ from the
+    tokens of the whole pass through the twins, the two passes' latents
+    differ (B4's rounding, carried through the encoder), and each such
+    position must be explained by that: with a, b the two passes' codes,
+    the twin's latent z' prefers b over a by at most 2 |z - z'| |a - b|
+    (Cauchy-Schwarz) plus each side's fp32 rounding.  Returns (the share
+    of positions where B5 equals the twin on the same latents, the share
+    equal to the twins' pass)."""
+    from mas_tpu_torch.eval import eval_step
+    from mas_tpu_torch.ops import vq as vq_ops
+
+    d = model.cfg.embed_dim
+    _, tokens = eval_step(model, x)
+    with torch.no_grad():
+        z = model.encode_latent(x).reshape(-1, d)
+        with eval_twins():
+            _, twin = eval_step(model, x)
+            zt = model.encode_latent(x).reshape(-1, d)
+    emb = model.quantize.embedding.weight.to(z.dtype)
+    plain = vq_ops.vq_argmin_plain(z, emb)
+    got, want = tokens.reshape(-1).long(), twin.reshape(-1).long()
+    require(vq_ops.argmin_agrees(z, emb, got, plain),
+            f"{what}: tokens vs the plain twin on the same latents "
+            f"({int((got != plain).sum())} of {len(plain)} differ)")
+    rows = (got != want).nonzero().reshape(-1)
+    if len(rows):
+        zk, zp = z[rows].float(), zt[rows].float()
+        a, b = emb[got[rows]].float(), emb[want[rows]].float()
+        gap = (zp - a).square().sum(1) - (zp - b).square().sum(1)
+        top = emb.float().square().sum(1).max()
+        slack = 1e-5 * (zk.square().sum(1) + zp.square().sum(1) + 2 * top)
+        allowed = 2 * (zk - zp).norm(dim=1) * (a - b).norm(dim=1) + slack
+        require(bool((gap <= allowed).all()), f"{what}: "
+                f"{int((gap > allowed).sum())} of {len(rows)} positions that "
+                "differ from the twins' pass are not explained by the "
+                "latents' difference")
+    return (float((got == plain.long()).float().mean()),
+            float((got == want).float().mean()))
+
+
+def profile_eval(what: str, fn, batch: int, smi: str) -> None:
+    """Host and device time of one eval batch (``breakdown._profile``
+    over 3), B4 and B5 per batch and their share of the device time, with
+    cuDNN TF32 off (as this script runs) and on (PyTorch's default, as the
+    CLI runs)."""
+    from mas_tpu_torch.breakdown import _profile
+
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        res = _profile(fn, 3)
+        torch.backends.cudnn.allow_tf32 = False
+        ported = res["ported_kernels_ms_per_call"]
+        busy = res["device_busy_ms"]
+        for kid in ("B4", "B5"):
+            require(kid in ported, f"{kid} not in the profile of {what}")
+        print(f"{what}, cudnn tf32 {'on' if tf32 else 'off'}, one batch of "
+              f"{batch}, profiled over 3: host {res['host_ms']:.2f} ms "
+              f"({batch / res['host_ms'] * 1e3:.1f} images/s), device busy "
+              f"{busy:.2f} ms, idle share "
+              f"{100 * res['device_idle_share']:.1f}%; "
+              + ", ".join(f"{k} {ported[k][0]:.3f} ms / {ported[k][1]} "
+                          f"launches ({100 * ported[k][0] / busy:.1f}% of "
+                          "busy)" for k in ("B4", "B5")) + f" [{smi}]")
+        print(f"{what}, cudnn tf32 {'on' if tf32 else 'off'}, top kernels "
+              "(name, ms, launches per batch): "
+              + json.dumps(res["top_kernels_ms_per_call"]))
+
+
+def seg_eval(gen, smi: str, seg_dir: str, tmp: str) -> dict:
+    """``configs/eval_256.json`` with ``train.resume`` and
+    ``checkpoint_dir`` = phase 5's dir, through the CLI; returns the
+    launch counts."""
+    from mas_tpu_torch.cli import data_iter, load_vq
+    from mas_tpu_torch.eval import evaluate_vq_model
+    from mas_tpu_torch.utils.config import VQModelConfig
+
+    with open(EVAL_CONFIG) as f:
+        raw = json.load(f)
+    raw["train"] = dict(raw["train"], resume=True, checkpoint_dir=seg_dir)
+    n, b = raw["n_eval_batches"], raw["train"]["batch_size"]
+    reset_counts()
+    lines, secs = run_cli(write_config(tmp, "eval_256.json", raw))
+    counts = read_counts()
+    print(f"eval_256 (CLI, checkpoint dir of phase 5): {lines[-1]}; "
+          f"{secs:.2f} s with loading and data; launches {counts}")
+    metrics = json.loads(lines[-1])
+    require(set(metrics) == EVAL_KEYS
+            and all(math.isfinite(v) for v in metrics.values()),
+            f"eval_256 metrics: {metrics}")
+    cfg = VQModelConfig.from_dict(raw["model"])
+    model = load_vq(cfg, seg_dir, DEVICE, gen)
+    exact_counts(counts, dict(B4=count_gns(model) * n, B5=n), "eval_256")
+    batches = [torch.as_tensor(bb["mask"]).to(DEVICE) for bb, _ in
+               zip(data_iter(raw["data"], b, cfg), range(n))]
+    with eval_twins():
+        twin = evaluate_vq_model(model, ({"mask": x} for x in batches), n)
+    metrics_vs_twins("eval_256", metrics, twin, 1e-3)
+    agree = [tokens_check(model, x, "eval_256") for x in batches]
+    print(f"eval_256 tokens: B5 rule held on every batch; B5 equal to the "
+          f"twin on the same latents at {min(a for a, _ in agree):.4f} of "
+          f"the positions or more, to the twins' whole pass at "
+          f"{min(p for _, p in agree):.4f} or more")
+    profile_eval("eval_256 (VQ-SEG, fp32)",
+                 lambda: eval_batch(model, batches[0]), b, smi)
+    return counts
+
+
+def seg_show(seg_dir: str, tmp: str) -> dict:
+    """``configs/show_256.json`` with ``checkpoint_dir`` = phase 5's dir,
+    through the CLI, in a fresh working directory; returns the launch
+    counts."""
+    import numpy as np
+    from PIL import Image
+
+    from mas_tpu_torch.models.vqvae import VQModel
+    from mas_tpu_torch.utils.config import VQModelConfig
+
+    with open(SHOW_CONFIG) as f:
+        raw = json.load(f)
+    raw["train"] = dict(raw["train"], checkpoint_dir=seg_dir)
+    cwd = os.path.join(tmp, "show")
+    os.makedirs(cwd)
+    reset_counts()
+    lines, secs = run_cli(write_config(tmp, "show_256.json", raw), cwd)
+    counts = read_counts()
+    b = raw["train"]["batch_size"]
+    n = -(-raw["n_samples"] // b)
+    res = raw["model"]["resolution"]
+    print(f"show_256 (CLI): {lines[0]}; {len(lines) - 1} panels in "
+          f"{secs:.2f} s; launches {counts}")
+    require(lines[0].startswith("resumed from step"), "show resumed")
+    require(len(lines) - 1 == n, f"show wrote {len(lines) - 1} panels, "
+            f"expected {n}")
+    size = (9 * (res + 2) + 2, b * (res + 2) + 2)
+    for path in lines[1:]:
+        img = Image.open(os.path.join(cwd, path))
+        pixels = torch.from_numpy(np.array(img)).float()
+        require(img.size == size and bool(torch.isfinite(pixels).all())
+                and float(pixels.std()) > 0, f"show panel {path}: "
+                f"{img.size}, expected {size}")
+    with torch.device("meta"):
+        n_gns = count_gns(VQModel(VQModelConfig.from_dict(raw["model"])))
+    exact_counts(counts, dict(B4=n_gns * n, B5=n), "show_256")
+    return counts
+
+
+def rgb_eval(gen, smi: str) -> dict:
+    """The ``model`` section of ``configs/img_512.json`` (512^2, bf16, K
+    8192, seeded random weights, the codebook placed among the latents of
+    8 other images as in phase 6) over 4 batches of 2 with the seeded
+    random LPIPS tower, as ``--mode eval`` runs it, then a real-vs-recon
+    FID on ``lpips_feature_fn``; returns the launch counts."""
+    from mas_tpu_torch.cli import data_iter, load_vq
+    from mas_tpu_torch.eval import (FIDAccumulator, eval_step,
+                                    evaluate_vq_model, lpips_feature_fn)
+    from mas_tpu_torch.train.loop import frozen_lpips
+    from mas_tpu_torch.utils.config import VQModelConfig
+
+    with open(IMG_CONFIG) as f:
+        raw = json.load(f)
+    cfg = VQModelConfig.from_dict(raw["model"])
+    n, b, res = RGB_EVAL_BATCHES, 2, cfg.resolution
+    model = load_vq(cfg, None, DEVICE, gen)
+    with torch.no_grad():
+        book = model.encode_latent(torch.rand(8, res, res, 3, device=DEVICE,
+                                              generator=gen))
+        model.quantize.embedding.weight.copy_(
+            book.reshape(-1, cfg.embed_dim)[:cfg.codebook.codebook_size])
+    batches = [{"image": torch.as_tensor(bb["image"]).to(DEVICE)} for bb, _
+               in zip(data_iter(raw["data"], b, cfg), range(n))]
+    lpips = frozen_lpips(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = evaluate_vq_model(model, iter(batches), n, lpips)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"eval img_512 (VQ-IMG bf16, {n} x {b} x {res}^2, LPIPS): "
+          f"{json.dumps(metrics)}; {secs:.3f} s ({n * b / secs:.1f} images/s"
+          f", first run); peak device memory {peak_gb:.2f} GiB; launches "
+          f"{counts} [{smi}]")
+    require(set(metrics) == EVAL_KEYS | {"lpips"}
+            and all(math.isfinite(v) for v in metrics.values()),
+            f"img_512 eval metrics: {metrics}")
+    exact_counts(counts, dict(B4=count_gns(model) * n, B5=n), "img_512 eval")
+    with eval_twins():
+        twin = evaluate_vq_model(model, iter(batches), n, lpips)
+    metrics_vs_twins("eval img_512", metrics, twin, 1e-2)
+    agree = [tokens_check(model, bb["image"], "eval img_512")
+             for bb in batches]
+    same = min(a for a, _ in agree)
+    print(f"eval img_512 tokens: B5 rule held on every batch; B5 equal to "
+          f"the twin on the same latents at {same:.4f} of the positions or "
+          f"more, to the twins' whole pass at {min(p for _, p in agree):.4f}"
+          " or more (every difference explained by the latents')")
+    require(same >= 0.99, "eval img_512 tokens: B5 vs the twin on the same "
+            "latents")
+    features = lpips_feature_fn(lpips)
+    fids = []
+    for twins in (False, True):
+        real, fake = FIDAccumulator(features), FIDAccumulator(features)
+        for bb in batches:
+            with eval_twins() if twins else contextlib.nullcontext():
+                recon, _ = eval_step(model, bb["image"])
+            real.update(bb["image"])
+            fake.update(recon)
+        fids.append(real.fid(fake))
+    print(f"eval img_512 FID real vs recon ({n * b} images, pooled VGG16 "
+          f"taps, {real.sum.shape[0]} features): kernels {fids[0]!r}, twins "
+          f"{fids[1]!r}")
+    require(math.isfinite(fids[0])
+            and abs(fids[0] - fids[1]) <= 1e-2 * max(1.0, abs(fids[1])),
+            "FID kernels vs twins")
+    profile_eval("eval img_512 (VQ-IMG, bf16, LPIPS)",
+                 lambda: eval_batch(model, batches[0]["image"], lpips), b,
+                 smi)
+    return counts
+
+
+def state_equal(got: dict, want: dict, what: str) -> None:
+    require(sorted(got) == sorted(want), f"{what}: keys differ "
+            f"{sorted(set(got) ^ set(want))[:4]}")
+    bad = [k for k, v in want.items() if got[k].dtype != v.dtype
+           or not torch.equal(got[k].cpu(), v.cpu())]
+    require(not bad, f"{what}: not bitwise equal at {bad[:4]}")
+
+
+def export_dirs(gen, seg_dir: str, transformer_dir: str, tmp: str) -> dict:
+    """``--mode export`` of phase 5's and phase 7's checkpoint dirs
+    (``configs/export_vq.json``; the ``transformer`` section of
+    ``configs/transformer_512.json``): each ``.pt`` equals its
+    checkpoint's ``model`` bitwise and loads into ``load_vq`` /
+    ``load_transformer``.  Returns the launch counts (none)."""
+    from mas_tpu_torch.cli import load_transformer, load_vq
+    from mas_tpu_torch.utils.checkpoint import checkpoint_path, latest_step
+    from mas_tpu_torch.utils.config import TransformerConfig, VQModelConfig
+    from mas_tpu_torch.utils.weights import load_reference_pt
+
+    with open(EXPORT_CONFIG) as f:
+        vq_raw = json.load(f)
+    with open(TRANSFORMER_CONFIG) as f:
+        t_section = json.load(f)["transformer"]
+    jobs = (("vq_seg", dict(vq_raw, checkpoint=seg_dir), seg_dir),
+            ("transformer_512", {"train": {"mode": "export"},
+                                 "transformer": t_section,
+                                 "transformer_checkpoint": transformer_dir},
+             transformer_dir))
+    reset_counts()
+    for name, raw, ck in jobs:
+        out = os.path.join(tmp, f"{name}_reference_layout.pt")
+        raw["output"] = out
+        lines, secs = run_cli(write_config(tmp, f"export_{name}.json", raw))
+        require(lines == [out], f"export printed {lines}")
+        want = torch.load(checkpoint_path(ck, latest_step(ck)),
+                          map_location="cpu", weights_only=True)["model"]
+        got = load_reference_pt(out)
+        state_equal(got, want, f"export {name}")
+        if "transformer" in raw:
+            model = load_transformer(TransformerConfig.from_dict(t_section),
+                                     out, DEVICE, gen)
+        else:
+            model = load_vq(VQModelConfig.from_dict(raw["model"]), out,
+                            DEVICE, gen)
+        state_equal(model.state_dict(),
+                    {k: v.to(model.state_dict()[k].dtype)
+                     for k, v in want.items()}, f"{name} reloaded")
+        print(f"export {name} (CLI, checkpoint dir): {len(got)} tensors, "
+              f"{os.path.getsize(out) / 2 ** 20:.1f} MiB in {secs:.2f} s; "
+              "bitwise equal to the checkpoint's model, and loaded by "
+              f"{'load_transformer' if 'transformer' in raw else 'load_vq'}")
+        del model, want, got
+    counts = read_counts()
+    exact_counts(counts, {}, "export")
+    return counts
+
+
+def phase_eval_show_export(gen, smi: str, seg_dir: str, transformer_dir: str,
+                           tmp: str) -> dict:
+    """Phase 12: ``--mode eval`` and ``show`` of phase 5's VQ-SEG
+    checkpoint dir through the CLI, an img_512 eval, and ``--mode export``
+    of phases 5 and 7's dirs; returns the launch counts summed over the
+    eval, show and export runs."""
+    import scipy
+
+    print(f"phase 12 runs with cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}; the twins under the "
+          f"same setting; scipy {scipy.__version__}")
+    parts = [seg_eval(gen, smi, seg_dir, tmp), seg_show(seg_dir, tmp),
+             rgb_eval(gen, smi), export_dirs(gen, seg_dir, transformer_dir,
+                                             tmp)]
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
 def main(argv) -> int:
     modes = {"--decode-times": decode_times, "--norm-times": norm_times,
              "--vq-times": vq_times, "--vq-paths": vq_paths}
@@ -2925,12 +3316,17 @@ def main(argv) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernels(gen)
     with tempfile.TemporaryDirectory() as tmp:
-        paths = [phase_slice(gen), phase_train(smi), phase_tokenize(gen, smi)]
+        seg_tmp = os.path.join(tmp, "seg")
+        paths = [phase_slice(gen), phase_train(smi, seg_tmp),
+                 phase_tokenize(gen, smi)]
         counts, checkpoint = phase_train_transformer(smi, tmp)
         paths += [counts, phase_serve_512(gen, smi, checkpoint)]
-    paths += [phase_packed(gen, smi), phase_ln_producer(gen, smi)]
-    with tempfile.TemporaryDirectory() as tmp:
-        paths.append(phase_train_image(smi, tmp))
+        paths += [phase_packed(gen, smi), phase_ln_producer(gen, smi)]
+        with tempfile.TemporaryDirectory() as img_tmp:
+            paths.append(phase_train_image(smi, img_tmp))
+        paths.append(phase_eval_show_export(
+            gen, smi, seg_training_configs(seg_tmp)[0].checkpoint_dir,
+            os.path.dirname(checkpoint), tmp))
     for row in rows:
         row["launches"] = sum(counts[row["id"]] for counts in paths)
         require(row["launches"] > 0, f"{row['id']} launched on no path")

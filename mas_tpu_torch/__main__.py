@@ -1,7 +1,12 @@
-"""``python -m mas_tpu_torch`` -> the CLI."""
+"""``python -m mas_tpu_torch`` -> the CLI (``cli.run``).
+
+The ``__name__`` guard keeps an import of this module from running the
+CLI: worker processes started by spawn re-import the main module.
+"""
 
 import sys
 
-from .cli import main
+from .cli import run
 
-sys.exit(main())
+if __name__ == "__main__":
+    sys.exit(run())

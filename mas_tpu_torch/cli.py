@@ -1,28 +1,43 @@
 """Command-line entry point of the PyTorch port: ``--mode sample``,
-``--mode pretrain_segmentation``, ``--mode pretrain_image`` and ``--mode
-train_transformer``.
+``eval``, ``show``, ``export``, ``pretrain_segmentation``,
+``pretrain_image`` and ``train_transformer``.
 
 ``sample`` is the counterpart of ``mas_tpu/cli.py::_run_sample``: it
 tokenizes the config's captions, samples image tokens with guidance and
 top-k, decodes them with VQ-IMG and writes the image grid.  Without
 checkpoints the weights are seeded random, as the JAX ``--mode sample``
 does.  ``transformer_checkpoint`` / ``vq_checkpoint`` may name a
-reference-layout ``.pt``, as the JAX package's ``--mode export`` writes
-it, or a checkpoint of the port's VQ-SEG or transformer training.
+reference-layout ``.pt``, as ``--mode export`` of either package writes
+it, or a training ``checkpoint_dir`` of the port (its latest
+``step_*.pt``), or one such file.
+
+``eval`` scores a VQ model (``eval.py::evaluate_vq_model``: L1, MSE, PSNR,
+LPIPS for a 3-channel model, codebook stats) over ``n_eval_batches``
+(default 8) and prints one JSON line; it takes ``train.checkpoint_dir``
+when ``train.resume`` is true, seeded random weights otherwise.  ``show``
+writes colorized VQ-SEG reconstruction panels of ``n_samples`` (default
+40) seg maps to ``results/`` from the latest checkpoint of
+``train.checkpoint_dir`` (``train/loop.py::run_show``) and prints their
+paths.  ``export`` writes the reference-layout ``.pt`` (``output``,
+default ``exported.pt``) of a ``model`` + ``checkpoint`` or a
+``transformer`` + ``transformer_checkpoint`` section (seeded random
+weights where no checkpoint is named) and prints its path.
 
 ``pretrain_segmentation`` trains VQ-SEG, ``pretrain_image`` VQ-IMG (the
 VQGAN, with the config's ``loss`` section and the LPIPS and face towers
 from the torch checkpoints ``lpips_weights`` / ``face_weights``, seeded
 random where those are null) and ``train_transformer`` the transformer
 (``train/loop.py``) on the config's ``data`` section; only ``kind:
-synthetic`` is ported (ROADMAP A13).  Every other mode raises: it is not
-ported yet (ROADMAP A11).
+synthetic`` is ported (ROADMAP A13), and ``preprocess_dataset`` raises:
+it is not ported yet (ROADMAP A13).
 
 As in ``mas_tpu/cli.py::main``, every mode builds a ``TrainConfig`` from
 the whole ``train`` section (a mode that does not train validates as
-``pretrain_segmentation``), and a training mode whose config has no
-``model`` or ``transformer`` section takes ``vq_seg_config()`` or
-``TransformerConfig()``.
+``pretrain_segmentation``), and a mode whose config has no ``model`` or
+``transformer`` section takes ``vq_seg_config()`` (``vq_img_config()``
+for ``pretrain_image``) or ``TransformerConfig()``.  ``run`` (``python
+-m mas_tpu_torch``) appends the traceback of a failed run to
+``error.log`` in the working directory and re-raises.
 
 Usage:
     python -m mas_tpu_torch.cli --config configs/sample_256.json --device cuda
@@ -32,6 +47,9 @@ Usage:
         --mode pretrain_image --device cuda
     python -m mas_tpu_torch.cli --config configs/transformer_512.json \
         --mode train_transformer --device cuda
+    python -m mas_tpu_torch --config configs/eval_256.json --device cuda
+    python -m mas_tpu_torch --config configs/show_256.json --device cuda
+    python -m mas_tpu_torch --config configs/export_vq.json --device cuda
 
 ``--device`` is explicit; nothing falls back to the CPU.
 """
@@ -50,9 +68,9 @@ from .data.tokenizer import HashWordTokenizer
 from .models.sampler import sample_images
 from .models.transformer import MakeAScene
 from .models.vqvae import VQModel
-from .utils.config import (SegLossConfig, TrainConfig, TransformerConfig,
-                           VQGANLossConfig, VQModelConfig, vq_img_config,
-                           vq_seg_config)
+from .utils.config import (ConfigError, SegLossConfig, TrainConfig,
+                           TransformerConfig, VQGANLossConfig, VQModelConfig,
+                           vq_img_config, vq_seg_config)
 from .utils.logging import make_grid, save_image
 from .utils.weights import init_random_, load_reference_pt, serving_state
 
@@ -62,11 +80,14 @@ TRAIN_CONFIG_MODES = ("pretrain_segmentation", "pretrain_image",
 
 
 def load_transformer(cfg: TransformerConfig, checkpoint: Optional[str],
-                     device, generator: torch.Generator) -> MakeAScene:
-    """MakeAScene on ``device`` from a reference ``.pt``, or seeded random
-    weights when ``checkpoint`` is empty."""
+                     device, generator: torch.Generator,
+                     fp32_params: bool = False) -> MakeAScene:
+    """MakeAScene on ``device`` from a reference ``.pt`` or a port
+    checkpoint dir (``load_reference_pt``), or seeded random weights when
+    ``checkpoint`` is empty; ``fp32_params`` keeps fp32 weights in a bf16
+    model (export)."""
     with torch.device(device):
-        model = MakeAScene(cfg).eval()
+        model = MakeAScene(cfg, fp32_params=fp32_params).eval()
     if checkpoint:
         model.load_state_dict(
             serving_state(load_reference_pt(checkpoint), "transformer"))
@@ -76,10 +97,10 @@ def load_transformer(cfg: TransformerConfig, checkpoint: Optional[str],
 
 
 def load_vq(cfg: VQModelConfig, checkpoint: Optional[str], device,
-            generator: torch.Generator) -> VQModel:
-    """VQ-IMG decode side on ``device`` (see ``load_transformer``)."""
+            generator: torch.Generator, fp32_params: bool = False) -> VQModel:
+    """VQModel on ``device`` (see ``load_transformer``)."""
     with torch.device(device):
-        model = VQModel(cfg).eval()
+        model = VQModel(cfg, fp32_params=fp32_params).eval()
     if checkpoint:
         model.load_state_dict(serving_state(load_reference_pt(checkpoint),
                                             "vq"))
@@ -185,6 +206,68 @@ def run_train_transformer(raw: Dict[str, Any], train_cfg: TrainConfig,
     return run(train_cfg, model_cfg, batches, device)
 
 
+def _vq_config(raw: Dict[str, Any]) -> VQModelConfig:
+    return (VQModelConfig.from_dict(raw["model"]) if "model" in raw
+            else vq_seg_config())
+
+
+def run_eval(raw: Dict[str, Any], train_cfg: TrainConfig,
+             device) -> Dict[str, float]:
+    """``mas_tpu/cli.py::_run_eval``: the VQ model from
+    ``train.checkpoint_dir`` when ``train.resume`` is true (seeded random
+    otherwise), ``n_eval_batches`` (default 8) of the ``data`` section,
+    and for a 3-channel model LPIPS from ``lpips_weights`` (seeded random
+    where null)."""
+    from .eval import evaluate_vq_model
+    from .train.loop import frozen_lpips
+
+    model_cfg = _vq_config(raw)
+    generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
+    model = load_vq(model_cfg, train_cfg.checkpoint_dir
+                    if train_cfg.resume else None, device, generator)
+    batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
+    lpips_apply = None
+    if model_cfg.in_channels == 3:
+        lpips_apply = frozen_lpips(device, raw.get("lpips_weights"))
+    return evaluate_vq_model(model, batches,
+                             n_batches=raw.get("n_eval_batches", 8),
+                             lpips_apply=lpips_apply)
+
+
+def run_show(raw: Dict[str, Any], train_cfg: TrainConfig, device):
+    from .train.loop import run_show as run
+
+    model_cfg = _vq_config(raw)
+    batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
+    return run(train_cfg, model_cfg, batches,
+               n_samples=raw.get("n_samples", 40), device=device)
+
+
+def run_export(raw: Dict[str, Any], train_cfg: TrainConfig, device) -> str:
+    """``mas_tpu/cli.py::_run_export``: a ``transformer`` section (with
+    ``transformer_checkpoint``) or a ``model`` section (with
+    ``checkpoint``) -> the reference-layout ``.pt`` at ``output``.  The
+    model keeps fp32 weights, so a checkpoint exports bitwise."""
+    from .utils.export import export_state
+
+    generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
+    if "transformer" in raw:
+        model = load_transformer(
+            TransformerConfig.from_dict(raw["transformer"]),
+            raw.get("transformer_checkpoint"), device, generator,
+            fp32_params=True)
+    elif "model" in raw:
+        model = load_vq(VQModelConfig.from_dict(raw["model"]),
+                        raw.get("checkpoint"), device, generator,
+                        fp32_params=True)
+    else:
+        raise ConfigError(
+            "export mode needs a 'transformer' or 'model' section")
+    out = raw.get("output", "exported.pt")
+    torch.save(export_state(model), out)
+    return out
+
+
 _TRAIN_MODES = {"pretrain_segmentation": run_pretrain_segmentation,
                 "pretrain_image": run_pretrain_image,
                 "train_transformer": run_train_transformer}
@@ -210,15 +293,35 @@ def main(argv=None) -> int:
     if mode in _TRAIN_MODES:
         state = _TRAIN_MODES[mode](raw, train_cfg, device)
         print(f"trained to step {state.step}")
-        return 0
-    if mode != "sample":
+    elif mode == "sample":
+        print(run_sample(raw, train_cfg, device))
+    elif mode == "eval":
+        print(json.dumps(run_eval(raw, train_cfg, device)))
+    elif mode == "show":
+        print("\n".join(run_show(raw, train_cfg, device)))
+    elif mode == "export":
+        print(run_export(raw, train_cfg, device))
+    elif mode == "preprocess_dataset":
         raise NotImplementedError(
-            f"mode {mode!r} is not ported to mas_tpu_torch yet (ROADMAP "
-            "A11); only 'sample', 'pretrain_segmentation', "
-            "'pretrain_image' and 'train_transformer' are")
-    print(run_sample(raw, train_cfg, device))
+            "mode 'preprocess_dataset' is not ported to mas_tpu_torch yet "
+            "(ROADMAP A13)")
+    else:
+        raise ConfigError(f"unknown mode {mode!r}")
     return 0
 
 
+def run(argv=None) -> int:
+    """``main`` with the reference's failure handling: append the
+    traceback to ``error.log`` and re-raise (``mas_tpu/cli.py::run``)."""
+    try:
+        return main(argv)
+    except Exception:
+        import traceback
+
+        with open("error.log", "a") as f:
+            f.write(traceback.format_exc() + "\n")
+        raise
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

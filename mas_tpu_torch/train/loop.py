@@ -2,33 +2,36 @@
 as ``mas_tpu/train/loop.py::run_pretrain_segmentation``,
 ``run_pretrain_image`` and ``run_train_transformer`` with their shared
 ``_loop``: build the state, resume from the latest checkpoint when asked,
-then step, log scalars (and VQ-IMG's input / reconstruction grids) and
-checkpoint.  Batches are dicts of numpy arrays or tensors; they are moved
-to the device in the loop.  Seg-map grids (``Visualizer``) are not ported
-yet (ROADMAP A11).
+then step, log scalars (and input / reconstruction grids: RGB for VQ-IMG,
+the colorized panoptic group for VQ-SEG) and checkpoint; and ``run_show``,
+the VQ-SEG visual eval.  Batches are dicts of numpy arrays or tensors;
+they are moved to the device in the loop.
 """
 
 from __future__ import annotations
 
 import itertools
 import time
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..data.segmap import one_hot_seg_packed
 from ..losses.face_loss import FaceNet, load_face_params_from_torch
 from ..losses.lpips import LPIPS, load_lpips_params_from_torch
+from ..models.vqvae import VQModel
 from ..utils.checkpoint import latest_step, restore_checkpoint, \
     save_checkpoint
 from ..utils.config import (SegLossConfig, TrainConfig, TransformerConfig,
                             VQGANLossConfig, VQModelConfig)
-from ..utils.logging import Logger
-from ..utils.weights import init_random_
+from ..utils.logging import Logger, Visualizer
+from ..utils.weights import init_random_, load_reference_pt
 from .state import (TransformerTrainState, VQTrainState,
                     create_transformer_train_state, create_vq_train_state)
-from .steps import (make_img_train_step, make_seg_train_step,
-                    make_transformer_train_step, to_float_image)
+from .steps import (make_img_train_step, make_seg_eval_step,
+                    make_seg_train_step, make_transformer_train_step,
+                    to_float_image)
 
 
 def step_generator(seed: int, start: int, device) -> torch.Generator:
@@ -115,7 +118,10 @@ def run_pretrain_segmentation(train_cfg: TrainConfig,
                               ) -> VQTrainState:
     """VQ-SEG stage.  Batches carry a dense ``mask`` [B, H, W, 159] or
     packed ``seg_packed`` int16 [B, H, W, 4] labels, expanded on the
-    device."""
+    device.  Every ``logger.image_period`` steps at a log step, the first
+    4 seg maps and their eval-mode reconstructions go to the logger,
+    colorized (``Visualizer``, panoptic group; the reconstruction as
+    logits), unquantized during the codebook's pass-through window."""
     state = build_seg_state(train_cfg, model_cfg, device)
     batches = iter(batches)
     first = next(batches, None)
@@ -125,8 +131,26 @@ def run_pretrain_segmentation(train_cfg: TrainConfig,
     rest = (itertools.chain([first], batches) if first is not None
             else batches)
     key = "seg_packed" if packed else "mask"
+    logger = logger or Logger()
+    viz = Visualizer(logger.log_dir)
+
+    def image_fn(step_no, st, batch):
+        if step_no % logger.image_period:
+            return
+        seg = torch.as_tensor(batch[key][:4]).to(device)
+        if packed:
+            seg = one_hot_seg_packed(seg)
+        quantize = st.vq_state.counter >= model_cfg.codebook.q_init
+        st.model.eval()
+        with torch.no_grad():
+            recon = st.model.reconstruct(seg, quantize=quantize)
+        logger.log(step_no,
+                   img=viz.colorize(seg.cpu().numpy())["panoptic"],
+                   img_rec=viz.colorize(recon.cpu().numpy(),
+                                        logits=True)["panoptic"])
+
     return _loop(train_cfg, state, step, rest, lambda b: (b[key],), device,
-                 logger or Logger(), on_step)
+                 logger, on_step, image_fn)
 
 
 def build_img_state(train_cfg: TrainConfig, model_cfg: VQModelConfig,
@@ -140,26 +164,35 @@ def build_img_state(train_cfg: TrainConfig, model_cfg: VQModelConfig,
         disc_opt_cfg=train_cfg.disc_optimizer))
 
 
+def frozen_tower(cls, path: Optional[str], load: Callable, seed: int,
+                 device) -> torch.nn.Module:
+    """``cls()`` on ``device``, in eval mode with no gradient to its
+    weights: from the torch checkpoint ``path`` (through ``load``), or a
+    seeded random init where ``path`` is empty."""
+    with torch.device(device):
+        tower = cls()
+    if path:
+        tower.load_state_dict(load(path), strict=True)
+    else:
+        init_random_(tower, torch.Generator(device=device).manual_seed(seed))
+    return tower.eval().requires_grad_(False)
+
+
+def frozen_lpips(device, path: Optional[str] = None) -> LPIPS:
+    """The LPIPS tower of the VQGAN loss and of eval: from ``path``, or
+    seeded random (seed 1)."""
+    return frozen_tower(LPIPS, path, load_lpips_params_from_torch, 1, device)
+
+
 def frozen_towers(loss_cfg: VQGANLossConfig, device,
                   lpips_params_path: Optional[str] = None,
                   face_params_path: Optional[str] = None):
-    """(LPIPS, FaceNet or None) on ``device``, in eval mode with no
-    gradient to their weights: from the torch checkpoints named, or a
-    seeded random init (seeds 1 and 2) where a path is absent."""
-    def build(cls, path, load, seed):
-        with torch.device(device):
-            tower = cls()
-        if path:
-            tower.load_state_dict(load(path), strict=True)
-        else:
-            init_random_(tower, torch.Generator(device=device)
-                         .manual_seed(seed))
-        return tower.eval().requires_grad_(False)
-
-    lpips = build(LPIPS, lpips_params_path, load_lpips_params_from_torch, 1)
-    face = (build(FaceNet, face_params_path, load_face_params_from_torch, 2)
+    """(LPIPS, FaceNet or None) on ``device`` (``frozen_tower``; FaceNet
+    seeded 2 where its path is absent)."""
+    face = (frozen_tower(FaceNet, face_params_path,
+                         load_face_params_from_torch, 2, device)
             if loss_cfg.face_loss else None)
-    return lpips, face
+    return frozen_lpips(device, lpips_params_path), face
 
 
 def run_pretrain_image(train_cfg: TrainConfig, model_cfg: VQModelConfig,
@@ -223,3 +256,39 @@ def run_train_transformer(train_cfg: TrainConfig,
     return _loop(train_cfg, state, step, batches,
                  lambda b: (b["text"], b["seg"], b["image"]), device,
                  logger or Logger(), on_step)
+
+
+def run_show(train_cfg: TrainConfig, model_cfg: VQModelConfig,
+             batches: Iterable[Dict], n_samples: int = 40,
+             out_dir: str = "results", device="cuda") -> List[str]:
+    """VQ-SEG visual eval (``mas_tpu/train/loop.py::run_show``): the model
+    from the latest checkpoint of ``train.checkpoint_dir`` (seeded random
+    weights where there is none), then for each batch the eval forward
+    and a ``Visualizer`` panel [image | seg groups | reconstruction
+    groups] in ``out_dir``, until ``n_samples`` seg maps are shown.  An
+    all-zero image stands in where a batch has no ``image``.  Returns the
+    panels' paths."""
+    with torch.device(device):
+        model = VQModel(model_cfg).eval()
+    step_no = latest_step(train_cfg.checkpoint_dir)
+    if step_no is None:
+        init_random_(model, torch.Generator(device=device)
+                     .manual_seed(train_cfg.seed))
+    else:
+        model.load_state_dict(load_reference_pt(train_cfg.checkpoint_dir))
+        print(f"resumed from step {step_no}")
+    eval_step = make_seg_eval_step(model)
+    viz = Visualizer(out_dir)
+    done, paths = 0, []
+    for batch in batches:
+        seg = torch.as_tensor(batch["mask"]).to(device)
+        recon, _ = eval_step(seg)
+        rgb = batch.get("image")
+        if rgb is None:
+            rgb = np.zeros(tuple(seg.shape[:3]) + (3,), np.float32)
+        paths.append(viz(done, image=np.asarray(torch.as_tensor(rgb).cpu()),
+                         seg=seg.cpu().numpy(), seg_rec=recon.cpu().numpy()))
+        done += seg.shape[0]
+        if done >= n_samples:
+            break
+    return paths

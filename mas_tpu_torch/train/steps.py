@@ -18,6 +18,9 @@ by the real batch, then the fake one.
 
 ``make_transformer_train_step``: CFG text dropout, the image-token
 cross-entropy, backward, the optimizer micro-step.
+
+``make_seg_eval_step``: the eval-mode forward (BN running statistics,
+``quantize_eval``) without gradients.
 """
 
 from __future__ import annotations
@@ -96,6 +99,19 @@ def make_seg_train_step(model: VQModel, opt: Adam,
         if triggered:
             metrics["centroids"] = aux["emb_writeback"]
         return metrics
+
+    return step
+
+
+def make_seg_eval_step(model: VQModel) -> Callable:
+    """Returns ``step(seg) -> (recon, q_loss)``: the model's eval forward
+    under ``torch.no_grad()`` (``mas_tpu/train/steps.py::
+    make_seg_eval_step``)."""
+
+    def step(seg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        model.eval()
+        with torch.no_grad():
+            return model(seg)
 
     return step
 

@@ -13,8 +13,9 @@ layout:
     same for the VQ-IMG loss towers (``losses/discriminator.py``,
     ``losses/lpips.py``, ``losses/face_loss.py``), BN ``batch_stats``
     included;
-  * ``load_reference_pt`` reads a ``.pt`` written by the JAX package's
-    ``--mode export`` (or a reference checkpoint).
+  * ``load_reference_pt`` reads a ``.pt`` written by ``--mode export``
+    (or a reference checkpoint), or the latest checkpoint of a port
+    training ``checkpoint_dir``.
 
 The encoder's and decoder's ``nn.Sequential`` indices are replayed from
 the config (``models/vqvae.py::encoder_layout``/``decoder_layout``), the
@@ -35,6 +36,7 @@ import torch
 
 from ..models.codebook import Codebook, codebook_init_embedding
 from ..models.vqvae import decoder_layout, encoder_layout
+from .checkpoint import checkpoint_path, latest_step
 from .config import TransformerConfig, VQModelConfig
 
 State = Dict[str, torch.Tensor]
@@ -201,14 +203,20 @@ def transformer_from_flax(params: Mapping[str, Any],
 
 
 def load_reference_pt(path: str) -> State:
-    """Read a reference-layout ``.pt`` state_dict (as ``--mode export`` of
-    the JAX package writes it).  An orbax checkpoint directory cannot be
-    read without jax and raises."""
+    """Read a reference-layout state_dict: a ``.pt`` file (as ``--mode
+    export`` of either package writes it, or a reference checkpoint), or
+    a training ``checkpoint_dir`` of the port, whose latest
+    ``step_*.pt`` holds it under ``model``.  A directory without such
+    files (an orbax checkpoint) cannot be read without jax and raises."""
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (an orbax checkpoint?); reading it needs "
-            "jax.  Convert it first with the JAX package: "
-            "python -m mas_tpu.cli --mode export (see configs/export_vq.json)")
+        step = latest_step(path)
+        if step is None:
+            raise ValueError(
+                f"{path} is a directory without step_*.pt files (an orbax "
+                "checkpoint?); reading it needs jax.  Convert it first with "
+                "the JAX package: python -m mas_tpu.cli --mode export (see "
+                "configs/export_vq.json)")
+        path = checkpoint_path(path, step)
     state = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("model", "state_dict"):
         if isinstance(state, dict) and isinstance(state.get(key), dict):

@@ -114,7 +114,7 @@ def test_cli_refuses_unported_modes(tmp_path):
     from mas_tpu_torch.cli import main
 
     path = tmp_path / "cfg.json"
-    path.write_text(json.dumps({"train": {"mode": "show"}}))
+    path.write_text(json.dumps({"train": {"mode": "preprocess_dataset"}}))
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["--config", str(path), "--device", "cpu"])
 
