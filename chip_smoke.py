@@ -89,7 +89,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      the panels written and finite; each export bitwise equal to its
      checkpoint's model and loadable.  Prints images/s, device busy time
      and idle share, B4/B5 ms per batch (cuDNN TF32 off and on), and peak
-     device memory at 512^2.
+     device memory at 512^2;
+ 13. real input and the data factory, through the CLI, with cuDNN TF32 at
+     PyTorch's default (on), as ``python -m mas_tpu_torch`` runs: 2 raw
+     tar shards of 16 JPEGs (640 x 480 and 480 x 720) and captions, made
+     from a seed; ``--mode preprocess_dataset`` of
+     ``configs/preprocess_web.json`` (synthetic annotators) into 2
+     processed shards, every sample read written with jpg, txt and the
+     npz of 7 keys, and ``info.state``; again with three traced
+     TorchScript annotators on the card in spawned workers (the same
+     counts; one sample's arrays equal the modules' on the CPU); local
+     mode over the same JPEGs (96 npz); ``--mode pretrain_segmentation`` of seg_256 as phase 5
+     cuts it on the shards at 256^2 (16 micro-steps; B4, B5, B8 floors)
+     and 2 micro-steps on ``local_npz``; ``--mode train_transformer`` of
+     ``configs/transformer_512.json`` as shipped on the shards at 512^2,
+     tokenized by ``vq_img`` (img_512's model from phase 11's checkpoint
+     dir) and ``vq_seg`` (seg_256's model at 512^2 with channels (128,
+     128, 128, 256, 512, 512, 512): 16 x 16 tokens), 4 steps; exact
+     counts (B1 = B6 = 24 x 4, B4 = both encoders' GroupNorms x 4, B5 =
+     2 x 4), steps 2-4 profiled inside the CLI's loop; one batch's seg
+     and image tokens held to B5's rule on their own latents and to the
+     twins' pass.  Prints the loader's images/s, tokenization ms a batch,
+     the host-to-device copy of one fp32 mask batch (pageable and
+     pinned), the step's host time, device busy time and idle share with
+     the real loader (phase 7 gives the step on synthetic tokens), and
+     peak device memory.
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -123,6 +147,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -131,11 +156,13 @@ import re
 import statistics
 import subprocess
 import sys
+import tarfile
 import tempfile
 import time
 from contextlib import ExitStack
 from unittest import mock
 
+import numpy as np
 import torch
 from torch.nn import functional as F
 
@@ -1867,23 +1894,30 @@ def teacher_forced_check(transformer, text, seg, gen, steps: int = 16,
 
 # --- phase 5: VQ-SEG training at full width ---------------------------------
 
-def seg_training_configs(tmp: str):
+def seg_training_raw(tmp: str) -> dict:
     """configs/seg_256.json as it is, with two overrides in memory:
     codebook.init_steps 4 and samples_per_image 256, so 16 micro-steps run
     pass-through (counter < 12), reservoir collection (counter > 4: 4,096
     rows by counter 12), k-means re-inits at 12, 14 and 16, quantization
-    through B5 from 12 and five optimizer updates (accumulate_grad 3)."""
+    through B5 from 12 and five optimizer updates (accumulate_grad 3);
+    checkpoints under ``tmp``."""
+    with open(SEG_CONFIG) as f:
+        raw = json.load(f)
+    raw["model"]["codebook"] = dict(raw["model"]["codebook"], init_steps=4,
+                                    samples_per_image=256)
+    raw["train"] = dict(raw["train"], total_steps=TRAIN_STEPS,
+                        checkpoint_dir=os.path.join(tmp, "checkpoints"))
+    return raw
+
+
+def seg_training_configs(tmp: str):
+    """``seg_training_raw`` as (train, model, loss configs, data)."""
     from mas_tpu_torch.utils.config import (SegLossConfig, TrainConfig,
                                             VQModelConfig)
 
-    with open(SEG_CONFIG) as f:
-        raw = json.load(f)
-    model = dict(raw["model"])
-    model["codebook"] = dict(model["codebook"], init_steps=4,
-                             samples_per_image=256)
-    train = dict(raw["train"], total_steps=TRAIN_STEPS,
-                 checkpoint_dir=os.path.join(tmp, "checkpoints"))
-    return (TrainConfig.from_dict(train), VQModelConfig.from_dict(model),
+    raw = seg_training_raw(tmp)
+    return (TrainConfig.from_dict(raw["train"]),
+            VQModelConfig.from_dict(raw["model"]),
             SegLossConfig.from_dict(raw["loss"]), raw["data"])
 
 
@@ -2954,9 +2988,10 @@ def write_config(tmp: str, name: str, raw: dict) -> str:
     return path
 
 
-def run_cli(config: str, cwd=None):
+def run_cli(config: str, cwd=None, on_step=None):
     """``mas_tpu_torch.cli.main`` on DEVICE, as ``python -m mas_tpu_torch
-    --config ... --device cuda`` runs it: (its stdout lines, seconds)."""
+    --config ... --device cuda`` runs it, with a training mode's
+    ``on_step`` hook: (its stdout lines, seconds)."""
     from mas_tpu_torch.cli import main as cli_main
 
     out = io.StringIO()
@@ -2964,7 +2999,7 @@ def run_cli(config: str, cwd=None):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), \
             (contextlib.chdir(cwd) if cwd else contextlib.nullcontext()):
-        rc = cli_main(["--config", config, "--device", DEVICE])
+        rc = cli_main(["--config", config, "--device", DEVICE], on_step)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     require(rc == 0, f"cli --config {config}: exit {rc}")
@@ -3002,24 +3037,30 @@ def metrics_vs_twins(what: str, got: dict, twin: dict, rel: float) -> None:
 
 
 def tokens_check(model, x, what: str):
-    """The kernels' tokens obey B5's rule against the plain twin on their
-    own latents (``vq.argmin_agrees``).  Where they differ from the
-    tokens of the whole pass through the twins, the two passes' latents
-    differ (B4's rounding, carried through the encoder), and each such
-    position must be explained by that: with a, b the two passes' codes,
-    the twin's latent z' prefers b over a by at most 2 |z - z'| |a - b|
-    (Cauchy-Schwarz) plus each side's fp32 rounding.  Returns (the share
-    of positions where B5 equals the twin on the same latents, the share
-    equal to the twins' pass)."""
+    """``hold_tokens`` on the tokens of ``eval_step``."""
     from mas_tpu_torch.eval import eval_step
+
+    return hold_tokens(model, x, eval_step(model, x)[1], what)
+
+
+def hold_tokens(model, x, tokens, what: str):
+    """``tokens`` (of ``model`` on ``x``, through the kernels) obey B5's
+    rule against the plain twin on their own latents
+    (``vq.argmin_agrees``).  Where they differ from the tokens of the
+    whole pass through the twins, the two passes' latents differ (B4's
+    rounding, carried through the encoder), and each such position must be
+    explained by that: with a, b the two passes' codes, the twin's latent
+    z' prefers b over a by at most 2 |z - z'| |a - b| (Cauchy-Schwarz)
+    plus each side's fp32 rounding.  Returns (the share of positions where
+    B5 equals the twin on the same latents, the share equal to the twins'
+    pass)."""
     from mas_tpu_torch.ops import vq as vq_ops
 
     d = model.cfg.embed_dim
-    _, tokens = eval_step(model, x)
     with torch.no_grad():
         z = model.encode_latent(x).reshape(-1, d)
         with eval_twins():
-            _, twin = eval_step(model, x)
+            twin = model.encode_tokens(x)
             zt = model.encode_latent(x).reshape(-1, d)
     emb = model.quantize.embedding.weight.to(z.dtype)
     plain = vq_ops.vq_argmin_plain(z, emb)
@@ -3300,6 +3341,435 @@ def phase_eval_show_export(gen, smi: str, seg_dir: str, transformer_dir: str,
     return {k: sum(p[k] for p in parts) for k in parts[0]}
 
 
+# --- phase 13: real input and the data factory ------------------------------
+
+PREPROCESS_CONFIG = os.path.join(ROOT, "configs", "preprocess_web.json")
+RAW_SHARDS, RAW_PER_SHARD = 2, 16
+# (h, w) of the raw JPEGs in turn: landscape 640 x 480, portrait 480 x 720
+RAW_SIZES = ((480, 640), (720, 480))
+NPZ_KEYS = {"seg_panoptic", "edge_panoptic", "seg_human", "edge_human",
+            "seg_face", "box_things", "box_face"}
+# transformer_512's data at 512^2; seg_256's model there with a 32-fold
+# reduction gives its 16 x 16 seg tokens (seg_tokens_per_dim)
+DATA_RES = 512
+SEG_512_CHANNELS = [128, 128, 128, 256, 512, 512, 512]
+
+
+def write_raw_shards(d: str) -> dict:
+    """RAW_SHARDS tar shards of RAW_PER_SHARD samples: a JPEG (a seeded
+    12 x 16 numpy image, bicubic-upsampled to RAW_SIZES in turn, plus
+    noise) and a caption each; returns {shard path: [keys]}."""
+    from PIL import Image
+
+    os.makedirs(d)
+    rng = np.random.default_rng(13)
+    keys = {}
+    for k in range(RAW_SHARDS):
+        path = os.path.join(d, f"raw{k:03d}.tar")
+        keys[path] = []
+        with tarfile.open(path, "w") as tf:
+            for i in range(RAW_PER_SHARD):
+                h, w = RAW_SIZES[i % len(RAW_SIZES)]
+                small = Image.fromarray(
+                    (rng.random((12, 16, 3)) * 255).astype(np.uint8))
+                img = np.asarray(small.resize((w, h), Image.BICUBIC),
+                                 np.float32)
+                img += rng.normal(0, 6, img.shape)
+                buf = io.BytesIO()
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                    buf, "JPEG")
+                key = f"{k:03d}_{i:04d}"
+                for name, data in ((f"{key}.jpg", buf.getvalue()),
+                                   (f"{key}.txt",
+                                    f"scene {k} {i}: a dog on a red sofa"
+                                    .encode())):
+                    info = tarfile.TarInfo(name)
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+                keys[path].append(key)
+    return keys
+
+
+def _members(path: str) -> dict:
+    """{key: {extension: bytes}} of a tar."""
+    out = {}
+    with tarfile.open(path) as tf:
+        for m in tf:
+            key, ext = m.name.split(".", 1)
+            out.setdefault(key, {})[ext] = tf.extractfile(m).read()
+    return out
+
+
+def _npz(data: bytes) -> dict:
+    with np.load(io.BytesIO(data)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def check_processed(raw: dict, out: str, what: str) -> dict:
+    """Every sample read from the raw shards was written to ``out`` with
+    its jpg and txt and the npz of NPZ_KEYS; ``info.state`` counts three
+    annotators done on every shard; returns {key: its members}."""
+    shards = sorted(f for f in os.listdir(out) if f.endswith(".tar"))
+    require(shards == [os.path.basename(p) for p in raw],
+            f"{what}: processed shards {shards}")
+    read = written = 0
+    members = {}
+    for path, keys in raw.items():
+        got = _members(os.path.join(out, os.path.basename(path)))
+        src = _members(path)
+        read += len(src)
+        written += len(got)
+        require(sorted(got) == sorted(keys) == sorted(src),
+                f"{what}, {path}: {len(src)} samples read, {len(got)} "
+                "written")
+        for key in keys:
+            require(got[key]["jpg"] == src[key]["jpg"]
+                    and got[key]["txt"] == src[key]["txt"]
+                    and set(_npz(got[key]["npz"])) == NPZ_KEYS,
+                    f"{what}, {path} {key}: members {sorted(got[key])}")
+        members.update(got)
+    with open(os.path.join(out, "info.state")) as f:
+        state = json.load(f)
+    require(sorted(state["done"].values()) == [3] * RAW_SHARDS,
+            f"{what}: info.state {state}")
+    print(f"preprocess_dataset ({what}): {RAW_SHARDS} shards, {read} samples"
+          f" read, {written} written, each with jpg, txt and the npz of "
+          f"{len(NPZ_KEYS)} keys")
+    return members
+
+
+class ScriptedAnnotator(torch.nn.Module):
+    """A stand-in for a user's annotator network, traced to TorchScript:
+    [1, 3, H, W] image -> the npz arrays of ``kind``, integer functions of
+    the image's 8-bit values, so that any device gives the same arrays."""
+
+    def __init__(self, kind: str):
+        super().__init__()
+        self.kind = kind
+
+    def forward(self, x):
+        v = (x[0] * 255).round().to(torch.int16)
+        box = x[0, :, :2, :2].reshape(-1, 4)
+        if self.kind == "panoptic":
+            return {"seg_panoptic": v[0] % 133,
+                    "edges": (v[1] > 128).to(torch.uint8), "box_things": box}
+        if self.kind == "human":
+            return {"seg_human": v[1] % 24,
+                    "edges": (v[2] > 128).to(torch.uint8)}
+        return {"seg_face": (v[2] > 200).to(torch.uint8), "box_face": box}
+
+
+def data_factory(raw: dict, tmp: str) -> tuple:
+    """``--mode preprocess_dataset`` of configs/preprocess_web.json with
+    its paths in ``tmp``; again with three traced TorchScript annotators,
+    which run on the card in worker processes started by spawn; then in
+    local mode over the same JPEGs.  Checks that every sample read was
+    written (``check_processed``) and holds the TorchScript run's arrays
+    of one sample to its modules run on the CPU; returns (the processed
+    shard dir, the image dir, the npz dir)."""
+    from mas_tpu_torch.data.dataset import decode_jpg
+
+    with open(PREPROCESS_CONFIG) as f:
+        cfg = json.load(f)
+    raw_dir = os.path.dirname(next(iter(raw)))
+    out = os.path.join(tmp, "processed")
+    cfg["preprocess"] = dict(cfg["preprocess"], shards=raw_dir, out_dir=out)
+    reset_counts()
+    _, secs = run_cli(write_config(tmp, "preprocess_web.json", cfg), tmp)
+    require(not any(read_counts().values()), "a kernel launched in "
+            "preprocessing")
+    members = check_processed(raw, out, f"web, synthetic annotators, CLI, "
+                              f"{secs:.2f} s")
+
+    scripted, anns = {}, {}
+    for kind in ("panoptic", "human", "face"):
+        scripted[kind] = torch.jit.trace(ScriptedAnnotator(kind),
+                                         torch.zeros(1, 3, 8, 8),
+                                         strict=False)
+        anns[kind] = {"type": "torchscript",
+                      "path": os.path.join(tmp, f"{kind}.pt")}
+        scripted[kind].save(anns[kind]["path"])
+    ts_out = os.path.join(tmp, "processed_ts")
+    ts_cfg = dict(cfg, preprocess=dict(cfg["preprocess"], out_dir=ts_out,
+                                       annotators=anns))
+    _, secs = run_cli(write_config(tmp, "preprocess_ts.json", ts_cfg), tmp)
+    got = check_processed(raw, ts_out, f"web, TorchScript annotators on "
+                          f"{DEVICE} in spawned workers, CLI, {secs:.2f} s")
+    key = next(iter(got))
+    arrays = _npz(got[key]["npz"])
+    x = torch.from_numpy(decode_jpg(got[key]["jpg"])).permute(2, 0, 1)[
+        None].float()
+    with torch.no_grad():
+        want = {("edge_" + kind if k == "edges" else k): v.numpy()
+                for kind, m in scripted.items() for k, v in m(x).items()}
+    require(set(arrays) == set(want) and all(
+        np.array_equal(arrays[k], want[k]) for k in want),
+        f"TorchScript annotators' arrays of {key} differ from the CPU's")
+    print(f"TorchScript annotators: the arrays of {key} equal the modules' "
+          "on the CPU")
+
+    images = []
+    img_dir = os.path.join(tmp, "images")
+    os.makedirs(img_dir)
+    for key in sorted(members):
+        images.append(os.path.join(img_dir, key + ".jpg"))
+        with open(images[-1], "wb") as f:
+            f.write(members[key]["jpg"])
+    pre = os.path.join(tmp, "npz")
+    cfg["preprocess"] = dict(cfg["preprocess"], mode="local", images=images,
+                             out_dir=pre, workers_per_annotator=2)
+    _, secs = run_cli(write_config(tmp, "preprocess_local.json", cfg), tmp)
+    want = sorted(f"{os.path.basename(p)[:-4]}_{k}.npz" for p in images
+                  for k in ("panoptic", "human", "face"))
+    require(sorted(os.listdir(pre)) == want,
+            f"local mode wrote {len(os.listdir(pre))} of {len(want)} npz")
+    print(f"preprocess_dataset (local, CLI): {len(images)} images -> "
+          f"{len(want)} npz; {secs:.2f} s")
+    return out, img_dir, pre
+
+
+def logged(lines: list) -> list:
+    """The JSON scalar lines a CLI training run printed."""
+    return [json.loads(x) for x in lines if x.startswith('{"step"')]
+
+
+def seg_on_shards(shards: str, img_dir: str, pre: str, tmp: str) -> dict:
+    """``--mode pretrain_segmentation`` of seg_256 as phase 5 cuts it
+    (``seg_training_raw``: 16 micro-steps through pass-through,
+    reservoir, k-means and B5) on the processed shards at 256^2 (one pass
+    of 32 samples at batch 2), then 2 micro-steps on local_npz; returns
+    the launch counts of both runs."""
+    from mas_tpu_torch.models.vqvae import VQModel
+    from mas_tpu_torch.utils.config import VQModelConfig
+
+    raw = seg_training_raw(tmp)
+    raw["train"] = dict(raw["train"], log_period=1,
+                        checkpoint_dir=os.path.join(tmp, "seg_web"))
+    raw["data"] = {"kind": "webdataset", "shards": shards,
+                   "resolution": raw["model"]["resolution"]}
+    reset_counts()
+    lines, secs = run_cli(write_config(tmp, "seg_web.json", raw), tmp)
+    counts = read_counts()
+    losses = [e["loss"] for e in logged(lines)]
+    print(f"pretrain_segmentation on shards (CLI): {len(losses)} micro-steps"
+          f" in {secs:.2f} s; losses " + " ".join(f"{v:.5f}" for v in losses)
+          + f"; launches {counts}")
+    require(len(losses) == TRAIN_STEPS and lines[-1] == f"trained to step "
+            f"{TRAIN_STEPS}" and all(math.isfinite(v) for v in losses),
+            f"seg on shards: {lines[-1]!r}, losses {losses}")
+    with torch.device("meta"):
+        n_gns = count_gns(VQModel(VQModelConfig.from_dict(raw["model"])))
+    for kid, floor in (("B4", n_gns * TRAIN_STEPS), ("B5", 1),
+                       ("B8", n_gns * TRAIN_STEPS)):
+        require(counts[kid] >= floor, f"{kid} launched {counts[kid]} times "
+                f"in seg training on shards, expected >= {floor}")
+
+    raw["train"] = dict(raw["train"], total_steps=2,
+                        checkpoint_dir=os.path.join(tmp, "seg_local"))
+    raw["data"] = {"kind": "local_npz", "image_dir": img_dir,
+                   "preprocessed_dir": pre,
+                   "resolution": raw["model"]["resolution"]}
+    reset_counts()
+    lines, secs = run_cli(write_config(tmp, "seg_local.json", raw), tmp)
+    local = read_counts()
+    losses = [e["loss"] for e in logged(lines)]
+    print(f"pretrain_segmentation on local_npz (CLI): losses {losses}, "
+          f"{secs:.2f} s; launches {local}")
+    require(len(losses) == 2 and all(math.isfinite(v) for v in losses),
+            f"seg on local_npz: {lines[-1]!r}, losses {losses}")
+    require(local["B4"] > 0 and local["B8"] > 0,
+            f"B4 / B8 launched {local['B4']} / {local['B8']} times on "
+            "local_npz")
+    return {k: counts[k] + local[k] for k in counts}
+
+
+def transformer_on_shards_raw(shards: str, img_dir, tmp: str) -> dict:
+    """configs/transformer_512.json as shipped, on the processed shards at
+    512^2 (``kind: webdataset``), with ``vq_img`` img_512's model (from
+    ``img_dir``, phase 11's checkpoint dir, where given) and ``vq_seg``
+    seg_256's model at 512^2 with SEG_512_CHANNELS (16 x 16 tokens)."""
+    with open(TRANSFORMER_CONFIG) as f:
+        raw = json.load(f)
+    with open(SEG_CONFIG) as f:
+        seg_model = dict(json.load(f)["model"], resolution=DATA_RES,
+                         channels=SEG_512_CHANNELS)
+    with open(IMG_CONFIG) as f:
+        img_model = json.load(f)["model"]
+    raw["train"] = dict(raw["train"], log_period=1,
+                        checkpoint_dir=os.path.join(tmp, "transformer_web"))
+    raw["data"] = {"kind": "webdataset", "shards": shards,
+                   "resolution": DATA_RES}
+    raw["vq_seg"] = {"model": seg_model}
+    raw["vq_img"] = {"model": img_model, "checkpoint": img_dir}
+    return raw
+
+
+def profile_steps(first: int, last: int, out: dict):
+    """An ``on_step`` hook that profiles a training loop's micro-steps
+    ``first`` + 1 ... ``last`` as the loop runs them, batch loading
+    included, and puts the profile and the host ms a step (taken with the
+    profiler on) into ``out``; ``breakdown.summary`` reads them after the
+    run, off the loop's clock."""
+    from mas_tpu_torch.breakdown import ACTIVITIES
+
+    prof = torch.profiler.profile(activities=ACTIVITIES)
+    t0 = []
+
+    def on_step(step_no, state, metrics):
+        if step_no == first:
+            torch.cuda.synchronize()
+            prof.start()
+            t0.append(time.perf_counter())
+        elif step_no == last:
+            torch.cuda.synchronize()
+            out["host_ms"] = (time.perf_counter() - t0[0]) * 1e3 / (
+                last - first)
+            prof.stop()
+            out["prof"] = prof
+
+    return on_step
+
+
+def tokenize_and_train(smi: str, shards: str, img_dir, tmp: str):
+    """Transformer training on tokenized shards through the CLI (4 steps:
+    one pass of 32 samples at batch 8) with exact launch counts, its
+    steps 2-4 profiled as the CLI's loop runs them; one batch's tokens
+    held to the twins; the loader, tokenization and the mask batch's
+    host-to-device copy measured; returns the launch counts."""
+    from mas_tpu_torch.breakdown import summary
+    from mas_tpu_torch.cli import data_iter, load_vq
+    from mas_tpu_torch.data.tokenizer import HashWordTokenizer
+    from mas_tpu_torch.models.vqvae import VQModel
+    from mas_tpu_torch.train.loop import tokenize_batches
+    from mas_tpu_torch.utils.config import (TrainConfig, TransformerConfig,
+                                            VQModelConfig)
+
+    raw = transformer_on_shards_raw(shards, img_dir, tmp)
+    tcfg = TransformerConfig.from_dict(raw["transformer"])
+    train_cfg = TrainConfig.from_dict(raw["train"])
+    b = train_cfg.batch_size
+    steps = RAW_SHARDS * RAW_PER_SHARD // b
+    cfgs = {k: VQModelConfig.from_dict(raw[k]["model"])
+            for k in ("vq_seg", "vq_img")}
+    with torch.device("meta"):
+        gns = sum(count_gns(VQModel(c).encoder) for c in cfgs.values())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prof = {}
+    reset_counts()
+    lines, secs = run_cli(write_config(tmp, "transformer_web.json", raw),
+                          tmp, profile_steps(1, steps, prof))
+    counts = read_counts()
+    res = summary(prof["prof"], prof["host_ms"], steps - 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log = logged(lines)
+    losses = [e["loss"] for e in log]
+    step_ms = [1e3 / e["steps_per_sec"] for e in log]
+    print(f"train_transformer on tokenized shards (CLI): {len(log)} steps "
+          f"in {secs:.2f} s with loading, tokenizing and the final "
+          f"checkpoint; losses " + " ".join(f"{v:.5f}" for v in losses)
+          + "; ms a step (host clock between logged steps, loader + "
+          "tokenize + step; steps 2-4 profiled) "
+          + " ".join(f"{v:.1f}" for v in step_ms)
+          + f"; peak device memory {peak_gb:.2f} GiB; launches {counts}")
+    require(len(log) == steps and lines[-1] == f"trained to step {steps}"
+            and all(math.isfinite(v) for v in losses),
+            f"transformer on shards: {lines[-1]!r}, losses {losses}")
+    exact_counts(counts, dict(B1=tcfg.num_layers * steps,
+                              B6=tcfg.num_layers * steps, B4=gns * steps,
+                              B5=2 * steps), "tokenize and train")
+    print(f"transformer step with the real loader (CLI loop, steps 2-"
+          f"{steps}, profiler on): host {res['host_ms']:.1f} ms, device "
+          f"busy {res['device_busy_ms']:.1f} ms, idle share "
+          f"{100 * res['device_idle_share']:.1f}%; ported kernels "
+          + json.dumps(res["ported_kernels_ms_per_call"]) + f" [{smi}]")
+
+    # the loader alone: one pass over the 32 samples at 512^2
+    t0 = time.perf_counter()
+    batches = list(data_iter(raw["data"], b, tcfg))
+    loader_s = time.perf_counter() - t0
+    n = sum(len(x["caption"]) for x in batches)
+    require(n == RAW_SHARDS * RAW_PER_SHARD and batches[0]["mask"].shape
+            == (b, DATA_RES, DATA_RES, 159), f"loader: {n} samples")
+    print(f"loader (webdataset, {DATA_RES}^2, seg maps, host clock, one "
+          f"pass): {n} samples in {loader_s:.2f} s, {n / loader_s:.2f} "
+          f"images/s")
+
+    generator = torch.Generator(device=DEVICE).manual_seed(train_cfg.seed)
+    vq_seg, vq_img = (load_vq(cfgs[k], raw[k].get("checkpoint"), DEVICE,
+                              generator) for k in ("vq_seg", "vq_img"))
+    tok = HashWordTokenizer(tcfg.text_vocab_size - tcfg.text_length,
+                            tcfg.text_length)
+    first = batches[0]
+    reset_counts()
+    tokens = next(tokenize_batches([first], vq_seg, vq_img, tok, DEVICE))
+    torch.cuda.synchronize()
+    one = read_counts()
+    exact_counts(one, dict(B4=gns, B5=2), "tokenizing one batch")
+    mask = torch.as_tensor(first["mask"]).to(DEVICE)
+    image = torch.as_tensor(first["image"]).to(DEVICE)
+    for what, model, x, t in (("seg", vq_seg, mask, tokens["seg"]),
+                              ("image", vq_img, image, tokens["image"])):
+        same, whole = hold_tokens(model, x, t, f"{what} tokens")
+        print(f"{what} tokens of batch 1: B5 rule held; equal to the twin on "
+              f"the same latents at {same:.5f}, to the twins' whole pass at "
+              f"{whole:.5f}")
+
+    with torch.inference_mode():
+        tok_ms = timed_ms(lambda: (vq_seg.encode_tokens(mask),
+                                   vq_img.encode_tokens(image)),
+                          reps=5, warmup=1)
+        seg_ms = timed_ms(lambda: vq_seg.encode_tokens(mask), reps=5,
+                          warmup=1)
+    print(f"tokenize one batch of {b} x {DATA_RES}^2 (device-resident, CUDA "
+          f"events): {tok_ms:.2f} ms, of it the seg encoder {seg_ms:.2f} "
+          f"ms [{smi}]")
+
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.as_tensor(first["mask"]).to(DEVICE, non_blocking=True)
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+    pinned = torch.from_numpy(first["mask"]).pin_memory()
+    pin_ms = timed_ms(lambda: pinned.to(DEVICE, non_blocking=True), reps=3,
+                      warmup=1)
+    gb = first["mask"].nbytes / 1e9
+    print(f"host-to-device copy of one mask batch ({gb:.3f} GB fp32): "
+          f"pageable " + ", ".join(f"{v:.1f}" for v in host)
+          + f" ms ({gb / statistics.median(host) * 1e3:.2f} GB/s); pinned "
+          f"{pin_ms:.1f} ms ({gb / pin_ms * 1e3:.2f} GB/s) [{smi}]")
+    del pinned, batches, first, mask, image, vq_seg, vq_img
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_data(smi: str, tmp: str, img_dir=None) -> dict:
+    """Phase 13: raw shards -> the data factory -> VQ-SEG training on the
+    processed shards and on local_npz -> transformer training on shards
+    tokenized by both encoders, all through the CLI, with cuDNN TF32 at
+    PyTorch's default (on), as ``python -m mas_tpu_torch`` runs; returns
+    the launch counts of the training runs."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    os.makedirs(tmp)
+    try:
+        t0 = time.perf_counter()
+        raw = write_raw_shards(os.path.join(tmp, "raw"))
+        shards, images, pre = data_factory(raw, tmp)
+        seg = seg_on_shards(shards, images, pre, tmp)
+        tr = tokenize_and_train(smi, shards, img_dir, tmp)
+        print(f"phase 13 (data) took {time.perf_counter() - t0:.1f} s; "
+              "vq_img from " + (img_dir or "seeded random weights"))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return {k: seg[k] + tr[k] for k in seg}
+
+
 def main(argv) -> int:
     modes = {"--decode-times": decode_times, "--norm-times": norm_times,
              "--vq-times": vq_times, "--vq-paths": vq_paths}
@@ -3322,11 +3792,15 @@ def main(argv) -> int:
         counts, checkpoint = phase_train_transformer(smi, tmp)
         paths += [counts, phase_serve_512(gen, smi, checkpoint)]
         paths += [phase_packed(gen, smi), phase_ln_producer(gen, smi)]
-        with tempfile.TemporaryDirectory() as img_tmp:
-            paths.append(phase_train_image(smi, img_tmp))
+        img_tmp = os.path.join(tmp, "img")
+        os.makedirs(img_tmp)
+        paths.append(phase_train_image(smi, img_tmp))
         paths.append(phase_eval_show_export(
             gen, smi, seg_training_configs(seg_tmp)[0].checkpoint_dir,
             os.path.dirname(checkpoint), tmp))
+        paths.append(phase_data(
+            smi, os.path.join(tmp, "data"),
+            img_training_configs(img_tmp)[0].checkpoint_dir))
     for row in rows:
         row["launches"] = sum(counts[row["id"]] for counts in paths)
         require(row["launches"] > 0, f"{row['id']} launched on no path")

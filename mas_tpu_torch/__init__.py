@@ -9,7 +9,14 @@ Slices ported so far:
     training (``train.loop.run_pretrain_segmentation``,
     ``--mode pretrain_segmentation``);
   * transformer training (``train.loop.run_train_transformer``,
-    ``--mode train_transformer``).
+    ``--mode train_transformer``), on synthetic tokens or on processed
+    tar shards tokenized by both VQ encoders (``train.loop.
+    tokenize_batches``);
+  * VQ-IMG (VQGAN) training (``--mode pretrain_image``), VQ eval, show
+    and export (``--mode eval``, ``show``, ``export``);
+  * the data layer (``data``: tar shards, datasets, batching,
+    prefetching, the ``webdataset`` and ``local_npz`` kinds) and the data
+    factory (``data.preprocess``, ``--mode preprocess_dataset``).
 Eleven hand-written kernels carry them on CUDA: B1 prefix-causal attention
 forward and B6 its backward (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``),
 B2 quantized and B9 float decode attention (``csrc/decode_quant.cu``), B3

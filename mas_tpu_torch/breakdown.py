@@ -78,12 +78,20 @@ def _profile(fn, steps: int):
         fn()
     torch.cuda.synchronize()
     host = (time.perf_counter() - t0) * 1e3 / steps
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
+    return summary(prof, host, steps)
+
+
+ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+              torch.profiler.ProfilerActivity.CUDA]
+
+
+def summary(prof, host: float, steps: int) -> dict:
+    """``_profile``'s result from a finished profile of ``steps`` calls
+    and their host ms per call."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps

@@ -1,6 +1,6 @@
 """Command-line entry point of the PyTorch port: ``--mode sample``,
 ``eval``, ``show``, ``export``, ``pretrain_segmentation``,
-``pretrain_image`` and ``train_transformer``.
+``pretrain_image``, ``train_transformer`` and ``preprocess_dataset``.
 
 ``sample`` is the counterpart of ``mas_tpu/cli.py::_run_sample``: it
 tokenizes the config's captions, samples image tokens with guidance and
@@ -27,9 +27,15 @@ weights where no checkpoint is named) and prints its path.
 VQGAN, with the config's ``loss`` section and the LPIPS and face towers
 from the torch checkpoints ``lpips_weights`` / ``face_weights``, seeded
 random where those are null) and ``train_transformer`` the transformer
-(``train/loop.py``) on the config's ``data`` section; only ``kind:
-synthetic`` is ported (ROADMAP A13), and ``preprocess_dataset`` raises:
-it is not ported yet (ROADMAP A13).
+(``train/loop.py``) on the config's ``data`` section (``data_iter``:
+``kind`` synthetic, webdataset or local_npz).  With ``kind: webdataset``
+the transformer trains on pixel shards tokenized on the fly by the frozen
+encoders of the ``vq_seg`` and ``vq_img`` sections (each a ``model`` and
+an optional ``checkpoint``; seeded random weights without one).
+``preprocess_dataset`` runs the data factory of the ``preprocess``
+section (``data/preprocess.py::run_preprocessor``): annotate raw images
+or tar shards and write npz files or processed shards; a
+``torchscript`` annotator runs on ``--device``.
 
 As in ``mas_tpu/cli.py::main``, every mode builds a ``TrainConfig`` from
 the whole ``train`` section (a mode that does not train validates as
@@ -50,6 +56,7 @@ Usage:
     python -m mas_tpu_torch --config configs/eval_256.json --device cuda
     python -m mas_tpu_torch --config configs/show_256.json --device cuda
     python -m mas_tpu_torch --config configs/export_vq.json --device cuda
+    python -m mas_tpu_torch --config configs/preprocess_web.json
 
 ``--device`` is explicit; nothing falls back to the CPU.
 """
@@ -153,39 +160,78 @@ def run_sample(raw: Dict[str, Any], train_cfg: TrainConfig, device) -> str:
 
 def data_iter(data_cfg: Dict[str, Any], batch_size: int, model_cfg):
     """The host batch iterator of the config's ``data`` section, as
-    ``mas_tpu/cli.py::_data_iter``: RGB images and boxes for a 3-channel
-    ``VQModelConfig`` (VQ-IMG training), seg maps for another one (VQ-SEG),
-    tokens for a ``TransformerConfig``; the port has the synthetic kind."""
-    from .data.dataset import (SyntheticImgBatches, SyntheticSegBatches,
-                               SyntheticTokenBatches)
+    ``mas_tpu/cli.py::_data_iter``.  ``kind: synthetic`` (the default)
+    gives seeded random RGB images and boxes for a 3-channel
+    ``VQModelConfig`` (VQ-IMG), seg maps for another one (VQ-SEG), tokens
+    for a ``TransformerConfig``.  ``webdataset`` (``shards``: a dir of
+    processed ``.tar`` shards, a path, a ``pipe:`` URL or a list;
+    ``resolution`` 512) makes one pass over this process's shards;
+    ``local_npz`` (``image_dir``, ``preprocessed_dir``, ``resolution``
+    256) loops over shuffled epochs, each a ``default_rng(seed)``
+    permutation.  Both give image, box and caption batches, with seg maps
+    unless the model is a 3-channel VQ model, ``max_boxes`` (6) boxes a
+    sample, ``prefetch`` (2) batches ahead on a thread."""
+    from .data.dataset import (PreprocessedLocalDataset,
+                               PreprocessedWebDataset, SyntheticImgBatches,
+                               SyntheticSegBatches, SyntheticTokenBatches,
+                               batch_iterator)
+    from .data.prefetch import prefetch
 
     kind = data_cfg.get("kind", "synthetic")
-    if kind != "synthetic":
-        raise NotImplementedError(
-            f"data kind {kind!r} is not ported to mas_tpu_torch "
-            "(ROADMAP A13); only 'synthetic' is")
     seed = data_cfg.get("seed", 0)
-    if isinstance(model_cfg, TransformerConfig):
-        return iter(SyntheticTokenBatches(batch_size, model_cfg, seed))
-    res = data_cfg.get("resolution", model_cfg.resolution)
-    if model_cfg.in_channels == 3:
-        return iter(SyntheticImgBatches(batch_size, res, seed=seed))
-    return iter(SyntheticSegBatches(batch_size, res, seed))
+    if kind == "synthetic":
+        if isinstance(model_cfg, TransformerConfig):
+            return iter(SyntheticTokenBatches(batch_size, model_cfg, seed))
+        res = data_cfg.get("resolution", model_cfg.resolution)
+        if model_cfg.in_channels == 3:
+            return iter(SyntheticImgBatches(batch_size, res, seed=seed))
+        return iter(SyntheticSegBatches(batch_size, res, seed))
+    need_seg = not (isinstance(model_cfg, VQModelConfig)
+                    and model_cfg.in_channels == 3)
+    # this process's index and the process count: ROADMAP A12 sets them
+    # from torch.distributed (the JAX package reads jax.process_index())
+    index, count = 0, 1
+    if kind == "webdataset":
+        samples = PreprocessedWebDataset(
+            data_cfg["shards"], resolution=data_cfg.get("resolution", 512),
+            process_index=index, process_count=count, need_seg=need_seg)
+    elif kind == "local_npz":
+        samples = _epochs(PreprocessedLocalDataset(
+            data_cfg["image_dir"], data_cfg["preprocessed_dir"],
+            resolution=data_cfg.get("resolution", 256), seed=seed),
+            seed, index, count)
+    else:
+        raise ConfigError(f"unknown data kind {kind!r}")
+    return prefetch(batch_iterator(samples, batch_size,
+                                   max_boxes=data_cfg.get("max_boxes", 6),
+                                   need_seg=need_seg),
+                    size=data_cfg.get("prefetch", 2))
+
+
+def _epochs(ds, seed: int, index: int, count: int):
+    """Infinite shuffled epochs of a map-style dataset, strided across
+    processes: every process permutes with the same seed, so the strides
+    partition each epoch."""
+    rng = np.random.default_rng(seed)
+    while True:
+        for i in rng.permutation(len(ds))[index::count]:
+            yield ds[int(i)]
 
 
 def run_pretrain_segmentation(raw: Dict[str, Any], train_cfg: TrainConfig,
-                              device):
+                              device, on_step=None):
     from .train.loop import run_pretrain_segmentation as run
 
     model_cfg = (VQModelConfig.from_dict(raw["model"]) if "model" in raw
                  else vq_seg_config())
     loss_cfg = SegLossConfig.from_dict(raw.get("loss", {}))
     batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
-    return run(train_cfg, model_cfg, batches, loss_cfg, device)
+    return run(train_cfg, model_cfg, batches, loss_cfg, device,
+               on_step=on_step)
 
 
 def run_pretrain_image(raw: Dict[str, Any], train_cfg: TrainConfig,
-                       device):
+                       device, on_step=None):
     from .train.loop import run_pretrain_image as run
 
     model_cfg = (VQModelConfig.from_dict(raw["model"]) if "model" in raw
@@ -193,17 +239,33 @@ def run_pretrain_image(raw: Dict[str, Any], train_cfg: TrainConfig,
     loss_cfg = VQGANLossConfig.from_dict(raw.get("loss", {}))
     batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
     return run(train_cfg, model_cfg, batches, loss_cfg,
-               raw.get("lpips_weights"), raw.get("face_weights"), device)
+               raw.get("lpips_weights"), raw.get("face_weights"), device,
+               on_step=on_step)
 
 
 def run_train_transformer(raw: Dict[str, Any], train_cfg: TrainConfig,
-                          device):
+                          device, on_step=None):
     from .train.loop import run_train_transformer as run
 
     model_cfg = (TransformerConfig.from_dict(raw["transformer"])
                  if "transformer" in raw else TransformerConfig())
-    batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
-    return run(train_cfg, model_cfg, batches, device)
+    data_cfg = raw.get("data", {})
+    batches = data_iter(data_cfg, train_cfg.batch_size, model_cfg)
+    if data_cfg.get("kind") == "webdataset":
+        # pixels -> tokens through the two frozen VQ encoders of the
+        # sections vq_seg / vq_img = {model, checkpoint}
+        from .train.loop import tokenize_batches
+
+        generator = torch.Generator(device=device).manual_seed(
+            train_cfg.seed)
+        vq_seg, vq_img = (load_vq(VQModelConfig.from_dict(raw[k]["model"]),
+                                  raw[k].get("checkpoint"), device, generator)
+                          for k in ("vq_seg", "vq_img"))
+        tok = HashWordTokenizer(
+            vocab_size=model_cfg.text_vocab_size - model_cfg.text_length,
+            text_length=model_cfg.text_length)
+        batches = tokenize_batches(batches, vq_seg, vq_img, tok, device)
+    return run(train_cfg, model_cfg, batches, device, on_step=on_step)
 
 
 def _vq_config(raw: Dict[str, Any]) -> VQModelConfig:
@@ -273,7 +335,9 @@ _TRAIN_MODES = {"pretrain_segmentation": run_pretrain_segmentation,
                 "train_transformer": run_train_transformer}
 
 
-def main(argv=None) -> int:
+def main(argv=None, on_step=None) -> int:
+    """Run the config's mode; ``on_step(step, state, metrics)`` runs after
+    every micro-step of a training mode (``train/loop.py::_loop``)."""
     ap = argparse.ArgumentParser(prog="mas_tpu_torch",
                                  description=__doc__.split("\n")[0])
     ap.add_argument("--config", required=True, help="JSON config path")
@@ -291,7 +355,7 @@ def main(argv=None) -> int:
     train_cfg = TrainConfig.from_dict(train_raw)
     device = torch.device(args.device)
     if mode in _TRAIN_MODES:
-        state = _TRAIN_MODES[mode](raw, train_cfg, device)
+        state = _TRAIN_MODES[mode](raw, train_cfg, device, on_step)
         print(f"trained to step {state.step}")
     elif mode == "sample":
         print(run_sample(raw, train_cfg, device))
@@ -302,9 +366,9 @@ def main(argv=None) -> int:
     elif mode == "export":
         print(run_export(raw, train_cfg, device))
     elif mode == "preprocess_dataset":
-        raise NotImplementedError(
-            "mode 'preprocess_dataset' is not ported to mas_tpu_torch yet "
-            "(ROADMAP A13)")
+        from .data.preprocess import run_preprocessor
+
+        run_preprocessor(raw.get("preprocess", {}), device)
     else:
         raise ConfigError(f"unknown mode {mode!r}")
     return 0

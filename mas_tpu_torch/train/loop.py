@@ -4,15 +4,18 @@ as ``mas_tpu/train/loop.py::run_pretrain_segmentation``,
 ``_loop``: build the state, resume from the latest checkpoint when asked,
 then step, log scalars (and input / reconstruction grids: RGB for VQ-IMG,
 the colorized panoptic group for VQ-SEG) and checkpoint; and ``run_show``,
-the VQ-SEG visual eval.  Batches are dicts of numpy arrays or tensors;
-they are moved to the device in the loop.
+the VQ-SEG visual eval; and ``tokenize_batches``, which turns pixel
+batches into the transformer's tokens with the two frozen VQ encoders.
+Batches are dicts of numpy arrays or tensors; they are moved to the
+device in the loop.
 """
 
 from __future__ import annotations
 
 import itertools
 import time
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -241,21 +244,63 @@ def build_transformer_state(train_cfg: TrainConfig,
         model_cfg, train_cfg.optimizer, init, device))
 
 
+def token_args(cfg: TransformerConfig) -> Callable[[Dict], Tuple]:
+    """batch -> (text, seg, image) tokens, each checked to hold the
+    transformer's number of tokens a row: a VQ model whose token grid
+    does not match ``seg_tokens_per_dim`` / ``image_tokens_per_dim``
+    raises here, before an embedding reads out of range."""
+    def args(batch):
+        for key, n in (("text", cfg.text_length), ("seg", cfg.seg_length),
+                       ("image", cfg.image_length)):
+            if tuple(batch[key].shape[1:]) != (n,):
+                raise ValueError(
+                    f"{key} tokens of shape {tuple(batch[key].shape)}, the "
+                    f"transformer takes [batch, {n}]")
+        return batch["text"], batch["seg"], batch["image"]
+
+    return args
+
+
 def run_train_transformer(train_cfg: TrainConfig,
                           model_cfg: TransformerConfig,
                           batches: Iterable[Dict], device="cuda",
                           logger: Optional[Logger] = None,
                           on_step: Optional[Callable] = None
                           ) -> TransformerTrainState:
-    """Transformer stage.  Batches carry pre-extracted ``text``, ``seg``
-    and ``image`` tokens (``data/dataset.py::SyntheticTokenBatches``)."""
+    """Transformer stage.  Batches carry ``text``, ``seg`` and ``image``
+    tokens (``data/dataset.py::SyntheticTokenBatches``, or pixels through
+    ``tokenize_batches``)."""
     state = build_transformer_state(train_cfg, model_cfg, device)
     step = make_transformer_train_step(state.model, state.opt,
                                        train_cfg.uncond_p,
                                        train_cfg.start_uncond)
-    return _loop(train_cfg, state, step, batches,
-                 lambda b: (b["text"], b["seg"], b["image"]), device,
-                 logger or Logger(), on_step)
+    return _loop(train_cfg, state, step, batches, token_args(model_cfg),
+                 device, logger or Logger(), on_step)
+
+
+def tokenize_batches(pixel_batches: Iterable[Dict], vq_seg: VQModel,
+                     vq_img: VQModel,
+                     text_tokenizer: Callable[[list], np.ndarray],
+                     device) -> Iterator[Dict]:
+    """Pixel batches (``mask`` [B, H, W, 159], ``image`` [B, H, W, 3],
+    ``caption``) -> token batches of the transformer stage, as
+    ``mas_tpu/train/loop.py::tokenize_batches``: the two frozen VQ
+    encoders' ``encode_tokens`` on ``device`` (kernels B4 and B5 on
+    CUDA), the captions through ``text_tokenizer``.  ``text`` is int32
+    numpy [B, text_length]; ``seg`` and ``image`` are int32 tensors
+    [B, h * w] on ``device``."""
+    for batch in pixel_batches:
+        with torch.inference_mode():
+            seg = vq_seg.encode_tokens(
+                torch.as_tensor(batch["mask"]).to(device, non_blocking=True))
+            img = vq_img.encode_tokens(to_float_image(
+                torch.as_tensor(batch["image"]).to(device,
+                                                   non_blocking=True)))
+        b = seg.shape[0]
+        # clones out of inference mode: the step's embeddings save them
+        yield {"text": text_tokenizer(batch.get("caption", [""] * b)),
+               "seg": seg.reshape(b, -1).clone(),
+               "image": img.reshape(b, -1).clone()}
 
 
 def run_show(train_cfg: TrainConfig, model_cfg: VQModelConfig,

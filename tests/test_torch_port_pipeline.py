@@ -111,12 +111,18 @@ def test_cli_writes_sample_grid(tmp_path):
 
 
 def test_cli_refuses_unported_modes(tmp_path):
+    """Every mode of ``mas_tpu/cli.py`` is ported: an unknown mode is a
+    ConfigError, and ``preprocess_dataset`` without its ``shards`` fails
+    as the JAX package's does."""
     from mas_tpu_torch.cli import main
+    from mas_tpu_torch.utils.config import ConfigError
 
     path = tmp_path / "cfg.json"
-    path.write_text(json.dumps({"train": {"mode": "preprocess_dataset"}}))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["--config", str(path), "--device", "cpu"])
+    for mode, error in (("preprocess_dataset", KeyError),
+                        ("distill", ConfigError)):
+        path.write_text(json.dumps({"train": {"mode": mode}}))
+        with pytest.raises(error):
+            main(["--config", str(path), "--device", "cpu"])
 
 
 def test_tokenizer_matches_jax():

@@ -76,7 +76,7 @@ def _capture(monkeypatch, name):
 
     seen = {}
 
-    def run(*args):
+    def run(*args, **kwargs):
         seen["args"] = args
         return type("State", (), {"step": 0})()
 

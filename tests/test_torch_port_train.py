@@ -254,15 +254,21 @@ def test_cli_pretrain_segmentation_resumes(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_refuses_unported_data_and_train_fields(tmp_path):
+    """Every data kind of the JAX package is ported: an unknown kind is a
+    ConfigError and a missing shard fails the run, as in ``mas_tpu``; the
+    distribution fields still raise, naming A12."""
     from mas_tpu_torch.cli import main
-    from mas_tpu_torch.utils.config import TrainConfig
+    from mas_tpu_torch.utils.config import ConfigError, TrainConfig
 
     raw = json.loads(open(_cli_config(tmp_path, 1, False)).read())
-    raw["data"] = {"kind": "webdataset", "shards": "x"}
-    path = tmp_path / "web.json"
-    path.write_text(json.dumps(raw))
-    with pytest.raises(NotImplementedError, match="A13"):
-        main(["--config", str(path), "--device", "cpu"])
+    for data, error in (({"kind": "webdataset", "shards": "x"},
+                         FileNotFoundError),
+                        ({"kind": "tfrecord"}, ConfigError)):
+        raw["data"] = data
+        path = tmp_path / "web.json"
+        path.write_text(json.dumps(raw))
+        with pytest.raises(error):
+            main(["--config", str(path), "--device", "cpu"])
     for field, item in ((dict(mesh={"data": 2}), "A12"),
                         (dict(allow_replicated_batch=True), "A12")):
         with pytest.raises(NotImplementedError, match=item):
