@@ -113,7 +113,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      the host-to-device copy of one fp32 mask batch (pageable and
      pinned), the step's host time, device busy time and idle share with
      the real loader (phase 7 gives the step on synthetic tokens), and
-     peak device memory.
+     peak device memory;
+ 14. the transformer's variants at full width, with seeded random
+     weights: ``configs/sample_256.json`` with ``num_kv_heads: 4`` (int4
+     lane cache at batch 4 and 64; with ``kv_scale_dtype: "bfloat16"`` at
+     batch 64; over the float cache at batch 4), with ``rudalle_relax`` and
+     ``cogview_layernorm_prescale`` over the float cache, and with
+     ``ln_matmul_fold``, each through ``sample_images`` (images, exact
+     B1/B2/B3 or B9/B4 counts, teacher-forced logits against the twins,
+     the decode step's host and busy ms from step 8 beside phase 4's MHA
+     figures); ``configs/transformer_512.json`` with ``num_kv_heads: 4``
+     and with rudalle_relax + prescale + ``ln_matmul_fold``, 2 steps each
+     through ``run_train_transformer`` (every parameter moved with a
+     nonzero gradient, exact B1/B6 counts, one step against the twins;
+     the cost of expanding k/v to the query heads).  Phase 3 also holds
+     B2 and B9 with grouped query rows (16 query heads over 8, 4 or 1 kv
+     heads) and B3/B2 with bf16 scales against their twins, and times B2
+     GQA-4.
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -139,7 +155,13 @@ for B5 (VQ argmin) at the tokenization and seg training shapes, and
     python3 chip_smoke.py --vq-paths DIR
 
 profiles the two paths that B4 and B5 carry outside training:
-tokenization of 8 x 512^2 images and the VQ decode of 4 256^2 images.
+tokenization of 8 x 512^2 images and the VQ decode of 4 256^2 images, and
+
+    python3 chip_smoke.py --mha-outputs DIR
+
+prints digests of the multi-head decode kernels' outputs and of a
+full-width multi-head prefill + decode on inputs made from a seed, so two
+trees show in one call whether they compute the same bits.
 """
 
 from __future__ import annotations
@@ -153,6 +175,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -576,6 +599,110 @@ def b2_times(gen, rows: int) -> dict:
     return out
 
 
+def _gqa_q(gen, rows, h, kv, d, dtype=torch.bfloat16):
+    """A grouped-query decode query [rows, h, 1, d]: the q view into a
+    projection [rows, 1, (h + 2 kv) d], as the model slices it."""
+    proj = torch.randn(rows, 1, (h + 2 * kv) * d, device="cuda",
+                       generator=gen, dtype=dtype)
+    return proj[..., :h * d].view(rows, 1, h, d).transpose(1, 2)
+
+
+def _quant_caches(gen, bits, b, kv, t, d, scale_dtype):
+    from mas_tpu_torch.ops import quant
+
+    mk = lambda: quant.quantize_kv(torch.randn(
+        b, kv, t, d, device="cuda", generator=gen), bits, scale_dtype)
+    return mk(), mk()
+
+
+# (rows, query heads per kv head g, d) of the grouped reads: g 2, 4 and
+# 16 (one kv head), and d 256 at g 16 (the merge states of four rows at
+# the widest instance)
+B2_GROUPS = ((128, 4, 64), (8, 4, 64), (128, 2, 64), (8, 16, 64),
+             (128, 16, 64), (8, 16, 256))
+
+
+def b2_gqa_times(gen, rows: int, g: int, scale_dtype) -> dict:
+    """B2 over int4 caches [rows, 16 / g, 640, 64] with ``scale_dtype``
+    scales at index 511, q [rows, 16, 1, 64] bf16: back to back
+    (``run_ms``), from a CUDA graph (``graph_ms``), the plain twin, and the
+    bound (each kv head's positions and scales read once), rotating over
+    ``n_sets`` cache sets."""
+    from mas_tpu_torch.ops import quant
+
+    h, t, d, bits = 16, 640, 64, 4
+    kv, sb = h // g, torch.finfo(scale_dtype).bits // 8
+    pair = 2 * rows * kv * t * (d // 2 + sb)
+    idx = torch.tensor([511], dtype=torch.int32, device="cuda")
+    sets = [(_gqa_q(gen, rows, h, kv, d),
+             *_quant_caches(gen, bits, rows, kv, t, d, scale_dtype))
+            for _ in range(n_sets(pair))]
+    kernel = rotating(lambda q, kc, vc: quant.decode_attention_quant(
+        q, kc, vc, idx), sets)
+    plain = rotating(lambda q, kc, vc: quant.decode_attention_quant_plain(
+        q, kc, vc, idx), sets)
+    valid = 512
+    out = {"ms": timed_ms(kernel), "b2b_ms": run_ms(kernel),
+           "graph_ms": graph_ms(kernel), "plain_ms": timed_ms(plain, reps=5),
+           **bound(2 * rows * kv * valid * (d // 2 + sb)
+                   + 2 * rows * h * d * 2, 4 * d * valid * rows * h,
+                   torch.bfloat16)}
+    out["bound_share"] = out["bound_ms"] / out["graph_ms"]
+    return out
+
+
+def check_b2_grouped(gen) -> dict:
+    """Grouped-query and bf16-scale reads of B2: q [rows, 16, 1, d] bf16
+    (and fp32) against int4 and int8 caches of 16 / g kv heads, fp32 and
+    bf16 scales, T = 640, at indices over the split's and the tiles'
+    edges, for B2_GROUPS; and bf16 scales at g = 1.  Same tolerances as
+    ``check_b2``: the twin reads the same scales (bf16 widened to fp32).
+    Times GQA-4 int4 at 128 and 8 rows, index 511, with fp32 and bf16
+    scales (``b2_gqa_times``)."""
+    from mas_tpu_torch.ops import quant
+
+    h, t = 16, 640
+    err, out = 0.0, {}
+    cases = [(rows, g, d, bits, sd) for rows, g, d in B2_GROUPS
+             for bits in (4, 8) for sd in (torch.float32, torch.bfloat16)]
+    cases += [(rows, 1, 64, bits, torch.bfloat16) for rows in (128, 8)
+              for bits in (4, 8)]
+    for rows, g, d, bits, sd in cases:
+        kv = h // g
+        q = _gqa_q(gen, rows, h, kv, d)
+        kc, vc = _quant_caches(gen, bits, rows, kv, t, d, sd)
+        for index in (0, 6, 7, 8, 127, 383, 511, 639):
+            idx = torch.tensor([index], dtype=torch.int32, device="cuda")
+            o = quant.decode_attention_quant(q, kc, vc, idx)
+            p = quant.decode_attention_quant_plain(q, kc, vc, idx)
+            q32 = q.float()
+            o32 = quant.decode_attention_quant(q32, kc, vc, idx)
+            p32 = quant.decode_attention_quant_plain(q32, kc, vc, idx)
+            torch.cuda.synchronize()
+            what = (f"B2 q [{rows},{h},1,{d}] g {g} int{bits} {sd} scales "
+                    f"index {index}")
+            require(close(o, p, 1e-2, 1e-2), f"{what}: max err "
+                    f"{max_err(o, p)}")
+            require(close(o32, p32, 1e-5, 1e-5), f"{what} fp32: max err "
+                    f"{max_err(o32, p32)}")
+            err = max(err, max_err(o, p))
+        print(f"B2 grouped [{rows},{kv},{t},{d}] g {g} int{bits} {sd} "
+              "scales, bf16 and fp32 q, 8 indices: ok")
+    for rows in (128, 8):
+        for sd in (torch.float32, torch.bfloat16):
+            res = b2_gqa_times(gen, rows, 4, sd)
+            key = f"gqa4_{'bf16' if sd == torch.bfloat16 else 'fp32'}"
+            print(f"B2 GQA-4 int4 {sd} scales [{rows},4,{t},64] index 511: "
+                  f"one call {res['ms']:.4f} ms, back to back "
+                  f"{res['b2b_ms']:.4f} ms, graph {res['graph_ms']:.4f} ms, "
+                  f"plain {res['plain_ms']:.4f} ms, bound "
+                  f"{res['bound_ms']:.4f} ms ({res['bound_by']}), "
+                  f"{100 * res['bound_share']:.1f}% of it")
+            out[f"{key}_rows{rows}"] = res
+    out["max_abs_err"] = err
+    return out
+
+
 def check_b2(gen) -> dict:
     """Decode read: q [rows, 16, 1, d] bf16 (a view into qkv) at 128 rows
     (batch 64 with guidance: one block per (b, h)) and 8 rows (batch 4:
@@ -673,8 +800,12 @@ def check_b2(gen) -> dict:
         else:
             out["batch4_graph_ms"] = res["graph_ms"]
             out["batch4_bound_ms"] = res["bound_ms"]
+    # the grouped reads draw from a generator of their own, so the shared
+    # one reaches the later phases in the state it had before they existed
+    grouped = check_b2_grouped(torch.Generator(device="cuda").manual_seed(2))
+    out["grouped"] = {k: v for k, v in grouped.items() if k != "max_abs_err"}
     out["library_ms"] = None
-    out["max_abs_err"] = err
+    out["max_abs_err"] = max(err, grouped["max_abs_err"])
     return out
 
 
@@ -750,6 +881,54 @@ def _held_writes(gen, rows, d, bits, t=640, dtype=torch.bfloat16):
                 "padding was written")
 
 
+def _held_bf16_writes(gen, rows, kv, d, bits, t=640):
+    """B3 into lane caches [rows, kv, t, *] with bf16 scales at indices 0,
+    384 and t - 1 against its plain twin: bitwise equal values and scales
+    (the scale rounded to bf16, the values quantized against it), the
+    padding untouched, and each written position equal to ``quantize_kv``
+    of the new k/v with bf16 scales."""
+    from mas_tpu_torch.ops import decode_cache, quant
+
+    kn, vn = _new_kv(gen, rows, kv, d)
+    kc, vc = _quant_caches(gen, bits, rows, kv, t, d, torch.bfloat16)
+    pk, pv = (quant.QuantCache(c.q.clone(), c.scale.clone(), bits)
+              for c in (kc, vc))
+    for index in (0, 384, t - 1):
+        idx = torch.tensor([index], dtype=torch.int32, device="cuda")
+        decode_cache.write_quant_kv(kc, vc, kn, vn, idx)
+        decode_cache.write_quant_kv_plain(pk, pv, kn, vn, idx)
+    torch.cuda.synchronize()
+    what = f"B3 bf16 scales [{rows},{kv},{t},{d}] int{bits}"
+    for got, want, new in ((kc, pk, kn), (vc, pv, vn)):
+        require(torch.equal(got.q, want.q)
+                and torch.equal(got.scale, want.scale),
+                f"{what}: kernel and plain twin stored different bits")
+        require(not got.values()[..., d:].any(), f"{what}: the padding "
+                "was written")
+        ref = quant.quantize_kv(new[:, :, None].float(), bits,
+                                torch.bfloat16)
+        require(torch.equal(got.q[:, :, t - 1:], ref.q)
+                and torch.equal(got.scale[:, :, t - 1:], ref.scale),
+                f"{what}: differs from quantize_kv with bf16 scales")
+
+
+def bf16_write_times(gen, rows: int, kv: int) -> dict:
+    """B3 writing new k/v [rows, kv, 64] bf16 into int4 lane caches with
+    bf16 scales at index 511: device time from a CUDA graph, host time
+    per call, and the bound (2-byte scales)."""
+    from mas_tpu_torch.ops import decode_cache, quant
+
+    t, d, bits = 640, 64, 4
+    kn, vn = _new_kv(gen, rows, kv, d)
+    idx = torch.tensor([511], dtype=torch.int32, device="cuda")
+    kc, vc = (quant.QuantCache.empty(rows, kv, t, d, bits, "cuda",
+                                     torch.bfloat16) for _ in range(2))
+    fn = lambda: decode_cache.write_quant_kv(kc, vc, kn, vn, idx)
+    return {"graph_ms": graph_ms(fn), "host_ms": host_ms(fn),
+            **bound(2 * rows * kv * d * 2 + 2 * rows * kv * (d // 2 + 2),
+                    2 * rows * kv * d * 4, torch.bfloat16)}
+
+
 def write_times(gen, rows: int) -> dict:
     """B3 and B10 writing new k/v [rows, 16, 64] bf16 (views into qkv) into
     int4 caches [rows, 16, 640, *] at index 511: one call at a time
@@ -796,6 +975,21 @@ def check_b3(gen) -> dict:
     print(f"B3, B10: bitwise equal to their twins and to each other, padding "
           f"untouched, at {len(cases)} cases: rows 128/8, d "
           f"{'/'.join(map(str, WRITE_HEAD_DIMS))}, int4/int8, bf16 and fp32")
+    bf16_cases = [(rows, kv, d, bits) for rows in (128, 8) for kv in (16, 4)
+                  for d in (64, 33, 256, 320) for bits in (4, 8)]
+    own = torch.Generator(device="cuda").manual_seed(3)   # see check_b2
+    for rows, kv, d, bits in bf16_cases:
+        _held_bf16_writes(own, rows, kv, d, bits)
+    print(f"B3 with bf16 scales: bitwise equal to its twin and to "
+          f"quantize_kv, padding untouched, at {len(bf16_cases)} cases: "
+          "rows 128/8, 16 and 4 kv heads, d 64/33/256/320, int4/int8")
+    bf16_times = {}
+    for kv in (16, 4):
+        bf16_times[kv] = bf16_write_times(own, 128, kv)
+        r = bf16_times[kv]
+        print(f"B3 int4 bf16 scales [128,{kv},64] -> T 640, index 511: graph "
+              f"{r['graph_ms']:.4f} ms, host per call {r['host_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     out = {}
     for rows in (128, 8):
         res = write_times(gen, rows)
@@ -808,6 +1002,7 @@ def check_b3(gen) -> dict:
         if rows == 128:
             out = {kid: dict(res[kid], library_ms=None, max_abs_err=0.0)
                    for kid in ("B3", "B10")}
+            out["B3"]["bf16_scales"] = bf16_times
         else:
             for kid in ("B3", "B10"):
                 out[kid]["rows8_graph_ms"] = res[kid]["graph_ms"]
@@ -1576,6 +1771,47 @@ def check_b9(gen) -> dict:
         print(f"B9 [{rows},{h},{t},{d}] {dtype}, index {indices[0]}.."
               f"{indices[-1]} ({len(indices)}): ok")
         del kc, vc
+    # grouped-query reads: 16 query heads over 16 / g kv heads (from a
+    # generator of their own, see check_b2)
+    own = torch.Generator(device="cuda").manual_seed(9)
+    for rows, t, d, g, dtype in ((128, 1408, 64, 4, torch.bfloat16),
+                                 (8, 1408, 64, 4, torch.bfloat16),
+                                 (8, 640, 64, 2, torch.bfloat16),
+                                 (8, 640, 256, 16, torch.bfloat16),
+                                 (128, 640, 64, 4, torch.float32),
+                                 (8, 640, 64, 4, torch.float32)):
+        kv = h // g
+        q = _gqa_q(own, rows, h, kv, d, dtype)
+        kc, vc = (da.FloatCache.seeded(torch.randn(
+            rows, kv, t, d, device="cuda", generator=own, dtype=dtype), t)
+                  for _ in range(2))
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        for index in (0, 6, 7, 8, 127, 383, 639, t - 1):
+            idx = torch.tensor([index], dtype=torch.int32, device="cuda")
+            o = da.decode_attention_float(q, kc, vc, idx)
+            p = da.decode_attention_float_plain(q, kc, vc, idx)
+            torch.cuda.synchronize()
+            require(close(o, p, tol, tol), f"B9 grouped [{rows},{kv},{t},"
+                    f"{d}] g {g} {dtype} index {index}: max err "
+                    f"{max_err(o, p)}")
+            if dtype == torch.bfloat16:
+                err = max(err, max_err(o, p))
+        print(f"B9 grouped [{rows},{kv},{t},{d}] g {g} {dtype}, 8 indices: "
+              "ok")
+        if (rows, t, g, dtype) == (128, 1408, 4, torch.bfloat16):
+            idx = torch.tensor([1407], dtype=torch.int32, device="cuda")
+            fn = lambda: da.decode_attention_float(q, kc, vc, idx)
+            out["gqa4_graph_ms"] = graph_ms(fn)
+            out["gqa4_b2b_ms"] = run_ms(fn)
+            out["gqa4_bound_ms"] = bound(
+                2 * rows * kv * t * d * 2 + 2 * rows * h * d * 2,
+                4 * d * t * rows * h, torch.bfloat16)["bound_ms"]
+            print(f"B9 GQA-4 bf16 [{rows},{kv},{t},{d}] index 1407 (one "
+                  f"cache pair of {2 * rows * kv * t * d * 2 / 1e6:.0f} MB): "
+                  f"graph {out['gqa4_graph_ms']:.4f} ms, back to back "
+                  f"{out['gqa4_b2b_ms']:.4f} ms, bound "
+                  f"{out['gqa4_bound_ms']:.4f} ms")
+        del kc, vc
     # head dim 256, not a speed goal: device time over one cache pair of
     # 2 x 1.5 GB
     q = _decode_q(gen, 128, h, 256)
@@ -1632,6 +1868,70 @@ def decode_times() -> dict:
         for kid, res in write_times(gen, rows).items():
             out[f"{kid}_{rows}"] = res
     return out
+
+
+def mha_outputs() -> dict:
+    """SHA-256 digests (16 hex digits) of the multi-head decode reads (B2
+    int4/int8, B9), cache writes (B3), B1, and the logits of a full-width
+    ``configs/sample_256.json`` prefill + 8 decode steps, all on inputs
+    and weights made on the CPU from seed 0, for whichever
+    ``mas_tpu_torch`` is imported: ``python3 chip_smoke.py --mha-outputs
+    DIR`` for two trees in one call shows whether their multi-head paths
+    give the same bits."""
+    import hashlib
+
+    from mas_tpu_torch.cli import load_transformer
+    from mas_tpu_torch.ops import attention
+    from mas_tpu_torch.ops import decode_attention as da
+    from mas_tpu_torch.ops import decode_cache, quant
+    from mas_tpu_torch.utils.config import TransformerConfig
+
+    cpu = torch.Generator().manual_seed(0)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=cpu).to(dtype).cuda()
+
+    res = {}
+    for rows in (128, 8):
+        qkv = rn(rows, 1, 3, 16, 64, dtype=torch.bfloat16)
+        q = qkv[:, :, 0].transpose(1, 2)
+        for bits in (4, 8):
+            kc, vc = (quant.quantize_kv(rn(rows, 16, 640, 64), bits)
+                      for _ in range(2))
+            for i in (0, 7, 383, 511, 639):
+                idx = torch.tensor([i], dtype=torch.int32, device="cuda")
+                res[f"B2 {rows} int{bits} {i}"] = \
+                    quant.decode_attention_quant(q, kc, vc, idx)
+            idx = torch.tensor([600], dtype=torch.int32, device="cuda")
+            decode_cache.write_quant_kv(kc, vc, qkv[:, 0, 1], qkv[:, 0, 2],
+                                        idx)
+            res[f"B3 {rows} int{bits}"] = torch.cat(
+                [t[:, :, 600].flatten().float()
+                 for t in (kc.q, kc.scale, vc.q, vc.scale)])
+        kc, vc = (da.FloatCache(rn(rows, 16, 1408, 64, dtype=torch.bfloat16))
+                  for _ in range(2))
+        for i in (0, 7, 895, 1407):
+            idx = torch.tensor([i], dtype=torch.int32, device="cuda")
+            res[f"B9 {rows} {i}"] = da.decode_attention_float(q, kc, vc, idx)
+    qkv = rn(8, 384, 3, 16, 64, dtype=torch.bfloat16)
+    res["B1"] = attention.flash_attention(*attention.split_qkv(qkv), 384)[0]
+    with open(CONFIG) as f:
+        tcfg = TransformerConfig.from_dict(json.load(f)["transformer"])
+    model = load_transformer(tcfg, None, "cpu", cpu).cuda()
+    text = torch.randint(1, 16000, (4, 128), generator=cpu).cuda()
+    seg = torch.randint(0, 1024, (4, 256), generator=cpu).cuda()
+    img = torch.randint(0, 8192, (4, 8), generator=cpu).cuda()
+    with torch.inference_mode():
+        logits, kvs = model.prefill(text, seg)
+        caches = model.allocate_caches(kvs, 4)
+        outs = [logits]
+        for step in range(8):
+            outs.append(model.decode_step(img[:, step:step + 1], step,
+                                          caches))
+    res["MHA int4 prefill + 8 decode steps, logits"] = torch.stack(outs)
+    torch.cuda.synchronize()
+    return {k: hashlib.sha256(v.float().cpu().numpy().tobytes()).hexdigest()[
+        :16] for k, v in res.items()}
 
 
 LN_ROWS, LN_D = 16 * 1408, 1024
@@ -1825,7 +2125,43 @@ def phase_slice(gen) -> dict:
     _, secs64 = run_slice(raw, transformer, vq, text.repeat(rep, 1),
                           seg.repeat(rep, 1), seed=3)
     print(f"e2e batch 64: {secs64:.3f} s, {64 / secs64:.3f} img/s")
+    for batch in (4, 64):
+        _MHA_DECODE[batch] = decode_profile(transformer, text, seg, batch)
+        print_decode_profile("sample_256 (MHA, int4)", batch,
+                             _MHA_DECODE[batch])
     return counts
+
+
+# phase 4's decode-step profiles by batch, beside which phase 14 prints
+# its variants'
+_MHA_DECODE = {}
+
+
+def decode_profile(transformer, text, seg, batch: int, steps: int = 16):
+    """Host ms, device busy ms and idle share of ``steps`` decode steps
+    from step 8, with the ported kernels' ms a step
+    (``breakdown._profile``), at ``batch`` prompts with guidance."""
+    from mas_tpu_torch.breakdown import _decode_steps, _profile
+
+    reps = -(-batch // text.shape[0])
+    t, s = text.repeat(reps, 1)[:batch], seg.repeat(reps, 1)[:batch]
+    with torch.inference_mode():
+        logits, kvs = transformer.prefill(torch.cat([t, torch.zeros_like(t)]),
+                                          torch.cat([s, s]))
+        caches = transformer.allocate_caches(kvs, 2 * batch)
+        del kvs
+        tok = logits.argmax(-1, keepdim=True)
+        for step in range(8):
+            transformer.decode_step(tok, step, caches)
+        return _profile(_decode_steps(transformer, caches, tok, 8), steps)
+
+
+def print_decode_profile(what: str, batch: int, res: dict) -> None:
+    print(f"{what} batch {batch}, decode steps 8-23 (profiled): host "
+          f"{res['host_ms']:.3f} ms a step, device busy "
+          f"{res['device_busy_ms']:.3f} ms, idle "
+          f"{100 * res['device_idle_share']:.1f}%; ported kernels ms and "
+          "launches a step " + json.dumps(res["ported_kernels_ms_per_call"]))
 
 
 def teacher_forced_check(transformer, text, seg, gen, steps: int = 16,
@@ -1887,6 +2223,12 @@ def teacher_forced_check(transformer, text, seg, gen, steps: int = 16,
           f"max |logit| {scale:.4e}, top-1 agreement {top1:.4f} over the "
           f"{same.numel()} of {decided.numel()} positions with a twin "
           f"margin above {margin:.4g}")
+    flips = (kern.argmax(-1) != ref.argmax(-1)) & decided
+    if bool(flips.any()):
+        gaps = (best[..., 0] - best[..., 1])[flips]
+        print(f"teacher-forced: {int(flips.sum())} flipped positions, twin "
+              f"top-1 margins {float(gaps.min()):.4e}..{float(gaps.max()):.4e}"
+              f" (max |d| there {float(diff.amax(-1)[flips].max()):.4e})")
     require(same.numel() > 0, "teacher-forced: some position is decided")
     require(float(diff.max()) <= 0.1 * scale, "teacher-forced logits close")
     require(top1 >= 0.9, "teacher-forced top-1 agreement >= 90%")
@@ -3770,9 +4112,196 @@ def phase_data(smi: str, tmp: str, img_dir=None) -> dict:
     return {k: seg[k] + tr[k] for k in seg}
 
 
+# --- phase 14: the transformer's variants at full width ---------------------
+
+def variant_raws() -> list:
+    """The serving variants of phase 14: configs/sample_256.json with
+    transformer fields changed in memory, and the batches each runs."""
+    with open(CONFIG) as f:
+        raw = json.load(f)
+
+    def variant(**fields):
+        return dict(raw, transformer=dict(raw["transformer"], **fields))
+
+    return [
+        ("GQA-4 int4", variant(num_kv_heads=4), (4, 64)),
+        ("GQA-4 int4 bf16 scales",
+         variant(num_kv_heads=4, kv_scale_dtype="bfloat16"), (64,)),
+        ("GQA-4 float", variant(num_kv_heads=4, kv_cache_dtype="compute"),
+         (4,)),
+        ("rudalle_relax + prescale float",
+         variant(rudalle_relax=True, cogview_layernorm_prescale=True,
+                 kv_cache_dtype="compute"), (4,)),
+        ("ln_matmul_fold int4", variant(ln_matmul_fold=True), (4,)),
+    ]
+
+
+def serve_variant(gen, smi: str, what: str, raw: dict, batches) -> dict:
+    """One serving variant through ``sample_images`` as the CLI loads it:
+    images, exact launch counts at each batch, teacher-forced logits
+    against the twins, and the decode step's profile from step 8; returns
+    the launch counts summed over its runs."""
+    transformer, vq, text, seg = load_pipeline(raw, gen)
+    cfg = transformer.cfg
+    n_gns = count_gns(vq.decoder)
+    steps = cfg.image_length - 1
+    layers = cfg.num_layers
+    quantized = cfg.kv_cache_dtype != "compute"
+    total = {}
+    for i, batch in enumerate(batches):
+        rep = batch // text.shape[0]
+        t, s = text.repeat(rep, 1), seg.repeat(rep, 1)
+        reset_counts()
+        imgs, secs = run_slice(raw, transformer, vq, t, s, seed=41 + i)
+        counts = read_counts()
+        res = vq.cfg.resolution
+        require(tuple(imgs.shape) == (batch, res, res, 3)
+                and bool(torch.isfinite(imgs).all()), f"{what}: images")
+        want = {k: 0 for k in counts}
+        want.update(B1=layers, B4=n_gns * -(-batch // 32))
+        want.update({"B2": layers * steps, "B3": layers * steps}
+                    if quantized else {"B9": layers * steps})
+        exact_counts(counts, want, f"{what} batch {batch}")
+        print(f"{what} batch {batch}: images {tuple(imgs.shape)} in "
+              f"{secs:.3f} s ({batch / secs:.3f} img/s"
+              f"{', first run' if i == 0 else ''}); launches exact: "
+              f"{ {k: v for k, v in counts.items() if v} } [{smi}]")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        res = decode_profile(transformer, text, seg, batch)
+        print_decode_profile(what, batch, res)
+        mha = _MHA_DECODE.get(batch)
+        read = "B2" if quantized else "B9"
+        if mha and read in res["ported_kernels_ms_per_call"]:
+            print(f"{what} batch {batch}: {read} "
+                  f"{res['ported_kernels_ms_per_call'][read][0]:.4f} ms a "
+                  f"step, beside phase 4's MHA int4 B2 "
+                  f"{mha['ported_kernels_ms_per_call']['B2'][0]:.4f} ms; "
+                  f"device busy {res['device_busy_ms']:.3f} vs "
+                  f"{mha['device_busy_ms']:.3f} ms, host "
+                  f"{res['host_ms']:.3f} vs {mha['host_ms']:.3f} ms")
+    # seeded random weights give near-uniform logits (max |logit| ~2.6 over
+    # 8192 codes), whose near-ties bf16 rounding flips: over phase 4's
+    # unchanged multi-head path the agreement at every position ranged
+    # 85-100% from one weight draw to another on the card, so the top-1
+    # share counts the positions the twins decide by more than 4 bf16 ulps
+    # of max |logit|, as phase 8 does
+    teacher_forced_check(transformer, text, seg, gen, margin_ulps=4)
+    del transformer, vq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+TRAIN_VARIANTS = (
+    ("GQA-4", dict(num_kv_heads=4)),
+    ("rudalle_relax + prescale + ln_matmul_fold",
+     dict(rudalle_relax=True, cogview_layernorm_prescale=True,
+          ln_matmul_fold=True)),
+)
+
+
+def train_variant(smi: str, tmp: str, what: str, fields: dict) -> dict:
+    """configs/transformer_512.json as shipped with ``fields``, 2 steps
+    through ``run_train_transformer``: finite losses, every parameter
+    moved with a finite nonzero gradient at step 1, exact B1/B6 counts,
+    one step through the kernels against the twins (B1/B6 patched, which
+    both attention Functions call); returns the launch counts."""
+    from mas_tpu_torch.data.dataset import SyntheticTokenBatches
+    from mas_tpu_torch.train.loop import (build_transformer_state,
+                                          run_train_transformer)
+    from mas_tpu_torch.utils.logging import Logger
+
+    steps = 2
+    train_cfg, tcfg, data = transformer_configs(tmp, total_steps=steps)
+    tcfg = dataclasses.replace(tcfg, **fields)
+    source = iter(SyntheticTokenBatches(train_cfg.batch_size, tcfg,
+                                        data.get("seed", 0)))
+    batches = [{k: torch.from_numpy(v).to(DEVICE)
+                for k, v in next(source).items()} for _ in range(steps)]
+    init = build_transformer_state(train_cfg, tcfg, DEVICE)
+    before = {k: v.clone() for k, v in init.model.state_dict().items()}
+    del init
+    record = []
+
+    def on_step(step_no, state, metrics):
+        torch.cuda.synchronize()
+        if step_no == 1:
+            first_step_checks(state, before)
+        record.append((time.perf_counter(), float(metrics["loss"])))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    state = run_train_transformer(train_cfg, tcfg, batches, DEVICE,
+                                  Logger(os.path.join(tmp, "logs")), on_step)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    losses = [loss for _, loss in record]
+    require(len(losses) == steps and all(map(math.isfinite, losses)),
+            f"{what}: losses {losses}")
+    want = {k: 0 for k in counts}
+    want.update(B1=tcfg.num_layers * steps, B6=tcfg.num_layers * steps)
+    exact_counts(counts, want, f"train {what}")
+    print(f"train_transformer {what}: {steps} steps in "
+          f"{time.perf_counter() - t0:.2f} s (first run, checkpoint "
+          f"included), losses {losses}, step 2 "
+          f"{1e3 * (record[1][0] - record[0][0]):.1f} ms (host clock); "
+          f"launches exact: { {k: v for k, v in counts.items() if v} } "
+          f"[{smi}]")
+    transformer_kernels_vs_twins(state, batches[-1])
+    if tcfg.kv_heads != tcfg.num_attn_heads:
+        expand_cost(smi, train_cfg.batch_size, tcfg)
+    del state, batches
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def expand_cost(smi: str, batch: int, tcfg) -> None:
+    """What the grouped-query training step pays to expand k and v to the
+    query heads for B1/B6 (``repeat_interleave``) and to sum their
+    gradients back over each group (autograd's backward of it), per layer
+    at the step's shape (CUDA events, median)."""
+    g = tcfg.num_attn_heads // tcfg.kv_heads
+    shape = (batch, tcfg.kv_heads, tcfg.total_length, tcfg.head_dim)
+    k, v = (torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    dk = torch.randn((batch, tcfg.num_attn_heads) + shape[2:], device="cuda",
+                     dtype=torch.bfloat16)
+    fwd = timed_ms(lambda: (k.repeat_interleave(g, dim=1),
+                            v.repeat_interleave(g, dim=1)))
+    bwd = timed_ms(lambda: [dk.unflatten(1, (tcfg.kv_heads, g)).sum(2)
+                            for _ in range(2)])
+    layers = tcfg.num_layers
+    print(f"GQA-{tcfg.kv_heads} k/v expansion at {list(shape)} bf16, g {g}: "
+          f"forward {fwd:.4f} ms, gradient sum {bwd:.4f} ms a layer; "
+          f"{layers * (fwd + bwd):.2f} ms a step over {layers} layers "
+          f"[{smi}]")
+
+
+def phase_variants(gen, smi: str, tmp: str) -> dict:
+    """Phase 14: the transformer's variants at full width (grouped-query
+    attention over int4 lane, bf16-scale and float caches; rudalle_relax
+    with the LayerNorm prescale; ln_matmul_fold), served through
+    ``sample_images`` and trained through ``run_train_transformer``;
+    returns the launch counts summed over its runs."""
+    t0 = time.perf_counter()
+    total = {}
+    for what, raw, batches in variant_raws():
+        counts = serve_variant(gen, smi, what, raw, batches)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    for i, (what, fields) in enumerate(TRAIN_VARIANTS):
+        counts = train_variant(smi, os.path.join(tmp, f"variant{i}"), what,
+                               fields)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    print(f"phase 14 (variants) took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main(argv) -> int:
     modes = {"--decode-times": decode_times, "--norm-times": norm_times,
-             "--vq-times": vq_times, "--vq-paths": vq_paths}
+             "--vq-times": vq_times, "--vq-paths": vq_paths,
+             "--mha-outputs": mha_outputs}
     if argv[:1] and argv[0] in modes:
         # the decode reads and writes, B4, B7 and B8, B5, or the paths of
         # B4 and B5, of the mas_tpu_torch under argv[1] alone
@@ -3801,6 +4330,7 @@ def main(argv) -> int:
         paths.append(phase_data(
             smi, os.path.join(tmp, "data"),
             img_training_configs(img_tmp)[0].checkpoint_dir))
+        paths.append(phase_variants(gen, smi, os.path.join(tmp, "variants")))
     for row in rows:
         row["launches"] = sum(counts[row["id"]] for counts in paths)
         require(row["launches"] > 0, f"{row['id']} launched on no path")

@@ -114,20 +114,20 @@ def _declare(lib: ctypes.CDLL) -> None:
                                   ctypes.POINTER(ctypes.c_longlong),
                                   i, i, i, i, i, f, i, p]
     lib.mas_flash_bwd.restype = i
-    # q kq ks vq vs index out, B H T pos_stride q_sb q_sh width d bits
-    # is_bf16 split, scale, stream
-    lib.mas_decode_quant.argtypes = [p, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, i, i, i, i, i, f, p]
+    # q kq ks vq vs index out, B KV group T pos_stride q_sb q_sh width d
+    # bits scale_bf16 is_bf16 split, scale, stream
+    lib.mas_decode_quant.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                     i, i, i, i, i, i, i, f, p]
     lib.mas_decode_quant.restype = i
-    # q k v index out, B H T q_sb q_sh width d cache_bf16 is_bf16 split,
-    # scale, stream
+    # q k v index out, B KV group T q_sb q_sh width d cache_bf16 is_bf16
+    # split, scale, stream
     lib.mas_decode_float.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                     i, i, f, p]
+                                     i, i, i, f, p]
     lib.mas_decode_float.restype = i
     # k_new v_new kq ks vq vs index, B H, k strides, v strides, T d width
-    # bits packed is_bf16, stream
+    # bits scale_bf16 packed is_bf16, stream
     lib.mas_kv_write.argtypes = [p, p, p, p, p, p, p, i, i, ll, ll, ll, ll,
-                                 i, i, i, i, i, i, p]
+                                 i, i, i, i, i, i, i, p]
     lib.mas_kv_write.restype = i
     # device -> its SM count, after the one-time set-up there
     lib.mas_vq_argmin_prepare.argtypes = [i]

@@ -12,7 +12,10 @@
 //   q[c]  = clip(rint(x[c] / scale), -qmax, qmax)   (IEEE division, round
 //           half to even), qmax 127 (int8) or 7 (int4)
 // and stores q and scale in place at position *index of the cache, as
-// mas_tpu/ops/quant.py:60-66 quantizes.  int4 packs column 2i into the low
+// mas_tpu/ops/quant.py:60-66 quantizes.  bf16 scales (the lane caches of
+// kv_scale_dtype "bfloat16"): the fp32 scale is rounded to bf16 (nearest
+// even) first, and x is divided by the rounded scale, so the stored values
+// sit on the grid of the stored scale (mas_tpu/ops/quant.py:62-64).  int4 packs column 2i into the low
 // nibble and 2i + 1 into the high nibble of one byte (two's complement).
 // The division is __fdiv_rn and the rounding rintf whatever the build's
 // flags, so the stored bits equal the plain twins' (which divide a tensor
@@ -23,7 +26,7 @@
 // D (int8) or D / 2 (int4) bytes a position, D the width that holds d (32,
 // 64, 128, or the least multiple of 256 >= d) and the bytes of columns past
 // d left as they are (zero: an odd d's last byte of int4 pairs column d - 1
-// with a zero nibble); scales [B, H, T] fp32.  The lane caches (B3) are two
+// with a zero nibble); scales [B, H, T] fp32, or bf16 for the lane caches.  The lane caches (B3) are two
 // such buffers, positions W bytes apart.  The packed cache (B10) is one
 // buffer of 2W-byte positions, k at byte 0 and v at byte W, and its scales
 // [2, B, H, T] (k's, then v's); the host passes the v pointers into it.
@@ -56,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -94,6 +99,16 @@ __device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[NW]) {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// a scale as TS stores it, back in fp32 (bf16: rounded to nearest even)
+__device__ __forceinline__ float stored(float x, const float*) { return x; }
+__device__ __forceinline__ float stored(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ void store_scale(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_scale(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);   // exact: x is already a bf16 value
 }
 
 // columns [c0, c0 + VPL) of a row as floats, zero past d
@@ -171,12 +186,12 @@ __device__ __forceinline__ void quantize_store(const float (&x)[VPL],
 // in elements, last dim contiguous) -> caches at *index.  A position is nc
 // chunks of D columns (nc > 1 only for the D = 256 instance, which serves
 // every width 256 nc); PACKED: one position holds k and v (B10), else k or
-// v alone (B3).
-template <int BITS, int D, bool PACKED, typename T>
+// v alone (B3).  TS: the scales' type, float or __nv_bfloat16.
+template <int BITS, int D, bool PACKED, typename T, typename TS>
 __device__ __forceinline__ void write_row(
     const T* __restrict__ k_new, const T* __restrict__ v_new,
-    uint8_t* __restrict__ kq, float* __restrict__ ks,
-    uint8_t* __restrict__ vq, float* __restrict__ vs,
+    uint8_t* __restrict__ kq, TS* __restrict__ ks,
+    uint8_t* __restrict__ vq, TS* __restrict__ vs,
     const int* __restrict__ index, int rows, int heads, long long k_sb,
     long long k_sh, long long v_sb, long long v_sh, int t_len, int d,
     int nc_arg) {
@@ -209,8 +224,10 @@ __device__ __forceinline__ void write_row(
     }
   }
   constexpr float QMAX = BITS == 4 ? 7.f : 127.f;
-  const float k_scale = __fdiv_rn(fmaxf(warp_max(ka), 1e-8f), QMAX);
-  const float v_scale = __fdiv_rn(fmaxf(warp_max(va), 1e-8f), QMAX);
+  const float k_scale =
+      stored(__fdiv_rn(fmaxf(warp_max(ka), 1e-8f), QMAX), ks);
+  const float v_scale =
+      stored(__fdiv_rn(fmaxf(warp_max(va), 1e-8f), QMAX), vs);
 
   const long long pos = (long long)row * t_len + idx;
   for (int ch = 0; ch < nc; ++ch) {
@@ -227,24 +244,25 @@ __device__ __forceinline__ void write_row(
     }
   }
   if (lane == 0) {
-    ks[pos] = k_scale;
-    vs[pos] = v_scale;
+    store_scale(ks + pos, k_scale);
+    store_scale(vs + pos, v_scale);
   }
 }
 
 // B3 (two kernel names, so a profile tells the two kernels apart)
-template <int BITS, int D, typename T>
+template <int BITS, int D, typename T, typename TS>
 __global__ void __launch_bounds__(NT)
-kv_write_lane_kernel(const T* k_new, const T* v_new, uint8_t* kq, float* ks,
-                     uint8_t* vq, float* vs, const int* index, int rows,
+kv_write_lane_kernel(const T* k_new, const T* v_new, uint8_t* kq, TS* ks,
+                     uint8_t* vq, TS* vs, const int* index, int rows,
                      int heads, long long k_sb, long long k_sh,
                      long long v_sb, long long v_sh, int t_len, int d,
                      int nc) {
-  write_row<BITS, D, false, T>(k_new, v_new, kq, ks, vq, vs, index, rows,
-                               heads, k_sb, k_sh, v_sb, v_sh, t_len, d, nc);
+  write_row<BITS, D, false, T, TS>(k_new, v_new, kq, ks, vq, vs, index, rows,
+                                   heads, k_sb, k_sh, v_sb, v_sh, t_len, d,
+                                   nc);
 }
 
-// B10
+// B10 (fp32 scales only)
 template <int BITS, int D, typename T>
 __global__ void __launch_bounds__(NT)
 kv_write_packed_kernel(const T* k_new, const T* v_new, uint8_t* kq,
@@ -252,8 +270,9 @@ kv_write_packed_kernel(const T* k_new, const T* v_new, uint8_t* kq,
                        int rows, int heads, long long k_sb, long long k_sh,
                        long long v_sb, long long v_sh, int t_len, int d,
                        int nc) {
-  write_row<BITS, D, true, T>(k_new, v_new, kq, ks, vq, vs, index, rows,
-                              heads, k_sb, k_sh, v_sb, v_sh, t_len, d, nc);
+  write_row<BITS, D, true, T, float>(k_new, v_new, kq, ks, vq, vs, index,
+                                     rows, heads, k_sb, k_sh, v_sb, v_sh,
+                                     t_len, d, nc);
 }
 
 struct WriteArgs {
@@ -266,35 +285,50 @@ struct WriteArgs {
   cudaStream_t s;
 };
 
-template <int BITS, int D, typename T>
+template <int BITS, int D, typename T, typename TS>
 cudaError_t launch(const WriteArgs& a, int packed) {
-  auto kernel = packed ? kv_write_packed_kernel<BITS, D, T>
-                       : kv_write_lane_kernel<BITS, D, T>;
+  void (*kernel)(const T*, const T*, uint8_t*, TS*, uint8_t*, TS*,
+                 const int*, int, int, long long, long long, long long,
+                 long long, int, int, int) = kv_write_lane_kernel<BITS, D, T,
+                                                                  TS>;
+  if (packed) {
+    if constexpr (std::is_same<TS, float>::value)
+      kernel = kv_write_packed_kernel<BITS, D, T>;
+    else
+      return cudaErrorInvalidValue;   // the packed cache's scales are fp32
+  }
   kernel<<<(a.rows + WARPS - 1) / WARPS, NT, 0, a.s>>>(
       static_cast<const T*>(a.k_new), static_cast<const T*>(a.v_new),
-      static_cast<uint8_t*>(a.kq), static_cast<float*>(a.ks),
-      static_cast<uint8_t*>(a.vq), static_cast<float*>(a.vs),
+      static_cast<uint8_t*>(a.kq), static_cast<TS*>(a.ks),
+      static_cast<uint8_t*>(a.vq), static_cast<TS*>(a.vs),
       static_cast<const int*>(a.index), a.rows, a.heads, a.k_sb, a.k_sh,
       a.v_sb, a.v_sh, a.t_len, a.d, a.nc);
   return cudaGetLastError();
 }
 
+template <int BITS, int D, typename T>
+cudaError_t launch_s(const WriteArgs& a, int scale_bf16, int packed) {
+  return scale_bf16 ? launch<BITS, D, T, __nv_bfloat16>(a, packed)
+                    : launch<BITS, D, T, float>(a, packed);
+}
+
 template <int BITS, int D>
-cudaError_t launch_t(const WriteArgs& a, int packed, int is_bf16) {
-  return is_bf16 ? launch<BITS, D, __nv_bfloat16>(a, packed)
-                 : launch<BITS, D, float>(a, packed);
+cudaError_t launch_t(const WriteArgs& a, int scale_bf16, int packed,
+                     int is_bf16) {
+  return is_bf16 ? launch_s<BITS, D, __nv_bfloat16>(a, scale_bf16, packed)
+                 : launch_s<BITS, D, float>(a, scale_bf16, packed);
 }
 
 template <int BITS>
-cudaError_t launch_d(const WriteArgs& a, int width, int packed,
-                     int is_bf16) {
+cudaError_t launch_d(const WriteArgs& a, int width, int scale_bf16,
+                     int packed, int is_bf16) {
   switch (width) {
-    case 32: return launch_t<BITS, 32>(a, packed, is_bf16);
-    case 64: return launch_t<BITS, 64>(a, packed, is_bf16);
-    case 128: return launch_t<BITS, 128>(a, packed, is_bf16);
+    case 32: return launch_t<BITS, 32>(a, scale_bf16, packed, is_bf16);
+    case 64: return launch_t<BITS, 64>(a, scale_bf16, packed, is_bf16);
+    case 128: return launch_t<BITS, 128>(a, scale_bf16, packed, is_bf16);
     default:   // 256 nc columns: the D = 256 instance, chunk by chunk
       if (width % 256) return cudaErrorInvalidValue;
-      return launch_t<BITS, 256>(a, packed, is_bf16);
+      return launch_t<BITS, 256>(a, scale_bf16, packed, is_bf16);
   }
 }
 
@@ -303,21 +337,23 @@ cudaError_t launch_d(const WriteArgs& a, int width, int packed,
 // B3 (packed = 0) and B10 (packed = 1).  k_new, v_new: [B, H, d] bf16
 // (is_bf16 = 1) or fp32, element strides (b, h), last dim contiguous; kq,
 // vq: value caches of `width` values a position (32, 64, 128 or a multiple
-// of 256, >= d), bits 8 or 4; ks, vs: fp32 scales [B, H, T]; index:
-// 1-element int32 device tensor.  Packed: vq = kq + W, vs = ks + B * H * T.
+// of 256, >= d), bits 8 or 4; ks, vs: scales [B, H, T], bf16 when
+// scale_bf16 = 1 (lane caches only), else fp32; index: 1-element int32
+// device tensor.  Packed: vq = kq + W, vs = ks + B * H * T.
 extern "C" int mas_kv_write(const void* k_new, const void* v_new, void* kq,
                             void* ks, void* vq, void* vs, const void* index,
                             int batch, int heads, long long k_sb,
                             long long k_sh, long long v_sb, long long v_sh,
-                            int t_len, int d, int width, int bits, int packed,
-                            int is_bf16, void* stream) {
+                            int t_len, int d, int width, int bits,
+                            int scale_bf16, int packed, int is_bf16,
+                            void* stream) {
   if (d < 1 || d > width) return static_cast<int>(cudaErrorInvalidValue);
   const WriteArgs a = {k_new, v_new, kq, ks, vq, vs, index, batch * heads,
                        heads, k_sb, k_sh, v_sb, v_sh, t_len, d,
                        width >= 256 ? width / 256 : 1,
                        static_cast<cudaStream_t>(stream)};
   cudaError_t err = cudaErrorInvalidValue;
-  if (bits == 4) err = launch_d<4>(a, width, packed, is_bf16);
-  if (bits == 8) err = launch_d<8>(a, width, packed, is_bf16);
+  if (bits == 4) err = launch_d<4>(a, width, scale_bf16, packed, is_bf16);
+  if (bits == 8) err = launch_d<8>(a, width, scale_bf16, packed, is_bf16);
   return static_cast<int>(err);
 }

@@ -12,10 +12,34 @@ Attention is the plain masked softmax with fp32 statistics.  CogView's
 PB-relax (``cogview_pb_relax``) subtracts an alpha-scaled max, a per-row
 constant that softmax cancels exactly, so it is not computed.
 
+Variants, as in the JAX package:
+  * grouped-query attention (``num_kv_heads``): the ``qkv`` projection is
+    ``hidden + 2 kv_heads hd`` wide, sliced [q | k | v]; for attention over
+    the sequence k and v are expanded to the query heads with
+    ``repeat_interleave`` (JAX's ``jnp.repeat``: head h = kv g + g', and
+    autograd sums dK/dV back over each group); the caches keep the
+    kv_heads tensors and B2/B9 read each kv head once for its g query rows;
+  * ``rudalle_relax``: the relaxed scores fold into the operands (q over
+    sigma^2 = var(k), unbiased, over the whole tensor; v over its detached
+    max), so B1/B6 run it exactly (``rudalle_attention``); decoding takes
+    the same statistics over the cache's positions <= index
+    (``rudalle_decode_attention``, then B9); the context, the MLP and the
+    final LN's input are rescaled by detached maxima where JAX rescales
+    them, global or per row as there;
+  * ``cogview_layernorm_prescale``: the inputs of ln_in, the first
+    sandwich LN and ln_out divided by their detached per-position max;
+  * ``ln_matmul_fold``: ln_in and ln_out folded into the qkv and lin1
+    products (``ops/norms.py::folded_ln_dense``), except ln_in of a decode
+    step, as in JAX;
+  * ``scan_layers``: the layers always run unrolled; only the stacked
+    checkpoint tree differs (``utils/weights.py``).
+
 Kernels: the full-sequence attention (``forward`` and ``prefill``) is B1,
 with B6 as its backward, through ``ops/attention.py::
-FlashAttentionFunction``.  Each decode step writes the new token's k/v and
-reads the cache, by the cache's kind (``allocate_caches``):
+FlashAttentionFunction`` (the fused projection, no copy) or
+``FlashAttentionQKVFunction`` (grouped-query and rudalle_relax).  Each
+decode step writes the new token's k/v and reads the cache, by the cache's
+kind (``allocate_caches``):
   * float (``kv_cache_dtype: "compute"``): an in-place ``index_copy_``,
     then B9 (``ops/decode_attention.py``);
   * int8/int4 lane caches: B3 (``ops/decode_cache.py``), then B2
@@ -54,7 +78,7 @@ from torch.utils import checkpoint
 from ..ops import attention, decode_attention, decode_cache, quant
 from ..ops.decode_attention import FloatCache
 from ..ops.decode_cache import PackedQuantCache
-from ..ops.norms import layer_norm
+from ..ops.norms import folded_ln_dense, layer_norm
 from ..ops.quant import QuantCache
 from ..utils.config import TransformerConfig
 from .vqvae import compute_dtype
@@ -79,14 +103,19 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``compute_dtype``: weight, bias and
-    input are cast at use (a no-op where they already have that dtype)."""
+    input are cast at use (a no-op where they already have that dtype).
+    With ``ln`` (a ``LayerNorm``) it computes ``Dense(ln(x))`` with the
+    LayerNorm folded into the product (``ln_matmul_fold``)."""
 
     def __init__(self, d_in: int, d_out: int, compute_dtype: torch.dtype):
         super().__init__(d_in, d_out)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ln=None) -> torch.Tensor:
         dt = self.compute_dtype
+        if ln is not None:
+            return folded_ln_dense(x, ln.weight, ln.bias, self.weight,
+                                   self.bias, ln.eps, dt)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -113,37 +142,114 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps, self.impl)
 
 
+def _detached_max(t: torch.Tensor, dim=None) -> torch.Tensor:
+    """The max of ``t`` (over ``dim``, kept; else over all of it) with no
+    gradient, as JAX's ``_detached_max``."""
+    m = t.amax() if dim is None else t.amax(dim=dim, keepdim=True)
+    return m.detach()
+
+
+def rudalle_attention(q, k, v, prefix_length: int) -> torch.Tensor:
+    """rudalle_relax over the sequence through B1/B6
+    (``mas_tpu/models/transformer.py::rudalle_relax_attention_fused``):
+    the midpoint shift is a row constant and sigma a positive scalar, and
+    the -65504 mask underflows to 0, so the distribution is the masked
+    softmax of q k^T / (sqrt(d) sigma^2).  sigma = std(k) (unbiased, over
+    the whole tensor: every row of the batch, both guidance halves
+    included) keeps its gradient; v is divided by its detached max.
+    q, k, v [B, H, T, d]; returns the context [B, H, T, d] in fp32."""
+    sigma = k.float().std()
+    qs = (q.float() / (sigma * sigma)).to(q.dtype)
+    vs = (v.float() / _detached_max(v.float())).to(v.dtype)
+    return attention.FlashAttentionQKVFunction.apply(
+        qs, k, vs, prefix_length).float()
+
+
+def rudalle_decode_attention(q, k_cache: FloatCache, v_cache: FloatCache,
+                             index: torch.Tensor) -> torch.Tensor:
+    """rudalle_relax for one token over float caches
+    (``mas_tpu/models/transformer.py::_rudalle_decode_attention``): sigma
+    (unbiased) and max(v) over the positions <= index of every (b, h) row,
+    the first d columns only, as masked reductions on the device (no host
+    value of ``index``); then B9 on q / sigma^2, its output divided by
+    max(v), by the argument of ``rudalle_attention``.  q [B, H, 1, d];
+    returns [B, H, 1, d] in fp32."""
+    b, h, _, d = q.shape
+    kd = k_cache.data[..., :d].float()
+    vd = v_cache.data[..., :d].float()
+    valid = (torch.arange(kd.shape[2], device=q.device)
+             <= index.to(q.device))[:, None]
+    n = (index.to(q.device).float() + 1.0) * (b * h * d)
+    mean = torch.where(valid, kd, 0.0).sum() / n
+    var = torch.where(valid, (kd - mean).square(), 0.0).sum() / (n - 1.0)
+    sigma = var.sqrt()
+    v_scale = torch.where(valid, vd, -3.0e38).amax()
+    qs = (q.float() / (sigma * sigma)[:, None, None, None]).to(q.dtype)
+    ctx = decode_attention.decode_attention_float(qs, k_cache, v_cache,
+                                                  index)
+    return ctx.float() / v_scale
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
         dt = compute_dtype(cfg.compute_dtype)
-        self.qkv = Dense(cfg.hidden_dim, 3 * cfg.hidden_dim, dt)
+        self.qkv = Dense(cfg.hidden_dim,
+                         cfg.hidden_dim + 2 * cfg.kv_heads * cfg.head_dim, dt)
         self.out_proj = Dense(cfg.hidden_dim, cfg.hidden_dim, dt)
 
-    def _qkv(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, T, D] -> the fused projection viewed [B, T, 3, H, hd]."""
+    def _qkv(self, x: torch.Tensor, ln=None):
+        """[B, T, D] -> the projection [B, T, D + 2 KV hd] and its q [B, H,
+        T, hd], k and v [B, KV, T, hd] as views, sliced [q | k | v] as
+        JAX's ``_qkv``; ``ln`` folds a LayerNorm into the product."""
         cfg = self.cfg
         b, t, _ = x.shape
-        return self.qkv(x).view(b, t, 3, cfg.num_attn_heads, cfg.head_dim)
+        proj = self.qkv(x, ln)
+        kvd = cfg.kv_heads * cfg.head_dim
+        q, k, v = proj.split([cfg.hidden_dim, kvd, kvd], dim=-1)
+        heads = (cfg.num_attn_heads, cfg.kv_heads, cfg.kv_heads)
+        return proj, tuple(z.view(b, t, n, cfg.head_dim).transpose(1, 2)
+                           for z, n in zip((q, k, v), heads))
 
-    def forward(self, x: torch.Tensor, prefix_length: int):
-        """Full-sequence attention; returns (out, (k, v) [B, H, T, hd])."""
-        b, t, d = x.shape
-        qkv = self._qkv(x)
-        ctx = attention.FlashAttentionFunction.apply(qkv, prefix_length)
-        ctx = ctx.transpose(1, 2).reshape(b, t, d)
-        _, k, v = attention.split_qkv(qkv)
-        return self.out_proj(ctx), (k, v)
+    def _context(self, ctx: torch.Tensor) -> torch.Tensor:
+        """[B, H, T, hd] -> [B, T, D]; rudalle_relax divides it by its
+        detached max (global, over the whole tensor) in fp32."""
+        cfg = self.cfg
+        b, _, t, _ = ctx.shape
+        ctx = ctx.transpose(1, 2).reshape(b, t, cfg.hidden_dim)
+        if cfg.rudalle_relax:
+            ctx = (ctx / _detached_max(ctx)).to(compute_dtype(
+                cfg.compute_dtype))
+        return ctx
+
+    def forward(self, x: torch.Tensor, prefix_length: int, ln=None):
+        """Full-sequence attention; returns (out, (k, v) [B, KV, T, hd]).
+        ``ln``: ln_in folded into the projection (x un-normalized)."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        proj, (q, k, v) = self._qkv(x, ln)
+        g = cfg.num_attn_heads // cfg.kv_heads
+        if cfg.rudalle_relax:
+            ctx = rudalle_attention(q, k, v, prefix_length)
+        elif g == 1:       # the fused projection's view: no copy
+            ctx = attention.FlashAttentionFunction.apply(
+                proj.view(b, t, 3, cfg.num_attn_heads, cfg.head_dim),
+                prefix_length)
+        else:
+            ctx = attention.FlashAttentionQKVFunction.apply(
+                q, k.repeat_interleave(g, dim=1),
+                v.repeat_interleave(g, dim=1), prefix_length)
+        return self.out_proj(self._context(ctx)), (k, v)
 
     def decode(self, x: torch.Tensor, k_cache, v_cache,
                index: torch.Tensor) -> torch.Tensor:
         """x [B, 1, D]; writes this token's k/v at ``index`` in place, then
         attends over positions <= index.  The caches are a float pair, a
         lane-quantized pair, or one packed cache with ``v_cache`` None
-        (``mas_tpu/models/transformer.py::SelfAttention.decode``)."""
-        b = x.shape[0]
-        q, k, v = attention.split_qkv(self._qkv(x))
+        (``mas_tpu/models/transformer.py::SelfAttention.decode``), of
+        kv_heads heads."""
+        _, (q, k, v) = self._qkv(x)
         k, v = k[:, :, 0], v[:, :, 0]
         if isinstance(k_cache, PackedQuantCache):
             decode_cache.write_packed_kv(k_cache, k, v, index)
@@ -153,20 +259,31 @@ class SelfAttention(nn.Module):
             ctx = quant.decode_attention_quant(q, k_cache, v_cache, index)
         else:
             decode_attention.write_float_kv(k_cache, v_cache, k, v, index)
-            ctx = decode_attention.decode_attention_float(q, k_cache, v_cache,
-                                                          index)
-        return self.out_proj(ctx.reshape(b, 1, self.cfg.hidden_dim))
+            if self.cfg.rudalle_relax:
+                ctx = rudalle_decode_attention(q, k_cache, v_cache, index)
+            else:
+                ctx = decode_attention.decode_attention_float(
+                    q, k_cache, v_cache, index)
+        return self.out_proj(self._context(ctx))
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         dt = compute_dtype(cfg.compute_dtype)
+        self.rudalle = cfg.rudalle_relax
         self.lin1 = Dense(cfg.hidden_dim, 4 * cfg.hidden_dim, dt)
         self.lin2 = Dense(4 * cfg.hidden_dim, cfg.hidden_dim, dt)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lin2(F.gelu(self.lin1(x), approximate="tanh"))
+    def forward(self, x: torch.Tensor, ln=None) -> torch.Tensor:
+        h = F.gelu(self.lin1(x, ln), approximate="tanh")
+        if not self.rudalle:
+            return self.lin2(h)
+        # rudalle_relax: the input over a quarter of its detached max (one
+        # number for the tensor), the output over its per-row max
+        scale = _detached_max(h) / 4.0
+        y = self.lin2(h / scale)
+        return (y / _detached_max(y, -1)) * scale
 
 
 class TransformerLayer(nn.Module):
@@ -175,6 +292,8 @@ class TransformerLayer(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.sandwich = cfg.cogview_sandwich_layernorm
+        self.prescale = cfg.cogview_layernorm_prescale
+        self.fold = cfg.ln_matmul_fold
         self.remat_mlp = cfg.remat and cfg.remat_policy == "mlp"
         ln = functools.partial(LayerNorm, cfg.hidden_dim, cfg.layernorm_impl)
         self.ln_in = ln()
@@ -185,25 +304,36 @@ class TransformerLayer(nn.Module):
         self.attn = SelfAttention(cfg)
         self.mlp = MLP(cfg)
 
+    def _prescaled(self, t):
+        """cogview_layernorm_prescale: t over its detached per-position
+        max (before ln_in, the first sandwich LN and ln_out)."""
+        return t / _detached_max(t, -1) if self.prescale else t
+
     def _post_attn(self, x, a):
         if self.sandwich:
-            a = self.first_ln_sandwich(a)
+            a = self.first_ln_sandwich(self._prescaled(a))
         x = x + a
+        t = self._prescaled(x)
+        args = (t, self.ln_out) if self.fold else (self.ln_out(t),)
         if self.remat_mlp and torch.is_grad_enabled():
-            m = checkpoint.checkpoint(self.mlp, self.ln_out(x),
-                                      use_reentrant=False)
+            m = checkpoint.checkpoint(self.mlp, *args, use_reentrant=False)
         else:
-            m = self.mlp(self.ln_out(x))
+            m = self.mlp(*args)
         if self.sandwich:
             m = self.second_ln_sandwich(m)
         return x + m
 
     def forward(self, x, prefix_length: int):
-        a, kv = self.attn(self.ln_in(x), prefix_length)
+        t = self._prescaled(x)
+        if self.fold:
+            a, kv = self.attn(t, prefix_length, self.ln_in)
+        else:
+            a, kv = self.attn(self.ln_in(t), prefix_length)
         return self._post_attn(x, a), kv
 
     def decode(self, x, k_cache, v_cache, index):
-        a = self.attn.decode(self.ln_in(x), k_cache, v_cache, index)
+        a = self.attn.decode(self.ln_in(self._prescaled(x)), k_cache,
+                             v_cache, index)
         return self._post_attn(x, a)
 
 
@@ -284,6 +414,13 @@ class MakeAScene(nn.Module):
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         return self.to_logits(h).float()
 
+    def _final_ln(self, x: torch.Tensor) -> torch.Tensor:
+        """The final LN; rudalle_relax first divides by the detached
+        per-position max (JAX's ``_final_ln``)."""
+        if self.cfg.rudalle_relax:
+            x = x / _detached_max(x, -1)
+        return self.transformer.final_ln(x)
+
     def _backbone(self, x: torch.Tensor, keep_kv: bool = False):
         """Layers + final LN -> (h, per-layer (k, v) when ``keep_kv``)."""
         cfg = self.cfg
@@ -302,7 +439,7 @@ class MakeAScene(nn.Module):
                 x, kv = layer(x, cfg.effective_prefix)
             if keep_kv:
                 kvs.append(kv)
-        return self.transformer.final_ln(x), kvs
+        return self._final_ln(x), kvs
 
     # --- entry points -------------------------------------------------------
 
@@ -317,17 +454,18 @@ class MakeAScene(nn.Module):
 
     def prefill(self, text_tokens, seg_tokens):
         """Run the text+seg prefix -> (logits [B, vocab] for the first image
-        token, per-layer (k, v) [B, H, prefix, hd])."""
+        token, per-layer (k, v) [B, kv_heads, prefix, hd])."""
         h, kvs = self._backbone(self.embed_prefix(text_tokens, seg_tokens),
                                 keep_kv=True)
         return self._logits(h[:, -1:, :])[:, 0], kvs
 
     def allocate_caches(self, prefill_kv: Sequence, batch: int) -> KVCache:
-        """Full-length caches seeded with the prefill's k/v: float caches in
-        the compute dtype (``kv_cache_dtype: "compute"``), else the
-        quantized prefix in lane caches or, with ``kv_cache_layout:
-        "packed"``, in one packed cache per layer.  They are allocated once
-        and written in place by ``decode_step``."""
+        """Full-length caches of kv_heads heads seeded with the prefill's
+        k/v: float caches in the compute dtype (``kv_cache_dtype:
+        "compute"``), else the quantized prefix in lane caches (scales in
+        ``kv_scale_dtype``) or, with ``kv_cache_layout: "packed"``, in one
+        packed cache per layer.  They are allocated once and written in
+        place by ``decode_step``."""
         cfg = self.cfg
         total = cfg.total_length
         if cfg.kv_cache_dtype == "compute":
@@ -338,14 +476,15 @@ class MakeAScene(nn.Module):
             return [(decode_cache.seed_packed_cache(k, v, total, bits), None)
                     for k, v in prefill_kv]
         device = self.text_pos_embeddings.weight.device
+        scale_dtype = (torch.bfloat16 if cfg.kv_scale_dtype == "bfloat16"
+                       else torch.float32)
         caches = []
         for k, v in prefill_kv:
             pair = []
             for t in (k, v):
-                c = QuantCache.empty(batch, cfg.num_attn_heads,
-                                     cfg.total_length, cfg.head_dim, bits,
-                                     device)
-                seeded = quant.quantize_kv(t, bits)
+                c = QuantCache.empty(batch, cfg.kv_heads, cfg.total_length,
+                                     cfg.head_dim, bits, device, scale_dtype)
+                seeded = quant.quantize_kv(t, bits, scale_dtype)
                 c.q[:, :, :t.shape[2]] = seeded.q
                 c.scale[:, :, :t.shape[2]] = seeded.scale
                 pair.append(c)
@@ -363,4 +502,4 @@ class MakeAScene(nn.Module):
                            device=x.device)
         for layer, (k_cache, v_cache) in zip(self.transformer.layers, caches):
             x = layer.decode(x, k_cache, v_cache, index)
-        return self._logits(self.transformer.final_ln(x))[:, 0]
+        return self._logits(self._final_ln(x))[:, 0]

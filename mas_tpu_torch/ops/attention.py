@@ -282,3 +282,32 @@ class FlashAttentionFunction(torch.autograd.Function):
         dqkv = flash_attention_bwd(*split_qkv(qkv), out, lse, do,
                                    ctx.prefix_length)
         return dqkv, None
+
+
+class FlashAttentionQKVFunction(torch.autograd.Function):
+    """``FlashAttentionFunction`` for q, k and v given apart, each [B, H,
+    T, d] with any strides that B1 and B6 take (a contiguous last dim;
+    bf16: (b, h, t) strides multiples of 8, data 16-byte aligned): the
+    grouped-query path, whose k and v are expanded to the query heads, and
+    the rudalle_relax path, whose q and v are rescaled first.
+
+    ``apply(q, k, v, prefix_length)`` -> out [B, H, T, d] (laid out [B, T,
+    H, d] on CUDA); the gradients are views into B6's [B, T, 3, H, d]
+    buffer."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, prefix_length: int):
+        out, lse = flash_attention(q, k, v, prefix_length)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, out, lse)
+        ctx.prefix_length = prefix_length
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1 or not _rows_aligned(do):
+            do = do.clone(memory_format=torch.contiguous_format)
+        dqkv = flash_attention_bwd(q, k, v, out, lse, do, ctx.prefix_length)
+        dq, dk, dv = (dqkv[:, :, i].transpose(1, 2) for i in range(3))
+        return dq, dk, dv, None

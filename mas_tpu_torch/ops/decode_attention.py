@@ -24,6 +24,11 @@ with an in-place ``index_copy_`` into the first d columns at the device
 position (``write_float_kv``): the JAX package writes it with a
 ``dynamic_update_slice`` outside any kernel, so no kernel is needed here.
 
+Grouped-query attention: q has H heads and the caches KV heads, KV
+dividing H, and query head h reads kv head h // (H / KV), as in B2
+(``ops/quant.py``); the kernel reads each kv head's cache once for its
+H / KV query rows.
+
 The wrapper takes the plain twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.
 """
@@ -36,14 +41,15 @@ import torch
 
 from .. import _build
 from .attention import q_scale
-from .quant import check_index, check_query, decode_split, decode_width
+from .quant import (cache_heads, check_index, check_query, decode_split,
+                    decode_width, grouped)
 
 _NEG_INF = -1e30
 
 
 @dataclass
 class FloatCache:
-    """One tensor's float decode cache [B, H, T, D] in the compute dtype
+    """One tensor's float decode cache [B, KV, T, D] in the compute dtype
     (D = ``decode_width(d)``, columns past d zero), preallocated at full
     length and written in place."""
 
@@ -78,28 +84,34 @@ def write_float_kv(k_cache: FloatCache, v_cache: FloatCache,
 
 def decode_attention_float_plain(q, k_cache: FloatCache, v_cache: FloatCache,
                                  index: torch.Tensor):
-    """q [B, H, 1, d]; positions <= index (1-element int32 tensor) are
-    visible; the caches' first d columns are read.  Returns [B, H, 1, d] in
-    q's dtype; fp32 scores, softmax and sum."""
-    d = q.shape[-1]
-    qs = (q * q_scale(d, q.dtype)).float()   # scaled in q's dtype
+    """q [B, H, 1, d] against caches of KV heads (KV divides H; query
+    head h reads kv head h // (H / KV)); positions <= index (1-element int32
+    tensor) are visible; the caches' first d columns are read.  Returns
+    [B, H, 1, d] in q's dtype; fp32 scores, softmax and sum."""
+    b, h, _, d = q.shape
+    qg = grouped(q, k_cache.data.shape[1])
+    qs = (qg * q_scale(d, q.dtype)).float()   # scaled in q's dtype
     s = torch.matmul(qs, k_cache.data[..., :d].float().transpose(-1, -2))
     kpos = torch.arange(s.shape[-1], device=q.device)
     s = s.masked_fill(kpos > index.to(q.device), _NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.matmul(p, v_cache.data[..., :d].float()).to(q.dtype)
+    out = torch.matmul(p, v_cache.data[..., :d].float())
+    return out.reshape(b, h, 1, d).to(q.dtype)
 
 
-def _check(q, k_cache: FloatCache, v_cache: FloatCache, index):
+def _check(q, k_cache: FloatCache, v_cache: FloatCache, index) -> int:
+    """Raise unless the kernel takes q, the caches and index; returns the
+    caches' kv head count."""
     check_query(q)
-    b, h, _, d = q.shape
+    b, _, _, d = q.shape
     width = decode_width(d)
     k, v = k_cache.data, v_cache.data
+    kv = cache_heads(q, k)
     t = k.shape[2]
     for c in (k, v):
-        if (tuple(c.shape) != (b, h, t, width) or c.dtype != k.dtype
+        if (tuple(c.shape) != (b, kv, t, width) or c.dtype != k.dtype
                 or c.dtype not in (torch.bfloat16, torch.float32)):
-            raise ValueError(f"caches must be bf16 or fp32 [{b}, {h}, T, "
+            raise ValueError(f"caches must be bf16 or fp32 [{b}, {kv}, T, "
                              f"{width}] of one dtype, got {c.dtype} "
                              f"{tuple(c.shape)}")
         if not c.is_contiguous() or c.data_ptr() % 16:
@@ -107,6 +119,7 @@ def _check(q, k_cache: FloatCache, v_cache: FloatCache, index):
         if c.device != q.device:
             raise ValueError(f"caches must be on {q.device}")
     check_index(index, q.device)
+    return kv
 
 
 def decode_attention_float(q, k_cache: FloatCache, v_cache: FloatCache,
@@ -115,25 +128,26 @@ def decode_attention_float(q, k_cache: FloatCache, v_cache: FloatCache,
     positions <= index are read.
 
     q [B, H, 1, d] bf16 or fp32 (any batch/head strides, contiguous last
-    dim), caches contiguous bf16 or fp32 [B, H, T, D] with
-    D = ``decode_width(d)``, ``index`` a 1-element int32 tensor on q's
-    device.  Returns a contiguous [B, H, 1, d] tensor in q's dtype.
+    dim), caches contiguous bf16 or fp32 [B, KV, T, D] with KV dividing H
+    (query head h reads kv head h // (H / KV)) and D = ``decode_width(d)``,
+    ``index`` a 1-element int32 tensor on q's device.  Returns a contiguous
+    [B, H, 1, d] tensor in q's dtype.
     """
     if q.device.type == "cpu":
         return decode_attention_float_plain(q, k_cache, v_cache, index)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_float runs on cpu or cuda, got "
                          f"{q.device}")
-    _check(q, k_cache, v_cache, index)
+    kv = _check(q, k_cache, v_cache, index)
     b, h, _, d = q.shape
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     lib = _build.library()
     status = lib.mas_decode_float(
         q.data_ptr(), k_cache.data.data_ptr(), v_cache.data.data_ptr(),
-        index.data_ptr(), out.data_ptr(), b, h, k_cache.data.shape[2],
-        q.stride(0), q.stride(1), decode_width(d), d,
+        index.data_ptr(), out.data_ptr(), b, kv, h // kv,
+        k_cache.data.shape[2], q.stride(0), q.stride(1), decode_width(d), d,
         int(k_cache.data.dtype == torch.bfloat16),
-        int(q.dtype == torch.bfloat16), decode_split(b * h),
+        int(q.dtype == torch.bfloat16), decode_split(b * kv),
         q_scale(d, q.dtype), _build.stream(q.get_device()))
     _build.check(status, "decode_float")
     decode_attention_float.launches += 1

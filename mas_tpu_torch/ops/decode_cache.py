@@ -6,7 +6,11 @@ B3 replaces ``mas_tpu/ops/decode_cache.py::_lane_write_kernel`` (public
 ``update_quant_caches_aliased``): one launch quantizes the new token's k
 and v (per-position amax over d, scale, round half to even, clip —
 ``mas_tpu/ops/quant.py:60-66``) and stores values and scales at ``index``
-of the two lane caches (``ops/quant.py::QuantCache``).
+of the two lane caches (``ops/quant.py::QuantCache``).  With bf16 scales
+(``kv_scale_dtype: "bfloat16"``) the fp32 scale is rounded to bf16 and the
+values are quantized against the rounded scale, as ``quantize_kv(...,
+scale_dtype=bfloat16)`` does; the packed cache keeps fp32 scales, as the
+JAX package's config demands.
 
 B10 replaces ``mas_tpu/ops/decode_cache.py::_write_kernel`` (public
 ``update_packed_cache``): the same quantization, stored into the packed
@@ -97,18 +101,19 @@ def _launch(k_cache, v_cache, k_new, v_new, index, packed: int) -> None:
     status = _build.library().mas_kv_write(
         k_new.data_ptr(), v_new.data_ptr(), lk[7], lk[8], lv[7], lv[8],
         index.data_ptr(), b, h, k_sb, k_sh, v_sb, v_sh, lk[2], d,
-        decode_width(d), lk[4], packed, int(k_new.dtype == torch.bfloat16),
-        _build.stream(lk[6]))
+        decode_width(d), lk[4], lk[9], packed,
+        int(k_new.dtype == torch.bfloat16), _build.stream(lk[6]))
     _build.check(status, "kv_write")
 
 
 # --- B3: the lane caches ----------------------------------------------------
 
-def _quantized(new: torch.Tensor, width: int, bits: int):
-    """new [B, H, d] -> (values [B, H, width bytes], scales [B, H]) of one
-    padded position."""
+def _quantized(new: torch.Tensor, width: int, bits: int,
+               scale_dtype: torch.dtype = torch.float32):
+    """new [B, H, d] -> (values [B, H, width bytes], scales [B, H] in
+    ``scale_dtype``) of one padded position."""
     values = width * 2 if bits == 4 else width
-    q, scale = quantize_values(pad_values(new, values), bits)
+    q, scale = quantize_values(pad_values(new, values), bits, scale_dtype)
     return (pack_int4(q) if bits == 4 else q), scale
 
 
@@ -120,7 +125,8 @@ def write_quant_kv_plain(k_cache: QuantCache, v_cache: QuantCache,
     past d as zeros."""
     pos = index.to(device=k_cache.q.device, dtype=torch.long)
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        q, scale = _quantized(new, cache.q.shape[-1], cache.bits)
+        q, scale = _quantized(new, cache.q.shape[-1], cache.bits,
+                              cache.scale.dtype)
         cache.q.index_copy_(2, pos, q[:, :, None])
         cache.scale.index_copy_(2, pos, scale[:, :, None])
 

@@ -1,4 +1,5 @@
-"""Normalization + activation primitives (NHWC), as ``mas_tpu/ops/norms.py``.
+"""Normalization + activation primitives (NHWC), as ``mas_tpu/ops/norms.py``,
+and ``folded_ln_dense``, a LayerNorm folded into the next matrix product.
 
 Statistics are fp32 whatever the input dtype, and the variance is the
 two-pass mean of squared deviations.  ``group_norm_swish`` goes through
@@ -87,3 +88,30 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return LayerNormFunction.apply(x, scale, bias, eps)
     return F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(),
                         eps).to(x.dtype)
+
+
+def folded_ln_dense(x: torch.Tensor, ln_scale: torch.Tensor,
+                    ln_bias: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, eps: float,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """``Dense(LayerNorm(x))`` without the normalized tensor
+    (``mas_tpu/ops/norms.py::folded_ln_dense``): with row statistics mu and
+    r = rsqrt(var + eps) in fp32,
+
+        LN(x) W^T + b = r (x (gamma W)^T) - r mu colsum + W beta + b,
+
+    colsum_j = sum_i gamma_i W_ji.  ``weight`` is the torch layout [out,
+    in]; gamma W is rounded once to ``dtype``, the product runs in
+    ``dtype`` (a plain matrix product, as JAX leaves it to XLA) and the
+    epilogue in fp32; the result is rounded to ``dtype``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    wf = weight.float()
+    wg = wf * ln_scale.float()[None, :]             # [out, in]
+    colsum = wg.sum(dim=1)                          # [out]
+    beta_w = wf @ ln_bias.float()                   # [out]
+    y = F.linear(x.to(dtype), wg.to(dtype))
+    return (y.float() * r - (r * mu) * colsum + beta_w
+            + bias.float()).to(dtype)

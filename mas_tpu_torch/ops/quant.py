@@ -9,7 +9,10 @@ per-(batch, head, position) quantization over the d feature dim,
 
 with qmax 127 (int8) or 7 (int4).  The port's cache layout is its own:
 values [B, H, T, D] int8, or [B, H, T, D/2] uint8 for int4 (torch has no
-int4: two nibbles per byte, low nibble = even dim); scales [B, H, T] fp32.
+int4: two nibbles per byte, low nibble = even dim); scales [B, H, T] fp32
+or, with ``kv_scale_dtype: "bfloat16"``, bf16: the scale is computed in
+fp32, rounded to bf16, and the values are quantized against the rounded
+scale (``mas_tpu/ops/quant.py:43-66``).
 D is the width that holds the head dim d (``decode_width``: the least of
 ``DECODE_HEAD_DIMS`` >= d, or the least multiple of 256 >= d above 256): a
 position is allocated at D values and the columns past d stay zero, as
@@ -28,12 +31,15 @@ read in place; the kernel takes the stride as its ``pos_stride`` argument.
 
 ``decode_attention_quant`` launches ``csrc/decode_quant.cu`` for CUDA
 tensors and takes ``decode_attention_quant_plain`` only for CPU tensors.
-The kernel splits each (b, h) row's positions over ``decode_split(B * H)``
-blocks of one thread-block cluster and merges their softmax states in
-shared memory (see the source); it is instantiated for D = 32, 64, 128
-and 256 (``DECODE_HEAD_DIMS``), takes a wider position in chunks of 256
-columns through the D = 256 instance, reads q's first d columns and
-writes an output of d columns.
+Grouped-query attention: q has H heads and the caches KV heads, with KV
+dividing H; query head h reads kv head h // (H / KV) (JAX's ``jnp.repeat``
+on the head axis), and the kernel reads each kv head's cache once for its
+H / KV query rows.  The kernel splits each (b, kv head) row's positions
+over ``decode_split(B * KV)`` blocks of one thread-block cluster and
+merges their softmax states in shared memory (see the source); it is
+instantiated for D = 32, 64, 128 and 256 (``DECODE_HEAD_DIMS``), takes a
+wider position in chunks of 256 columns through the D = 256 instance,
+reads q's first d columns and writes an output of d columns.
 
 A cache's layout is checked at its first use by a kernel and kept on the
 cache (``QuantCache.layout``); each call then compares that record with
@@ -55,6 +61,7 @@ from .. import _build
 _NEG_INF = -1e30
 _EPS = 1e-8
 DECODE_HEAD_DIMS = (32, 64, 128, 256)   # the decode kernels' instances D
+SCALE_DTYPES = (torch.float32, torch.bfloat16)   # a quantized cache's scales
 # blocks the decode kernels aim for: four on each of the H100's 132 SMs
 _TARGET_BLOCKS = 4 * 132
 MAX_SPLIT = 8                      # portable thread-block cluster size
@@ -110,7 +117,7 @@ class QuantCache:
     written in place."""
 
     q: torch.Tensor       # int8 [B, H, T, D] or uint8 [B, H, T, D/2]
-    scale: torch.Tensor   # fp32 [B, H, T]
+    scale: torch.Tensor   # fp32 or bf16 [B, H, T]
     bits: int
     # (q, scale, record) of the first kernel use: see ``layout``
     _kept: tuple = field(default=None, init=False, repr=False,
@@ -118,14 +125,15 @@ class QuantCache:
 
     @classmethod
     def empty(cls, batch: int, heads: int, length: int, head_dim: int,
-              bits: int, device=None) -> "QuantCache":
+              bits: int, device=None,
+              scale_dtype: torch.dtype = torch.float32) -> "QuantCache":
         """Zero values and unit scales, as the JAX sampler allocates; each
         position ``cache_width(head_dim, bits)`` bytes wide."""
         qmax_for(bits)
         shape = (batch, heads, length, cache_width(head_dim, bits))
         dtype = torch.uint8 if bits == 4 else torch.int8
         return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.ones((batch, heads, length), dtype=torch.float32,
+                   torch.ones((batch, heads, length), dtype=scale_dtype,
                               device=device), bits)
 
     def values(self) -> torch.Tensor:
@@ -135,9 +143,10 @@ class QuantCache:
     def layout(self):
         """What the kernels need of this cache, checked at its first use and
         kept: (B, H, T, bytes of a position, bits, position stride, device
-        index (``get_device``), values address, scales address), or None
-        when no kernel reads the cache (``check_caches`` then says why).
-        Replacing ``q`` or ``scale`` makes a new record."""
+        index (``get_device``), values address, scales address, 1 for bf16
+        scales), or None when no kernel reads the cache (``check_caches``
+        then says why).  Replacing ``q`` or ``scale`` makes a new
+        record."""
         kept = self._kept
         if kept is None or kept[0] is not self.q or kept[1] is not self.scale:
             kept = (self.q, self.scale, _layout_of(self))
@@ -145,17 +154,20 @@ class QuantCache:
         return kept[2]
 
 
-def quantize_values(f: torch.Tensor, bits: int):
-    """[..., d] float -> (int8 values [..., d], fp32 scales [...]), exactly
-    as ``mas_tpu.ops.quant.quantize_kv`` (fp32 division, round half to
-    even)."""
+def quantize_values(f: torch.Tensor, bits: int,
+                    scale_dtype: torch.dtype = torch.float32):
+    """[..., d] float -> (int8 values [..., d], scales [...] in
+    ``scale_dtype``), exactly as ``mas_tpu.ops.quant.quantize_kv`` (fp32
+    division, the scale rounded to ``scale_dtype`` and the values divided
+    by the rounded scale, round half to even)."""
     qmax = qmax_for(bits)
     f = f.float()
     amax = torch.clamp_min(f.abs().amax(dim=-1, keepdim=True), _EPS)
     # divide by a tensor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, which can differ in the last bit
-    scale = amax / torch.full_like(amax, qmax)
-    q = torch.clamp(torch.round(f / scale), -qmax, qmax).to(torch.int8)
+    scale = (amax / torch.full_like(amax, qmax)).to(scale_dtype)
+    q = torch.clamp(torch.round(f / scale.float()), -qmax,
+                    qmax).to(torch.int8)
     return q, scale[..., 0]
 
 
@@ -185,32 +197,48 @@ def pad_values(f: torch.Tensor, width: int) -> torch.Tensor:
     return f if d == width else F.pad(f, (0, width - d))
 
 
-def quantize_kv(kv: torch.Tensor, bits: int = 8) -> QuantCache:
-    """[B, H, T, d] float -> QuantCache (values packed for int4), each
-    position padded with zeros to ``decode_width(d)`` values."""
+def quantize_kv(kv: torch.Tensor, bits: int = 8,
+                scale_dtype: torch.dtype = torch.float32) -> QuantCache:
+    """[B, H, T, d] float -> QuantCache (values packed for int4, scales in
+    ``scale_dtype``), each position padded with zeros to
+    ``decode_width(d)`` values."""
     kv = pad_values(kv, decode_width(kv.shape[-1]))
-    q, scale = quantize_values(kv, bits)
+    q, scale = quantize_values(kv, bits, scale_dtype)
     return QuantCache(pack_int4(q) if bits == 4 else q, scale, bits)
 
 
 def dequantize_kv(cache: QuantCache) -> torch.Tensor:
-    return cache.values().float() * cache.scale[..., None]
+    return cache.values().float() * cache.scale.float()[..., None]
+
+
+def grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """q [B, H, 1, d] -> [B, KV, H / KV, d]: query head h = kv g + g'
+    becomes row g' of kv head kv, the reshape of JAX's grouped decode
+    (``mas_tpu/models/transformer.py:348``); [B, H, 1, d] itself when
+    KV = H."""
+    b, h, _, d = q.shape
+    if kv_heads < 1 or h % kv_heads:
+        raise ValueError(f"{kv_heads} kv heads do not divide {h} heads")
+    return q.reshape(b, kv_heads, h // kv_heads, d)
 
 
 def decode_attention_quant_plain(q, k_cache: QuantCache,
                                  v_cache: QuantCache, index: torch.Tensor):
-    """q [B, H, 1, d]; positions <= index (1-element int32 tensor) are
-    visible; the caches' first d columns are read.  Returns [B, H, 1, d] in
-    q's dtype; fp32 throughout."""
-    d = q.shape[-1]
-    s = torch.matmul(q.float() * (1.0 / math.sqrt(d)),
+    """q [B, H, 1, d] against caches of KV heads (KV divides H; query
+    head h reads kv head h // (H / KV)); positions <= index (1-element
+    int32 tensor) are visible; the caches' first d columns are read.
+    Returns [B, H, 1, d] in q's dtype; fp32 throughout."""
+    b, h, _, d = q.shape
+    qg = grouped(q, k_cache.q.shape[1])
+    s = torch.matmul(qg.float() * (1.0 / math.sqrt(d)),
                      k_cache.values()[..., :d].float().transpose(-1, -2))
-    s = s * k_cache.scale[:, :, None, :]
+    s = s * k_cache.scale.float()[:, :, None, :]
     kpos = torch.arange(s.shape[-1], device=q.device)
     s = s.masked_fill(kpos > index.to(q.device), _NEG_INF)
     p = torch.softmax(s, dim=-1)
-    pv = p * v_cache.scale[:, :, None, :]
-    return torch.matmul(pv, v_cache.values()[..., :d].float()).to(q.dtype)
+    pv = p * v_cache.scale.float()[:, :, None, :]
+    out = torch.matmul(pv, v_cache.values()[..., :d].float())
+    return out.reshape(b, h, 1, d).to(q.dtype)
 
 
 def position_stride(values: torch.Tensor) -> int:
@@ -236,8 +264,9 @@ def _layout_of(c: QuantCache):
     q, s = c.q, c.scale
     if (c.bits not in (4, 8) or q.dim() != 4
             or q.dtype != (torch.uint8 if c.bits == 4 else torch.int8)
-            or s.dtype != torch.float32 or s.shape != q.shape[:3]
-            or not s.is_contiguous() or s.get_device() != q.get_device()):
+            or s.dtype not in SCALE_DTYPES or s.shape != q.shape[:3]
+            or not s.is_contiguous() or s.get_device() != q.get_device()
+            or not _scales_paired(s)):
         return None
     try:
         ps = position_stride(q)
@@ -245,7 +274,16 @@ def _layout_of(c: QuantCache):
         return None
     b, h, t, w = q.shape
     return (b, h, t, w, c.bits, ps, q.get_device(), q.data_ptr(),
-            s.data_ptr())
+            s.data_ptr(), int(s.dtype == torch.bfloat16))
+
+
+def _scales_paired(s: torch.Tensor) -> bool:
+    """B2 reads bf16 scales in aligned 4-byte pairs: the base must be
+    4-byte aligned and the storage must hold the pair of the last scale."""
+    if s.dtype != torch.bfloat16:
+        return True
+    end = 2 * (s.storage_offset() + s.numel() + s.numel() % 2)
+    return s.data_ptr() % 4 == 0 and s.untyped_storage().nbytes() >= end
 
 
 def pair_stride(k_cache: QuantCache, v_cache: QuantCache, batch: int,
@@ -257,7 +295,7 @@ def pair_stride(k_cache: QuantCache, v_cache: QuantCache, batch: int,
     ``index`` a 1-element int32 tensor there; else 0, and ``check_caches``
     then raises what is wrong."""
     lk, lv = k_cache.layout(), v_cache.layout()
-    if lk is None or lv is None or lk[:7] != lv[:7]:
+    if lk is None or lv is None or lk[:7] != lv[:7] or lk[9] != lv[9]:
         return 0
     b, h, _, w, bits, ps, dev = lk[:7]
     if (b != batch or h != heads or dev != device_index
@@ -273,9 +311,10 @@ def check_caches(k_cache: QuantCache, v_cache: QuantCache, batch: int,
                  index: torch.Tensor) -> int:
     """Raise unless both caches are [batch, heads, T, W] int8 (int4: uint8)
     with W = ``cache_width(head_dim, bits)`` bytes a position, one position
-    stride (``position_stride``) and contiguous fp32 [batch, heads, T]
-    scales on ``device``, of one bit width, and ``index`` is a 1-element
-    int32 tensor there.  Returns the position stride in bytes."""
+    stride (``position_stride``) and contiguous fp32 or bf16 [batch, heads,
+    T] scales of one type on ``device`` (bf16: 4-byte aligned), of one bit
+    width, and ``index`` is a 1-element int32 tensor there.  Returns the
+    position stride in bytes."""
     if k_cache.bits != v_cache.bits:
         raise ValueError("k and v caches must share one bit width")
     width = cache_width(head_dim, k_cache.bits)
@@ -284,14 +323,18 @@ def check_caches(k_cache: QuantCache, v_cache: QuantCache, batch: int,
     for c in (k_cache, v_cache):
         if (tuple(c.q.shape) != (batch, heads, t, width) or c.q.dtype != vdtype
                 or tuple(c.scale.shape) != (batch, heads, t)
-                or c.scale.dtype != torch.float32):
+                or c.scale.dtype != k_cache.scale.dtype
+                or c.scale.dtype not in SCALE_DTYPES):
             raise ValueError(
                 f"cache must be {vdtype} [{batch}, {heads}, T, {width}] with "
-                f"fp32 [{batch}, {heads}, T] scales, got {c.q.dtype} "
-                f"{tuple(c.q.shape)} / {c.scale.dtype} "
+                f"fp32 or bf16 [{batch}, {heads}, T] scales of one type, got "
+                f"{c.q.dtype} {tuple(c.q.shape)} / {c.scale.dtype} "
                 f"{tuple(c.scale.shape)}")
         if not c.scale.is_contiguous():
             raise ValueError("cache scales must be contiguous")
+        if not _scales_paired(c.scale):
+            raise ValueError("bf16 cache scales need a 4-byte aligned base "
+                             "and storage for the last scale's pair")
         if c.q.device != device or c.scale.device != device:
             raise ValueError(f"caches must be on {device}")
     ps = position_stride(k_cache.q)
@@ -324,14 +367,23 @@ def check_query(q) -> None:
         raise ValueError("q needs a contiguous last dim")
 
 
+def cache_heads(q: torch.Tensor, cache: torch.Tensor) -> int:
+    """The kv heads a decode kernel reads for q [B, H, 1, d]: the cache's
+    head count when it divides H, else H (the cache checks then raise)."""
+    h = q.shape[1]
+    kv = cache.shape[1] if cache.dim() == 4 else h
+    return kv if kv >= 1 and h % kv == 0 else h
+
+
 def _check(q, k_cache, v_cache, index) -> int:
     """Raise unless the kernel takes q, the caches and index; returns the
     position stride.  The caches are compared by their kept records
     (``pair_stride``); caches that do not fit them are checked in full."""
     check_query(q)
-    b, h, _, d = q.shape
-    return (pair_stride(k_cache, v_cache, b, h, d, q.get_device(), index)
-            or check_caches(k_cache, v_cache, b, h, d, q.device, index))
+    b, _, _, d = q.shape
+    kv = cache_heads(q, k_cache.q)
+    return (pair_stride(k_cache, v_cache, b, kv, d, q.get_device(), index)
+            or check_caches(k_cache, v_cache, b, kv, d, q.device, index))
 
 
 def decode_attention_quant(q, k_cache: QuantCache, v_cache: QuantCache,
@@ -339,7 +391,8 @@ def decode_attention_quant(q, k_cache: QuantCache, v_cache: QuantCache,
     """Single-token attention over quantized caches, masked to <= index.
 
     q [B, H, 1, d] (any batch/head strides, contiguous last dim), caches as
-    ``QuantCache`` [B, H, T, cache_width(d)] whose values
+    ``QuantCache`` [B, KV, T, cache_width(d)] with KV dividing H (query
+    head h reads kv head h // (H / KV)), fp32 or bf16 scales, whose values
     may be position-strided views (see the module docstring), ``index`` a
     1-element int32 tensor on q's device.  Returns a contiguous
     [B, H, 1, d] tensor in q's dtype.
@@ -353,12 +406,13 @@ def decode_attention_quant(q, k_cache: QuantCache, v_cache: QuantCache,
     b, h, _, d = q.shape
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     lk, lv = k_cache.layout(), v_cache.layout()
+    kv = lk[1]
     q_sb, q_sh = q.stride()[:2]
     status = _build.library().mas_decode_quant(
         q.data_ptr(), lk[7], lk[8], lv[7], lv[8], index.data_ptr(),
-        out.data_ptr(), b, h, lk[2], pos_stride, q_sb, q_sh, decode_width(d),
-        d, lk[4], int(q.dtype == torch.bfloat16), decode_split(b * h),
-        1.0 / math.sqrt(d), _build.stream(lk[6]))
+        out.data_ptr(), b, kv, h // kv, lk[2], pos_stride, q_sb, q_sh,
+        decode_width(d), d, lk[4], lk[9], int(q.dtype == torch.bfloat16),
+        decode_split(b * kv), 1.0 / math.sqrt(d), _build.stream(lk[6]))
     _build.check(status, "decode_quant")
     decode_attention_quant.launches += 1
     return out

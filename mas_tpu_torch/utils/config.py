@@ -10,13 +10,16 @@ unchanged.  The
 port cannot import that module: importing anything under ``mas_tpu`` pulls
 in jax (``mas_tpu/__init__.py`` -> ``mas_tpu/eval.py``).
 
-Fields that exist only as TPU/XLA ablations or workarounds raise
+Fields that exist only as TPU/XLA ablations (``decode_ring_tail``,
+``decode_length_buckets``, ``decode_q_rows``) raise
 ``NotImplementedError`` when set away from their default, naming the
 ROADMAP item that would port them; they are never silently ignored.
+``scan_layers`` is accepted: the port always runs the unrolled layers,
+as the JAX sampler does.
 Fields read only by the JAX package's dispatch (``attention_impl``,
 ``decode_attention_impl``) are accepted and have no effect here: the port
 picks a hand-written kernel for CUDA tensors and its plain twin for CPU
-tensors.  The ``ConfigError``s of ``kv_cache_layout`` are the JAX
+tensors.  The ``ConfigError``s of ``TransformerConfig`` are the JAX
 package's, so a config that one package refuses the other refuses too.
 """
 
@@ -186,6 +189,9 @@ class TransformerConfig(_Base):
     num_layers: int = 24
     hidden_dim: int = 1024
     num_attn_heads: int = 16
+    # grouped-query attention: heads of k and v (0: num_attn_heads); query
+    # head h reads kv head h // (num_attn_heads / num_kv_heads).  A model
+    # is trained and served with the same count
     num_kv_heads: int = 0
     image_vocab_size: int = 8192
     seg_vocab_size: int = 1024
@@ -203,9 +209,16 @@ class TransformerConfig(_Base):
     # True: bidirectional over the text+seg prefix (paper); False: pure
     # causal, faithful to the reference's effective mask
     prefix_bidirectional: bool = True
+    # ruDALL-E's relaxed attention (reference checkpoints): scores over
+    # sigma^2 = var(k), v over its detached max, the context and MLP
+    # rescaled by detached maxima; needs a float ("compute") cache
     rudalle_relax: bool = False
+    # divide the inputs of ln_in, the first sandwich LN and ln_out by
+    # their detached per-position max
     cogview_layernorm_prescale: bool = False
     compute_dtype: str = "float32"
+    # fold ln_in / ln_out into the qkv / mlp.lin1 products (same
+    # parameters): LN(x) W = r (x (gamma W)) - r mu colsum + beta W
     ln_matmul_fold: bool = False
     attention_impl: str = "auto"
     decode_attention_impl: str = "auto"
@@ -226,18 +239,63 @@ class TransformerConfig(_Base):
     # B10 and read by B2 through strided views.  Caches are preallocated
     # at full length and written in place.
     kv_cache_layout: str = "lane"
+    # the lane int8/int4 cache's per-position scales: fp32, or bf16 (the
+    # values are quantized against the rounded bf16 scale)
     kv_scale_dtype: str = "float32"
     decode_length_buckets: int = 1
     decode_q_rows: int = 1
     layernorm_impl: str = "jnp"
+    # the JAX package trains such a model as one scanned, stacked layer
+    # (an XLA compile-time lever); its checkpoint tree is stacked.  The
+    # port always runs the unrolled layers and loads that tree unstacked
+    # (``utils/weights.py::transformer_from_flax``)
     scan_layers: bool = False
 
     def __post_init__(self):
+        # the JAX package's checks, in its order and with its messages
+        # (``mas_tpu/utils/config.py::TransformerConfig.__post_init__``), so
+        # a config one package refuses the other refuses too; the TPU
+        # ablations it accepts are refused after them
+        if self.layernorm_impl not in ("jnp", "pallas"):
+            raise ConfigError(
+                f"layernorm_impl must be jnp/pallas, got "
+                f"{self.layernorm_impl!r}")
         if self.hidden_dim % self.num_attn_heads:
             raise ConfigError("hidden_dim must divide num_attn_heads")
+        if self.num_kv_heads:
+            if (self.num_kv_heads < 1
+                    or self.num_attn_heads % self.num_kv_heads):
+                raise ConfigError(
+                    f"num_kv_heads ({self.num_kv_heads}) must be a positive "
+                    f"divisor of num_attn_heads ({self.num_attn_heads})")
+            if self.num_kv_heads < self.num_attn_heads:
+                if self.rudalle_relax:
+                    raise ConfigError(
+                        "grouped-query attention is not defined for the "
+                        "rudalle_relax checkpoint-compat variant")
+                if self.decode_ring_tail:
+                    raise ConfigError(
+                        "grouped-query attention supports only the default "
+                        "decode path; disable decode_ring_tail")
+                if self.kv_cache_layout == "packed":
+                    raise ConfigError(
+                        "grouped-query attention supports "
+                        "kv_cache_layout 'lane' or 'lane_aliased' (the "
+                        "packed write kernel assumes full-head caches)")
+                if self.decode_attention_impl in ("pallas",
+                                                  "pallas_interpret"):
+                    raise ConfigError(
+                        "grouped-query attention decodes via the jnp read "
+                        "path only (the Pallas decode kernels assume "
+                        "full-head q); drop the explicit "
+                        "decode_attention_impl")
         if self.text_vocab_size < self.text_length:
             raise ConfigError("text_vocab_size must be >= text_length "
                               "(pad-remap needs text_length trailing slots)")
+        if self.rudalle_relax and not self.cogview_pb_relax:
+            raise ConfigError(
+                "rudalle_relax is a refinement of the PB-relax branch "
+                "(reference transformer.py:47-55); enable cogview_pb_relax")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ConfigError(
                 f"compute_dtype must be float32/bfloat16, got "
@@ -246,6 +304,42 @@ class TransformerConfig(_Base):
             raise ConfigError(
                 f"kv_cache_dtype must be compute/int8/int4, got "
                 f"{self.kv_cache_dtype!r}")
+        if self.rudalle_relax and self.kv_cache_dtype != "compute":
+            raise ConfigError(
+                "rudalle_relax requires a floating-point KV cache (its "
+                "masked sigma/max statistics are not defined over the "
+                "quantized cache)")
+        if self.decode_length_buckets < 1:
+            raise ConfigError("decode_length_buckets must be >= 1")
+        if self.decode_q_rows < 1:
+            raise ConfigError("decode_q_rows must be >= 1")
+        if self.decode_q_rows > 1:
+            if self.rudalle_relax or self.decode_ring_tail:
+                raise ConfigError(
+                    "decode_q_rows > 1 supports only the default decode "
+                    "path (no rudalle_relax, no decode_ring_tail)")
+            if self.kv_cache_layout != "lane":
+                raise ConfigError(
+                    "decode_q_rows > 1 requires kv_cache_layout='lane'")
+            if self.decode_attention_impl in ("pallas", "pallas_interpret"):
+                raise ConfigError(
+                    "decode_q_rows > 1 uses the jnp read path only (the "
+                    "Pallas decode kernels assume a single query row)")
+        if self.kv_scale_dtype not in ("float32", "bfloat16"):
+            raise ConfigError(
+                f"kv_scale_dtype must be float32/bfloat16, got "
+                f"{self.kv_scale_dtype!r}")
+        if self.kv_scale_dtype == "bfloat16" and (
+                self.kv_cache_layout != "lane" or self.decode_ring_tail
+                or self.kv_cache_dtype not in ("int8", "int4")):
+            raise ConfigError(
+                "kv_scale_dtype='bfloat16' is only supported on the "
+                "default quantized decode path (kv_cache_dtype int8/int4, "
+                "kv_cache_layout='lane', no ring tail)")
+        if self.decode_length_buckets > 1 and self.decode_ring_tail:
+            raise ConfigError(
+                "decode_length_buckets and decode_ring_tail restructure "
+                "the same cache read; pick one")
         if self.kv_cache_layout not in ("lane", "lane_aliased", "packed"):
             raise ConfigError(
                 f"kv_cache_layout must be lane/lane_aliased/packed, got "
@@ -256,52 +350,38 @@ class TransformerConfig(_Base):
                     f"kv_cache_layout={self.kv_cache_layout!r} is a "
                     "quantized-cache layout; set kv_cache_dtype to int8 "
                     "or int4")
+            if self.decode_ring_tail:
+                raise ConfigError(
+                    f"decode_ring_tail and kv_cache_layout="
+                    f"{self.kv_cache_layout!r} are alternative decode "
+                    "write-path strategies; pick one")
             if self.total_length % 128:
                 raise ConfigError(
                     f"kv_cache_layout={self.kv_cache_layout!r} needs "
-                    "total_length % 128 == 0, as the JAX package's "
-                    "in-place write kernels do")
-        if self.decode_length_buckets < 1 or self.decode_q_rows < 1:
-            raise ConfigError(
-                "decode_length_buckets and decode_q_rows must be >= 1")
-        if self.kv_scale_dtype not in ("float32", "bfloat16"):
-            raise ConfigError(
-                f"kv_scale_dtype must be float32/bfloat16, got "
-                f"{self.kv_scale_dtype!r}")
-        if self.layernorm_impl not in ("jnp", "pallas"):
-            raise ConfigError(
-                f"layernorm_impl must be jnp/pallas, got "
-                f"{self.layernorm_impl!r}")
+                    "total_length % 128 == 0 (the RMW block is one "
+                    "128-lane tile)")
         if self.remat_policy not in REMAT_POLICIES:
             raise ConfigError(
                 f"remat_policy must be one of {REMAT_POLICIES}, got "
                 f"{self.remat_policy!r}")
-        self._reject_tpu_ablations()
-
-    def _reject_tpu_ablations(self):
         checks = (
-            (self.decode_ring_tail, "decode_ring_tail", "A5"),
-            (self.decode_length_buckets > 1, "decode_length_buckets > 1",
-             "A5"),
-            (self.decode_q_rows > 1, "decode_q_rows > 1", "A5"),
-            (self.num_kv_heads not in (0, self.num_attn_heads),
-             "num_kv_heads (grouped-query attention)", "A9b"),
-            (self.rudalle_relax, "rudalle_relax", "A9b"),
-            (self.cogview_layernorm_prescale, "cogview_layernorm_prescale",
-             "A9b"),
-            (self.ln_matmul_fold, "ln_matmul_fold", "A9b"),
-            (self.scan_layers, "scan_layers (load stacked trees unstacked)",
-             "A9b"),
-            (self.kv_scale_dtype == "bfloat16", "kv_scale_dtype='bfloat16'",
-             "B2/B3"),
+            (self.decode_ring_tail, "decode_ring_tail"),
+            (self.decode_length_buckets > 1, "decode_length_buckets > 1"),
+            (self.decode_q_rows > 1, "decode_q_rows > 1"),
         )
-        for bad, what, item in checks:
+        for bad, what in checks:
             if bad:
-                raise _not_ported(what, item)
+                raise _not_ported(what, "A5")
 
     @property
     def head_dim(self) -> int:
         return self.hidden_dim // self.num_attn_heads
+
+    @property
+    def kv_heads(self) -> int:
+        """Heads of k and v: ``num_kv_heads``, or ``num_attn_heads`` when
+        it is 0 (multi-head attention)."""
+        return self.num_kv_heads or self.num_attn_heads
 
     @property
     def image_length(self) -> int:

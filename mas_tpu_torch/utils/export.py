@@ -21,11 +21,23 @@ from typing import Dict
 
 import torch
 
+from .config import TransformerConfig
+
 State = Dict[str, torch.Tensor]
 
 
 def export_state(model: torch.nn.Module) -> State:
-    """``model.state_dict()`` as the reference layout holds it."""
+    """``model.state_dict()`` as the reference layout holds it.  A
+    grouped-query transformer has none (the reference qkv is square) and
+    raises, as ``mas_tpu/utils/torch_export.py::export_transformer_state``
+    does."""
+    cfg = getattr(model, "cfg", None)
+    if (isinstance(cfg, TransformerConfig)
+            and cfg.kv_heads != cfg.num_attn_heads):
+        raise ValueError(
+            f"GQA (kv_heads={cfg.kv_heads} < heads={cfg.num_attn_heads}) "
+            "has no reference-layout equivalent (the reference qkv is "
+            "square); export requires an MHA config")
     out: State = {}
     for key, value in model.state_dict().items():
         if key.endswith("num_batches_tracked"):

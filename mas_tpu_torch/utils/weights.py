@@ -169,14 +169,38 @@ def face_from_flax(variables: Mapping[str, Any]) -> State:
     return out
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def unstack_layer_params(params: Mapping[str, Any],
+                         num_layers: int) -> Dict[str, Any]:
+    """The stacked tree of a ``scan_layers`` model, ``{'layers': {'layer':
+    [L, ...] leaves}}``, -> the unrolled ``{'layer_0': .., 'layer_{L-1}':
+    ..}`` form, in numpy (``mas_tpu/models/transformer.py::
+    unstack_layer_params``)."""
+    p = dict(params)
+    stacked = dict(p.pop("layers"))["layer"]
+    for i in range(num_layers):
+        p[f"layer_{i}"] = _tree_map(lambda x, i=i: np.asarray(x)[i], stacked)
+    return p
+
+
 def transformer_from_flax(params: Mapping[str, Any],
                           cfg: TransformerConfig) -> State:
-    """flax MakeAScene params (numpy, unrolled ``layer_{i}`` form) -> the
-    ``state_dict`` of ``models.transformer.MakeAScene``."""
+    """flax MakeAScene params (numpy) -> the ``state_dict`` of
+    ``models.transformer.MakeAScene``: the unrolled ``layer_{i}`` tree, or
+    with ``cfg.scan_layers`` the stacked one, unstacked first.  A
+    grouped-query ``qkv`` kernel is ``hidden + 2 kv_heads hd`` wide; it maps
+    as any linear does."""
     p = params["params"] if "params" in params else params
+    if cfg.scan_layers and "layers" in p:
+        p = unstack_layer_params(p, cfg.num_layers)
     if "layer_0" not in p:
-        raise ValueError("expected the unrolled tree with 'layer_0'.. keys "
-                         "(unstack a scan_layers tree first)")
+        raise ValueError("expected the unrolled tree with 'layer_0'.. keys, "
+                         "or a stacked 'layers' tree with scan_layers set")
     out: State = {}
     for name in ("image_token_embedding", "seg_token_embedding",
                  "text_token_embedding", "text_pos_embeddings",

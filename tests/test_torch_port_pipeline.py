@@ -181,12 +181,19 @@ def test_import_leaves_jax_out():
 
 @pytest.mark.parametrize("knob", [
     dict(decode_ring_tail=True), dict(decode_length_buckets=2),
-    dict(decode_q_rows=4), dict(num_kv_heads=1), dict(rudalle_relax=True),
-    dict(cogview_layernorm_prescale=True), dict(ln_matmul_fold=True),
-    dict(scan_layers=True),
-    dict(ln_matmul_fold=True, layernorm_impl="pallas"),
-    dict(kv_scale_dtype="bfloat16")])
+    dict(decode_q_rows=4),
+    dict(decode_length_buckets=2, num_kv_heads=1),
+    dict(decode_ring_tail=True, rudalle_relax=True),
+    dict(decode_q_rows=4, cogview_layernorm_prescale=True),
+    dict(decode_length_buckets=2, ln_matmul_fold=True),
+    dict(decode_q_rows=2, scan_layers=True),
+    dict(decode_length_buckets=2, ln_matmul_fold=True,
+         layernorm_impl="pallas"),
+    dict(decode_q_rows=4, kv_scale_dtype="bfloat16", kv_cache_dtype="int4")])
 def test_tpu_only_knobs_raise(knob):
+    """The TPU ablations raise, also beside the transformer variants that
+    the port now takes (grouped-query attention, rudalle_relax, the
+    prescale, the fold, scan_layers trees, bf16 cache scales)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransformerConfig(**T_TINY, **knob)
 
