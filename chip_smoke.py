@@ -130,6 +130,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      B2 and B9 with grouped query rows (16 query heads over 8, 4 or 1 kv
      heads) and B3/B2 with bf16 scales against their twins, and times B2
      GQA-4.
+ 15. data-parallel training through the CLI, in processes started with a
+     launcher's environment (``parallel.distributed.initialize`` under
+     test; ``python3 chip_smoke.py --rank-worker SPEC`` is one rank):
+     seg_256 as phase 5 cuts it (15 micro-steps: k-means at 12 and 14, a
+     quantized Adam update at 15), img_512 as phase 11 cuts it with the
+     GAN gate open (8 micro-steps, one Adam update a side) and
+     transformer_512 as shipped (2 steps), each on 2 gloo ranks sharing
+     the card (rows seeded per rank, faces in rank 0's rows only) against
+     one process on the same global batch: the ranks bitwise equal, rank 0
+     alone writing checkpoints, a bitwise resume on both ranks (seg),
+     losses (1e-3 fp32, 1e-2 bf16), d_weight (10%), parameters within
+     what the Adam updates can move them, BN statistics, the reservoir,
+     the B4/B5/B8 floors and exact B1/B6 counts; then transformer_512 on a
+     world of one over NCCL, bitwise equal to the one process.  Prints
+     each run's step ms, the collectives' share of it, and whether MPS
+     serves the card.
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -4298,10 +4314,480 @@ def phase_variants(gen, smi: str, tmp: str) -> dict:
     return total
 
 
+# --- phase 15: data-parallel training across processes -----------------------
+
+PAR_WORLD = 2
+PAR_STEPS = {"seg": 15, "img": 8, "transformer": 2}
+
+
+def parallel_raws(tmp: str, world: int) -> dict:
+    """Phase 15's configs at full width for ``world`` ranks (``world`` 1:
+    one process on the global batch), by name: ``seg`` — seg_256 as
+    phase 5 cuts it (codebook.init_steps 4, samples_per_image 256), 15
+    micro-steps: k-means at 12 and 14, quantization through B5 from 12,
+    Adam updates at 3, 6, 9, 12 and 15 (the last one quantized);
+    ``img`` — img_512 as phase 11 cuts it with the GAN gate open from
+    micro-step 0 (loss.disc_start 0), 8 micro-steps: one Adam update a
+    side; ``transformer`` — transformer_512 as shipped, 2 steps.  The
+    global batch is the shipped one (seg 4: 2 a rank, as shipped; img 2;
+    transformer 8), ``mesh.data`` the world size; checkpoints under
+    ``tmp``."""
+    seg = seg_training_raw(tmp)
+    with open(IMG_CONFIG) as f:
+        img = json.load(f)
+    img["model"]["codebook"] = dict(img["model"]["codebook"], init_steps=4,
+                                    samples_per_image=640)
+    img["loss"] = dict(img["loss"], disc_start=0)
+    with open(TRANSFORMER_CONFIG) as f:
+        transformer = json.load(f)
+    raws = {"seg": (seg, 2 * PAR_WORLD), "img": (img, 2),
+            "transformer": (transformer, 8)}
+    out = {}
+    for name, (raw, global_batch) in raws.items():
+        raw = copy.deepcopy(raw)
+        raw["train"] = dict(
+            raw["train"], total_steps=PAR_STEPS[name],
+            batch_size=global_batch // world, mesh={"data": world},
+            checkpoint_dir=os.path.join(tmp, f"{name}_w{world}"))
+        out[name] = raw
+    return out
+
+
+def rank_rows(real, process_index: int):
+    """``cli.data_iter`` as rank ``process_index`` reads it here: the
+    config's synthetic data with its seed offset by 1000 x the rank, so
+    every rank's rows differ, and faces (``bbox_face``) in rank 0's rows
+    only: one box a row there, [res/4, 5 res/8) on both axes, none
+    elsewhere."""
+    def data_iter(data_cfg, batch_size, model_cfg, *args):
+        cfg = dict(data_cfg, seed=data_cfg.get("seed", 0)
+                   + 1000 * process_index)
+        for batch in real(cfg, batch_size, model_cfg):
+            if "bbox_face" in batch:
+                faces = np.zeros_like(batch["bbox_face"])
+                if process_index == 0:
+                    res = batch["image"].shape[1]
+                    faces[:, 0] = (res // 4, res // 4, 5 * res // 8,
+                                   5 * res // 8)
+                batch = dict(batch, bbox_face=faces)
+            yield batch
+
+    return data_iter
+
+
+def global_rows(real, world: int):
+    """``cli.data_iter`` of one process holding the global batch of
+    ``world`` ranks: each rank's rows (``rank_rows``), in rank order."""
+    def data_iter(data_cfg, batch_size, model_cfg, *args):
+        parts = [rank_rows(real, r)(data_cfg, batch_size // world, model_cfg)
+                 for r in range(world)]
+        for rows in zip(*parts):
+            yield {k: np.concatenate([np.asarray(r[k]) for r in rows])
+                   for k in rows[0]}
+
+    return data_iter
+
+
+def digests(state) -> dict:
+    """sha1 of every tensor a train state holds: the model's (and the
+    discriminator's) state_dict and the codebook's reservoir."""
+    import hashlib
+
+    tensors = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    if getattr(state, "disc", None) is not None:
+        tensors.update({f"disc.{k}": v
+                        for k, v in state.disc.state_dict().items()})
+    if hasattr(state, "vq_state"):
+        tensors["reservoir"] = state.vq_state.reservoir
+    return {k: hashlib.sha1(v.detach().contiguous().cpu().numpy()
+                            .tobytes()).hexdigest()
+            for k, v in tensors.items()}
+
+
+def step_record(metrics: dict, clock: dict) -> dict:
+    """One micro-step's scalars, the host time after a synchronize and the
+    host time spent in collectives so far."""
+    torch.cuda.synchronize()
+    rec = {k: float(v) for k, v in metrics.items()
+           if isinstance(v, (bool, int, float))
+           or (torch.is_tensor(v) and v.numel() == 1)}
+    return dict(rec, t=time.perf_counter(), coll_ms=clock["ms"])
+
+
+def timed_collectives(clock: dict) -> None:
+    """Count the host time of every ``all_reduce`` and ``broadcast`` (both
+    ends synchronized) into ``clock["ms"]``."""
+    import torch.distributed as dist
+
+    for name in ("all_reduce", "broadcast"):
+        real = getattr(dist, name)
+
+        def timed(*args, _real=real, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _real(*args, **kwargs)
+            torch.cuda.synchronize()
+            clock["ms"] += 1e3 * (time.perf_counter() - t0)
+            return out
+
+        setattr(dist, name, timed)
+
+
+def rank_worker(spec_path: str) -> int:
+    """One rank of phase 15, started with a launcher's environment: run
+    each config of the spec through ``mas_tpu_torch.cli.main`` (its data
+    as ``rank_rows``, or ``global_rows`` where the spec says so), then
+    write the launch counts, the per-step records, the final state's
+    digests, this rank's checkpoint writes, the backend and, for seg,
+    whether a resume from the checkpoint restores the state bitwise."""
+    import torch.distributed as dist
+
+    from mas_tpu_torch import cli
+    from mas_tpu_torch.train import loop
+    from mas_tpu_torch.utils.config import TrainConfig, VQModelConfig
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    real_iter = cli.data_iter
+    cli.data_iter = (global_rows(real_iter, spec["rows_of"])
+                     if spec.get("rows_of") else rank_rows(real_iter, rank))
+    writes = []
+    real_save = loop.save_checkpoint
+
+    def save(directory, state):
+        writes.append(state.step)
+        return real_save(directory, state)
+
+    loop.save_checkpoint = save
+    clock = {"ms": 0.0}
+    timed_collectives(clock)
+    results = {}
+    for name, config in spec["configs"].items():
+        record, last = [], {}
+
+        def on_step(step_no, state, metrics):
+            record.append(step_record(metrics, clock))
+            last["state"] = state
+
+        del writes[:]
+        reset_counts()
+        rc = cli.main(["--config", config, "--device", spec["device"]],
+                      on_step)
+        counts = read_counts()
+        state = last.pop("state")
+        res = dict(rc=rc, counts=counts, record=record,
+                   digests=digests(state), writes=list(writes),
+                   backend=dist.get_backend(), world=dist.get_world_size(),
+                   n_gns=count_gns(state.model))
+        if name == "seg":
+            with open(config) as f:
+                raw = json.load(f)
+            again = loop.build_seg_state(
+                TrainConfig.from_dict(dict(raw["train"], resume=True)),
+                VQModelConfig.from_dict(raw["model"]), spec["device"])
+            res["resumed_bitwise"] = digests(again) == res["digests"]
+            del again
+        results[name] = res
+        del state, last
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def launch_ranks(world: int, configs: dict, tmp: str, what: str,
+                 rows_of: int = 0, timeout: float = 600) -> list:
+    """Start ``world`` processes of ``rank_worker`` with a launcher's
+    environment (localhost rendezvous, ``LOCAL_WORLD_SIZE`` = world, one
+    card), wait for them, and return each rank's results."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    spec = os.path.join(tmp, f"{what}.json")
+    with open(spec, "w") as f:
+        json.dump({"configs": configs, "rows_of": rows_of,
+                   "device": DEVICE,
+                   "out": os.path.join(tmp, what + "_rank{rank}.json")}, f)
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(r),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        logs.append(open(os.path.join(tmp, f"{what}_rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--rank-worker", spec], env=env, cwd=tmp, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            failed.append(f"rank {r} exit {p.returncode}:\n{text[-4000:]}")
+    require(not failed, f"{what}: " + "\n".join(failed))
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{what}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def reference_run(config: str, world: int, cwd: str) -> tuple:
+    """One process on the global batch of ``world`` ranks (``global_rows``)
+    through ``run_cli``: (per-step records, final state, launch counts)."""
+    from mas_tpu_torch import cli
+
+    record, last, clock = [], {}, {"ms": 0.0}
+
+    def on_step(step_no, state, metrics):
+        record.append(step_record(metrics, clock))
+        last["state"] = state
+
+    reset_counts()
+    with mock.patch.object(cli, "data_iter",
+                           global_rows(cli.data_iter, world)):
+        run_cli(config, cwd, on_step)
+    return record, last["state"], read_counts()
+
+
+def step_ms(record: list) -> tuple:
+    """(median host ms of a micro-step after the first, the collectives'
+    share of those steps' host time)."""
+    steps = list(zip(record, record[1:]))
+    ms = [1e3 * (b["t"] - a["t"]) for a, b in steps]
+    coll = sum(b["coll_ms"] - a["coll_ms"] for a, b in steps)
+    return statistics.median(ms), coll / max(sum(ms), 1e-9)
+
+
+def rel_close(a: float, b: float, rel: float) -> bool:
+    return abs(a - b) <= rel * max(abs(a), abs(b), 1e-6)
+
+
+def params_close(got: dict, want: dict, bound: float, rel: float,
+                 what: str, median: bool = True) -> float:
+    """State dicts of two runs: every parameter within ``bound`` (what the
+    Adam updates between the runs could move one apart; a gradient that
+    is zero up to rounding, as a conv bias's ahead of a normalization,
+    takes either sign) and, with ``median`` (fp32 runs; in bf16 a small
+    gradient's sign is the rounding's), the median difference over all of
+    them below a hundredth of it; running statistics within ``rel`` of the
+    largest
+    magnitude of their tensor (a running mean near 0 of bf16 activations
+    moves by the activations' rounding, not by its own).  Returns the
+    largest parameter difference."""
+    diffs = []
+    for k, v in want.items():
+        if not v.is_floating_point():
+            continue
+        a, b = got[k].float().cpu(), v.float().cpu()
+        if "running" in k:
+            scale = float(b.abs().max())
+            require(max_err(a, b) <= rel * scale, f"{what}: {k} differs "
+                    f"by {max_err(a, b):.3g} (scale {scale:.3g})")
+            continue
+        d = (a - b).abs().reshape(-1)
+        require(float(d.max()) <= bound, f"{what}: {k} differs by "
+                f"{float(d.max()):.3g}, bound {bound:.3g}")
+        diffs.append(d)
+    d = torch.cat(diffs)
+    require(not median or float(d.median()) <= bound / 100,
+            f"{what}: median difference {float(d.median()):.3g}, bound "
+            f"{bound / 100:.3g}")
+    return float(d.max())
+
+
+def mps_state() -> str:
+    """Whether an MPS control daemon serves this machine, and the card's
+    compute mode."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    pipe = os.environ.get("CUDA_MPS_PIPE_DIRECTORY", "/tmp/nvidia-mps")
+    mps = os.path.exists(os.path.join(pipe, "control"))
+    return f"MPS {'found' if mps else 'not found'}, compute mode {mode}"
+
+
+def phase_parallel(smi: str, tmp: str) -> dict:
+    """Phase 15: data-parallel training through the CLI in ranks started
+    with a launcher's environment (``parallel.distributed.initialize``
+    under test).  seg_256, img_512 and transformer_512 at full width on 2
+    gloo ranks sharing the card, each against one process on the same
+    global batch; then a world of one over NCCL against that one process,
+    bitwise.  Returns the launch counts summed over its runs."""
+    from mas_tpu_torch.utils.checkpoint import checkpoint_path
+
+    t_phase = time.perf_counter()
+    print(f"phase 15: {mps_state()}")
+    os.makedirs(tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {w: {name: write_config(tmp, f"{name}_w{w}.json", raw)
+                 for name, raw in parallel_raws(tmp, w).items()}
+             for w in (1, PAR_WORLD)}
+    nccl = parallel_raws(os.path.join(tmp, "nccl"), 1)["transformer"]
+    nccl_path = write_config(tmp, "transformer_nccl.json", nccl)
+    ranks = launch_ranks(PAR_WORLD, paths[PAR_WORLD], tmp, "ranks")
+    total = {}
+    for r in ranks:
+        for res in r.values():
+            total = {k: total.get(k, 0) + v for k, v in res["counts"].items()}
+    refs = {}
+    for name in ("seg", "img", "transformer"):
+        record, state, counts = reference_run(paths[1][name], PAR_WORLD, tmp)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        refs[name] = dict(record=record, digests=digests(state),
+                          state={k: v.detach().cpu() for k, v in
+                                 state.model.state_dict().items()},
+                          reservoir=(state.vq_state.reservoir.cpu()
+                                     if hasattr(state, "vq_state") else None),
+                          disc=({k: v.detach().cpu() for k, v in
+                                 state.disc.state_dict().items()}
+                                if getattr(state, "disc", None) is not None
+                                else None),
+                          lr=state.opt.lr,
+                          disc_lr=getattr(getattr(state, "disc_opt", None),
+                                          "lr", None))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("seg", "img", "transformer"):
+        r0, r1 = (r[name] for r in ranks)
+        ref = refs[name]
+        steps = PAR_STEPS[name]
+        for r, res in enumerate((r0, r1)):
+            require(res["rc"] == 0 and res["backend"] == "gloo"
+                    and res["world"] == PAR_WORLD,
+                    f"{name} rank {r}: {res['backend']} x {res['world']}")
+            require(len(res["record"]) == steps, f"{name}: steps")
+        require(r0["writes"] == [steps] and r1["writes"] == [],
+                f"{name}: checkpoint writes {r0['writes']} / "
+                f"{r1['writes']}: rank 0 alone writes")
+        require(r0["digests"] == r1["digests"],
+                f"{name}: the ranks' states differ at " + str(
+                    [k for k in r0["digests"]
+                     if r0["digests"][k] != r1["digests"][k]][:4]))
+        require(r0["record"] == [dict(x, t=y["t"], coll_ms=y["coll_ms"])
+                                 for x, y in zip(r1["record"],
+                                                 r0["record"])],
+                f"{name}: the ranks logged other metrics")
+        with open(paths[PAR_WORLD][name]) as f:
+            ck_dir = json.load(f)["train"]["checkpoint_dir"]
+        saved = torch.load(checkpoint_path(ck_dir, steps),
+                           map_location="cpu", weights_only=True)
+        # an Adam update moves a parameter by at most 2 lr with these
+        # betas (|m^| / sqrt(v^) < 2), so two runs drift apart by at most
+        # 4 lr an update
+        updates = 5 if name == "seg" else 1 if name == "img" else steps
+        bound = 4 * updates * ref["lr"] + 1e-7
+        rel = 1e-3 if name == "seg" else 1e-2
+        worst = params_close(saved["model"], ref["state"], bound, rel,
+                             f"{name} state, 2 ranks vs one process",
+                             median=name == "seg")
+        # the GAN total carries d_weight ~15-fold (phase 11): compare it
+        # at the one process's d_weight, d_weight itself within 10%
+        keys = ("total", "nll_loss", "g_loss", "face_loss", "q_loss",
+                "d_loss") if name == "img" else ("loss", "q_loss")
+        for i, (a, b) in enumerate(zip(r0["record"], ref["record"])):
+            if name == "img":
+                for m in (a, b):
+                    m["total"] = m["loss"] + (b["d_weight"] - m["d_weight"]) \
+                        * m["disc_factor"] * m["g_loss"]
+                require(rel_close(a["d_weight"], b["d_weight"], 0.1),
+                        f"img step {i + 1} d_weight {a['d_weight']} vs "
+                        f"{b['d_weight']}")
+            for k in keys:
+                if k in b:
+                    require(rel_close(a[k], b[k], rel),
+                            f"{name} step {i + 1} {k}: {a[k]} vs {b[k]}")
+        if name == "seg":
+            fired = [i + 1 for i, rec in enumerate(r0["record"])
+                     if rec["kmeans_triggered"]]
+            require(fired == [12, 14], f"seg k-means at {fired}")
+            require(r0["resumed_bitwise"] and r1["resumed_bitwise"],
+                    "seg: a resume from rank 0's checkpoint is not bitwise "
+                    "on both ranks")
+            res_d = (saved["codebook"]["reservoir"] - ref["reservoir"]).abs()
+            scale = float(ref["reservoir"].abs().max())
+            require(float(res_d.max()) <= 1e-3 * scale,
+                    f"seg reservoir differs by {float(res_d.max()):.3g} "
+                    f"(scale {scale:.3g})")
+            n = r0["n_gns"]
+            for kid, floor in (("B4", n * steps), ("B8", n * steps),
+                               ("B5", 4)):
+                require(r0["counts"][kid] >= floor,
+                        f"seg rank 0: {kid} {r0['counts'][kid]} < {floor}")
+        if name == "img":
+            require(all(rec["face_loss"] > 0 for rec in ref["record"]),
+                    "img: no face term")
+            worst = max(worst, params_close(
+                saved["disc"], ref["disc"], 4 * ref["disc_lr"] + 1e-7, rel,
+                "img discriminator, 2 ranks vs one process", median=False))
+            n = r0["n_gns"]
+            for kid in ("B4", "B8"):
+                require(r0["counts"][kid] >= n * steps,
+                        f"img rank 0: {kid} {r0['counts'][kid]}")
+        if name == "transformer":
+            for r, res in enumerate((r0, r1)):
+                exact_counts(res["counts"], dict(B1=24 * steps,
+                                                 B6=24 * steps),
+                             f"transformer rank {r}")
+        rank_ms, share = step_ms(r0["record"])
+        one_ms, _ = step_ms(ref["record"])
+        print(f"phase 15 {name}: 2 ranks (gloo, one card) step median "
+              f"{rank_ms:.1f} ms, collectives {100 * share:.1f}% of it; one "
+              f"process on the global batch {one_ms:.1f} ms; params max "
+              f"|d| {worst:.3g} [{smi}]")
+    # a world of one over NCCL: the same global batch as the transformer's
+    # one process above, so the two must agree bit for bit
+    one = launch_ranks(1, {"transformer": nccl_path}, tmp, "world1",
+                       rows_of=PAR_WORLD)[0]["transformer"]
+    total = {k: total.get(k, 0) + v for k, v in one["counts"].items()}
+    ref = refs["transformer"]
+    require(one["backend"] == "nccl" and one["world"] == 1,
+            f"world of one: {one['backend']} x {one['world']}")
+    require([rec["loss"] for rec in one["record"]]
+            == [rec["loss"] for rec in ref["record"]],
+            "world of one: losses differ from one process")
+    differ = [k for k in ref["digests"]
+              if one["digests"][k] != ref["digests"][k]]
+    require(not differ, f"world of one: not bitwise at {differ[:4]}")
+    one_ms, share = step_ms(one["record"])
+    print(f"phase 15 transformer, world of one ({one['backend']}): step "
+          f"median {one_ms:.1f} ms, collectives {100 * share:.1f}%; bitwise "
+          f"equal to one process [{smi}]")
+    for path in list(paths[1].values()) + list(paths[PAR_WORLD].values()) \
+            + [nccl_path]:
+        with open(path) as f:
+            shutil.rmtree(json.load(f)["train"]["checkpoint_dir"],
+                          ignore_errors=True)
+    print(f"phase 15 (data parallel) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv) -> int:
     modes = {"--decode-times": decode_times, "--norm-times": norm_times,
              "--vq-times": vq_times, "--vq-paths": vq_paths,
              "--mha-outputs": mha_outputs}
+    if argv[:1] == ["--rank-worker"]:
+        # one rank of phase 15, started by launch_ranks
+        return rank_worker(argv[1])
     if argv[:1] and argv[0] in modes:
         # the decode reads and writes, B4, B7 and B8, B5, or the paths of
         # B4 and B5, of the mas_tpu_torch under argv[1] alone
@@ -4331,6 +4817,7 @@ def main(argv) -> int:
             smi, os.path.join(tmp, "data"),
             img_training_configs(img_tmp)[0].checkpoint_dir))
         paths.append(phase_variants(gen, smi, os.path.join(tmp, "variants")))
+        paths.append(phase_parallel(smi, os.path.join(tmp, "parallel")))
     for row in rows:
         row["launches"] = sum(counts[row["id"]] for counts in paths)
         require(row["launches"] > 0, f"{row['id']} launched on no path")

@@ -16,7 +16,10 @@ Slices ported so far:
     and export (``--mode eval``, ``show``, ``export``);
   * the data layer (``data``: tar shards, datasets, batching,
     prefetching, the ``webdataset`` and ``local_npz`` kinds) and the data
-    factory (``data.preprocess``, ``--mode preprocess_dataset``).
+    factory (``data.preprocess``, ``--mode preprocess_dataset``);
+  * data-parallel training over processes, one device a rank
+    (``parallel``: ``torchrun -m mas_tpu_torch``; NCCL, or gloo where
+    ranks share a card).
 Eleven hand-written kernels carry them on CUDA: B1 prefix-causal attention
 forward and B6 its backward (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``),
 B2 quantized and B9 float decode attention (``csrc/decode_quant.cu``), B3

@@ -59,6 +59,19 @@ Usage:
     python -m mas_tpu_torch --config configs/preprocess_web.json
 
 ``--device`` is explicit; nothing falls back to the CPU.
+
+Data-parallel training runs one process a device under a launcher:
+
+    torchrun --nproc_per_node N -m mas_tpu_torch --config configs/seg_256.json
+
+``parallel.distributed.initialize`` joins the process group before any
+device is touched (NCCL when each rank has a card of its own, gloo when
+ranks share one or run on the CPU); rank r runs on ``cuda:LOCAL_RANK``
+(``--device cuda``) or the CPU (``--device cpu``), loads
+``batch_size`` x ``mesh.data`` / N rows a step (``batch_size`` is per
+rank), its share of the webdataset shards or of each ``local_npz``
+epoch, and rank 0 alone logs and writes checkpoints, ``sample``'s image,
+``show``'s panels, ``export``'s file and ``preprocess_dataset``'s shards.
 """
 
 from __future__ import annotations
@@ -75,6 +88,8 @@ from .data.tokenizer import HashWordTokenizer
 from .models.sampler import sample_images
 from .models.transformer import MakeAScene
 from .models.vqvae import VQModel
+from .parallel.distributed import initialize, is_primary, rank, world_size
+from .parallel.mesh import rank_batch
 from .utils.config import (ConfigError, SegLossConfig, TrainConfig,
                            TransformerConfig, VQGANLossConfig, VQModelConfig,
                            vq_img_config, vq_seg_config)
@@ -154,11 +169,13 @@ def run_sample(raw: Dict[str, Any], train_cfg: TrainConfig, device) -> str:
         guidance_scale=raw.get("guidance_scale", 3.0),
         temperature=raw.get("temperature", 1.0), top_k=raw.get("top_k", 0))
     out = raw.get("output", "samples.jpg")
-    save_image(make_grid(np.clip(imgs.cpu().numpy(), 0, 1)), out)
+    if is_primary():
+        save_image(make_grid(np.clip(imgs.cpu().numpy(), 0, 1)), out)
     return out
 
 
-def data_iter(data_cfg: Dict[str, Any], batch_size: int, model_cfg):
+def data_iter(data_cfg: Dict[str, Any], batch_size: int, model_cfg,
+              process_index: int = 0, process_count: int = 1):
     """The host batch iterator of the config's ``data`` section, as
     ``mas_tpu/cli.py::_data_iter``.  ``kind: synthetic`` (the default)
     gives seeded random RGB images and boxes for a 3-channel
@@ -170,7 +187,10 @@ def data_iter(data_cfg: Dict[str, Any], batch_size: int, model_cfg):
     256) loops over shuffled epochs, each a ``default_rng(seed)``
     permutation.  Both give image, box and caption batches, with seg maps
     unless the model is a 3-channel VQ model, ``max_boxes`` (6) boxes a
-    sample, ``prefetch`` (2) batches ahead on a thread."""
+    sample, ``prefetch`` (2) batches ahead on a thread.  Process
+    ``process_index`` of ``process_count`` reads its share: every
+    ``process_count``-th shard, or every ``process_count``-th sample of
+    each epoch's permutation."""
     from .data.dataset import (PreprocessedLocalDataset,
                                PreprocessedWebDataset, SyntheticImgBatches,
                                SyntheticSegBatches, SyntheticTokenBatches,
@@ -188,18 +208,16 @@ def data_iter(data_cfg: Dict[str, Any], batch_size: int, model_cfg):
         return iter(SyntheticSegBatches(batch_size, res, seed))
     need_seg = not (isinstance(model_cfg, VQModelConfig)
                     and model_cfg.in_channels == 3)
-    # this process's index and the process count: ROADMAP A12 sets them
-    # from torch.distributed (the JAX package reads jax.process_index())
-    index, count = 0, 1
     if kind == "webdataset":
         samples = PreprocessedWebDataset(
             data_cfg["shards"], resolution=data_cfg.get("resolution", 512),
-            process_index=index, process_count=count, need_seg=need_seg)
+            process_index=process_index, process_count=process_count,
+            need_seg=need_seg)
     elif kind == "local_npz":
         samples = _epochs(PreprocessedLocalDataset(
             data_cfg["image_dir"], data_cfg["preprocessed_dir"],
             resolution=data_cfg.get("resolution", 256), seed=seed),
-            seed, index, count)
+            seed, process_index, process_count)
     else:
         raise ConfigError(f"unknown data kind {kind!r}")
     return prefetch(batch_iterator(samples, batch_size,
@@ -218,6 +236,14 @@ def _epochs(ds, seed: int, index: int, count: int):
             yield ds[int(i)]
 
 
+def train_batches(raw: Dict[str, Any], train_cfg: TrainConfig, model_cfg):
+    """This rank's batches of a training mode: ``parallel.mesh.
+    rank_batch`` rows a step from its share of the ``data`` section."""
+    return data_iter(raw.get("data", {}),
+                     rank_batch(train_cfg, world_size()), model_cfg,
+                     rank(), world_size())
+
+
 def run_pretrain_segmentation(raw: Dict[str, Any], train_cfg: TrainConfig,
                               device, on_step=None):
     from .train.loop import run_pretrain_segmentation as run
@@ -225,9 +251,8 @@ def run_pretrain_segmentation(raw: Dict[str, Any], train_cfg: TrainConfig,
     model_cfg = (VQModelConfig.from_dict(raw["model"]) if "model" in raw
                  else vq_seg_config())
     loss_cfg = SegLossConfig.from_dict(raw.get("loss", {}))
-    batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
-    return run(train_cfg, model_cfg, batches, loss_cfg, device,
-               on_step=on_step)
+    return run(train_cfg, model_cfg, train_batches(raw, train_cfg, model_cfg),
+               loss_cfg, device, on_step=on_step)
 
 
 def run_pretrain_image(raw: Dict[str, Any], train_cfg: TrainConfig,
@@ -237,7 +262,7 @@ def run_pretrain_image(raw: Dict[str, Any], train_cfg: TrainConfig,
     model_cfg = (VQModelConfig.from_dict(raw["model"]) if "model" in raw
                  else vq_img_config())
     loss_cfg = VQGANLossConfig.from_dict(raw.get("loss", {}))
-    batches = data_iter(raw.get("data", {}), train_cfg.batch_size, model_cfg)
+    batches = train_batches(raw, train_cfg, model_cfg)
     return run(train_cfg, model_cfg, batches, loss_cfg,
                raw.get("lpips_weights"), raw.get("face_weights"), device,
                on_step=on_step)
@@ -250,7 +275,7 @@ def run_train_transformer(raw: Dict[str, Any], train_cfg: TrainConfig,
     model_cfg = (TransformerConfig.from_dict(raw["transformer"])
                  if "transformer" in raw else TransformerConfig())
     data_cfg = raw.get("data", {})
-    batches = data_iter(data_cfg, train_cfg.batch_size, model_cfg)
+    batches = train_batches(raw, train_cfg, model_cfg)
     if data_cfg.get("kind") == "webdataset":
         # pixels -> tokens through the two frozen VQ encoders of the
         # sections vq_seg / vq_img = {model, checkpoint}
@@ -326,7 +351,8 @@ def run_export(raw: Dict[str, Any], train_cfg: TrainConfig, device) -> str:
         raise ConfigError(
             "export mode needs a 'transformer' or 'model' section")
     out = raw.get("output", "exported.pt")
-    torch.save(export_state(model), out)
+    if is_primary():
+        torch.save(export_state(model), out)
     return out
 
 
@@ -344,8 +370,12 @@ def main(argv=None, on_step=None) -> int:
     ap.add_argument("--mode", default=None,
                     help="override the config's train.mode")
     ap.add_argument("--device", default="cuda",
-                    help="torch device, e.g. cuda, cuda:1 or cpu")
+                    help="torch device, e.g. cuda, cuda:1 or cpu (under a "
+                         "launcher: the type; each rank takes its own)")
     args = ap.parse_args(argv)
+    topo = initialize(args.device)
+    if topo["process_index"] == 0 and topo["process_count"] > 1:
+        print(f"multi-process topology: {topo}")
     with open(args.config) as f:
         raw = json.load(f)
     train_raw = dict(raw.get("train", {}))
@@ -353,7 +383,7 @@ def main(argv=None, on_step=None) -> int:
     train_raw["mode"] = (mode if mode in TRAIN_CONFIG_MODES
                          else TRAIN_CONFIG_MODES[0])
     train_cfg = TrainConfig.from_dict(train_raw)
-    device = torch.device(args.device)
+    device = topo["device"]
     if mode in _TRAIN_MODES:
         state = _TRAIN_MODES[mode](raw, train_cfg, device, on_step)
         print(f"trained to step {state.step}")
@@ -368,7 +398,8 @@ def main(argv=None, on_step=None) -> int:
     elif mode == "preprocess_dataset":
         from .data.preprocess import run_preprocessor
 
-        run_preprocessor(raw.get("preprocess", {}), device)
+        if is_primary():    # one writer of the processed shards
+            run_preprocessor(raw.get("preprocess", {}), device)
     else:
         raise ConfigError(f"unknown mode {mode!r}")
     return 0

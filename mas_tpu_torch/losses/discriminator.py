@@ -11,7 +11,8 @@ conv biases, BN scale N(1, 0.02).
 BatchNorm is flax's ``nn.BatchNorm(momentum=0.9)``: 0.9 of the old
 running value is kept, and the running variance is the biased batch
 variance E[x^2] - mean^2 clipped at 0 (``nn.BatchNorm2d`` tracks the
-unbiased one).  ``forward(x, train, update_stats)``: the generator step
+unbiased one).  Its batch statistics span every rank, as the JAX
+tower's do under jit's global view (``SyncBatchNorm``).  ``forward(x, train, update_stats)``: the generator step
 runs the tower on batch statistics and discards their update
 (``update_stats=False``); the discriminator step updates them, real batch
 first, then fake.

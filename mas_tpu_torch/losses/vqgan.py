@@ -12,6 +12,13 @@ conv weight (the fp32 master).  JAX takes both gradients by re-running the
 final conv on the stop-gradient trunk; the trunk does not depend on W, so
 two ``torch.autograd.grad`` calls on the step's own graph
 (``retain_graph``) give the same gradients without a re-run.
+
+Under data parallelism JAX takes both gradients, and the face loss, over
+the global batch: the two gradients are averaged over ranks before their
+norms, so every rank weighs the GAN term alike, and the face loss, a sum
+over faces, is scaled by the world size, so that the gradient mean over
+ranks gives the gradient of the global sum (its logged value, averaged
+over ranks, is that sum).
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from ..parallel.collectives import active, mean_
+from ..parallel.distributed import world_size
 from ..utils.config import VQGANLossConfig
 from .discriminator import adopt_weight, generator_loss, hinge_d_loss
 from .face_loss import face_loss
@@ -47,9 +56,15 @@ def nll_loss_fn(fns: PerceptualFns, cfg: VQGANLossConfig,
     return cfg.pixelloss_weight * l1 + cfg.perceptual_weight * p
 
 
-def _grad_norm(loss: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    (g,) = torch.autograd.grad(loss, weight, retain_graph=True)
-    return torch.linalg.vector_norm(g.float())
+def adaptive_weight(nll: torch.Tensor, g: torch.Tensor,
+                    weight: torch.Tensor) -> torch.Tensor:
+    """||dnll/dW|| / (||dg/dW|| + 1e-4), the gradients averaged over
+    ranks first."""
+    grads = [torch.autograd.grad(loss, weight, retain_graph=True)[0]
+             for loss in (nll, g)]
+    mean_(grads)
+    norm_nll, norm_g = (torch.linalg.vector_norm(d.float()) for d in grads)
+    return norm_nll / (norm_g + 1e-4)
 
 
 def generator_step_loss(fns: PerceptualFns, cfg: VQGANLossConfig,
@@ -66,9 +81,10 @@ def generator_step_loss(fns: PerceptualFns, cfg: VQGANLossConfig,
     f_loss = torch.zeros((), device=recon.device)
     if cfg.face_loss and fns.facenet is not None:
         f_loss = face_loss(fns.facenet, images, recon, bbox_face)
+        if active():
+            f_loss = f_loss * world_size()
     g = generator_loss(fns.disc(recon))
-    d_weight = (_grad_norm(nll, last_layer)
-                / (_grad_norm(g, last_layer) + 1e-4))
+    d_weight = adaptive_weight(nll, g, last_layer)
     d_weight = d_weight.clamp(0.0, 1e4).detach() * cfg.disc_weight
     disc_factor = adopt_weight(cfg.disc_factor, step, cfg.disc_start)
     loss = (nll + d_weight * disc_factor * g

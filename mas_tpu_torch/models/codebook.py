@@ -11,6 +11,13 @@ each phase is a plain ``if``):
     step writes it into the embedding after the optimizer update;
   * from q_init on: quantize with kernel B5, straight-through estimator.
 
+Under data parallelism the reservoir samples the global batch, as JAX's
+global view does: every rank gathers all ranks' latents in rank order
+and draws the same positions and slots from the shared generator; rank
+0's written rows and k-means centroids are then broadcast, since CUDA's
+``index_copy_`` (duplicate slots) and ``index_add_`` (k-means sums) pick
+an order per run.  Every rank thus holds one reservoir and one codebook.
+
 Known deviations from the reference, kept from the JAX package: eviction
 replaces uniform random slots instead of concat + shuffle + truncate;
 per-image latent sampling is with replacement; on a k-means micro-step the
@@ -27,6 +34,7 @@ from torch import nn
 
 from ..ops.kmeans import kmeans
 from ..ops.vq import vq_quantize
+from ..parallel.collectives import active, broadcast_, gather_rows
 from ..utils.config import CodebookConfig
 
 
@@ -71,9 +79,9 @@ def codebook_init_embedding(codebook_size: int, codebook_dim: int,
 def _update_reservoir(state: CodebookState, z_img: torch.Tensor,
                       cfg: CodebookConfig,
                       generator: torch.Generator) -> CodebookState:
-    """Sample latents of z_img [B, h*w, D] into the reservoir.  The
-    reservoir is written in place (``index_copy_``): the state passed in
-    and the one returned share it."""
+    """Sample latents of z_img [B, h*w, D] (every rank's rows) into the
+    reservoir.  The reservoir is written in place (``index_copy_``): the
+    state passed in and the one returned share it."""
     b, hw, d = z_img.shape
     s = min(cfg.samples_per_image, hw)
     dev = z_img.device
@@ -85,6 +93,10 @@ def _update_reservoir(state: CodebookState, z_img: torch.Tensor,
     rand = torch.randint(0, r, (b * s,), generator=generator, device=dev)
     slots = torch.where(seq < r, seq % r, rand)
     state.reservoir.index_copy_(0, slots, samples)
+    if active():
+        # a slot drawn twice keeps one writer, chosen per run on CUDA
+        state.reservoir.index_copy_(
+            0, slots, broadcast_(state.reservoir.index_select(0, slots)))
     return dataclasses.replace(state, filled=min(state.filled + b * s, r))
 
 
@@ -113,13 +125,16 @@ def quantize_train(z: torch.Tensor, embedding: torch.Tensor,
     counter = state.counter + 1
     state = dataclasses.replace(state, counter=counter)
     if counter > cfg.q_start_collect:
-        state = _update_reservoir(state, z.detach().reshape(b, h * w, d),
-                                  cfg, generator)
+        state = _update_reservoir(
+            state, gather_rows(z.detach().float().reshape(b, h * w, d)), cfg,
+            generator)
     triggered = kmeans_due(counter, cfg)
     emb_used = embedding
     if triggered:
-        emb_used = kmeans(state.reservoir, generator, cfg.codebook_size,
-                          iters=cfg.kmeans_iters, n_valid=state.filled)
+        emb_used = broadcast_(kmeans(state.reservoir, generator,
+                                     cfg.codebook_size,
+                                     iters=cfg.kmeans_iters,
+                                     n_valid=state.filled))
     if counter < cfg.q_init:
         z_q = z
         q_loss = torch.zeros((), dtype=z.dtype, device=z.device)

@@ -23,6 +23,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.norms import group_norm, group_norm_swish
+from ..parallel.collectives import mean_over_ranks
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -145,9 +146,12 @@ class SyncBatchNorm(nn.Module):
     ``SyncBatchNorm``: fp32 statistics, the *biased* batch variance
     E[x^2] - mean^2 in training mode, running statistics with decay 0.9
     (``nn.BatchNorm2d`` would track the unbiased variance), output in x's
-    dtype.  Single process: statistics across processes wait for
-    ``torch.distributed`` (ROADMAP A12).  ``num_batches_tracked`` is kept
-    for the reference key layout and never read."""
+    dtype.  Under data parallelism the mean and the mean of squares are
+    means over every rank's (N, H, W) (``parallel.collectives.
+    mean_over_ranks``, differentiable), as JAX's global-view mean over the
+    sharded batch, so the running statistics agree on every rank.
+    ``num_batches_tracked`` is kept for the reference key layout and never
+    read."""
 
     def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -160,9 +164,11 @@ class SyncBatchNorm(nn.Module):
                              torch.zeros((), dtype=torch.long))
 
     def batch_stats(self, xf: torch.Tensor):
-        """fp32 NCHW -> per-channel (mean, biased variance)."""
-        mean = xf.mean(dim=(0, 2, 3))
-        return mean, xf.square().mean(dim=(0, 2, 3)) - mean.square()
+        """fp32 NCHW -> per-channel (mean, biased variance) over every
+        rank's batch."""
+        mean, mean_sq = mean_over_ranks(xf.mean(dim=(0, 2, 3)),
+                                        xf.square().mean(dim=(0, 2, 3)))
+        return mean, mean_sq - mean.square()
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 update: bool = True) -> torch.Tensor:

@@ -8,6 +8,12 @@ the VQ-SEG visual eval; and ``tokenize_batches``, which turns pixel
 batches into the transformer's tokens with the two frozen VQ encoders.
 Batches are dicts of numpy arrays or tensors; they are moved to the
 device in the loop.
+
+Under data parallelism (``parallel/``) every rank runs the loop on its
+own rows from the same seeded state and generator; only rank 0 logs,
+renders image grids and writes checkpoints, and every rank waits for its
+write (``parallel.distributed.barrier``); every rank resumes from the
+same checkpoint.
 """
 
 from __future__ import annotations
@@ -24,6 +30,9 @@ from ..data.segmap import one_hot_seg_packed
 from ..losses.face_loss import FaceNet, load_face_params_from_torch
 from ..losses.lpips import LPIPS, load_lpips_params_from_torch
 from ..models.vqvae import VQModel
+from ..parallel.collectives import broadcast_
+from ..parallel.distributed import barrier, is_primary, rank, world_size
+from ..parallel.mesh import batch_is_sharded
 from ..utils.checkpoint import latest_step, restore_checkpoint, \
     save_checkpoint
 from ..utils.config import (SegLossConfig, TrainConfig, TransformerConfig,
@@ -66,7 +75,10 @@ def _loop(cfg: TrainConfig, state, step_fn: Callable, batches: Iterable,
         print(f"resume at step {start} >= total_steps {cfg.total_steps}; "
               "skipping train loop")
         return state
+    world = world_size()
+    data, _ = cfg.mesh.shape(world)
     generator = step_generator(cfg.seed, start, device)
+    saved = None
     t0 = time.perf_counter()
     for i, batch in enumerate(batches):
         step_no = start + i
@@ -74,6 +86,9 @@ def _loop(cfg: TrainConfig, state, step_fn: Callable, batches: Iterable,
             break
         args = [torch.as_tensor(a).to(device, non_blocking=True)
                 for a in to_step_args(batch)]
+        if not batch_is_sharded(args[0].shape[0], world, data,
+                                cfg.allow_replicated_batch):
+            args = [broadcast_(a) for a in args]     # rank 0's rows
         metrics = step_fn(state, *args, generator)
         if on_step is not None:
             on_step(step_no + 1, state, metrics)
@@ -82,15 +97,27 @@ def _loop(cfg: TrainConfig, state, step_fn: Callable, batches: Iterable,
             rate = cfg.log_period / max(time.perf_counter() - t0, 1e-9)
             t0 = time.perf_counter()
             logger.log(step_no + 1, steps_per_sec=rate, **scalars)
-            if image_fn is not None:
+            if image_fn is not None and is_primary():
                 image_fn(step_no + 1, state, batch)
         if (step_no + 1) % cfg.save_period == 0 or \
                 step_no + 1 == cfg.total_steps:
-            save_checkpoint(cfg.checkpoint_dir, state)
+            saved = _save(cfg.checkpoint_dir, state)
     # a finite iterator may end before total_steps: keep that progress too
-    if state.step > start and latest_step(cfg.checkpoint_dir) != state.step:
-        save_checkpoint(cfg.checkpoint_dir, state)
+    if state.step > start and saved != state.step:
+        _save(cfg.checkpoint_dir, state)
     return state
+
+
+def _save(directory: str, state) -> int:
+    """Rank 0 writes ``state``'s checkpoint (a half-way gradient
+    accumulation averaged over ranks first) while the others wait."""
+    for opt in (state.opt, getattr(state, "disc_opt", None)):
+        if opt is not None:
+            opt.sync_accumulation()
+    if is_primary():
+        save_checkpoint(directory, state)
+    barrier()
+    return state.step
 
 
 def _maybe_resume(train_cfg: TrainConfig, state):
@@ -134,8 +161,8 @@ def run_pretrain_segmentation(train_cfg: TrainConfig,
     rest = (itertools.chain([first], batches) if first is not None
             else batches)
     key = "seg_packed" if packed else "mask"
-    logger = logger or Logger()
-    viz = Visualizer(logger.log_dir)
+    logger = logger or Logger(process_index=rank())
+    viz = Visualizer(logger.log_dir) if is_primary() else None
 
     def image_fn(step_no, st, batch):
         if step_no % logger.image_period:
@@ -216,7 +243,7 @@ def run_pretrain_image(train_cfg: TrainConfig, model_cfg: VQModelConfig,
                                 face_params_path)
     step = make_img_train_step(state.model, state.disc, state.opt,
                                state.disc_opt, loss_cfg, lpips, face)
-    logger = logger or Logger()
+    logger = logger or Logger(process_index=rank())
 
     def image_fn(step_no, st, batch):
         if step_no % logger.image_period:
@@ -275,7 +302,7 @@ def run_train_transformer(train_cfg: TrainConfig,
                                        train_cfg.uncond_p,
                                        train_cfg.start_uncond)
     return _loop(train_cfg, state, step, batches, token_args(model_cfg),
-                 device, logger or Logger(), on_step)
+                 device, logger or Logger(process_index=rank()), on_step)
 
 
 def tokenize_batches(pixel_batches: Iterable[Dict], vq_seg: VQModel,
@@ -312,7 +339,7 @@ def run_show(train_cfg: TrainConfig, model_cfg: VQModelConfig,
     and a ``Visualizer`` panel [image | seg groups | reconstruction
     groups] in ``out_dir``, until ``n_samples`` seg maps are shown.  An
     all-zero image stands in where a batch has no ``image``.  Returns the
-    panels' paths."""
+    panels' paths; under data parallelism rank 0 alone writes them."""
     with torch.device(device):
         model = VQModel(model_cfg).eval()
     step_no = latest_step(train_cfg.checkpoint_dir)
@@ -323,7 +350,7 @@ def run_show(train_cfg: TrainConfig, model_cfg: VQModelConfig,
         model.load_state_dict(load_reference_pt(train_cfg.checkpoint_dir))
         print(f"resumed from step {step_no}")
     eval_step = make_seg_eval_step(model)
-    viz = Visualizer(out_dir)
+    viz = Visualizer(out_dir) if is_primary() else None
     done, paths = 0, []
     for batch in batches:
         seg = torch.as_tensor(batch["mask"]).to(device)
@@ -331,8 +358,11 @@ def run_show(train_cfg: TrainConfig, model_cfg: VQModelConfig,
         rgb = batch.get("image")
         if rgb is None:
             rgb = np.zeros(tuple(seg.shape[:3]) + (3,), np.float32)
-        paths.append(viz(done, image=np.asarray(torch.as_tensor(rgb).cpu()),
-                         seg=seg.cpu().numpy(), seg_rec=recon.cpu().numpy()))
+        if viz is not None:     # rank 0 writes the panels
+            paths.append(viz(done,
+                             image=np.asarray(torch.as_tensor(rgb).cpu()),
+                             seg=seg.cpu().numpy(),
+                             seg_rec=recon.cpu().numpy()))
         done += seg.shape[0]
         if done >= n_samples:
             break

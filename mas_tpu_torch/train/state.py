@@ -6,6 +6,12 @@ moments) behind ``optax.MultiSteps``: with ``accumulate_grad`` k > 1 each
 micro-step folds its gradient into a running mean, and every k-th
 micro-step applies one Adam update with that mean; the parameters do not
 change in between.  Updates are in place.
+
+Under data parallelism the gradient that Adam applies is first averaged
+over ranks (``parallel.collectives.mean_``): with accumulation once, at
+the update, since the mean of the ranks' accumulated means is the
+accumulated mean of the global gradients.  ``sync_accumulation`` makes a
+half-way accumulation the same on every rank before a checkpoint.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from ..losses.discriminator import PatchDiscriminator
 from ..models.codebook import CodebookState, codebook_init_state
 from ..models.transformer import MakeAScene
 from ..models.vqvae import VQModel
+from ..parallel.collectives import mean_
 from ..utils.config import OptimizerConfig, TransformerConfig, VQModelConfig
 from ..utils.weights import init_random_
 
@@ -54,6 +61,7 @@ class Adam:
                 self.mini_step += 1
                 return False
             grads = self.acc
+        mean_(list(grads.values()))
         self.count += 1
         bc1 = 1 - self.b1 ** self.count
         bc2 = 1 - self.b2 ** self.count
@@ -68,6 +76,14 @@ class Adam:
                 acc.zero_()
             self.mini_step = 0
         return True
+
+    @torch.no_grad()
+    def sync_accumulation(self) -> None:
+        """Average a half-way accumulation over ranks, so that every rank
+        (and a checkpoint) holds the global one; the update it ends in is
+        unchanged, since the accumulation is linear in the gradients."""
+        if self.mini_step:
+            mean_(list(self.acc.values()))
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mini_step": self.mini_step,

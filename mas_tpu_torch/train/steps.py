@@ -21,6 +21,13 @@ cross-entropy, backward, the optimizer micro-step.
 
 ``make_seg_eval_step``: the eval-mode forward (BN running statistics,
 ``quantize_eval``) without gradients.
+
+Under data parallelism each rank steps on its own rows: BatchNorm
+statistics, the reservoir and the adaptive GAN weight span every rank
+(``models/``, ``losses/``), Adam applies the gradient mean over ranks
+(``train/state.py``), and the returned scalars are the means over ranks
+(``parallel.collectives.reduce_metrics``), the global batch's values.
+Every rank draws from the same generator in the same order.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from ..losses.vqgan import (PerceptualFns, discriminator_step_loss,
 from ..models.codebook import CodebookState, quantize_train
 from ..models.transformer import MakeAScene
 from ..models.vqvae import VQModel
+from ..parallel.collectives import reduce_metrics
 from ..utils.config import SegLossConfig, VQGANLossConfig
 from .state import Adam, TransformerTrainState, VQTrainState
 
@@ -98,7 +106,7 @@ def make_seg_train_step(model: VQModel, opt: Adam,
                        kmeans_triggered=triggered)
         if triggered:
             metrics["centroids"] = aux["emb_writeback"]
-        return metrics
+        return reduce_metrics(metrics)
 
     return step
 
@@ -206,7 +214,7 @@ def make_img_train_step(model: VQModel, disc: PatchDiscriminator, opt: Adam,
                        kmeans_triggered=triggered)
         if triggered:
             metrics["centroids"] = aux["emb_writeback"]
-        return metrics
+        return reduce_metrics(metrics)
 
     return step
 
@@ -250,6 +258,6 @@ def make_transformer_train_step(model: MakeAScene, opt: Adam,
         loss, grads = transformer_loss_and_grads(model, text, seg, img)
         opt.step(grads)
         state.step += 1
-        return dict(loss=loss, uncond=drop)
+        return reduce_metrics(dict(loss=loss, uncond=drop))
 
     return step

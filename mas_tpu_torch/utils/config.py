@@ -442,20 +442,31 @@ class OptimizerConfig(_Base):
 
 @dataclass(frozen=True)
 class MeshConfig(_Base):
-    """Device mesh of the JAX package; the port runs on one device until
-    ``torch.distributed`` is wired in (ROADMAP A12)."""
+    """Device mesh: ``data`` is data parallelism, one rank a device (-1:
+    every rank); ``model`` > 1, tensor parallelism, is not ported
+    (ROADMAP A12b)."""
 
     data: int = -1
     model: int = 1
+
+    def shape(self, n_devices: int) -> Tuple[int, int]:
+        """(data, model) over ``n_devices``, as the JAX ``MeshConfig``."""
+        model = max(1, self.model)
+        data = self.data if self.data > 0 else n_devices // model
+        if data * model != n_devices:
+            raise ConfigError(
+                f"mesh {data}x{model} does not cover {n_devices} devices")
+        return data, model
 
 
 @dataclass(frozen=True)
 class TrainConfig(_Base):
     """Training run settings.  The port trains VQ-SEG, VQ-IMG (generator
     ``optimizer`` and discriminator ``disc_optimizer``) and the transformer
-    (with CFG text dropout: ``uncond_p``, from step ``start_uncond``); the
-    fields only a device mesh reads raise ``NotImplementedError`` naming
-    the ROADMAP item that ports them."""
+    (with CFG text dropout: ``uncond_p``, from step ``start_uncond``) on
+    one process or data-parallel ranks (``mesh.data``; ``batch_size`` is
+    per rank); ``mesh.model`` > 1 raises ``NotImplementedError`` naming
+    ROADMAP A12b."""
 
     mode: str = "pretrain_segmentation"
     total_steps: int = 100
@@ -481,11 +492,5 @@ class TrainConfig(_Base):
             if isinstance(v, dict):
                 cls = MeshConfig if name == "mesh" else OptimizerConfig
                 object.__setattr__(self, name, cls.from_dict(v))
-        checks = (
-            (self.mesh != MeshConfig(), "mesh (multi-device training)",
-             "A12"),
-            (self.allow_replicated_batch, "allow_replicated_batch", "A12"),
-        )
-        for bad, what, item in checks:
-            if bad:
-                raise _not_ported(what, item)
+        if self.mesh.model > 1:
+            raise _not_ported("mesh.model > 1 (tensor parallelism)", "A12b")

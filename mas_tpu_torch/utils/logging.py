@@ -42,31 +42,65 @@ def save_image(grid: np.ndarray, path: str) -> None:
 
 
 class Logger:
-    """Scalar logger: prints one JSON line per call and appends it to
-    ``<log_dir>/metrics.jsonl``; every ``image_period`` steps a call with
-    ``img`` and ``img_rec`` ([N, H, W, C] in [0, 1]) also saves their grid,
-    inputs above reconstructions, as ``<log_dir>/samples_<step>.jpg``.
-    TensorBoard is not ported yet (ROADMAP A11)."""
+    """Scalar and image logger of rank 0, as ``mas_tpu/utils/logging.py::
+    Logger``; a no-op on any other ``process_index``.  Scalars go to
+    TensorBoard (``torch.utils.tensorboard.SummaryWriter`` in
+    ``log_dir``) when ``use_tensorboard`` and it imports, else as JSON
+    lines to ``<log_dir>/metrics.jsonl``; either way one JSON line per
+    call is printed.  Every ``image_period`` steps a call with ``img`` and
+    ``img_rec`` ([N, H, W, C] in [0, 1]) also logs their grid, inputs
+    above reconstructions: TensorBoard's ``samples`` image, or
+    ``<log_dir>/samples_<step>.jpg``."""
 
-    def __init__(self, log_dir: str = "logs", image_period: int = 500):
-        os.makedirs(log_dir, exist_ok=True)
+    def __init__(self, log_dir: str = "logs", process_index: int = 0,
+                 image_period: int = 500, use_tensorboard: bool = True):
         self.log_dir = log_dir
-        self.path = os.path.join(log_dir, "metrics.jsonl")
+        self.process_index = process_index
         self.image_period = image_period
+        self.writer = None
+        self.path = None
+        if process_index != 0:
+            return
+        os.makedirs(log_dir, exist_ok=True)
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                self.writer = SummaryWriter(log_dir)
+        if self.writer is None:
+            self.path = os.path.join(log_dir, "metrics.jsonl")
 
     def log(self, step: int, img=None, img_rec=None, **scalars) -> None:
+        if self.process_index != 0:
+            return
         if scalars:
-            line = json.dumps({"step": step, "time": time.time(),
-                               **{k: float(v) for k, v in scalars.items()}})
+            vals = {k: float(v) for k, v in scalars.items()}
+            line = json.dumps({"step": step, "time": time.time(), **vals})
             print(line)
-            with open(self.path, "a") as f:
-                f.write(line + "\n")
+            if self.writer is not None:
+                for key, val in vals.items():
+                    self.writer.add_scalar(key, val, step)
+            else:
+                with open(self.path, "a") as f:
+                    f.write(line + "\n")
         if (img is not None and img_rec is not None
                 and step % self.image_period == 0):
             grid = make_grid(np.concatenate([np.asarray(img),
                                              np.asarray(img_rec)]))
-            save_image(grid, os.path.join(self.log_dir,
-                                          f"samples_{step}.jpg"))
+            if self.writer is not None:
+                self.writer.add_image("samples", grid.transpose(2, 0, 1),
+                                      global_step=step)
+            else:
+                save_image(grid, os.path.join(self.log_dir,
+                                              f"samples_{step}.jpg"))
+        if self.writer is not None:
+            self.writer.flush()
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
 
 
 class Visualizer:

@@ -443,7 +443,8 @@ def test_cli_pretrain_image_runs_and_resumes_bitwise(tmp_path, monkeypatch,
     state = run_pretrain_image(
         train_cfg, model_cfg, data_iter(raw["data"], 2, model_cfg),
         VQGANLossConfig.from_dict(raw["loss"]), device="cpu",
-        logger=Logger(str(tmp_path / "logs2"), image_period=2))
+        logger=Logger(str(tmp_path / "logs2"), image_period=2,
+                      use_tensorboard=False))
     assert os.path.isfile(tmp_path / "logs2" / "samples_2.jpg")
     resumed = build_img_state(dataclasses.replace(train_cfg, resume=True),
                               model_cfg, "cpu")

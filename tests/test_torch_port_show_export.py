@@ -183,7 +183,8 @@ def test_seg_loop_logs_colorized_grids(tmp_path, packed):
     logs = str(tmp_path / "logs")
     run_pretrain_segmentation(
         train_cfg, VQModelConfig(**SEG_TINY, codebook=CB_TINY),
-        [batch, batch], device="cpu", logger=Logger(logs, image_period=2))
+        [batch, batch], device="cpu",
+        logger=Logger(logs, image_period=2, use_tensorboard=False))
     assert sorted(f for f in os.listdir(logs) if f.endswith(".jpg")) == \
         ["samples_2.jpg"]
     # inputs (2) and reconstructions (2) in one row of a 4-wide grid

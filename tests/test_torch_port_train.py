@@ -250,13 +250,23 @@ def test_cli_pretrain_segmentation_resumes(tmp_path, monkeypatch, capsys):
                          weights_only=True)
     assert payload["codebook"]["counter"] == 5
     assert payload["optimizer"]["count"] == 2
-    assert os.path.isfile(tmp_path / "logs" / "metrics.jsonl")
+    # the sink the JAX Logger picks under the same arguments: TensorBoard
+    # where torch.utils.tensorboard imports, metrics.jsonl otherwise
+    from mas_tpu.utils.logging import Logger as JLogger
+
+    jlog = JLogger(str(tmp_path / "jax_logs"))
+    jlog.close()
+    logs = os.listdir(tmp_path / "logs")
+    tb = any(f.startswith("events.out.tfevents") for f in logs)
+    assert tb == (jlog.writer is not None)
+    assert ("metrics.jsonl" in logs) == (jlog.writer is None)
 
 
 def test_cli_refuses_unported_data_and_train_fields(tmp_path):
     """Every data kind of the JAX package is ported: an unknown kind is a
-    ConfigError and a missing shard fails the run, as in ``mas_tpu``; the
-    distribution fields still raise, naming A12."""
+    ConfigError and a missing shard fails the run, as in ``mas_tpu``;
+    tensor parallelism still raises, naming A12b, while the data axis and
+    ``allow_replicated_batch`` load."""
     from mas_tpu_torch.cli import main
     from mas_tpu_torch.utils.config import ConfigError, TrainConfig
 
@@ -269,10 +279,10 @@ def test_cli_refuses_unported_data_and_train_fields(tmp_path):
         path.write_text(json.dumps(raw))
         with pytest.raises(error):
             main(["--config", str(path), "--device", "cpu"])
-    for field, item in ((dict(mesh={"data": 2}), "A12"),
-                        (dict(allow_replicated_batch=True), "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            TrainConfig(**field)
+    with pytest.raises(NotImplementedError, match="A12b"):
+        TrainConfig(mesh={"model": 2})
+    for field in (dict(mesh={"data": 2}), dict(allow_replicated_batch=True)):
+        TrainConfig(**field)
 
 
 def test_seg_config_loads_unchanged():
