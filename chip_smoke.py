@@ -136,7 +136,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      seg_256 as phase 5 cuts it (15 micro-steps: k-means at 12 and 14, a
      quantized Adam update at 15), img_512 as phase 11 cuts it with the
      GAN gate open (8 micro-steps, one Adam update a side) and
-     transformer_512 as shipped (2 steps), each on 2 gloo ranks sharing
+     transformer_512 cut to 8 of its 24 layers (2 steps; phase 16 runs it
+     at full depth), each on 2 gloo ranks sharing
      the card (rows seeded per rank, faces in rank 0's rows only) against
      one process on the same global batch: the ranks bitwise equal, rank 0
      alone writing checkpoints, a bitwise resume on both ranks (seg),
@@ -146,6 +147,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      world of one over NCCL, bitwise equal to the one process.  Prints
      each run's step ms, the collectives' share of it, and whether MPS
      serves the card.
+ 16. tensor parallelism at model 2, on 2 gloo ranks sharing the card
+     (``python3 chip_smoke.py --tp-worker SPEC`` is one rank):
+     ``configs/transformer_512.json`` as shipped (8 of its 16 heads a
+     rank), 2 steps through the CLI on a 1 x 2 mesh against one process
+     on the same rows (losses 1e-2, parameters within what the Adam
+     updates can move them, the replicated parameters bitwise equal on
+     both ranks, exact B1/B6 counts, rank 0's full checkpoint loading into
+     one process's model); then ``configs/sample_256.json`` (int4 lane
+     cache, guidance 3.0, top-k 64) at batch 4 from seeded random weights
+     sharded over the ranks: teacher-forced logits against one process
+     under phase 4's gate, ``sample_images`` with the same tokens on both
+     ranks, exact B1/B3/B2 counts a rank and B4 in model rank 0's VQ
+     decode; prints s per batch and the collectives' share.  Phase 3
+     holds B2 and B3 at a rank's shape too (q [8, 8, 1, 64], int4).
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -816,13 +831,49 @@ def check_b2(gen) -> dict:
         else:
             out["batch4_graph_ms"] = res["graph_ms"]
             out["batch4_bound_ms"] = res["bound_ms"]
+    out["tp_rank"] = check_b2_tp_rank(
+        torch.Generator(device="cuda").manual_seed(4))
     # the grouped reads draw from a generator of their own, so the shared
     # one reaches the later phases in the state it had before they existed
     grouped = check_b2_grouped(torch.Generator(device="cuda").manual_seed(2))
     out["grouped"] = {k: v for k, v in grouped.items() if k != "max_abs_err"}
     out["library_ms"] = None
-    out["max_abs_err"] = max(err, grouped["max_abs_err"])
+    out["max_abs_err"] = max(err, grouped["max_abs_err"],
+                             out["tp_rank"]["max_abs_err"])
     return out
+
+
+def check_b2_tp_rank(gen) -> dict:
+    """B2 at a tensor-parallel rank's shape on phase 16's serving path: q
+    [8, 8, 1, 64] bf16 (8 of sample_256's 16 heads, batch 4 with
+    guidance), int4 and int8 caches of T 640, at every index of
+    CHUNK_EDGES, against its twin (check_b2's tolerance); the int4 read's
+    device time at index 511 (``graph_ms``; its split is
+    ``decode_split(64)``)."""
+    from mas_tpu_torch.ops import quant
+
+    rows, h, t, d = 8, 8, 640, 64
+    q = _decode_q(gen, rows, h, d)
+    err = 0.0
+    for bits in (4, 8):
+        kc, vc = _caches(gen, bits, rows, h, t, d)
+        for index in CHUNK_EDGES:
+            idx = torch.tensor([index], dtype=torch.int32, device="cuda")
+            o = quant.decode_attention_quant(q, kc, vc, idx)
+            p = quant.decode_attention_quant_plain(q, kc, vc, idx)
+            torch.cuda.synchronize()
+            require(close(o, p, 1e-2, 1e-2), f"B2 [{rows},{h},{t},{d}] "
+                    f"int{bits} index {index}: max err {max_err(o, p)}")
+            err = max(err, max_err(o, p))
+    kc, vc = _caches(gen, 4, rows, h, t, d)
+    idx = torch.tensor([511], dtype=torch.int32, device="cuda")
+    ms = graph_ms(lambda: quant.decode_attention_quant(q, kc, vc, idx))
+    bd = bound(2 * rows * h * 512 * (d // 2 + 4) + 2 * rows * h * d * 2, 0,
+               torch.bfloat16)
+    print(f"B2 at a rank's shape [{rows},{h},{t},{d}] int4/int8, index "
+          f"{CHUNK_EDGES[0]}..{CHUNK_EDGES[-1]}: ok; int4 index 511 graph "
+          f"{ms:.4f} ms (bound {bd['bound_ms']:.5f} ms)")
+    return dict(graph_ms=ms, bound_ms=bd["bound_ms"], max_abs_err=err)
 
 
 def host_ms(fn, calls: int = 1000) -> float:
@@ -853,14 +904,13 @@ def _new_kv(gen, rows, h, d, dtype=torch.bfloat16):
     return qkv[:, 0, 1], qkv[:, 0, 2]
 
 
-def _held_writes(gen, rows, d, bits, t=640, dtype=torch.bfloat16):
-    """B3 and B10 into fresh lane and packed caches [rows, 16, t, *] at
+def _held_writes(gen, rows, d, bits, t=640, dtype=torch.bfloat16, h=16):
+    """B3 and B10 into fresh lane and packed caches [rows, h, t, *] at
     indices 0, 384, t - 1 against their plain twins: bitwise equal values
     and scales, B10's halves bitwise equal to B3's caches, and the columns
     past d still zero."""
     from mas_tpu_torch.ops import decode_cache, quant
 
-    h = 16
     kn, vn = _new_kv(gen, rows, h, d, dtype)
     kc, vc = _caches(gen, bits, rows, h, t, d)
     pk, pv = (quant.QuantCache(c.q.clone(), c.scale.clone(), bits)
@@ -991,6 +1041,11 @@ def check_b3(gen) -> dict:
     print(f"B3, B10: bitwise equal to their twins and to each other, padding "
           f"untouched, at {len(cases)} cases: rows 128/8, d "
           f"{'/'.join(map(str, WRITE_HEAD_DIMS))}, int4/int8, bf16 and fp32")
+    tp = torch.Generator(device="cuda").manual_seed(5)     # see check_b2
+    for bits in (4, 8):
+        _held_writes(tp, 8, 64, bits, h=8)
+    print("B3, B10 at a tensor-parallel rank's shape [8,8,64] (8 of 16 "
+          "heads), int4/int8: bitwise equal to their twins")
     bf16_cases = [(rows, kv, d, bits) for rows in (128, 8) for kv in (16, 4)
                   for d in (64, 33, 256, 320) for bits in (4, 8)]
     own = torch.Generator(device="cuda").manual_seed(3)   # see check_b2
@@ -4318,6 +4373,7 @@ def phase_variants(gen, smi: str, tmp: str) -> dict:
 
 PAR_WORLD = 2
 PAR_STEPS = {"seg": 15, "img": 8, "transformer": 2}
+PAR_TRANSFORMER_LAYERS = 8
 
 
 def parallel_raws(tmp: str, world: int) -> dict:
@@ -4328,7 +4384,9 @@ def parallel_raws(tmp: str, world: int) -> dict:
     Adam updates at 3, 6, 9, 12 and 15 (the last one quantized);
     ``img`` — img_512 as phase 11 cuts it with the GAN gate open from
     micro-step 0 (loss.disc_start 0), 8 micro-steps: one Adam update a
-    side; ``transformer`` — transformer_512 as shipped, 2 steps.  The
+    side; ``transformer`` — transformer_512 cut in depth to
+    ``PAR_TRANSFORMER_LAYERS`` layers (phase 16 trains all 24), 2 steps.
+    The
     global batch is the shipped one (seg 4: 2 a rank, as shipped; img 2;
     transformer 8), ``mesh.data`` the world size; checkpoints under
     ``tmp``."""
@@ -4340,6 +4398,7 @@ def parallel_raws(tmp: str, world: int) -> dict:
     img["loss"] = dict(img["loss"], disc_start=0)
     with open(TRANSFORMER_CONFIG) as f:
         transformer = json.load(f)
+    transformer["transformer"]["num_layers"] = PAR_TRANSFORMER_LAYERS
     raws = {"seg": (seg, 2 * PAR_WORLD), "img": (img, 2),
             "transformer": (transformer, 8)}
     out = {}
@@ -4500,10 +4559,12 @@ def rank_worker(spec_path: str) -> int:
 
 
 def launch_ranks(world: int, configs: dict, tmp: str, what: str,
-                 rows_of: int = 0, timeout: float = 600) -> list:
-    """Start ``world`` processes of ``rank_worker`` with a launcher's
-    environment (localhost rendezvous, ``LOCAL_WORLD_SIZE`` = world, one
-    card), wait for them, and return each rank's results."""
+                 rows_of: int = 0, timeout: float = 600,
+                 worker: str = "--rank-worker") -> list:
+    """Start ``world`` processes of ``rank_worker`` (or of the ``worker``
+    mode of this script) with a launcher's environment (localhost
+    rendezvous, ``LOCAL_WORLD_SIZE`` = world, one card), wait for them,
+    and return each rank's results."""
     import socket
 
     with socket.socket() as s:
@@ -4522,7 +4583,7 @@ def launch_ranks(world: int, configs: dict, tmp: str, what: str,
         logs.append(open(os.path.join(tmp, f"{what}_rank{r}.log"), "w+"))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-             "--rank-worker", spec], env=env, cwd=tmp, stdout=logs[-1],
+             worker, spec], env=env, cwd=tmp, stdout=logs[-1],
             stderr=subprocess.STDOUT))
     deadline = time.monotonic() + timeout
     try:
@@ -4744,8 +4805,8 @@ def phase_parallel(smi: str, tmp: str) -> dict:
                         f"img rank 0: {kid} {r0['counts'][kid]}")
         if name == "transformer":
             for r, res in enumerate((r0, r1)):
-                exact_counts(res["counts"], dict(B1=24 * steps,
-                                                 B6=24 * steps),
+                n = PAR_TRANSFORMER_LAYERS * steps
+                exact_counts(res["counts"], dict(B1=n, B6=n),
                              f"transformer rank {r}")
         rank_ms, share = step_ms(r0["record"])
         one_ms, _ = step_ms(ref["record"])
@@ -4781,6 +4842,286 @@ def phase_parallel(smi: str, tmp: str) -> dict:
     return total
 
 
+# --- phase 16: tensor parallelism at full width ----------------------------
+
+TP_MODEL = 2
+TP_STEPS = 2
+TP_SEED = 16           # the serving weights' generator, in ranks and parent
+TP_FORCED = 16         # teacher-forced decode steps
+
+
+def tp_train_raw(tmp: str, model: int) -> dict:
+    """configs/transformer_512.json as shipped, ``TP_STEPS`` steps on a 1 x
+    ``model`` mesh, checkpoints under ``tmp``."""
+    with open(TRANSFORMER_CONFIG) as f:
+        raw = json.load(f)
+    raw["train"] = dict(raw["train"], total_steps=TP_STEPS,
+                        mesh={"model": model},
+                        checkpoint_dir=os.path.join(tmp, f"ck_m{model}"))
+    return raw
+
+
+def tp_pipeline(raw: dict, shard=(0, 1)):
+    """Phase 4's serving pipeline from ``TP_SEED`` (``load_pipeline``),
+    the transformer as model rank ``shard`` of the seeded whole."""
+    from mas_tpu_torch.models.transformer import MakeAScene
+
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    transformer, vq, text, seg = load_pipeline(raw, gen)
+    if shard[1] > 1:
+        with torch.device(text.device):
+            transformer = MakeAScene.sharded(
+                transformer.cfg, transformer.state_dict(), shard).eval()
+    return transformer, vq, text, seg
+
+
+def tp_forced_logits(transformer, text, seg) -> torch.Tensor:
+    """Prefill + ``TP_FORCED`` decode steps over forced tokens drawn on the
+    CPU from a seed, with guidance's doubled batch: the full-vocabulary
+    logits [2B, TP_FORCED + 1, V] (gathered over the model group on a
+    rank)."""
+    from mas_tpu_torch.parallel.collectives import gather_vocab
+
+    full = ((lambda x: gather_vocab(x)) if transformer.shard[1] > 1
+            else (lambda x: x))
+    text2 = torch.cat([text, torch.zeros_like(text)])
+    seg2 = torch.cat([seg, seg])
+    forced = torch.randint(0, transformer.cfg.image_vocab_size,
+                           (text2.shape[0], TP_FORCED),
+                           generator=torch.Generator().manual_seed(7)
+                           ).to(text.device)
+    with torch.inference_mode():
+        logits, kvs = transformer.prefill(text2, seg2)
+        caches = transformer.allocate_caches(kvs, text2.shape[0])
+        out = [full(logits)]
+        for step in range(TP_FORCED):
+            out.append(full(transformer.decode_step(
+                forced[:, step:step + 1], step, caches)))
+    return torch.stack(out, dim=1)
+
+
+def tp_serve(raw: dict, clock: dict, logits_path: str) -> dict:
+    """Phase 16's serving in one rank: teacher-forced logits (saved to
+    ``logits_path``), then ``sample_images`` at batch 4 with its launch
+    counts, tokens, seconds and the collectives' milliseconds in them."""
+    from mas_tpu_torch.models import sampler
+    from mas_tpu_torch.parallel.distributed import model_shard
+
+    transformer, vq, text, seg = tp_pipeline(raw, model_shard())
+    torch.save(tp_forced_logits(transformer, text, seg).cpu(), logits_path)
+    tokens = {}
+    real = sampler.sample_tokens
+
+    def capture(*args, **kwargs):
+        tokens["t"] = real(*args, **kwargs)
+        return tokens["t"]
+
+    reset_counts()
+    c0 = clock["ms"]
+    with mock.patch.object(sampler, "sample_tokens", capture):
+        imgs, secs = run_slice(raw, transformer, vq, text, seg, seed=1)
+    out = dict(counts=read_counts(), secs=secs, coll_ms=clock["ms"] - c0)
+    out["n_gns"] = count_gns(vq.decoder)
+    out["tokens"] = tokens["t"].cpu().tolist()
+    out["images"] = (None if imgs is None else
+                     [list(imgs.shape), bool(torch.isfinite(imgs).all())])
+    return out
+
+
+def tp_worker(spec_path: str) -> int:
+    """One rank of phase 16, started with a launcher's environment:
+    ``TP_STEPS`` training steps through ``mas_tpu_torch.cli.main`` (rows
+    as the CLI reads them: the ranks of one data index alike), then
+    ``tp_serve``; writes the launch counts, per-step records, digests of
+    the replicated parameters, checkpoint writes, grid and backend."""
+    import torch.distributed as dist
+
+    from mas_tpu_torch import cli
+    from mas_tpu_torch.parallel.distributed import grid
+    from mas_tpu_torch.parallel.sharding import split_dim
+    from mas_tpu_torch.train import loop
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    writes = []
+    real_save = loop.save_checkpoint
+
+    def save(directory, state):
+        writes.append(state.step)
+        return real_save(directory, state)
+
+    loop.save_checkpoint = save
+    clock = {"ms": 0.0}
+    timed_collectives(clock)
+    record, last = [], {}
+
+    def on_step(step_no, state, metrics):
+        record.append(step_record(metrics, clock))
+        last["state"] = state
+
+    reset_counts()
+    rc = cli.main(["--config", spec["configs"]["train"], "--device",
+                   spec["device"]], on_step)
+    counts = read_counts()
+    state = last.pop("state")
+    g = grid()
+    res = dict(rc=rc, counts=counts, record=record, writes=list(writes),
+               replicated={k: v for k, v in digests(state).items()
+                           if split_dim(k[len("model."):]) is None},
+               backend=dist.get_backend(), world=dist.get_world_size(),
+               grid=[g.data, g.model, g.data_index, g.model_index])
+    del state, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(spec["configs"]["serve"]) as f:
+        raw = json.load(f)
+    res["serve"] = tp_serve(raw, clock, spec["out"].format(rank=rank)
+                            + ".logits.pt")
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase_tensor_parallel(smi: str, tmp: str) -> dict:
+    """Phase 16: tensor parallelism at model 2 on 2 gloo ranks sharing the
+    card, transformer_512 training and sample_256 serving, each against
+    one process.  Returns the launch counts summed over its runs."""
+    from mas_tpu_torch.models.transformer import MakeAScene
+    from mas_tpu_torch.utils.checkpoint import checkpoint_path
+    from mas_tpu_torch.utils.config import TransformerConfig
+
+    t_phase = time.perf_counter()
+    os.makedirs(tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = {m: write_config(tmp, f"tp_train_m{m}.json", tp_train_raw(tmp, m))
+             for m in (1, TP_MODEL)}
+    ranks = launch_ranks(TP_MODEL, {"train": train[TP_MODEL],
+                                    "serve": CONFIG}, tmp, "tp",
+                         worker="--tp-worker")
+    total = {}
+    for r in ranks:
+        for counts in (r["counts"], r["serve"]["counts"]):
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    r0, r1 = ranks
+    # training: the ranks against each other and one process on their rows
+    for r, res in enumerate(ranks):
+        require(res["rc"] == 0 and res["backend"] == "gloo"
+                and res["world"] == TP_MODEL
+                and res["grid"] == [1, TP_MODEL, 0, r],
+                f"tp rank {r}: {res['backend']} x {res['world']}, grid "
+                f"{res['grid']}")
+        require(len(res["record"]) == TP_STEPS, f"tp rank {r}: steps")
+        exact_counts(res["counts"], dict(B1=24 * TP_STEPS, B6=24 * TP_STEPS),
+                     f"tp transformer rank {r}")
+    require(r0["writes"] == [TP_STEPS] and r1["writes"] == [],
+            f"tp: checkpoint writes {r0['writes']} / {r1['writes']}")
+    require(r0["replicated"] == r1["replicated"],
+            "tp: the replicated parameters differ between the ranks at " +
+            str([k for k in r0["replicated"]
+                 if r0["replicated"][k] != r1["replicated"][k]][:4]))
+    require([x["loss"] for x in r0["record"]]
+            == [x["loss"] for x in r1["record"]], "tp: the ranks' losses")
+    record, last = [], {}
+
+    def on_step(step_no, state, metrics):
+        record.append(step_record(metrics, {"ms": 0.0}))
+        last["state"] = state
+
+    reset_counts()
+    run_cli(train[1], tmp, on_step)
+    total = {k: total.get(k, 0) + v for k, v in read_counts().items()}
+    state = last.pop("state")
+    ref = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    lr = state.opt.lr
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, (a, b) in enumerate(zip(r0["record"], record)):
+        require(rel_close(a["loss"], b["loss"], 1e-2),
+                f"tp step {i + 1} loss {a['loss']} vs one process "
+                f"{b['loss']}")
+    with open(train[TP_MODEL]) as f:
+        ck_dir = json.load(f)["train"]["checkpoint_dir"]
+    saved = torch.load(checkpoint_path(ck_dir, TP_STEPS), map_location="cpu",
+                       weights_only=True)["model"]
+    worst = params_close(saved, ref, 4 * TP_STEPS * lr + 1e-7, 1e-2,
+                         "tp: rank 0's checkpoint vs one process",
+                         median=False)
+    with open(TRANSFORMER_CONFIG) as f:
+        tcfg = TransformerConfig.from_dict(json.load(f)["transformer"])
+    with torch.device(DEVICE):
+        MakeAScene(tcfg, fp32_params=True).load_state_dict(saved,
+                                                           strict=True)
+    del saved, ref
+    rank_ms, share = step_ms(r0["record"])
+    one_ms, _ = step_ms(record)
+    print(f"phase 16 transformer_512, 1 x {TP_MODEL} (gloo, one card): step "
+          f"median {rank_ms:.1f} ms, collectives {100 * share:.1f}% of it; "
+          f"one process {one_ms:.1f} ms; losses {[x['loss'] for x in r0['record']]}"
+          f" vs {[x['loss'] for x in record]}; params max |d| {worst:.3g}; "
+          f"rank 0's checkpoint loads into one process [{smi}]")
+    # serving: tokens, counts and images per rank; logits against one
+    # process
+    with open(CONFIG) as f:
+        raw = json.load(f)
+    tcfg = TransformerConfig.from_dict(raw["transformer"])
+    steps = tcfg.image_length - 1
+    s0, s1 = r0["serve"], r1["serve"]
+    require(s0["tokens"] == s1["tokens"], "tp: the ranks sampled other "
+            "tokens")
+    for r, srv in enumerate((s0, s1)):
+        # model rank 0 alone decodes the images (B4)
+        exact_counts(srv["counts"],
+                     dict(B1=tcfg.num_layers, B2=tcfg.num_layers * steps,
+                          B3=tcfg.num_layers * steps,
+                          B4=srv["n_gns"] if r == 0 else 0),
+                     f"tp serving rank {r}")
+    require(s0["images"] == [[4, 256, 256, 3], True] and s1["images"] is None,
+            f"tp images {s0['images']} / {s1['images']}")
+    got = [torch.load(os.path.join(tmp, f"tp_rank{r}.json.logits.pt"))
+           for r in range(TP_MODEL)]
+    require(torch.equal(got[0], got[1]), "tp: the ranks' gathered logits "
+            "differ")
+    transformer, vq, text, seg = tp_pipeline(raw)
+    want = tp_forced_logits(transformer, text, seg).cpu()
+    reset_counts()
+    imgs, one_secs = run_slice(raw, transformer, vq, text, seg, seed=1)
+    total = {k: total.get(k, 0) + v for k, v in read_counts().items()}
+    del transformer, vq, imgs
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff = (got[0] - want).abs()
+    scale = float(want.abs().max())
+    margin = 4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+    best = want.topk(2, dim=-1).values
+    decided = (best[..., 0] - best[..., 1]) > margin
+    same = (got[0].argmax(-1) == want.argmax(-1))[decided]
+    top1 = float(same.float().mean()) if same.numel() else 0.0
+    print(f"phase 16 sample_256 teacher-forced ({TP_FORCED} steps, 8 rows), "
+          f"2 ranks vs one process: max |d| {float(diff.max()):.4e}, max "
+          f"|logit| {scale:.4e}, top-1 agreement {top1:.4f} over the "
+          f"{same.numel()} of {decided.numel()} positions decided by > 4 "
+          "bf16 ulps")
+    require(same.numel() > 0, "tp teacher-forced: some position is decided")
+    require(float(diff.max()) <= 0.1 * scale, "tp teacher-forced logits")
+    require(top1 >= 0.9, "tp teacher-forced top-1 agreement >= 90%")
+    print(f"phase 16 sample_256 batch 4, rank 0: {s0['secs']:.3f} s a batch, "
+          f"collectives {100 * s0['coll_ms'] / 1e3 / s0['secs']:.1f}% of it "
+          f"(rank 1 {s1['secs']:.3f} s); one process {one_secs:.3f} s "
+          f"[{smi}]")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    with open(train[1]) as f:
+        shutil.rmtree(json.load(f)["train"]["checkpoint_dir"],
+                      ignore_errors=True)
+    print(f"phase 16 (tensor parallel) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv) -> int:
     modes = {"--decode-times": decode_times, "--norm-times": norm_times,
              "--vq-times": vq_times, "--vq-paths": vq_paths,
@@ -4788,6 +5129,9 @@ def main(argv) -> int:
     if argv[:1] == ["--rank-worker"]:
         # one rank of phase 15, started by launch_ranks
         return rank_worker(argv[1])
+    if argv[:1] == ["--tp-worker"]:
+        # one rank of phase 16, started by launch_ranks
+        return tp_worker(argv[1])
     if argv[:1] and argv[0] in modes:
         # the decode reads and writes, B4, B7 and B8, B5, or the paths of
         # B4 and B5, of the mas_tpu_torch under argv[1] alone
@@ -4818,6 +5162,7 @@ def main(argv) -> int:
             img_training_configs(img_tmp)[0].checkpoint_dir))
         paths.append(phase_variants(gen, smi, os.path.join(tmp, "variants")))
         paths.append(phase_parallel(smi, os.path.join(tmp, "parallel")))
+        paths.append(phase_tensor_parallel(smi, os.path.join(tmp, "tp")))
     for row in rows:
         row["launches"] = sum(counts[row["id"]] for counts in paths)
         require(row["launches"] > 0, f"{row['id']} launched on no path")

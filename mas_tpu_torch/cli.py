@@ -60,17 +60,23 @@ Usage:
 
 ``--device`` is explicit; nothing falls back to the CPU.
 
-Data-parallel training runs one process a device under a launcher:
+Training runs one process a device under a launcher, over the grid of
+``train.mesh``: ``mesh.data`` data-parallel ranks by ``mesh.model``
+tensor-parallel ones (the transformer's heads, MLP columns and logits
+split over them; a model whose head count ``mesh.model`` does not divide
+is refused):
 
     torchrun --nproc_per_node N -m mas_tpu_torch --config configs/seg_256.json
 
 ``parallel.distributed.initialize`` joins the process group before any
 device is touched (NCCL when each rank has a card of its own, gloo when
-ranks share one or run on the CPU); rank r runs on ``cuda:LOCAL_RANK``
-(``--device cuda``) or the CPU (``--device cpu``), loads
-``batch_size`` x ``mesh.data`` / N rows a step (``batch_size`` is per
-rank), its share of the webdataset shards or of each ``local_npz``
-epoch, and rank 0 alone logs and writes checkpoints, ``sample``'s image,
+ranks share one or run on the CPU) and lays out the grid (the mesh of a
+training mode; every rank on the data axis otherwise); rank r runs on
+``cuda:LOCAL_RANK`` (``--device cuda``) or the CPU (``--device cpu``),
+loads ``batch_size`` rows a step from its data index's share of the
+webdataset shards or of each ``local_npz`` epoch (the ranks of one data
+index read the same rows), and rank 0 alone logs and writes checkpoints
+(a tensor-parallel transformer's gathered whole), ``sample``'s image,
 ``show``'s panels, ``export``'s file and ``preprocess_dataset``'s shards.
 """
 
@@ -88,7 +94,7 @@ from .data.tokenizer import HashWordTokenizer
 from .models.sampler import sample_images
 from .models.transformer import MakeAScene
 from .models.vqvae import VQModel
-from .parallel.distributed import initialize, is_primary, rank, world_size
+from .parallel.distributed import grid, initialize, is_primary, world_size
 from .parallel.mesh import rank_batch
 from .utils.config import (ConfigError, SegLossConfig, TrainConfig,
                            TransformerConfig, VQGANLossConfig, VQModelConfig,
@@ -238,10 +244,12 @@ def _epochs(ds, seed: int, index: int, count: int):
 
 def train_batches(raw: Dict[str, Any], train_cfg: TrainConfig, model_cfg):
     """This rank's batches of a training mode: ``parallel.mesh.
-    rank_batch`` rows a step from its share of the ``data`` section."""
+    rank_batch`` rows a step from its data index's share of the ``data``
+    section."""
+    g = grid()
     return data_iter(raw.get("data", {}),
                      rank_batch(train_cfg, world_size()), model_cfg,
-                     rank(), world_size())
+                     g.data_index, g.data)
 
 
 def run_pretrain_segmentation(raw: Dict[str, Any], train_cfg: TrainConfig,
@@ -373,9 +381,6 @@ def main(argv=None, on_step=None) -> int:
                     help="torch device, e.g. cuda, cuda:1 or cpu (under a "
                          "launcher: the type; each rank takes its own)")
     args = ap.parse_args(argv)
-    topo = initialize(args.device)
-    if topo["process_index"] == 0 and topo["process_count"] > 1:
-        print(f"multi-process topology: {topo}")
     with open(args.config) as f:
         raw = json.load(f)
     train_raw = dict(raw.get("train", {}))
@@ -383,6 +388,11 @@ def main(argv=None, on_step=None) -> int:
     train_raw["mode"] = (mode if mode in TRAIN_CONFIG_MODES
                          else TRAIN_CONFIG_MODES[0])
     train_cfg = TrainConfig.from_dict(train_raw)
+    topo = initialize(args.device,
+                      train_cfg.mesh if mode in _TRAIN_MODES else None)
+    if topo["process_index"] == 0 and topo["process_count"] > 1:
+        print(f"multi-process topology: {topo}, mesh "
+              f"{grid().data}x{grid().model}")
     device = topo["device"]
     if mode in _TRAIN_MODES:
         state = _TRAIN_MODES[mode](raw, train_cfg, device, on_step)

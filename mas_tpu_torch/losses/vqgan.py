@@ -16,7 +16,7 @@ two ``torch.autograd.grad`` calls on the step's own graph
 Under data parallelism JAX takes both gradients, and the face loss, over
 the global batch: the two gradients are averaged over ranks before their
 norms, so every rank weighs the GAN term alike, and the face loss, a sum
-over faces, is scaled by the world size, so that the gradient mean over
+over faces, is scaled by the data axis size, so that the gradient mean over
 ranks gives the gradient of the global sum (its logged value, averaged
 over ranks, is that sum).
 """
@@ -27,8 +27,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from ..parallel.collectives import active, mean_
-from ..parallel.distributed import world_size
+from ..parallel.collectives import active, data_size, mean_
 from ..utils.config import VQGANLossConfig
 from .discriminator import adopt_weight, generator_loss, hinge_d_loss
 from .face_loss import face_loss
@@ -82,7 +81,7 @@ def generator_step_loss(fns: PerceptualFns, cfg: VQGANLossConfig,
     if cfg.face_loss and fns.facenet is not None:
         f_loss = face_loss(fns.facenet, images, recon, bbox_face)
         if active():
-            f_loss = f_loss * world_size()
+            f_loss = f_loss * data_size()
     g = generator_loss(fns.disc(recon))
     d_weight = adaptive_weight(nll, g, last_layer)
     d_weight = d_weight.clamp(0.0, 1e4).detach() * cfg.disc_weight

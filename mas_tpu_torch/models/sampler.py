@@ -18,12 +18,22 @@ Counterpart of ``mas_tpu/models/sampler.py`` (default branch of
 
 The decode loop is a Python loop; capturing a step in a CUDA graph is
 later work (ROADMAP A5).
+
+Under tensor parallelism (a model built with ``shard``, in a launched
+world) each step's vocab-parallel logits are gathered over the model
+group (``parallel.collectives.gather_vocab``: the same bits on every
+rank), and every rank of the group draws from its own generator, seeded
+alike, so they draw the same tokens; model rank 0 alone decodes the
+images.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ..parallel.collectives import gather_vocab
 from .transformer import MakeAScene
 from .vqvae import VQModel
 
@@ -41,6 +51,10 @@ def _sample_logits(logits: torch.Tensor, generator: torch.Generator,
         return torch.gather(idx, 1, j)[:, 0]
     return torch.multinomial(torch.softmax(logits, dim=-1), 1,
                              generator=generator)[:, 0]
+
+
+def _full_vocab(model: MakeAScene, logits: torch.Tensor) -> torch.Tensor:
+    return gather_vocab(logits) if model.shard[1] > 1 else logits
 
 
 def _guided(logits_2b: torch.Tensor, batch: int,
@@ -73,12 +87,13 @@ def sample_tokens(model: MakeAScene, text_tokens: torch.Tensor,
     logits, kvs = model.prefill(text_all, seg_all)
     caches = model.allocate_caches(kvs, text_all.shape[0])
     del kvs
+    logits = _full_vocab(model, logits)
     tok = _sample_logits(_guided(logits, b, guidance_scale), generator,
                          temperature, top_k)
     tokens = [tok]
     for step in range(cfg.image_length - 1):
         tok_in = tok.repeat(copies)[:, None]           # feed both halves
-        logits = model.decode_step(tok_in, step, caches)
+        logits = _full_vocab(model, model.decode_step(tok_in, step, caches))
         tok = _sample_logits(_guided(logits, b, guidance_scale), generator,
                              temperature, top_k)
         tokens.append(tok)
@@ -90,12 +105,16 @@ def sample_images(transformer: MakeAScene, vq_img: VQModel,
                   text_tokens: torch.Tensor, seg_tokens: torch.Tensor,
                   generator: torch.Generator, guidance_scale: float = 3.0,
                   temperature: float = 1.0, top_k: int = 0,
-                  decode_chunk: int = 32) -> torch.Tensor:
+                  decode_chunk: int = 32) -> Optional[torch.Tensor]:
     """text+seg tokens -> NHWC fp32 images: AR sampling, then VQ-IMG
-    ``decode_code`` in chunks of ``decode_chunk`` images."""
+    ``decode_code`` in chunks of ``decode_chunk`` images; None on a
+    tensor-parallel model rank other than 0 (it samples, rank 0
+    decodes)."""
     tokens = sample_tokens(transformer, text_tokens, seg_tokens, generator,
                            guidance_scale=guidance_scale,
                            temperature=temperature, top_k=top_k)
+    if transformer.shard[0] != 0:
+        return None
     d = transformer.cfg.image_tokens_per_dim
     grid = tokens.reshape(-1, d, d)
     step = decode_chunk or grid.shape[0]

@@ -63,12 +63,25 @@ LayerNorm statistics are fp32.
 ``nn.remat`` recomputes: the MLP (``remat_policy: "mlp"``), the whole
 layer (``"nothing"``), or the whole layer with the outputs of its matrix
 products saved (``"dots"``).
+
+Tensor parallelism (``shard=(index, size)``, a model rank of
+``parallel/``; ``parallel/sharding.py`` holds the layout): the attention
+runs on H / size query heads and their kv heads (B1/B6 and the decode
+kernels at those shapes), the MLP on 4 hidden / size columns, the logits
+on image_vocab / size words, so every entry point returns this rank's
+slice of the vocabulary.  Replicated activations enter the column-
+parallel products through ``copy_to_model`` (their gradients are summed
+over the model group); the row-parallel products are summed over the
+group in fp32 (``reduce_from_model``: bf16 operands' fp32 products,
+``_ProductFP32``), then take their bias.  rudalle_relax's whole-tensor
+statistics (sigma of k, the maxima of v, the context and the MLP's
+hidden activations) span the group.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -80,6 +93,9 @@ from ..ops.decode_attention import FloatCache
 from ..ops.decode_cache import PackedQuantCache
 from ..ops.norms import folded_ln_dense, layer_norm
 from ..ops.quant import QuantCache
+from ..parallel.collectives import (copy_to_model, max_over_model,
+                                    reduce_from_model)
+from ..parallel.sharding import check_shardable, kv_heads_of, shard_state
 from ..utils.config import TransformerConfig
 from .vqvae import compute_dtype
 
@@ -101,22 +117,73 @@ def _save_dots(ctx, op, *args, **kwargs):
     return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
 
 
+class _ProductFP32(torch.autograd.Function):
+    """x W^T in fp32: cuBLAS's fp32 result of bf16 operands on the card
+    (``torch.mm(..., out_dtype=torch.float32)``), the fp32 product of the
+    operands elsewhere (bf16 values multiply exactly in fp32).  The
+    backward is ``F.linear``'s, in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        else:
+            y = x2.float() @ w.float().t()
+        return y.view(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return g @ w, gw
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``compute_dtype``: weight, bias and
     input are cast at use (a no-op where they already have that dtype).
     With ``ln`` (a ``LayerNorm``) it computes ``Dense(ln(x))`` with the
-    LayerNorm folded into the product (``ln_matmul_fold``)."""
+    LayerNorm folded into the product (``ln_matmul_fold``).
 
-    def __init__(self, d_in: int, d_out: int, compute_dtype: torch.dtype):
+    ``parallel``: "column" — this rank's output columns of a replicated
+    input, which enters through ``copy_to_model`` (from output row
+    ``shared_from`` on, the weight rows are every rank's alike and
+    their gradients are summed over the model group too); "row" — this
+    rank's input rows: the fp32 partial products are summed over the
+    model group, then the bias is added; "" — the whole product."""
+
+    def __init__(self, d_in: int, d_out: int, compute_dtype: torch.dtype,
+                 parallel: str = "", shared_from: Optional[int] = None):
         super().__init__(d_in, d_out)
         self.compute_dtype = compute_dtype
+        self.parallel = parallel
+        self.shared_from = shared_from
+
+    def _params(self):
+        w, b = self.weight, self.bias
+        s = self.shared_from
+        if s is not None:
+            w = torch.cat([w[:s], copy_to_model(w[s:])])
+            b = torch.cat([b[:s], copy_to_model(b[s:])])
+        return w, b
 
     def forward(self, x: torch.Tensor, ln=None) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.parallel == "row":
+            y = reduce_from_model(_ProductFP32.apply(x.to(dt),
+                                                     self.weight.to(dt)))
+            return (y + self.bias.float()).to(dt)
+        w, b = self._params()
+        if self.parallel == "column":
+            x = copy_to_model(x)
         if ln is not None:
-            return folded_ln_dense(x, ln.weight, ln.bias, self.weight,
-                                   self.bias, ln.eps, dt)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+            ln_w, ln_b = ln.weight, ln.bias
+            if self.parallel == "column":
+                ln_w, ln_b = copy_to_model(ln_w), copy_to_model(ln_b)
+            return folded_ln_dense(x, ln_w, ln_b, w, b, ln.eps, dt)
+        return F.linear(x.to(dt), w.to(dt), b.to(dt))
 
 
 class Embed(nn.Embedding):
@@ -142,48 +209,74 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps, self.impl)
 
 
-def _detached_max(t: torch.Tensor, dim=None) -> torch.Tensor:
+def _detached_max(t: torch.Tensor, dim=None,
+                  sharded: bool = False) -> torch.Tensor:
     """The max of ``t`` (over ``dim``, kept; else over all of it) with no
-    gradient, as JAX's ``_detached_max``."""
+    gradient, as JAX's ``_detached_max``; ``sharded``: ``t`` is this
+    rank's shard of a tensor split over the model group."""
     m = t.amax() if dim is None else t.amax(dim=dim, keepdim=True)
-    return m.detach()
+    m = m.detach()
+    return max_over_model(m) if sharded else m
 
 
-def rudalle_attention(q, k, v, prefix_length: int) -> torch.Tensor:
+def _std(k: torch.Tensor, shards: int) -> torch.Tensor:
+    """std (unbiased) of every element of k, fp32, with its gradient; k is
+    this rank's equal share of a tensor split over ``shards`` model ranks
+    (rudalle_relax is multi-head, so its kv heads split)."""
+    kf = k.float()
+    if shards == 1:
+        return kf.std()
+    n = kf.numel() * shards
+    mean = reduce_from_model(kf.sum()) / n
+    dev = kf - copy_to_model(mean)
+    var = reduce_from_model(dev.square().sum()) / (n - 1.0)
+    return copy_to_model(var.sqrt())
+
+
+def rudalle_attention(q, k, v, prefix_length: int,
+                      shards: int = 1) -> torch.Tensor:
     """rudalle_relax over the sequence through B1/B6
     (``mas_tpu/models/transformer.py::rudalle_relax_attention_fused``):
     the midpoint shift is a row constant and sigma a positive scalar, and
     the -65504 mask underflows to 0, so the distribution is the masked
     softmax of q k^T / (sqrt(d) sigma^2).  sigma = std(k) (unbiased, over
     the whole tensor: every row of the batch, both guidance halves
-    included) keeps its gradient; v is divided by its detached max.
-    q, k, v [B, H, T, d]; returns the context [B, H, T, d] in fp32."""
-    sigma = k.float().std()
+    included, every kv head of the model group) keeps its gradient; v is
+    divided by its detached max.  q, k, v [B, H, T, d]; returns the
+    context [B, H, T, d] in fp32; ``shards``: as ``_std``'s."""
+    sigma = _std(k, shards)
     qs = (q.float() / (sigma * sigma)).to(q.dtype)
-    vs = (v.float() / _detached_max(v.float())).to(v.dtype)
+    vs = (v.float() / _detached_max(v.float(), sharded=shards > 1)
+          ).to(v.dtype)
     return attention.FlashAttentionQKVFunction.apply(
         qs, k, vs, prefix_length).float()
 
 
 def rudalle_decode_attention(q, k_cache: FloatCache, v_cache: FloatCache,
-                             index: torch.Tensor) -> torch.Tensor:
+                             index: torch.Tensor,
+                             shards: int = 1) -> torch.Tensor:
     """rudalle_relax for one token over float caches
     (``mas_tpu/models/transformer.py::_rudalle_decode_attention``): sigma
     (unbiased) and max(v) over the positions <= index of every (b, h) row,
     the first d columns only, as masked reductions on the device (no host
     value of ``index``); then B9 on q / sigma^2, its output divided by
     max(v), by the argument of ``rudalle_attention``.  q [B, H, 1, d];
-    returns [B, H, 1, d] in fp32."""
+    returns [B, H, 1, d] in fp32.  Under tensor parallelism (``shards``:
+    as ``_std``'s) the caches hold this rank's heads and the statistics
+    span the model group."""
     b, h, _, d = q.shape
     kd = k_cache.data[..., :d].float()
     vd = v_cache.data[..., :d].float()
     valid = (torch.arange(kd.shape[2], device=q.device)
              <= index.to(q.device))[:, None]
-    n = (index.to(q.device).float() + 1.0) * (b * h * d)
-    mean = torch.where(valid, kd, 0.0).sum() / n
-    var = torch.where(valid, (kd - mean).square(), 0.0).sum() / (n - 1.0)
+    n = (index.to(q.device).float() + 1.0) * (b * h * d * shards)
+    total = reduce_from_model if shards > 1 else (lambda t: t)
+    mean = total(torch.where(valid, kd, 0.0).sum()) / n
+    var = total(torch.where(valid, (kd - mean).square(), 0.0).sum()) \
+        / (n - 1.0)
     sigma = var.sqrt()
-    v_scale = torch.where(valid, vd, -3.0e38).amax()
+    v_scale = _detached_max(torch.where(valid, vd, -3.0e38),
+                            sharded=shards > 1)
     qs = (q.float() / (sigma * sigma)[:, None, None, None]).to(q.dtype)
     ctx = decode_attention.decode_attention_float(qs, k_cache, v_cache,
                                                   index)
@@ -191,36 +284,58 @@ def rudalle_decode_attention(q, k_cache: FloatCache, v_cache: FloatCache,
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    """Attention of ``num_attn_heads`` / size query heads, model rank
+    ``index`` of ``size`` (``parallel/sharding.py``; all of them at size
+    1): ``heads`` query heads attending with ``kv_heads`` kv heads."""
+
+    def __init__(self, cfg: TransformerConfig, index: int = 0,
+                 size: int = 1):
         super().__init__()
         self.cfg = cfg
+        self.shards = size
         dt = compute_dtype(cfg.compute_dtype)
-        self.qkv = Dense(cfg.hidden_dim,
-                         cfg.hidden_dim + 2 * cfg.kv_heads * cfg.head_dim, dt)
-        self.out_proj = Dense(cfg.hidden_dim, cfg.hidden_dim, dt)
+        hd = cfg.head_dim
+        self.heads = cfg.num_attn_heads // size
+        kv = kv_heads_of(cfg, index, size)
+        self.kv_heads = len(kv)
+        split = cfg.kv_heads % size == 0
+        # the kv heads of a rank's projection, and which of them it reads
+        # when they do not split (every rank holds all of them)
+        self.kv_stored = self.kv_heads if split else cfg.kv_heads
+        self.kv_select = None if split else kv
+        width = (self.heads + 2 * self.kv_stored) * hd
+        self.qkv = Dense(cfg.hidden_dim, width, dt,
+                         "column" if size > 1 else "",
+                         None if split else self.heads * hd)
+        self.out_proj = Dense(self.heads * hd, cfg.hidden_dim, dt,
+                              "row" if size > 1 else "")
 
     def _qkv(self, x: torch.Tensor, ln=None):
-        """[B, T, D] -> the projection [B, T, D + 2 KV hd] and its q [B, H,
-        T, hd], k and v [B, KV, T, hd] as views, sliced [q | k | v] as
-        JAX's ``_qkv``; ``ln`` folds a LayerNorm into the product."""
-        cfg = self.cfg
+        """[B, T, D] -> the projection [B, T, (H + 2 KV) hd] and its q [B,
+        H, T, hd], k and v [B, KV, T, hd] (this rank's heads) as views,
+        sliced [q | k | v] as JAX's ``_qkv``; ``ln`` folds a LayerNorm into
+        the product."""
+        hd = self.cfg.head_dim
         b, t, _ = x.shape
         proj = self.qkv(x, ln)
-        kvd = cfg.kv_heads * cfg.head_dim
-        q, k, v = proj.split([cfg.hidden_dim, kvd, kvd], dim=-1)
-        heads = (cfg.num_attn_heads, cfg.kv_heads, cfg.kv_heads)
-        return proj, tuple(z.view(b, t, n, cfg.head_dim).transpose(1, 2)
-                           for z, n in zip((q, k, v), heads))
+        kvd = self.kv_stored * hd
+        q, k, v = proj.split([self.heads * hd, kvd, kvd], dim=-1)
+        heads = (self.heads, self.kv_stored, self.kv_stored)
+        q, k, v = (z.view(b, t, n, hd).transpose(1, 2)
+                   for z, n in zip((q, k, v), heads))
+        if self.kv_select is not None:
+            k, v = k[:, self.kv_select], v[:, self.kv_select]
+        return proj, (q, k, v)
 
     def _context(self, ctx: torch.Tensor) -> torch.Tensor:
-        """[B, H, T, hd] -> [B, T, D]; rudalle_relax divides it by its
+        """[B, H, T, hd] -> [B, T, H hd]; rudalle_relax divides it by its
         detached max (global, over the whole tensor) in fp32."""
         cfg = self.cfg
-        b, _, t, _ = ctx.shape
-        ctx = ctx.transpose(1, 2).reshape(b, t, cfg.hidden_dim)
+        b, h, t, hd = ctx.shape
+        ctx = ctx.transpose(1, 2).reshape(b, t, h * hd)
         if cfg.rudalle_relax:
-            ctx = (ctx / _detached_max(ctx)).to(compute_dtype(
-                cfg.compute_dtype))
+            ctx = (ctx / _detached_max(ctx, sharded=self.shards > 1)).to(
+                compute_dtype(cfg.compute_dtype))
         return ctx
 
     def forward(self, x: torch.Tensor, prefix_length: int, ln=None):
@@ -229,12 +344,13 @@ class SelfAttention(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         proj, (q, k, v) = self._qkv(x, ln)
-        g = cfg.num_attn_heads // cfg.kv_heads
+        g = self.heads // self.kv_heads
         if cfg.rudalle_relax:
-            ctx = rudalle_attention(q, k, v, prefix_length)
-        elif g == 1:       # the fused projection's view: no copy
+            ctx = rudalle_attention(q, k, v, prefix_length, self.shards)
+        elif g == 1 and self.kv_select is None:
+            # the fused projection's view: no copy
             ctx = attention.FlashAttentionFunction.apply(
-                proj.view(b, t, 3, cfg.num_attn_heads, cfg.head_dim),
+                proj.view(b, t, 3, self.heads, cfg.head_dim),
                 prefix_length)
         else:
             ctx = attention.FlashAttentionQKVFunction.apply(
@@ -260,7 +376,8 @@ class SelfAttention(nn.Module):
         else:
             decode_attention.write_float_kv(k_cache, v_cache, k, v, index)
             if self.cfg.rudalle_relax:
-                ctx = rudalle_decode_attention(q, k_cache, v_cache, index)
+                ctx = rudalle_decode_attention(q, k_cache, v_cache, index,
+                                               self.shards)
             else:
                 ctx = decode_attention.decode_attention_float(
                     q, k_cache, v_cache, index)
@@ -268,20 +385,27 @@ class SelfAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    """lin1 column-parallel, lin2 row-parallel over ``size`` model ranks:
+    4 hidden / size hidden units a rank."""
+
+    def __init__(self, cfg: TransformerConfig, size: int = 1):
         super().__init__()
         dt = compute_dtype(cfg.compute_dtype)
         self.rudalle = cfg.rudalle_relax
-        self.lin1 = Dense(cfg.hidden_dim, 4 * cfg.hidden_dim, dt)
-        self.lin2 = Dense(4 * cfg.hidden_dim, cfg.hidden_dim, dt)
+        self.shards = size
+        width = 4 * cfg.hidden_dim // size
+        tp = size > 1
+        self.lin1 = Dense(cfg.hidden_dim, width, dt, "column" if tp else "")
+        self.lin2 = Dense(width, cfg.hidden_dim, dt, "row" if tp else "")
 
     def forward(self, x: torch.Tensor, ln=None) -> torch.Tensor:
         h = F.gelu(self.lin1(x, ln), approximate="tanh")
         if not self.rudalle:
             return self.lin2(h)
         # rudalle_relax: the input over a quarter of its detached max (one
-        # number for the tensor), the output over its per-row max
-        scale = _detached_max(h) / 4.0
+        # number for the tensor, every rank's units), the output (whole
+        # after lin2's sum) over its per-row max
+        scale = _detached_max(h, sharded=self.shards > 1) / 4.0
         y = self.lin2(h / scale)
         return (y / _detached_max(y, -1)) * scale
 
@@ -289,7 +413,8 @@ class MLP(nn.Module):
 class TransformerLayer(nn.Module):
     """Pre-LN block with optional CogView sandwich LayerNorms."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, index: int = 0,
+                 size: int = 1):
         super().__init__()
         self.sandwich = cfg.cogview_sandwich_layernorm
         self.prescale = cfg.cogview_layernorm_prescale
@@ -301,8 +426,8 @@ class TransformerLayer(nn.Module):
         if self.sandwich:
             self.first_ln_sandwich = ln()
             self.second_ln_sandwich = ln()
-        self.attn = SelfAttention(cfg)
-        self.mlp = MLP(cfg)
+        self.attn = SelfAttention(cfg, index, size)
+        self.mlp = MLP(cfg, size)
 
     def _prescaled(self, t):
         """cogview_layernorm_prescale: t over its detached per-position
@@ -341,10 +466,11 @@ class _Stack(nn.Module):
     """Holds ``layers`` and ``final_ln`` under the reference ``transformer.``
     prefix."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, index: int, size: int):
         super().__init__()
         self.layers = nn.ModuleList(
-            [TransformerLayer(cfg) for _ in range(cfg.num_layers)])
+            [TransformerLayer(cfg, index, size)
+             for _ in range(cfg.num_layers)])
         self.final_ln = LayerNorm(cfg.hidden_dim, cfg.layernorm_impl)
 
 
@@ -353,11 +479,19 @@ class MakeAScene(nn.Module):
 
     ``fp32_params``: keep Linear and Embedding parameters in fp32 (the
     training path: Adam's updates are far below a bf16 ulp of a weight);
-    otherwise they are cast to the compute dtype once (serving)."""
+    otherwise they are cast to the compute dtype once (serving).
+    ``shard``: (model index, model size) of a tensor-parallel rank
+    (``parallel.distributed.model_shard``); its logits are its slice of
+    the vocabulary."""
 
-    def __init__(self, cfg: TransformerConfig, fp32_params: bool = False):
+    def __init__(self, cfg: TransformerConfig, fp32_params: bool = False,
+                 shard: Tuple[int, int] = (0, 1)):
         super().__init__()
+        index, size = shard
+        if size > 1:
+            check_shardable(cfg, size)
         self.cfg = cfg
+        self.shard = (index, size)
         self.dtype = compute_dtype(cfg.compute_dtype)
         d = cfg.hidden_dim
         emb = functools.partial(Embed, compute_dtype=self.dtype)
@@ -369,14 +503,26 @@ class MakeAScene(nn.Module):
         self.seg_col_embeddings = emb(cfg.seg_tokens_per_dim, d)
         self.image_row_embeddings = emb(cfg.image_tokens_per_dim, d)
         self.image_col_embeddings = emb(cfg.image_tokens_per_dim, d)
-        self.transformer = _Stack(cfg)
+        self.transformer = _Stack(cfg, index, size)
         self.to_logits = nn.Sequential(
             LayerNorm(d, cfg.layernorm_impl),
-            Dense(d, cfg.image_vocab_size, self.dtype))
+            Dense(d, cfg.image_vocab_size // size, self.dtype,
+                  "column" if size > 1 else ""))
         if not fp32_params:
             for m in self.modules():
                 if isinstance(m, (nn.Linear, nn.Embedding)):
                     m.to(self.dtype)
+
+    @classmethod
+    def sharded(cls, cfg: TransformerConfig, full: dict,
+                shard: Tuple[int, int],
+                fp32_params: bool = False) -> "MakeAScene":
+        """Model rank ``shard`` of a model whose full ``state_dict`` (one
+        process's layout) is ``full``; built on the current default
+        device."""
+        model = cls(cfg, fp32_params, shard)
+        model.load_state_dict(shard_state(full, cfg, *shard))
+        return model
 
     # --- embeddings ---------------------------------------------------------
 
@@ -460,7 +606,8 @@ class MakeAScene(nn.Module):
         return self._logits(h[:, -1:, :])[:, 0], kvs
 
     def allocate_caches(self, prefill_kv: Sequence, batch: int) -> KVCache:
-        """Full-length caches of kv_heads heads seeded with the prefill's
+        """Full-length caches of this rank's kv heads seeded with the
+        prefill's
         k/v: float caches in the compute dtype (``kv_cache_dtype:
         "compute"``), else the quantized prefix in lane caches (scales in
         ``kv_scale_dtype``) or, with ``kv_cache_layout: "packed"``, in one
@@ -482,7 +629,7 @@ class MakeAScene(nn.Module):
         for k, v in prefill_kv:
             pair = []
             for t in (k, v):
-                c = QuantCache.empty(batch, cfg.kv_heads, cfg.total_length,
+                c = QuantCache.empty(batch, t.shape[1], cfg.total_length,
                                      cfg.head_dim, bits, device, scale_dtype)
                 seeded = quant.quantize_kv(t, bits, scale_dtype)
                 c.q[:, :, :t.shape[2]] = seeded.q

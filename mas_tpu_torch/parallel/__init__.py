@@ -1,4 +1,5 @@
-"""Data-parallel training over processes, as ``mas_tpu/parallel/`` over a
-``data`` mesh axis: the rank bootstrap (``distributed``), the per-rank
-batch (``mesh``) and the collectives the train steps call
-(``collectives``)."""
+"""Data- and tensor-parallel training over processes, as
+``mas_tpu/parallel/`` over a (``data``, ``model``) mesh: the rank
+bootstrap and grid (``distributed``), the per-rank batch (``mesh``), the
+transformer's shard layout (``sharding``) and the collectives the models
+and train steps call (``collectives``)."""

@@ -1,4 +1,5 @@
-"""Process bootstrap, as ``mas_tpu/parallel/distributed.py``.
+"""Process bootstrap, as ``mas_tpu/parallel/distributed.py``, and the
+(data, model) rank grid of ``mas_tpu/parallel/mesh.py::make_mesh``.
 
 ``initialize`` reads the launcher's environment (``torchrun`` sets
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
@@ -6,6 +7,13 @@
 the process group.  Without that environment it is a no-op: one process,
 no process group, and every collective of ``collectives`` is the
 identity.
+
+The ranks form the grid of ``MeshConfig.shape(world)``: rank r is data
+index r // model and model index r % model, the row-major reshape of the
+JAX mesh.  The ranks of one data index (a model group) hold the shards of
+one tensor-parallel model and read the same rows; the ranks of one model
+index (a data group) step on different rows and average their gradients.
+Every rank makes every group with ``dist.new_group``, in one order.
 
 Each rank runs on one device: ``cuda:LOCAL_RANK % device_count`` for a
 CUDA device type, the CPU otherwise.  The backend follows where the ranks
@@ -17,12 +25,61 @@ CPU.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from ..utils.config import MeshConfig
+
 LAUNCH_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR")
+
+
+@dataclass(frozen=True)
+class Grid:
+    """This rank's place in the (data, model) grid and its two groups.
+
+    ``data_group`` is what the data-parallel collectives run over: the
+    world when ``model`` is 1 (a launched world of one still runs them),
+    else the ranks of this model index, or None where this rank is alone
+    on the data axis.  ``model_group`` is the ranks of this data index,
+    None when ``model`` is 1."""
+
+    data: int = 1
+    model: int = 1
+    data_index: int = 0
+    model_index: int = 0
+    data_group: Any = None
+    model_group: Any = None
+
+
+_grid = Grid()
+
+
+def grid() -> Grid:
+    """The grid ``initialize`` laid out; one process's outside a launcher
+    (the process group is process-wide state, and so is its grid)."""
+    return _grid
+
+
+def model_shard() -> Tuple[int, int]:
+    """(model index, model size) of this rank: the ``shard`` argument of
+    a tensor-parallel ``MakeAScene``."""
+    return _grid.model_index, _grid.model
+
+
+def _make_grid(data: int, model: int) -> Grid:
+    r = dist.get_rank()
+    if model == 1:
+        return Grid(data, 1, r, 0, dist.group.WORLD, None)
+    data_groups = [dist.new_group([i * model + j for i in range(data)])
+                   for j in range(model)]
+    model_groups = [dist.new_group([i * model + j for j in range(model)])
+                    for i in range(data)]
+    i, j = divmod(r, model)
+    return Grid(data, model, i, j, data_groups[j] if data > 1 else None,
+                model_groups[i])
 
 
 def launched() -> bool:
@@ -58,12 +115,20 @@ def backend_for(device: torch.device) -> str:
     return "nccl" if local <= torch.cuda.device_count() else "gloo"
 
 
-def initialize(device_type: str = "cuda") -> dict:
-    """Join the process group when launched (once; a repeat call is a
-    no-op) and return the topology: the JAX keys ``process_index``,
+def initialize(device_type: str = "cuda",
+               mesh: Optional[MeshConfig] = None) -> dict:
+    """Join the process group when launched (once; a repeat call joins
+    nothing), lay the ranks out as ``mesh`` says (every rank on the data
+    axis when None; a repeat call with another shape makes its groups
+    anew) and return the topology: the JAX keys ``process_index``,
     ``process_count``, ``local_devices``, ``global_devices`` and
-    ``backend`` (the process group's, None for one process), and
-    ``device``, this rank's device."""
+    ``backend`` (the process group's, None for one process) and
+    ``device``, this rank's device; ``grid()`` holds the layout.  A mesh
+    that does not cover the world raises JAX's ``ConfigError`` before any
+    rank joins."""
+    global _grid
+    world = int(os.environ["WORLD_SIZE"]) if launched() else 1
+    shape = mesh.shape(world) if mesh is not None else (world, 1)
     device = rank_device(device_type)
     if launched() and not dist.is_initialized():
         backend = backend_for(device)
@@ -73,6 +138,10 @@ def initialize(device_type: str = "cuda") -> dict:
             backend, rank=int(os.environ["RANK"]),
             world_size=int(os.environ["WORLD_SIZE"]),
             device_id=device if backend == "nccl" else None)
+    if dist.is_initialized() and (_grid.data_group is None
+                                  and _grid.model_group is None
+                                  or (_grid.data, _grid.model) != shape):
+        _grid = _make_grid(*shape)
     backend: Optional[str] = (dist.get_backend() if dist.is_initialized()
                               else None)
     return dict(process_index=rank(), process_count=world_size(),

@@ -2,28 +2,25 @@
 batch arithmetic of ``mas_tpu/cli.py::_global_batch`` and
 ``mas_tpu/train/loop.py::_loop``.
 
-One rank holds one device, so the data axis spans the world
-(``MeshConfig.shape(world)``), and the counterpart of ``shard_batch`` is
-each rank's own rows: the loader of rank r yields the r-th share of the
-global batch of ``batch_size`` x data rows.
+One rank holds one device, so the mesh is the rank grid
+(``MeshConfig.shape(world)``, ``distributed.grid()``), and the
+counterpart of ``shard_batch`` is each data index's own rows: the global
+batch of ``batch_size`` x data rows comes in data shares of
+``batch_size`` rows, and every rank of one data index (the ranks of one
+tensor-parallel model) loads the same share.
 """
 
 from __future__ import annotations
 
-from ..utils.config import ConfigError, TrainConfig
+from ..utils.config import TrainConfig
 
 
 def rank_batch(cfg: TrainConfig, world: int) -> int:
-    """Rows a rank's loader yields: ``batch_size`` (per replica) x the
-    data axis / the process count, with the JAX ``ConfigError``s."""
-    data, _ = cfg.mesh.shape(world)
-    total = cfg.batch_size * data
-    if total % world:
-        raise ConfigError(
-            f"global batch {total} (batch_size {cfg.batch_size} x "
-            f"data axis {data}) must be divisible by the process count "
-            f"{world}")
-    return total // world
+    """Rows a rank's loader yields: ``batch_size``, its data index's share
+    of the global ``batch_size`` x data rows; JAX's ``ConfigError`` where
+    the mesh does not cover the ``world`` ranks."""
+    cfg.mesh.shape(world)
+    return cfg.batch_size
 
 
 def batch_is_sharded(rows: int, world: int, data: int,
@@ -31,8 +28,8 @@ def batch_is_sharded(rows: int, world: int, data: int,
     """True when the global batch of ``rows`` x ``world`` rows tiles the
     data axis, so each rank steps on its own share; False when it does not
     and ``allow_replicated_batch`` takes it replicated; else JAX's
-    ``ValueError``.  With one device a rank the data axis is the world
-    size, so a rank's rows always tile it."""
+    ``ValueError``.  ``world`` counts the loaders of different rows (the
+    data axis: one device a rank), so a rank's rows always tile it."""
     if (rows * world) % data == 0:
         return True
     if allow_replicated_batch:

@@ -13,11 +13,17 @@ Under data parallelism (``parallel/``) every rank runs the loop on its
 own rows from the same seeded state and generator; only rank 0 logs,
 renders image grids and writes checkpoints, and every rank waits for its
 write (``parallel.distributed.barrier``); every rank resumes from the
-same checkpoint.
+same checkpoint.  Under tensor parallelism (``mesh.model`` > 1) the ranks
+of a model group read the same rows and hold shards of one transformer:
+it is seeded whole and sharded, a checkpoint holds the full tree (the
+shards and Adam's moments gathered over the model group first) and a
+resume shards it again.  The VQ stages replicate their models over the
+model axis.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import time
 from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
@@ -30,9 +36,11 @@ from ..data.segmap import one_hot_seg_packed
 from ..losses.face_loss import FaceNet, load_face_params_from_torch
 from ..losses.lpips import LPIPS, load_lpips_params_from_torch
 from ..models.vqvae import VQModel
-from ..parallel.collectives import broadcast_
-from ..parallel.distributed import barrier, is_primary, rank, world_size
+from ..parallel.collectives import broadcast_, model_parts
+from ..parallel.distributed import (barrier, is_primary, model_shard, rank,
+                                    world_size)
 from ..parallel.mesh import batch_is_sharded
+from ..parallel.sharding import gather_state, shard_state, split_dim
 from ..utils.checkpoint import latest_step, restore_checkpoint, \
     save_checkpoint
 from ..utils.config import (SegLossConfig, TrainConfig, TransformerConfig,
@@ -75,8 +83,7 @@ def _loop(cfg: TrainConfig, state, step_fn: Callable, batches: Iterable,
         print(f"resume at step {start} >= total_steps {cfg.total_steps}; "
               "skipping train loop")
         return state
-    world = world_size()
-    data, _ = cfg.mesh.shape(world)
+    data, _ = cfg.mesh.shape(world_size())
     generator = step_generator(cfg.seed, start, device)
     saved = None
     t0 = time.perf_counter()
@@ -86,7 +93,7 @@ def _loop(cfg: TrainConfig, state, step_fn: Callable, batches: Iterable,
             break
         args = [torch.as_tensor(a).to(device, non_blocking=True)
                 for a in to_step_args(batch)]
-        if not batch_is_sharded(args[0].shape[0], world, data,
+        if not batch_is_sharded(args[0].shape[0], data, data,
                                 cfg.allow_replicated_batch):
             args = [broadcast_(a) for a in args]     # rank 0's rows
         metrics = step_fn(state, *args, generator)
@@ -108,23 +115,60 @@ def _loop(cfg: TrainConfig, state, step_fn: Callable, batches: Iterable,
     return state
 
 
+class _Whole:
+    """Stands for a model or an optimizer in a checkpoint: its gathered
+    ``state_dict``."""
+
+    def __init__(self, state: Dict):
+        self._state = state
+
+    def state_dict(self) -> Dict:
+        return self._state
+
+
+def _gathered(state):
+    """``state`` with a tensor-parallel transformer's parameters and Adam
+    moments gathered over the model group into the full tree (every rank
+    takes part); ``state`` itself otherwise."""
+    model = state.model
+    if getattr(model, "shard", (0, 1))[1] == 1:
+        return state
+    cfg = model.cfg
+
+    def whole(tensors):
+        keys = [k for k in tensors if split_dim(k) is not None]
+        return gather_state(model_parts(tensors, keys), cfg)
+
+    opt = dict(state.opt.state_dict())
+    opt.update({k: whole(opt[k]) for k in ("mu", "nu", "acc")})
+    return dataclasses.replace(state, model=_Whole(whole(model.state_dict())),
+                               opt=_Whole(opt))
+
+
 def _save(directory: str, state) -> int:
     """Rank 0 writes ``state``'s checkpoint (a half-way gradient
-    accumulation averaged over ranks first) while the others wait."""
+    accumulation averaged over the data group first, shards gathered)
+    while the others wait."""
     for opt in (state.opt, getattr(state, "disc_opt", None)):
         if opt is not None:
             opt.sync_accumulation()
+    whole = _gathered(state)
     if is_primary():
-        save_checkpoint(directory, state)
+        save_checkpoint(directory, whole)
     barrier()
     return state.step
 
 
 def _maybe_resume(train_cfg: TrainConfig, state):
     """Restore ``state`` from the latest checkpoint of ``checkpoint_dir``
-    when ``train.resume`` is set and one exists."""
+    when ``train.resume`` is set and one exists (a tensor-parallel
+    transformer its shard of it)."""
     if train_cfg.resume and latest_step(train_cfg.checkpoint_dir) is not None:
-        restore_checkpoint(train_cfg.checkpoint_dir, state)
+        shard = getattr(state.model, "shard", (0, 1))
+        restore_checkpoint(
+            train_cfg.checkpoint_dir, state,
+            (lambda full: shard_state(full, state.model.cfg, *shard))
+            if shard[1] > 1 else None)
         print(f"resumed from step {state.step}")
     return state
 
@@ -265,10 +309,11 @@ def run_pretrain_image(train_cfg: TrainConfig, model_cfg: VQModelConfig,
 def build_transformer_state(train_cfg: TrainConfig,
                             model_cfg: TransformerConfig,
                             device) -> TransformerTrainState:
-    """Seeded initial state, or the latest checkpoint's (``_maybe_resume``)."""
+    """Seeded initial state, or the latest checkpoint's (``_maybe_resume``);
+    this rank's shard of it under tensor parallelism."""
     init = torch.Generator(device=device).manual_seed(train_cfg.seed)
     return _maybe_resume(train_cfg, create_transformer_train_state(
-        model_cfg, train_cfg.optimizer, init, device))
+        model_cfg, train_cfg.optimizer, init, device, model_shard()))
 
 
 def token_args(cfg: TransformerConfig) -> Callable[[Dict], Tuple]:

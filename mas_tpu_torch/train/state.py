@@ -8,10 +8,14 @@ micro-step applies one Adam update with that mean; the parameters do not
 change in between.  Updates are in place.
 
 Under data parallelism the gradient that Adam applies is first averaged
-over ranks (``parallel.collectives.mean_``): with accumulation once, at
-the update, since the mean of the ranks' accumulated means is the
-accumulated mean of the global gradients.  ``sync_accumulation`` makes a
-half-way accumulation the same on every rank before a checkpoint.
+over the data group (``parallel.collectives.mean_``): with accumulation
+once, at the update, since the mean of the ranks' accumulated means is
+the accumulated mean of the global gradients.  ``sync_accumulation``
+makes a half-way accumulation the same on every rank before a
+checkpoint.  Under tensor parallelism a rank's Adam steps its shard of
+the parameters (fp32 masters of the shard, its moments); the replicated
+parameters get the same gradient, hence the same update, on every rank
+of the model group.
 """
 
 from __future__ import annotations
@@ -157,13 +161,19 @@ class TransformerTrainState:
 
 def create_transformer_train_state(cfg: TransformerConfig,
                                    opt_cfg: OptimizerConfig,
-                                   generator: torch.Generator,
-                                   device) -> TransformerTrainState:
+                                   generator: torch.Generator, device,
+                                   shard: Tuple[int, int] = (0, 1)
+                                   ) -> TransformerTrainState:
     """A MakeAScene on ``device`` with fp32 parameters (cast to the compute
     dtype at use), seeded random weights and Adam at the undivided lr, as
-    the JAX package's ``run_train_transformer`` builds it."""
+    the JAX package's ``run_train_transformer`` builds it.  A model rank
+    (``shard``) seeds the whole model, as one process does, and keeps its
+    shard of it."""
     with torch.device(device):
         model = MakeAScene(cfg, fp32_params=True)
-    init_random_(model, generator)
+        init_random_(model, generator)
+        if shard[1] > 1:
+            model = MakeAScene.sharded(cfg, model.state_dict(), shard,
+                                       fp32_params=True)
     opt = make_adam(opt_cfg, model.named_parameters(), rescale_lr=False)
     return TransformerTrainState(0, model, opt)

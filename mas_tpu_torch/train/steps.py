@@ -23,11 +23,15 @@ cross-entropy, backward, the optimizer micro-step.
 ``quantize_eval``) without gradients.
 
 Under data parallelism each rank steps on its own rows: BatchNorm
-statistics, the reservoir and the adaptive GAN weight span every rank
-(``models/``, ``losses/``), Adam applies the gradient mean over ranks
-(``train/state.py``), and the returned scalars are the means over ranks
+statistics, the reservoir and the adaptive GAN weight span the data group
+(``models/``, ``losses/``), Adam applies the gradient mean over it
+(``train/state.py``), and the returned scalars are the means over it
 (``parallel.collectives.reduce_metrics``), the global batch's values.
-Every rank draws from the same generator in the same order.
+Under tensor parallelism the transformer's loss is the vocab-parallel
+cross-entropy (``parallel.collectives.vocab_parallel_cross_entropy``),
+the same value on every rank of the model group.  Every rank draws from
+the same generator in the same order, so CFG dropout's one draw a step
+agrees across the grid.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ from ..losses.vqgan import (PerceptualFns, discriminator_step_loss,
 from ..models.codebook import CodebookState, quantize_train
 from ..models.transformer import MakeAScene
 from ..models.vqvae import VQModel
-from ..parallel.collectives import reduce_metrics
+from ..parallel.collectives import (reduce_metrics,
+                                    vocab_parallel_cross_entropy)
 from ..utils.config import SegLossConfig, VQGANLossConfig
 from .state import Adam, TransformerTrainState, VQTrainState
 
@@ -222,10 +227,13 @@ def make_img_train_step(model: VQModel, disc: PatchDiscriminator, opt: Adam,
 def transformer_loss(model: MakeAScene, text: torch.Tensor,
                      seg: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of the fp32 image-position logits against the
-    image tokens (``mas_tpu/train/steps.py:266-270``)."""
+    image tokens (``mas_tpu/train/steps.py:266-270``); vocab-parallel on a
+    tensor-parallel model."""
     logits = model(text, seg, img)
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           img.reshape(-1).long())
+    logits, target = logits.reshape(-1, logits.shape[-1]), img.reshape(-1)
+    if model.shard[1] > 1:
+        return vocab_parallel_cross_entropy(logits, target)
+    return F.cross_entropy(logits, target.long())
 
 
 def transformer_loss_and_grads(model: MakeAScene, text: torch.Tensor,

@@ -14,14 +14,16 @@
   * ``step``: micro-steps taken.
 
 Restoring puts every part back, so a resumed run continues the phase
-schedule and the accumulation where the saved one stopped.
+schedule and the accumulation where the saved one stopped.  A
+tensor-parallel transformer saves the full tree (``train/loop.py``
+gathers its shards first) and restores its shard of it.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -63,14 +65,20 @@ def save_checkpoint(directory: str, state) -> str:
     return path
 
 
-def restore_checkpoint(directory: str, state):
+def restore_checkpoint(directory: str, state,
+                       shard: Optional[Callable[[Dict], Dict]] = None):
     """Load the latest checkpoint of ``directory`` into ``state`` in place
-    and return it."""
+    and return it; ``shard`` maps the saved model's (and Adam's
+    per-parameter) dicts to the ones ``state`` holds."""
     step = latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
     payload = torch.load(checkpoint_path(directory, step), map_location="cpu",
                          weights_only=True)
+    if shard is not None:
+        payload["model"] = shard(payload["model"])
+        payload["optimizer"] = dict(payload["optimizer"], **{
+            k: shard(payload["optimizer"][k]) for k in ("mu", "nu", "acc")})
     state.model.load_state_dict(payload["model"], strict=True)
     if hasattr(state, "vq_state"):
         cb = payload["codebook"]

@@ -442,9 +442,11 @@ class OptimizerConfig(_Base):
 
 @dataclass(frozen=True)
 class MeshConfig(_Base):
-    """Device mesh: ``data`` is data parallelism, one rank a device (-1:
-    every rank); ``model`` > 1, tensor parallelism, is not ported
-    (ROADMAP A12b)."""
+    """Device mesh, one rank a device: ``data`` ranks of data parallelism
+    (-1: every rank the model axis leaves) by ``model`` ranks of tensor
+    parallelism (``parallel/``; the transformer's heads, MLP columns and
+    vocabulary split over them, which ``parallel/sharding.py::
+    check_shardable`` holds)."""
 
     data: int = -1
     model: int = 1
@@ -464,9 +466,8 @@ class TrainConfig(_Base):
     """Training run settings.  The port trains VQ-SEG, VQ-IMG (generator
     ``optimizer`` and discriminator ``disc_optimizer``) and the transformer
     (with CFG text dropout: ``uncond_p``, from step ``start_uncond``) on
-    one process or data-parallel ranks (``mesh.data``; ``batch_size`` is
-    per rank); ``mesh.model`` > 1 raises ``NotImplementedError`` naming
-    ROADMAP A12b."""
+    one process or a (data, model) grid of ranks (``mesh``;
+    ``batch_size`` is per data index)."""
 
     mode: str = "pretrain_segmentation"
     total_steps: int = 100
@@ -492,5 +493,3 @@ class TrainConfig(_Base):
             if isinstance(v, dict):
                 cls = MeshConfig if name == "mesh" else OptimizerConfig
                 object.__setattr__(self, name, cls.from_dict(v))
-        if self.mesh.model > 1:
-            raise _not_ported("mesh.model > 1 (tensor parallelism)", "A12b")

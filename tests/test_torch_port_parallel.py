@@ -731,15 +731,21 @@ def test_rank_input_matches_jax(tmp_path, monkeypatch, kind, index):
 
 
 def test_mesh_config_and_rank_batch_match_jax():
-    """``mesh.data`` -1 and 2 load; ``mesh.model`` 2 raises naming A12b;
-    ``MeshConfig.shape`` and the per-rank batch raise JAX's
-    ``ConfigError``s; a batch that does not tile the data axis raises
-    JAX's message unless ``allow_replicated_batch``."""
+    """``mesh.data`` -1 and 2 and ``mesh.model`` 2 load in both packages;
+    a transformer whose heads ``mesh.model`` does not divide is the port's
+    ``ConfigError``; ``MeshConfig.shape`` and the per-rank batch raise
+    JAX's ``ConfigError``s; a batch that does not tile the data axis
+    raises JAX's message unless ``allow_replicated_batch``."""
+    from mas_tpu_torch.parallel.sharding import check_shardable
+    from mas_tpu_torch.utils.config import TransformerConfig
+
     for data in (-1, 2):
         for pkg in (TrainConfig, jconfig.TrainConfig):
             assert pkg(mesh={"data": data}).mesh.data == data
-    with pytest.raises(NotImplementedError, match="A12b"):
-        TrainConfig(mesh={"model": 2})
+    for pkg in (TrainConfig, jconfig.TrainConfig):
+        assert pkg(mesh={"model": 2}).mesh.model == 2
+    with pytest.raises(ConfigError, match="num_attn_heads 2"):
+        check_shardable(TransformerConfig(**T_CFG), 4)
     for data, model, n in ((-1, 1, 4), (2, 1, 2), (-1, 2, 4), (3, 1, 4)):
         try:
             want = jconfig.MeshConfig(data=data, model=model).shape(n)

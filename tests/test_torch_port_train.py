@@ -265,8 +265,9 @@ def test_cli_pretrain_segmentation_resumes(tmp_path, monkeypatch, capsys):
 def test_cli_refuses_unported_data_and_train_fields(tmp_path):
     """Every data kind of the JAX package is ported: an unknown kind is a
     ConfigError and a missing shard fails the run, as in ``mas_tpu``;
-    tensor parallelism still raises, naming A12b, while the data axis and
-    ``allow_replicated_batch`` load."""
+    tensor parallelism (``mesh.model``), the data axis and
+    ``allow_replicated_batch`` load, and a transformer whose heads
+    ``mesh.model`` does not divide is a ConfigError."""
     from mas_tpu_torch.cli import main
     from mas_tpu_torch.utils.config import ConfigError, TrainConfig
 
@@ -279,10 +280,14 @@ def test_cli_refuses_unported_data_and_train_fields(tmp_path):
         path.write_text(json.dumps(raw))
         with pytest.raises(error):
             main(["--config", str(path), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A12b"):
-        TrainConfig(mesh={"model": 2})
-    for field in (dict(mesh={"data": 2}), dict(allow_replicated_batch=True)):
+    for field in (dict(mesh={"data": 2}), dict(mesh={"model": 2}),
+                  dict(allow_replicated_batch=True)):
         TrainConfig(**field)
+    from mas_tpu_torch.models.transformer import MakeAScene
+    from mas_tpu_torch.utils.config import TransformerConfig
+
+    with pytest.raises(ConfigError, match="num_attn_heads 16"):
+        MakeAScene(TransformerConfig(num_layers=1), shard=(0, 3))
 
 
 def test_seg_config_loads_unchanged():
