@@ -458,7 +458,10 @@ def check_b1(gen) -> dict:
     also timed beside the library call and its bound, and at head dims 32
     (zero-padded to 64), 128, 160 (zero-padded to 256), 256 and 320
     (zero-padded to 512: column passes) at T = 200; [8, 16, 1408, d] at d
-    128, 256 and 320 are timed back to back."""
+    128, 256 and 320 are timed back to back.  A tensor-parallel rank's
+    shapes at model 2 (phase 16: 8 of the 16 heads, so the fused view's
+    row stride is 3 * 8 * 64) hold the same bf16 tolerances at T 384 and
+    1408, prefixes 384 and 0."""
     from mas_tpu_torch.ops import attention
 
     def qkv_views(b, h, t, dtype, dim=64):
@@ -569,6 +572,16 @@ def check_b1(gen) -> dict:
     print(f"B1 [{b},{h},{t2},320] bf16 prefix 384: out max err {e:.3e}; back "
           f"to back kernel {out['d320_b2b_ms']:.4f} ms, bound "
           f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    del q3, k3, v3
+    for t_rank in (t, t2):
+        q3, k3, v3 = qkv_views(b, h // 2, t_rank, torch.bfloat16)
+        for prefix in (384, 0):
+            e, le = held(q3, k3, v3, prefix, f"tp rank [{b},{h // 2},"
+                         f"{t_rank},{d}] prefix {prefix}")
+            err = max(err, e)
+            print(f"B1 tp rank [{b},{h // 2},{t_rank},{d}] bf16 (qkv row "
+                  f"stride {q3.stride(2)}) prefix {prefix}: out max err "
+                  f"{e:.3e}, lse max err {le:.3e}")
     out["max_abs_err"] = err
     return out
 
@@ -1502,8 +1515,9 @@ def check_b6(gen) -> dict:
     (the training geometry) and [2, 16, 640, 64] fp32 at prefix 384; at
     T = 200 (a ragged last tile) with head dims 64, 32 (zero-padded to 64),
     128, 160 (zero-padded to 256), 256 and 320 (zero-padded to 512: column
-    passes), bf16 and fp32; and [8, 16, 1408, d] bf16 at d 128, 256 and
-    320, timed back to back, q/k/v
+    passes), bf16 and fp32; [8, 16, 1408, d] bf16 at d 128, 256 and
+    320, timed back to back; and a tensor-parallel rank's [8, 8, 1408, 64]
+    bf16 at prefix 384 and 0 (phase 16, model 2), q/k/v
     as views into one fused qkv tensor, out and lse from B1 and dO laid out
     [B, T, H, d] as the model passes them.  Tolerances, per tensor against
     the plain twin: fp32 atol 1e-4 * max |grad| (both sum over up to T
@@ -1529,7 +1543,9 @@ def check_b6(gen) -> dict:
             ((2, 8, 200, 320), torch.float32, 0),
             ((8, 16, 1408, 128), torch.bfloat16, 384),
             ((8, 16, 1408, 256), torch.bfloat16, 384),
-            ((8, 16, 1408, 320), torch.bfloat16, 384)):
+            ((8, 16, 1408, 320), torch.bfloat16, 384),
+            ((8, 8, 1408, 64), torch.bfloat16, 384),
+            ((8, 8, 1408, 64), torch.bfloat16, 0)):
         qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen,
                           dtype=dtype)
         q, k, v = attention.split_qkv(qkv)
@@ -1551,7 +1567,8 @@ def check_b6(gen) -> dict:
             print(f"B6 {name} [{b},{h},{t},{d}] {dtype} prefix {prefix}: "
                   f"max err {max_err(g, w):.3e}, max |grad| "
                   f"{float(w.float().abs().max()):.3e}")
-        if d == 64 and dtype == torch.bfloat16 and prefix == 384:
+        if (b, h, d) == (8, 16, 64) and dtype == torch.bfloat16 \
+                and prefix == 384:
             args = (q, k, v, o, lse, do, prefix)
             kernel = lambda: attention.flash_attention_bwd(*args)
             out["ms"] = timed_ms(kernel)
@@ -4185,14 +4202,20 @@ def phase_data(smi: str, tmp: str, img_dir=None) -> dict:
 
 # --- phase 14: the transformer's variants at full width ---------------------
 
+VARIANT_LAYERS = 8     # phase 14's depth: full width, a third of the layers
+
+
 def variant_raws() -> list:
     """The serving variants of phase 14: configs/sample_256.json with
-    transformer fields changed in memory, and the batches each runs."""
+    transformer fields changed in memory (``VARIANT_LAYERS`` of its 24
+    layers), and the batches each runs."""
     with open(CONFIG) as f:
         raw = json.load(f)
 
     def variant(**fields):
-        return dict(raw, transformer=dict(raw["transformer"], **fields))
+        return dict(raw, transformer=dict(raw["transformer"],
+                                          num_layers=VARIANT_LAYERS,
+                                          **fields))
 
     return [
         ("GQA-4 int4", variant(num_kv_heads=4), (4, 64)),
@@ -4243,13 +4266,12 @@ def serve_variant(gen, smi: str, what: str, raw: dict, batches) -> dict:
         mha = _MHA_DECODE.get(batch)
         read = "B2" if quantized else "B9"
         if mha and read in res["ported_kernels_ms_per_call"]:
+            # per launch: phase 4 runs all 24 layers, this phase fewer
+            per = lambda ms_n: ms_n[0] / max(ms_n[1], 1)
             print(f"{what} batch {batch}: {read} "
-                  f"{res['ported_kernels_ms_per_call'][read][0]:.4f} ms a "
-                  f"step, beside phase 4's MHA int4 B2 "
-                  f"{mha['ported_kernels_ms_per_call']['B2'][0]:.4f} ms; "
-                  f"device busy {res['device_busy_ms']:.3f} vs "
-                  f"{mha['device_busy_ms']:.3f} ms, host "
-                  f"{res['host_ms']:.3f} vs {mha['host_ms']:.3f} ms")
+                  f"{per(res['ported_kernels_ms_per_call'][read]):.5f} ms a "
+                  f"launch, beside phase 4's MHA int4 B2 "
+                  f"{per(mha['ported_kernels_ms_per_call']['B2']):.5f} ms")
     # seeded random weights give near-uniform logits (max |logit| ~2.6 over
     # 8192 codes), whose near-ties bf16 rounding flips: over phase 4's
     # unchanged multi-head path the agreement at every position ranged
@@ -4272,7 +4294,8 @@ TRAIN_VARIANTS = (
 
 
 def train_variant(smi: str, tmp: str, what: str, fields: dict) -> dict:
-    """configs/transformer_512.json as shipped with ``fields``, 2 steps
+    """configs/transformer_512.json with ``fields`` and
+    ``VARIANT_LAYERS`` layers, 2 steps
     through ``run_train_transformer``: finite losses, every parameter
     moved with a finite nonzero gradient at step 1, exact B1/B6 counts,
     one step through the kernels against the twins (B1/B6 patched, which
@@ -4284,7 +4307,7 @@ def train_variant(smi: str, tmp: str, what: str, fields: dict) -> dict:
 
     steps = 2
     train_cfg, tcfg, data = transformer_configs(tmp, total_steps=steps)
-    tcfg = dataclasses.replace(tcfg, **fields)
+    tcfg = dataclasses.replace(tcfg, num_layers=VARIANT_LAYERS, **fields)
     source = iter(SyntheticTokenBatches(train_cfg.batch_size, tcfg,
                                         data.get("seed", 0)))
     batches = [{k: torch.from_numpy(v).to(DEVICE)
@@ -4351,7 +4374,8 @@ def expand_cost(smi: str, batch: int, tcfg) -> None:
 
 
 def phase_variants(gen, smi: str, tmp: str) -> dict:
-    """Phase 14: the transformer's variants at full width (grouped-query
+    """Phase 14: the transformer's variants at full width and
+    ``VARIANT_LAYERS`` layers (grouped-query
     attention over int4 lane, bf16-scale and float caches; rudalle_relax
     with the LayerNorm prescale; ln_matmul_fold), served through
     ``sample_images`` and trained through ``run_train_transformer``;
@@ -4928,17 +4952,39 @@ def tp_serve(raw: dict, clock: dict, logits_path: str) -> dict:
     return out
 
 
+def first_adam_step(into: dict):
+    """A patch of ``Adam.step`` that keeps, on the CPU, the gradients of
+    its first call (before the update) in ``into["grads"]`` and the
+    parameters they were taken at in ``into["params"]``."""
+    from mas_tpu_torch.train.state import Adam
+
+    real = Adam.step
+
+    def step(self, grads):
+        grads = list(grads)
+        if not into:
+            into["grads"] = {k: g.detach().to("cpu", copy=True)
+                             for k, g in zip(self.params, grads)}
+            into["params"] = {k: p.detach().to("cpu", copy=True)
+                              for k, p in self.params.items()}
+        return real(self, grads)
+
+    return mock.patch.object(Adam, "step", step)
+
+
 def tp_worker(spec_path: str) -> int:
     """One rank of phase 16, started with a launcher's environment:
     ``TP_STEPS`` training steps through ``mas_tpu_torch.cli.main`` (rows
     as the CLI reads them: the ranks of one data index alike), then
     ``tp_serve``; writes the launch counts, per-step records, digests of
-    the replicated parameters, checkpoint writes, grid and backend."""
+    the replicated parameters, checkpoint writes, grid and backend, and
+    (rank 0) the first step's gradients gathered into the full tree."""
     import torch.distributed as dist
 
     from mas_tpu_torch import cli
+    from mas_tpu_torch.parallel.collectives import model_parts
     from mas_tpu_torch.parallel.distributed import grid
-    from mas_tpu_torch.parallel.sharding import split_dim
+    from mas_tpu_torch.parallel.sharding import gather_state, split_dim
     from mas_tpu_torch.train import loop
 
     with open(spec_path) as f:
@@ -4962,11 +5008,20 @@ def tp_worker(spec_path: str) -> int:
         record.append(step_record(metrics, clock))
         last["state"] = state
 
+    first = {}
     reset_counts()
-    rc = cli.main(["--config", spec["configs"]["train"], "--device",
-                   spec["device"]], on_step)
+    with first_adam_step(first):
+        rc = cli.main(["--config", spec["configs"]["train"], "--device",
+                       spec["device"]], on_step)
     counts = read_counts()
     state = last.pop("state")
+    grads = first["grads"]
+    grads = gather_state(model_parts(
+        grads, [k for k in grads if split_dim(k) is not None]),
+        state.model.cfg)
+    if rank == 0:
+        torch.save(grads, spec["out"].format(rank=rank) + ".grads.pt")
+    del first, grads
     g = grid()
     res = dict(rc=rc, counts=counts, record=record, writes=list(writes),
                replicated={k: v for k, v in digests(state).items()
@@ -4983,6 +5038,49 @@ def tp_worker(spec_path: str) -> int:
     with open(spec["out"].format(rank=rank), "w") as f:
         json.dump(res, f)
     return 0
+
+
+TP_GRAD_REL = 0.1      # step 1's gradients, ||g_tp - g|| / ||g|| a tensor
+TP_UPDATE_COS = 0.9    # cosine of the 2 steps' updates, a sharded matrix
+
+
+def tp_update_checks(grads: dict, first: dict, saved: dict,
+                     ref: dict) -> tuple:
+    """Phase 16's training against one process, tensor by tensor: step 1's
+    gradients gathered from the ranks (``grads``) against the one
+    process's (``first``), ||g_tp - g|| <= TP_GRAD_REL ||g|| (the bound
+    of the kernels-vs-twins gradients: both sides run bf16 products that
+    round and sum in another order); and, for every sharded weight
+    matrix, the update the 2 steps made (rank 0's checkpoint ``saved``
+    less the seeded start) against the one process's (``ref`` less the
+    start), cosine >= TP_UPDATE_COS.  Biases are held by their gradients
+    alone: the key bias's is zero up to rounding (softmax ignores a shift
+    shared by every key), so Adam moves it by lr in the rounding's sign.
+    A rank that applied no update, or another gradient, fails.  Returns
+    (worst gradient ratio, worst cosine)."""
+    from mas_tpu_torch.parallel.sharding import split_dim
+
+    g_one, start = first["grads"], first["params"]
+    require(set(grads) == set(g_one), "tp: the gathered gradients' keys")
+    g_worst, c_worst, bad = 0.0, 1.0, []
+    for k, g in g_one.items():
+        g = g.to(DEVICE)
+        r = float((grads[k].to(DEVICE) - g).norm()) / max(float(g.norm()),
+                                                          1e-30)
+        g_worst = max(g_worst, r)
+        if r > TP_GRAD_REL:
+            bad.append(f"gradient {k}: {r:.3e}")
+        if split_dim(k) is None or g.dim() < 2:
+            continue
+        p0 = start[k].to(DEVICE)
+        a = (saved[k].to(DEVICE) - p0).reshape(-1)
+        b = (ref[k].to(DEVICE) - p0).reshape(-1)
+        c = float(a @ b) / max(float(a.norm() * b.norm()), 1e-30)
+        c_worst = min(c_worst, c)
+        if c < TP_UPDATE_COS:
+            bad.append(f"update {k}: cosine {c:.4f}")
+    require(not bad, "tp vs one process: " + "; ".join(bad[:8]))
+    return g_worst, c_worst
 
 
 def phase_tensor_parallel(smi: str, tmp: str) -> dict:
@@ -5031,8 +5129,10 @@ def phase_tensor_parallel(smi: str, tmp: str) -> dict:
         record.append(step_record(metrics, {"ms": 0.0}))
         last["state"] = state
 
+    first = {}
     reset_counts()
-    run_cli(train[1], tmp, on_step)
+    with first_adam_step(first):
+        run_cli(train[1], tmp, on_step)
     total = {k: total.get(k, 0) + v for k, v in read_counts().items()}
     state = last.pop("state")
     ref = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
@@ -5051,6 +5151,10 @@ def phase_tensor_parallel(smi: str, tmp: str) -> dict:
     worst = params_close(saved, ref, 4 * TP_STEPS * lr + 1e-7, 1e-2,
                          "tp: rank 0's checkpoint vs one process",
                          median=False)
+    grads = torch.load(os.path.join(tmp, "tp_rank0.json.grads.pt"),
+                       map_location="cpu", weights_only=True)
+    g_worst, c_worst = tp_update_checks(grads, first, saved, ref)
+    del grads, first
     with open(TRANSFORMER_CONFIG) as f:
         tcfg = TransformerConfig.from_dict(json.load(f)["transformer"])
     with torch.device(DEVICE):
@@ -5063,7 +5167,9 @@ def phase_tensor_parallel(smi: str, tmp: str) -> dict:
           f"median {rank_ms:.1f} ms, collectives {100 * share:.1f}% of it; "
           f"one process {one_ms:.1f} ms; losses {[x['loss'] for x in r0['record']]}"
           f" vs {[x['loss'] for x in record]}; params max |d| {worst:.3g}; "
-          f"rank 0's checkpoint loads into one process [{smi}]")
+          f"step 1 gradients worst ||d|| / ||g|| {g_worst:.3e}, updates "
+          f"worst cosine {c_worst:.6f}; rank 0's checkpoint loads into one "
+          f"process [{smi}]")
     # serving: tokens, counts and images per rank; logits against one
     # process
     with open(CONFIG) as f:

@@ -31,7 +31,7 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from ..utils.config import MeshConfig
+from ..utils.config import ConfigError, MeshConfig
 
 LAUNCH_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR")
 
@@ -119,13 +119,13 @@ def initialize(device_type: str = "cuda",
                mesh: Optional[MeshConfig] = None) -> dict:
     """Join the process group when launched (once; a repeat call joins
     nothing), lay the ranks out as ``mesh`` says (every rank on the data
-    axis when None; a repeat call with another shape makes its groups
-    anew) and return the topology: the JAX keys ``process_index``,
-    ``process_count``, ``local_devices``, ``global_devices`` and
-    ``backend`` (the process group's, None for one process) and
-    ``device``, this rank's device; ``grid()`` holds the layout.  A mesh
-    that does not cover the world raises JAX's ``ConfigError`` before any
-    rank joins."""
+    axis when None; once, when the group is joined) and return the
+    topology: the JAX keys ``process_index``, ``process_count``,
+    ``local_devices``, ``global_devices`` and ``backend`` (the process
+    group's, None for one process) and ``device``, this rank's device;
+    ``grid()`` holds the layout.  A mesh that does not cover the world
+    raises JAX's ``ConfigError`` before any rank joins; so does a repeat
+    call whose mesh has another shape than the grid laid out."""
     global _grid
     world = int(os.environ["WORLD_SIZE"]) if launched() else 1
     shape = mesh.shape(world) if mesh is not None else (world, 1)
@@ -138,10 +138,14 @@ def initialize(device_type: str = "cuda",
             backend, rank=int(os.environ["RANK"]),
             world_size=int(os.environ["WORLD_SIZE"]),
             device_id=device if backend == "nccl" else None)
-    if dist.is_initialized() and (_grid.data_group is None
-                                  and _grid.model_group is None
-                                  or (_grid.data, _grid.model) != shape):
-        _grid = _make_grid(*shape)
+    if dist.is_initialized():
+        if _grid.data_group is None and _grid.model_group is None:
+            _grid = _make_grid(*shape)
+        elif (_grid.data, _grid.model) != shape:
+            raise ConfigError(
+                f"the ranks are laid out as a {_grid.data} x {_grid.model} "
+                f"(data, model) grid; a {shape[0]} x {shape[1]} mesh cannot "
+                "be laid out again in this process")
     backend: Optional[str] = (dist.get_backend() if dist.is_initialized()
                               else None)
     return dict(process_index=rank(), process_count=world_size(),

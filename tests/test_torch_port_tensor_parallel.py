@@ -211,10 +211,11 @@ CASES = {"forward": forward_case, "step": step_case, "decode": decode_case,
 
 def rank_main(inputs: str, out_dir: str, model: str, cases: str) -> None:
     """One rank: join the (data, model) grid from the environment, run
-    ``cases`` (comma-separated), save the results."""
+    ``cases`` (comma-separated), repeat ``initialize`` with the same mesh
+    and with another, save the results."""
     torch.set_num_threads(1)
     from mas_tpu_torch.parallel import distributed
-    from mas_tpu_torch.utils.config import MeshConfig
+    from mas_tpu_torch.utils.config import ConfigError, MeshConfig
 
     topo = distributed.initialize("cpu", MeshConfig(model=int(model)))
     g = distributed.grid()
@@ -222,6 +223,14 @@ def rank_main(inputs: str, out_dir: str, model: str, cases: str) -> None:
     shard, data = (g.model_index, g.model), (g.data_index, g.data)
     res = {name: CASES[name](specs[name], shard, data)
            for name in cases.split(",")}
+    distributed.initialize("cpu", MeshConfig(model=int(model)))
+    res["repeat_same"] = distributed.grid() is g
+    try:
+        distributed.initialize("cpu", MeshConfig(model=1))
+        res["repeat_other"] = None
+    except ConfigError as e:
+        res["repeat_other"] = str(e)
+    g = distributed.grid()
     res["grid"] = (g.data, g.model, g.data_index, g.model_index)
     res["backend"] = topo["backend"]
     torch.save(res, os.path.join(out_dir, f"rank{topo['process_index']}.pt"))
@@ -484,6 +493,19 @@ def test_ranks_form_the_grid(runs):
         for r, res in enumerate(ranks):
             assert res["backend"] == "gloo"
             assert res["grid"] == (world // 2, 2, r // 2, r % 2)
+
+
+def test_repeat_initialize_keeps_the_grid(runs):
+    """A repeat ``initialize`` with the same mesh keeps the grid and its
+    groups; one with another shape raises ``ConfigError`` and makes no
+    group."""
+    for world, ranks in ((2, runs["ranks2"]), (4, runs["ranks4"])):
+        for res in ranks:
+            assert res["repeat_same"]
+            assert res["repeat_other"] == (
+                f"the ranks are laid out as a {world // 2} x 2 (data, model) "
+                f"grid; a {world} x 1 mesh cannot be laid out again in this "
+                "process")
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
