@@ -161,6 +161,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      ranks, exact B1/B3/B2 counts a rank and B4 in model rank 0's VQ
      decode; prints s per batch and the collectives' share.  Phase 3
      holds B2 and B3 at a rank's shape too (q [8, 8, 1, 64], int4).
+ 17. learnable scenes (``StructuredSceneBatches``) at seg_256's batch and
+     resolution: a pool of 8 compact uint8 scenes drawn, saved to disk
+     and memory-mapped by a second instance that may not draw (the loaded
+     scene tuples bitwise equal to the saved); 4 batches' packed labels
+     expanded on the card (``one_hot_seg_packed``) and uint8 images made
+     float (``to_float_image``) bitwise equal to a dense float instance's
+     of the same seed; seg_256 as phase 5 cuts it, 16 micro-steps on the
+     pool's packed labels under phase 5's checks (B4/B5/B8 floors); one
+     micro-step at counter 13 on packed labels against one on the dense
+     mask of the same scenes from the same state (loss within 1e-6
+     relative).  Prints the host seconds a scene, the save and the map,
+     the packed and dense micro-steps' ms, one batch's host-to-device
+     copy as an fp32 mask and as packed labels from pageable and pinned
+     memory, and the cached loop's batches/s dense and packed.
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -2356,17 +2370,34 @@ def phase_train(smi: str, tmp: str) -> dict:
     segmentation`` with B4, B5 and B8, checkpoints under ``tmp`` (phase 12
     evaluates, shows and exports them); returns the launch counts."""
     from mas_tpu_torch.data.dataset import SyntheticSegBatches
-    from mas_tpu_torch.train.loop import (build_seg_state,
-                                          run_pretrain_segmentation)
-    from mas_tpu_torch.utils.logging import Logger
 
     train_cfg, model_cfg, loss_cfg, data = seg_training_configs(tmp)
-    cb = model_cfg.codebook
     source = iter(SyntheticSegBatches(train_cfg.batch_size,
                                       data["resolution"],
                                       data.get("seed", 0)))
     batches = [{"mask": torch.from_numpy(next(source)["mask"]).to(DEVICE)}
                for _ in range(TRAIN_STEPS)]
+    state, counts, snap, _ = seg_run(smi, tmp, batches, "train")
+    resume_check(train_cfg, model_cfg, state)
+    kmeans_repeat_check(state, model_cfg.codebook)
+    kernels_vs_twins_step(snap, batches[TRAIN_STEPS // 2], loss_cfg)
+    return counts
+
+
+def seg_run(smi: str, tmp: str, batches: list, what: str) -> tuple:
+    """``run_pretrain_segmentation`` of ``seg_training_configs(tmp)`` on
+    ``batches`` (device tensors, dense ``mask`` or packed ``seg_packed``),
+    launch counts zeroed just before and read just after; checks the
+    phase schedule (finite losses, k-means at counters 12, 14 and 16 with
+    the codebook set to its centroids, 4,096 reservoir rows at 12, five
+    optimizer updates) and the B4/B5/B8 floors; prints the losses and the
+    micro-step's ms by phase.  Returns (state, counts, a copy of the state
+    after micro-step 12, ms a micro-step by counter)."""
+    from mas_tpu_torch.train.loop import run_pretrain_segmentation
+    from mas_tpu_torch.utils.logging import Logger
+
+    train_cfg, model_cfg, loss_cfg, _ = seg_training_configs(tmp)
+    cb = model_cfg.codebook
     record, snap = [], {}
 
     def on_step(step_no, state, metrics):
@@ -2392,12 +2423,12 @@ def phase_train(smi: str, tmp: str) -> dict:
         logger=Logger(os.path.join(tmp, "logs")), on_step=on_step)
     torch.cuda.synchronize()
     counts = read_counts()
-    print(f"train: {TRAIN_STEPS} micro-steps in "
+    print(f"{what}: {TRAIN_STEPS} micro-steps in "
           f"{time.perf_counter() - t0:.2f} s (first run, includes "
           f"kernel JIT); launches {counts}")
 
     losses = [r["loss"] for r in record]
-    print("train losses: " + " ".join(f"{v:.5f}" for v in losses))
+    print(f"{what} losses: " + " ".join(f"{v:.5f}" for v in losses))
     require(len(record) == TRAIN_STEPS and state.step == TRAIN_STEPS,
             f"ran {len(record)} micro-steps")
     require(all(math.isfinite(v) for v in losses), "losses are finite")
@@ -2417,18 +2448,13 @@ def phase_train(smi: str, tmp: str) -> dict:
     step_ms = {r["counter"]: 1e3 * (r["t"] - prev["t"])
                for prev, r in zip(record, record[1:])}
     quant = sorted(step_ms[c] for c in (13, 15))
-    print(f"train micro-step, quantize phase (counters 13, 15): median "
+    print(f"{what} micro-step, quantize phase (counters 13, 15): median "
           f"{statistics.median(quant):.1f} ms; k-means micro-step "
           f"(counters 14, 16): {step_ms[14]:.1f} / {step_ms[16]:.1f} ms;"
           f" pass-through (counters 6-11) median "
           f"{statistics.median(step_ms[c] for c in range(6, 12)):.1f} "
           f"ms [{smi}]")
-
-    resume_check(train_cfg, model_cfg, state)
-    kmeans_repeat_check(state, cb)
-    kernels_vs_twins_step(snap["state"], batches[TRAIN_STEPS // 2],
-                          loss_cfg)
-    return counts
+    return state, counts, snap["state"], step_ms
 
 
 def resume_check(train_cfg, model_cfg, state) -> None:
@@ -4157,22 +4183,13 @@ def tokenize_and_train(smi: str, shards: str, img_dir, tmp: str):
           f"events): {tok_ms:.2f} ms, of it the seg encoder {seg_ms:.2f} "
           f"ms [{smi}]")
 
-    host = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        torch.as_tensor(first["mask"]).to(DEVICE, non_blocking=True)
-        torch.cuda.synchronize()
-        host.append(1e3 * (time.perf_counter() - t0))
-    pinned = torch.from_numpy(first["mask"]).pin_memory()
-    pin_ms = timed_ms(lambda: pinned.to(DEVICE, non_blocking=True), reps=3,
-                      warmup=1)
+    host, pin_ms = copy_ms(first["mask"])
     gb = first["mask"].nbytes / 1e9
     print(f"host-to-device copy of one mask batch ({gb:.3f} GB fp32): "
           f"pageable " + ", ".join(f"{v:.1f}" for v in host)
           + f" ms ({gb / statistics.median(host) * 1e3:.2f} GB/s); pinned "
           f"{pin_ms:.1f} ms ({gb / pin_ms * 1e3:.2f} GB/s) [{smi}]")
-    del pinned, batches, first, mask, image, vq_seg, vq_img
+    del batches, first, mask, image, vq_seg, vq_img
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -5228,6 +5245,208 @@ def phase_tensor_parallel(smi: str, tmp: str) -> dict:
     return total
 
 
+# --- phase 17: learnable scenes from a saved pool, packed labels -----------
+
+SCENE_POOL = 8         # phase 17's pool: 4 batches of seg_256's 2 a pass
+
+
+def _copied(batch: dict) -> dict:
+    """A batch of ``StructuredSceneBatches``'s rotating buffers, copied
+    before the buffer is written again."""
+    return {k: v.copy() for k, v in batch.items()}
+
+
+def scene_pool(smi: str, kw: dict, pool_dir: str):
+    """Draws a ``SCENE_POOL``-scene pool of compact, uint8 scenes and saves
+    it under ``pool_dir`` (host seconds a scene and for the save), then
+    memory-maps it from a second instance whose ``_scene`` raises, and
+    holds the loaded scene tuples bitwise to the saved ones.  Returns (the
+    first pass of batches of the drawing instance, the loading
+    instance)."""
+    from mas_tpu_torch.data import dataset
+
+    maker = dataset.StructuredSceneBatches(compact=True, image_u8=True,
+                                           pool_cache_dir=pool_dir, **kw)
+    clock, saved = {"scenes": []}, []
+    scene, save = maker._scene, maker._save_pool
+
+    def timed_scene():
+        t0 = time.perf_counter()
+        out = scene()
+        clock["scenes"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_save(scenes):
+        saved.extend(scenes)
+        t0 = time.perf_counter()
+        save(scenes)
+        clock["save"] = time.perf_counter() - t0
+
+    maker._scene, maker._save_pool = timed_scene, timed_save
+    made = iter(maker)
+    first = [_copied(next(made))
+             for _ in range(SCENE_POOL // kw["batch_size"])]
+    require(len(clock["scenes"]) == SCENE_POOL and "save" in clock,
+            f"drew {len(clock['scenes'])} scenes, saved: {'save' in clock}")
+
+    loader = dataset.StructuredSceneBatches(compact=True, image_u8=True,
+                                            pool_cache_dir=pool_dir, **kw)
+
+    def refuse():
+        raise RuntimeError("the saved scene pool was drawn again")
+
+    loader._scene = refuse
+    t0 = time.perf_counter()
+    view = loader._load_pool()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    require(isinstance(view, dataset._ScenePoolView)
+            and len(view) == SCENE_POOL, f"pool under {pool_dir} not "
+            f"memory-mapped: {view!r}")
+    for i, want in enumerate(saved):
+        got = view[i]
+        for j in range(5):
+            require(got[j].dtype == want[j].dtype
+                    and np.array_equal(got[j], want[j]),
+                    f"loaded scene {i}, field {dataset._POOL_FIELDS[j]}")
+        for j in (5, 6):
+            require(np.array_equal(got[j], np.asarray(want[j], np.float32)
+                                   .reshape(-1, 4)),
+                    f"loaded scene {i}, boxes {j}")
+    path = loader._pool_path()
+    mb = sum(os.path.getsize(os.path.join(path, f))
+             for f in os.listdir(path)) / 1e6
+    print(f"scene pool: {SCENE_POOL} scenes at {kw['resolution']}^2 drawn "
+          f"in {sum(clock['scenes']):.3f} s (median "
+          f"{statistics.median(clock['scenes']):.4f} s a scene, host), "
+          f"saved in {clock['save']:.3f} s ({mb:.2f} MB, "
+          f"{os.path.basename(path)}), memory-mapped in {load_ms:.2f} ms; "
+          f"loaded scene tuples bitwise equal to the saved [{smi}]")
+    return first, loader
+
+
+def copy_ms(array: np.ndarray) -> tuple:
+    """Host-to-device copy of ``array``: host ms of 3 synchronized copies
+    from pageable memory, and the median device ms (CUDA events) of 3
+    from pinned memory."""
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.as_tensor(array).to(DEVICE, non_blocking=True)
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+    pinned = torch.from_numpy(array).pin_memory()
+    return host, timed_ms(lambda: pinned.to(DEVICE, non_blocking=True),
+                          reps=3, warmup=1)
+
+
+def batches_per_s(source, n: int = 16) -> float:
+    """Host rate of a cached ``StructuredSceneBatches`` after its pool."""
+    it = iter(source)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    return n / (time.perf_counter() - t0)
+
+
+def phase_scenes(smi: str, tmp: str) -> dict:
+    """seg_256 at full width on learnable scenes from a saved pool, as
+    packed int16 labels expanded on the card: the pool drawn, saved and
+    memory-mapped (``scene_pool``); 4 batches' expansion and uint8 images
+    bitwise equal on the card to a dense float instance's; 16 micro-steps
+    of ``run_pretrain_segmentation`` on the pool's packed labels under
+    phase 5's checks (``seg_run``); one packed micro-step against a dense
+    one from the same state on the same scenes (loss within 1e-6
+    relative); then what packed labels save, measured: the micro-step,
+    the copy of a batch, the cached loop's rate.  Returns the launch
+    counts of the 16 micro-steps."""
+    from mas_tpu_torch.data import dataset
+    from mas_tpu_torch.data.segmap import one_hot_seg_packed
+    from mas_tpu_torch.train.steps import make_seg_train_step, to_float_image
+
+    train_cfg, _, loss_cfg, data = seg_training_configs(tmp)
+    kw = dict(batch_size=train_cfg.batch_size,
+              resolution=data["resolution"], seed=0,
+              cache_scenes=SCENE_POOL)
+    packed, loader = scene_pool(smi, kw, os.path.join(tmp, "pool"))
+
+    dense_src = iter(dataset.StructuredSceneBatches(**kw))
+    dense = [_copied(next(dense_src)) for _ in packed]
+    for i, (p, d) in enumerate(zip(packed, dense)):
+        seg = one_hot_seg_packed(torch.from_numpy(p["seg_packed"]).to(DEVICE))
+        require(torch.equal(seg, torch.from_numpy(d["mask"]).to(DEVICE)),
+                f"batch {i}: packed labels expanded on the card != the "
+                "dense mask")
+        image = to_float_image(torch.from_numpy(p["image"]).to(DEVICE))
+        require(torch.equal(image, torch.from_numpy(d["image"]).to(DEVICE)),
+                f"batch {i}: uint8 images made float on the card != the "
+                "float instance's")
+        require(all(np.array_equal(p[k], d[k])
+                    for k in ("bbox_obj", "bbox_face")), f"batch {i}: boxes")
+    seg_p = torch.from_numpy(packed[0]["seg_packed"]).to(DEVICE)
+    seg_d = torch.from_numpy(dense[0]["mask"]).to(DEVICE)
+    expand_ms = timed_ms(lambda: one_hot_seg_packed(seg_p))
+    print(f"scenes: {len(packed)} batches of {kw['batch_size']} x "
+          f"{kw['resolution']}^2, packed labels expanded on the card and "
+          f"uint8 images made float: bitwise equal to the dense float "
+          f"instance's; one_hot_seg_packed {expand_ms:.4f} ms a batch "
+          f"(CUDA events) [{smi}]")
+
+    it = iter(loader)
+    batches = [{"seg_packed": torch.from_numpy(next(it)["seg_packed"])
+                .to(DEVICE)} for _ in range(TRAIN_STEPS)]
+    _, counts, snap, step_ms = seg_run(smi, tmp, batches, "scenes")
+
+    losses, times = {True: [], False: []}, {True: [], False: []}
+    for packed_labels in (True, False, False, True) * 2:
+        st = copy.deepcopy(snap)
+        step = make_seg_train_step(st.model, st.opt, loss_cfg,
+                                   from_packed_labels=packed_labels)
+        gen = torch.Generator(device=DEVICE).manual_seed(13)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(st, seg_p if packed_labels else seg_d, gen)
+        torch.cuda.synchronize()
+        times[packed_labels].append(1e3 * (time.perf_counter() - t0))
+        require(st.vq_state.counter == 13 and not m["kmeans_triggered"],
+                "packed-vs-dense micro-step runs at counter 13")
+        losses[packed_labels].append(float(m["loss"]))
+        del st, step
+    lp, ld = losses[True][0], losses[False][0]
+    rel = abs(lp - ld) / abs(ld)
+    print(f"scenes: one micro-step at counter 13 from one state on the same "
+          f"scenes, packed vs dense: loss {lp!r} vs {ld!r} (rel {rel:.2e}, "
+          f"bitwise equal: {lp == ld}); host ms packed "
+          + ", ".join(f"{v:.1f}" for v in times[True]) + ", dense "
+          + ", ".join(f"{v:.1f}" for v in times[False])
+          + f" (distinct losses over the repeats: packed "
+          f"{len(set(losses[True]))}, dense {len(set(losses[False]))}); in "
+          f"the run, quantize-phase micro-steps "
+          f"(counters 13, 15) "
+          f"{step_ms[13]:.1f}, {step_ms[15]:.1f} ms on packed labels "
+          f"(phase 5's on dense labels above) [{smi}]")
+    require(rel <= 1e-6, f"packed vs dense micro-step: rel {rel:.2e}")
+
+    for what, array in (("fp32 mask", dense[0]["mask"]),
+                        ("packed int16 labels", packed[0]["seg_packed"])):
+        host, pinned = copy_ms(array)
+        mb = array.nbytes / 1e6
+        print(f"host-to-device copy of one {what} batch ({mb:.2f} MB): "
+              f"pageable " + ", ".join(f"{v:.3f}" for v in host)
+              + f" ms (host clock), pinned {pinned:.4f} ms (CUDA events) "
+              f"[{smi}]")
+    rates = {what: batches_per_s(dataset.StructuredSceneBatches(**dict(
+        kw, **flags))) for what, flags in (
+            ("dense fp32", {}),
+            ("packed, uint8", dict(compact=True, image_u8=True)))}
+    rates["packed, uint8, memory-mapped pool"] = batches_per_s(loader)
+    print("cached StructuredSceneBatches on the host, batches/s: "
+          + "; ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f" [{smi}]")
+    return counts
+
+
 def main(argv) -> int:
     modes = {"--decode-times": decode_times, "--norm-times": norm_times,
              "--vq-times": vq_times, "--vq-paths": vq_paths,
@@ -5269,6 +5488,7 @@ def main(argv) -> int:
         paths.append(phase_variants(gen, smi, os.path.join(tmp, "variants")))
         paths.append(phase_parallel(smi, os.path.join(tmp, "parallel")))
         paths.append(phase_tensor_parallel(smi, os.path.join(tmp, "tp")))
+        paths.append(phase_scenes(smi, os.path.join(tmp, "scenes")))
     for row in rows:
         row["launches"] = sum(counts[row["id"]] for counts in paths)
         require(row["launches"] > 0, f"{row['id']} launched on no path")

@@ -10,9 +10,13 @@
     ``ConcatDataset`` joins such datasets,
   * ``collate`` stacks samples with boxes padded to [B, M, 4];
     ``batch_iterator`` batches a sample stream,
-  * ``Synthetic*Batches`` are seeded random batches of each stage.
+  * ``Synthetic*Batches`` are seeded random batches of each stage;
+    ``StructuredSceneBatches`` are seeded learnable scenes (aligned RGB,
+    seg map and boxes), optionally from a scene pool kept in memory or
+    saved to disk.
 
-Batches are dicts of numpy arrays, NHWC, images float32 in [0, 1].  The
+Batches are dicts of numpy arrays, NHWC, images float32 in [0, 1] (or
+uint8, and packed int16 seg labels, where a dataset is asked to).  The
 same files, or numpy draws from the same seed, give the same batches as
 the JAX package.
 """
@@ -22,11 +26,13 @@ from __future__ import annotations
 import io
 import itertools
 import os
-from typing import Dict, Iterable, Iterator, List, Sequence
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from .segmap import assemble_seg_map, pad_boxes, sanitize_bboxes
+from .segmap import (NUM_SEG_CHANNELS, assemble_seg_map,
+                     assemble_seg_map_into, edges_from_instances,
+                     pack_seg_labels, pad_boxes, sanitize_bboxes)
 from .tario import expand_shards, iter_tar_samples, shard_split, \
     warn_and_continue
 
@@ -402,3 +408,314 @@ class SyntheticTokenBatches:
                     0, cfg.image_vocab_size, (b, cfg.image_length),
                     dtype=np.int32),
             }
+
+
+# The version is part of a saved pool's directory name, so a pool of an
+# older ``StructuredSceneBatches._scene`` or layout is never reused; it
+# equals the JAX package's, so pools interchange between the packages.
+_POOL_FORMAT_VERSION = 2
+
+# Per-scene fields saved as stacked .npy arrays, in scene-tuple order.  The
+# object and face boxes (fields 5 and 6) vary in length and are saved as
+# one concatenated [sum_k, 4] array each plus an int64 offset vector.
+_POOL_FIELDS = ("img", "pan", "hum", "face", "edge")
+
+
+class _ScenePoolView:
+    """Random access over a saved scene-pool directory, memory-mapped:
+    ``pool[i]`` is the 7-tuple of the in-memory pool, read lazily through
+    the page cache."""
+
+    def __init__(self, path: str):
+        self._fields = [
+            np.load(os.path.join(path, name + ".npy"), mmap_mode="r")
+            for name in _POOL_FIELDS]
+        self._box = np.load(os.path.join(path, "box.npy"), mmap_mode="r")
+        self._box_off = np.load(os.path.join(path, "box_off.npy"))
+        self._fbox = np.load(os.path.join(path, "fbox.npy"), mmap_mode="r")
+        self._fbox_off = np.load(os.path.join(path, "fbox_off.npy"))
+        n = len(self._fields[0])
+        if any(len(f) != n for f in self._fields) or \
+                len(self._box_off) != n + 1 or len(self._fbox_off) != n + 1:
+            raise ValueError("scene-pool field lengths disagree")
+
+    def __len__(self) -> int:
+        return len(self._fields[0])
+
+    def __getitem__(self, i):
+        o, fo = self._box_off, self._fbox_off
+        return tuple(f[i] for f in self._fields) + (
+            np.asarray(self._box[o[i]:o[i + 1]]),
+            np.asarray(self._fbox[fo[i]:fo[i + 1]]))
+
+
+class StructuredSceneBatches:
+    """Learnable synthetic scenes: aligned RGB, the 159-channel seg map and
+    boxes, as ``mas_tpu/data/dataset.py``'s, bit for bit for one seed.
+
+    A scene is a two-band stuff background (sky over ground at a random
+    horizon), 2-5 shaded elliptical "thing" instances of random panoptic
+    classes, and one person carrying three human-parts bands and a 5-class
+    face.  The RGB renders the same geometry (a vertical gradient, a color
+    per instance with radial shading, a little noise), so image and seg
+    map agree and every stage can learn from them, unlike the iid noise of
+    ``Synthetic*Batches``.
+
+    ``compact``: yield ``seg_packed`` int16 [B, r, r, 4] labels
+    (``segmap.pack_seg_labels``) in place of the dense fp32 ``mask``; the
+    seg step expands them on the device (``one_hot_seg_packed``).
+    ``image_u8``: yield ``image`` as uint8 in [0, 255], truncated, in place
+    of float32 in [0, 1]; the steps convert on the device
+    (``train.steps.to_float_image``).
+
+    ``cache_scenes`` > 0: draw that many scenes once (compact dtypes) and
+    cycle through them in a fresh shuffled order each pass, writing each
+    batch into one of 8 rotating preallocated buffers: a yielded batch is
+    overwritten 8 batches later, so a caller that keeps one copies it.
+    Scenes left over after the last whole batch of a pass make no batch.
+    ``workers`` is stored and not read, as in the JAX package; no thread
+    is started.
+
+    ``pool_cache_dir``: save the drawn pool there, keyed by (format
+    version, resolution, cache_scenes, seed, max_boxes), as a directory of
+    plain .npy files (never pickle), and memory-map it on a later run
+    instead of drawing it again.  Loading skips the generator's scene
+    draws, so the shuffle order then differs from a run that drew the
+    pool: the same scenes in another order.
+    """
+
+    #: COCO-panoptic-style ids: things < 80, stuff >= 80 (sky, ground)
+    SKY, GROUND = 119, 125
+    PERSON = 0
+
+    def __init__(self, batch_size: int, resolution: int = 256, seed: int = 0,
+                 max_boxes: int = 6, cache_scenes: int = 0,
+                 workers: int = 4, compact: bool = False,
+                 image_u8: bool = False,
+                 pool_cache_dir: Optional[str] = None):
+        self.batch_size = batch_size
+        self.resolution = resolution
+        self.max_boxes = max_boxes
+        self.rng = np.random.default_rng(seed)
+        if 0 < cache_scenes < batch_size:
+            raise ValueError(
+                f"cache_scenes ({cache_scenes}) must be >= batch_size "
+                f"({batch_size}): one batch draws that many distinct "
+                f"pool scenes")
+        self.cache_scenes = cache_scenes
+        self.workers = workers
+        self.compact = compact
+        self.image_u8 = image_u8
+        self.pool_cache_dir = pool_cache_dir
+        self.pool_seed = seed
+
+    def _ellipse(self, xx, yy, cx, cy, a, b):
+        return ((xx - cx) / a) ** 2 + ((yy - cy) / b) ** 2 <= 1.0
+
+    def _scene(self):
+        # Statement for statement the JAX package's: the order of the
+        # draws and every dtype decide the bits and the saved pools.
+        rng, r = self.rng, self.resolution
+        yy, xx = np.mgrid[0:r, 0:r].astype(np.float32)
+
+        horizon = int(rng.integers(r // 4, 3 * r // 4))
+        pan = np.where(yy < horizon, self.SKY, self.GROUND).astype(np.int64)
+        inst = np.where(yy < horizon, 0, 1).astype(np.int64)
+        hum = np.full((r, r), -1, np.int64)
+        face = np.zeros((r, r), np.int64)
+
+        c_sky = rng.random(3) * 0.5 + 0.5
+        c_gnd = rng.random(3) * 0.5
+        t = (yy / r)[..., None]
+        img = (1 - t) * c_sky + t * c_gnd          # vertical gradient
+        img = img.astype(np.float32)
+
+        boxes, next_inst = [], 2
+
+        def paint(m, color, cx, cy, a, b):
+            shade = 1.0 - 0.45 * (((xx - cx) / a) ** 2
+                                  + ((yy - cy) / b) ** 2)
+            img[m] = (color[None, None, :] * shade[..., None])[m]
+            ys, xs = np.nonzero(m)
+            boxes.append([xs.min(), ys.min(), xs.max(), ys.max()])
+
+        for _ in range(int(rng.integers(2, 6))):
+            a, b = rng.integers(r // 10, r // 4, 2)
+            cx = rng.integers(a, r - a)
+            cy = rng.integers(b, r - b)
+            m = self._ellipse(xx, yy, cx, cy, a, b)
+            pan[m] = int(rng.integers(1, 80))       # thing class (not person)
+            inst[m] = next_inst
+            next_inst += 1
+            paint(m, rng.random(3), cx, cy, a, b)
+
+        # person: body ellipse with 3 part bands + a small 5-class face
+        a, b = r // 8, r // 3
+        cx = int(rng.integers(a, r - a))
+        cy = int(rng.integers(b, r - b))
+        body = self._ellipse(xx, yy, cx, cy, a, b)
+        pan[body] = self.PERSON
+        inst[body] = next_inst
+        paint(body, rng.random(3) * 0.6 + 0.3, cx, cy, a, b)
+        rel = (yy - (cy - b)) / (2 * b)             # 0 head .. 1 feet
+        for lo, hi, part in ((0.0, 0.25, 13), (0.25, 0.6, 5),
+                             (0.6, 1.01, 9)):       # face/torso/legs (LIP)
+            hum[body & (rel >= lo) & (rel < hi)] = part
+        fa, fb = max(a // 2, 4), max(b // 6, 4)
+        fcy = cy - b + fb + 1
+        fmask = self._ellipse(xx, yy, cx, fcy, fa, fb)
+        frel = (yy - (fcy - fb)) / (2 * fb)
+        for lo, hi, cls in ((0.1, 0.3, 2), (0.3, 0.5, 4), (0.45, 0.7, 3),
+                            (0.7, 0.85, 5), (0.85, 1.0, 1)):
+            face[fmask & (frel >= lo) & (frel < hi)] = cls   # brow .. beard
+        if fmask.any():
+            ys, xs = np.nonzero(fmask)
+            face_boxes = [[xs.min(), ys.min(), xs.max(), ys.max()]]
+        else:
+            face_boxes = []
+
+        edge = edges_from_instances(inst)
+        img += rng.normal(0.0, 0.01, img.shape).astype(np.float32)
+        return (np.clip(img, 0.0, 1.0), pan, hum, face, edge,
+                boxes, face_boxes)
+
+    def _pack(self, scene):
+        """A scene -> one batch row (image, mask or packed labels, object
+        boxes, face boxes)."""
+        img, pan, hum, face, edge, boxes, face_boxes = scene
+        if self.compact:
+            mask = pack_seg_labels(pan, edge, hum, face)
+        else:
+            mask = assemble_seg_map(pan, edge, hum, np.zeros_like(edge),
+                                    face)
+        m, r = self.max_boxes, self.resolution
+        if self.image_u8:
+            img = (np.asarray(img) * 255).astype(np.uint8)
+        else:
+            img = np.asarray(img, np.float32)
+        return (img, mask,
+                pad_boxes(sanitize_bboxes(boxes, frame=r), m),
+                pad_boxes(sanitize_bboxes(face_boxes, frame=r), m))
+
+    @property
+    def _mask_key(self):
+        return "seg_packed" if self.compact else "mask"
+
+    def _batch(self, rows):
+        imgs, masks, bo, bf = zip(*rows)
+        return {"image": np.stack(imgs), self._mask_key: np.stack(masks),
+                "bbox_obj": np.stack(bo), "bbox_face": np.stack(bf)}
+
+    def _pool_path(self) -> Optional[str]:
+        if not self.pool_cache_dir:
+            return None
+        return os.path.join(
+            self.pool_cache_dir,
+            f"scenes_v{_POOL_FORMAT_VERSION}_r{self.resolution}"
+            f"_n{self.cache_scenes}_s{self.pool_seed}_m{self.max_boxes}")
+
+    def _load_pool(self):
+        path = self._pool_path()
+        if path is None or not os.path.isdir(path):
+            return None
+        try:
+            return _ScenePoolView(path)
+        except (OSError, ValueError) as exn:
+            print(f"scene-pool cache at {path} unreadable ({exn}); "
+                  "regenerating", flush=True)
+            return None
+
+    def _save_pool(self, scenes) -> None:
+        path = self._pool_path()
+        if path is None:
+            return
+        from numpy.lib.format import open_memmap
+
+        os.makedirs(self.pool_cache_dir, exist_ok=True)
+        tmp = path + ".tmp"     # renamed when whole: a killed run leaves
+        os.makedirs(tmp, exist_ok=True)     # no readable partial pool
+        n = len(scenes)
+        for j, name in enumerate(_POOL_FIELDS):
+            first = np.asarray(scenes[0][j])
+            mm = open_memmap(os.path.join(tmp, name + ".npy"), mode="w+",
+                             dtype=first.dtype, shape=(n,) + first.shape)
+            for i in range(n):
+                mm[i] = scenes[i][j]
+            mm.flush()
+            del mm
+        for j, name in ((5, "box"), (6, "fbox")):
+            parts = [np.asarray(sc[j], np.float32).reshape(-1, 4)
+                     for sc in scenes]
+            off = np.zeros(n + 1, np.int64)
+            off[1:] = np.cumsum([len(p) for p in parts])
+            cat = (np.concatenate(parts) if parts
+                   else np.zeros((0, 4), np.float32))
+            np.save(os.path.join(tmp, name + ".npy"), cat)
+            np.save(os.path.join(tmp, name + "_off.npy"), off)
+        try:
+            os.replace(tmp, path)
+        except OSError:
+            # another process saved the same pool first; keep theirs
+            import shutil
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def __iter__(self):
+        if not self.cache_scenes:
+            while True:
+                yield self._batch([self._pack(self._scene())
+                                   for _ in range(self.batch_size)])
+
+        scenes = self._load_pool()
+        if scenes is None:
+            scenes = []
+            for _ in range(self.cache_scenes):
+                img, pan, hum, face, edge, bx, fbx = self._scene()
+                scenes.append(((img * 255).astype(np.uint8),
+                               pan.astype(np.int16), hum.astype(np.int8),
+                               face.astype(np.int8), edge.astype(np.uint8),
+                               bx, fbx))
+            self._save_pool(scenes)
+
+        # 8 rotating preallocated batch buffers (warm pages, no allocation
+        # a batch), more than any prefetch downstream holds at once
+        b, r, m = self.batch_size, self.resolution, self.max_boxes
+        mask_shape = ((b, r, r, 4) if self.compact
+                      else (b, r, r, NUM_SEG_CHANNELS))
+        mask_dtype = np.int16 if self.compact else np.float32
+        img_dtype = np.uint8 if self.image_u8 else np.float32
+        pool = [{"image": np.zeros((b, r, r, 3), img_dtype),
+                 self._mask_key: np.zeros(mask_shape, mask_dtype),
+                 "bbox_obj": np.zeros((b, m, 4), np.float32),
+                 "bbox_face": np.zeros((b, m, 4), np.float32)}
+                for _ in range(8)]
+        prev_scatter = [[None] * b for _ in pool]
+        slot = 0
+        while True:
+            order = self.rng.permutation(self.cache_scenes)
+            for start in range(0, self.cache_scenes - b + 1, b):
+                buf = pool[slot]
+                prev = prev_scatter[slot]
+                slot = (slot + 1) % len(pool)
+                for row, i in enumerate(order[start:start + b]):
+                    img, pan, hum, face, edge, bx, fbx = scenes[i]
+                    if self.image_u8:
+                        buf["image"][row] = img      # stored uint8 already
+                    else:
+                        np.multiply(img, np.float32(1.0 / 255.0),
+                                    out=buf["image"][row])
+                    if self.compact:
+                        pk = buf["seg_packed"][row]
+                        pk[..., 0] = pan
+                        pk[..., 1] = hum
+                        pk[..., 2] = face
+                        pk[..., 3] = edge
+                    else:
+                        # clear only the ones this buffer's row last set
+                        prev[row] = assemble_seg_map_into(
+                            buf["mask"][row], pan, edge, hum,
+                            np.zeros_like(edge), face, prev=prev[row])
+                    buf["bbox_obj"][row] = pad_boxes(
+                        sanitize_bboxes(bx, frame=r), m)
+                    buf["bbox_face"][row] = pad_boxes(
+                        sanitize_bboxes(fbx, frame=r), m)
+                yield buf

@@ -21,6 +21,11 @@ NUM_PANOPTIC = 133
 NUM_HUMAN = 20
 NUM_FACE = 5
 NUM_SEG_CHANNELS = NUM_PANOPTIC + NUM_HUMAN + NUM_FACE + 1   # 159
+
+PANOPTIC_SLICE = slice(0, NUM_PANOPTIC)
+HUMAN_SLICE = slice(NUM_PANOPTIC, NUM_PANOPTIC + NUM_HUMAN)
+FACE_SLICE = slice(NUM_PANOPTIC + NUM_HUMAN,
+                   NUM_PANOPTIC + NUM_HUMAN + NUM_FACE)
 EDGE_CHANNEL = NUM_SEG_CHANNELS - 1
 
 

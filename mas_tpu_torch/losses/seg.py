@@ -33,3 +33,16 @@ def bce_loss_with_quant(q_loss: torch.Tensor, targets: torch.Tensor,
     bce = weighted_bce_with_logits(logits, targets,
                                    pos_weight(cfg, logits.device))
     return bce + cfg.codebook_weight * q_loss.float()
+
+
+def vqvae_bce_loss(q_loss: torch.Tensor, targets: torch.Tensor,
+                   logits: torch.Tensor,
+                   cfg: SegLossConfig = SegLossConfig()) -> torch.Tensor:
+    """The reference's unused alternative ``VQVAEWithBCELoss``, kept as
+    the JAX package keeps it: the mean squared error of the sigmoid
+    outputs in fp32, plus the weighted BCE and the codebook loss."""
+    probs = torch.sigmoid(logits.float())
+    mse = torch.mean(torch.square(probs - targets.float()))
+    bce = weighted_bce_with_logits(logits, targets,
+                                   pos_weight(cfg, logits.device))
+    return mse + bce + cfg.codebook_weight * q_loss.float()

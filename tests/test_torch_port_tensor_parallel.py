@@ -594,7 +594,7 @@ def test_cli_checkpoint_is_the_full_tree(runs):
                  res["shards"], f"rank {r}'s shard")
 
 
-def test_cli_resume_under_tp_continues(runs):
+def test_cli_resume_under_tp_continues(runs, monkeypatch):
     """The resumed run (step 3) on both ranks equals one process trained
     and resumed alike through the CLI on the same rows (atol 1e-6)."""
     from mas_tpu_torch import cli
@@ -604,8 +604,8 @@ def test_cli_resume_under_tp_continues(runs):
     assert r0["resumed_writes"] == [3] and r1["resumed_writes"] == []
     for out in (r0["stdout"], r1["stdout"]):
         assert "resumed from step 2" in out and "trained to step 3" in out
-    os.chdir(runs["tmp"])
-    sys.modules["torch.utils.tensorboard"] = None
+    monkeypatch.chdir(runs["tmp"])
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     with contextlib.redirect_stdout(io.StringIO()):
         for name in ("one", "one_resumed"):
             cli.main(["--config", runs["specs"]["cli"][name],
@@ -620,7 +620,7 @@ def test_cli_resume_under_tp_continues(runs):
              "ranks' final shards")
 
 
-def test_cli_seg_on_the_grid_matches_one_process(runs):
+def test_cli_seg_on_the_grid_matches_one_process(runs, monkeypatch):
     """``--mode pretrain_segmentation`` at 1 x 2: the VQ model replicated
     over the model axis, both ranks on the same rows, bitwise equal to each
     other and equal to one process on that data share up to the CPU
@@ -639,7 +639,8 @@ def test_cli_seg_on_the_grid_matches_one_process(runs):
         states.append(real(*a, **kw))
         return states[-1]
 
-    os.chdir(runs["tmp"])
+    monkeypatch.chdir(runs["tmp"])
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     loop._loop = run
     try:
         with contextlib.redirect_stdout(io.StringIO()):
