@@ -11,13 +11,13 @@
 
 ``serve`` (default), for each batch size (prompts; guidance doubles the
 decode rows): prefill plus cache seeding, the decode step on the host
-clock, the device-busy time of decode steps from ``torch.profiler`` (sum
-of kernel times) and the idle share it leaves, the kernels that take the
-most device time, and the VQ decode of all images.  Decode steps are
-profiled in two windows: from step 8, where the cache holds little more
-than the prefix, and from the middle of the image, where a read covers
-the prefix and half the image (at 512^2, ~900 of 1408 positions: the
-average over a sample).  Any sampling config serves: the float cache of
+clock, the device-busy time of decode steps from ``torch.profiler`` (the
+union of the device's activity intervals) and the idle share it leaves,
+the kernels that take the most device time, and the VQ decode of all
+images.  Decode steps are profiled in two windows: from step 8, where the
+cache holds little more than the prefix, and from the middle of the
+image, where a read covers the prefix and half the image (at 512^2, ~900
+of 1408 positions: the average over a sample).  Any sampling config serves: the float cache of
 a 512^2 config, e.g. README's, or ``kv_cache_layout: "packed"``.
 
 ``train``: the VQ-SEG micro-step in the quantize phase (counter past
@@ -89,12 +89,42 @@ ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
               torch.profiler.ProfilerActivity.CUDA]
 
 
+def _annotation(ev) -> bool:
+    """A user annotation's range, by the event's kind where torch reports
+    it (torch 2.11's events do not: there, program spans by their
+    prefix)."""
+    kind = getattr(ev, "activity_type", None)
+    if kind is not None:
+        return kind().endswith("user_annotation")
+    return ev.name().startswith("mas.")
+
+
+def device_busy_us(events) -> float:
+    """Microseconds in which the device ran anything, from a profile's
+    kineto events: the union of its activity intervals (kernels, copies,
+    sets), so overlapping kernels count once; ranges that user annotations
+    (``record_function``, program spans) leave on the device's timeline
+    are not work."""
+    cuda = torch.autograd.DeviceType.CUDA
+    intervals = sorted(
+        (ev.start_ns() / 1e3, (ev.start_ns() + ev.duration_ns()) / 1e3)
+        for ev in events
+        if ev.device_type() == cuda and not _annotation(ev))
+    busy, end = 0.0, float("-inf")
+    for start, stop in intervals:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
 def summary(prof, host: float, steps: int) -> dict:
     """``_profile``'s result from a finished profile of ``steps`` calls
     and their host ms per call."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    events = prof.profiler.kineto_results.events()
+    busy = device_busy_us(events) / 1e3 / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     ported = {}
     for e in kernels:

@@ -17,7 +17,10 @@ Counterpart of ``mas_tpu/models/sampler.py`` (default branch of
     random draws come from an explicit ``torch.Generator``.
 
 The decode loop is a Python loop; capturing a step in a CUDA graph is
-later work (ROADMAP A5).
+later work (ROADMAP A5).  Program spans (``utils/spans.py``, off unless
+turned on) mark one ``sample_images`` call (``sample``), and in it the
+prefill, cache seeding, each decode step, each sampling head and each VQ
+decode chunk.
 
 Under tensor parallelism (a model built with ``shard``, in a launched
 world) each step's vocab-parallel logits are gathered over the model
@@ -34,6 +37,7 @@ from typing import Optional
 import torch
 
 from ..parallel.collectives import gather_vocab
+from ..utils.spans import span
 from .transformer import MakeAScene
 from .vqvae import VQModel
 
@@ -84,18 +88,21 @@ def sample_tokens(model: MakeAScene, text_tokens: torch.Tensor,
         text_all, seg_all = text_tokens, seg_tokens
     copies = text_all.shape[0] // b
 
+    def head(logits):
+        """The sampling head: vocab gather, guidance mix, draw."""
+        with span("sample_head"):
+            return _sample_logits(
+                _guided(_full_vocab(model, logits), b, guidance_scale),
+                generator, temperature, top_k)
+
     logits, kvs = model.prefill(text_all, seg_all)
     caches = model.allocate_caches(kvs, text_all.shape[0])
     del kvs
-    logits = _full_vocab(model, logits)
-    tok = _sample_logits(_guided(logits, b, guidance_scale), generator,
-                         temperature, top_k)
+    tok = head(logits)
     tokens = [tok]
     for step in range(cfg.image_length - 1):
         tok_in = tok.repeat(copies)[:, None]           # feed both halves
-        logits = _full_vocab(model, model.decode_step(tok_in, step, caches))
-        tok = _sample_logits(_guided(logits, b, guidance_scale), generator,
-                             temperature, top_k)
+        tok = head(model.decode_step(tok_in, step, caches))
         tokens.append(tok)
     return torch.stack(tokens, dim=1)
 
@@ -110,13 +117,14 @@ def sample_images(transformer: MakeAScene, vq_img: VQModel,
     ``decode_code`` in chunks of ``decode_chunk`` images; None on a
     tensor-parallel model rank other than 0 (it samples, rank 0
     decodes)."""
-    tokens = sample_tokens(transformer, text_tokens, seg_tokens, generator,
-                           guidance_scale=guidance_scale,
-                           temperature=temperature, top_k=top_k)
-    if transformer.shard[0] != 0:
-        return None
-    d = transformer.cfg.image_tokens_per_dim
-    grid = tokens.reshape(-1, d, d)
-    step = decode_chunk or grid.shape[0]
-    return torch.cat([vq_img.decode_code(grid[i:i + step])
-                      for i in range(0, grid.shape[0], step)])
+    with span("sample"):
+        tokens = sample_tokens(transformer, text_tokens, seg_tokens,
+                               generator, guidance_scale=guidance_scale,
+                               temperature=temperature, top_k=top_k)
+        if transformer.shard[0] != 0:
+            return None
+        d = transformer.cfg.image_tokens_per_dim
+        grid = tokens.reshape(-1, d, d)
+        step = decode_chunk or grid.shape[0]
+        return torch.cat([vq_img.decode_code(grid[i:i + step])
+                          for i in range(0, grid.shape[0], step)])

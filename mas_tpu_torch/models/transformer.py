@@ -97,6 +97,7 @@ from ..parallel.collectives import (copy_to_model, max_over_model,
                                     reduce_from_model)
 from ..parallel.sharding import check_shardable, kv_heads_of, shard_state
 from ..utils.config import TransformerConfig
+from ..utils.spans import span
 from .vqvae import compute_dtype
 
 # per layer: (k, v) float or lane caches, or (packed cache, None), as the
@@ -601,9 +602,10 @@ class MakeAScene(nn.Module):
     def prefill(self, text_tokens, seg_tokens):
         """Run the text+seg prefix -> (logits [B, vocab] for the first image
         token, per-layer (k, v) [B, kv_heads, prefix, hd])."""
-        h, kvs = self._backbone(self.embed_prefix(text_tokens, seg_tokens),
-                                keep_kv=True)
-        return self._logits(h[:, -1:, :])[:, 0], kvs
+        with span("prefill"):
+            h, kvs = self._backbone(
+                self.embed_prefix(text_tokens, seg_tokens), keep_kv=True)
+            return self._logits(h[:, -1:, :])[:, 0], kvs
 
     def allocate_caches(self, prefill_kv: Sequence, batch: int) -> KVCache:
         """Full-length caches of this rank's kv heads seeded with the
@@ -613,6 +615,10 @@ class MakeAScene(nn.Module):
         ``kv_scale_dtype``) or, with ``kv_cache_layout: "packed"``, in one
         packed cache per layer.  They are allocated once and written in
         place by ``decode_step``."""
+        with span("cache_seed"):
+            return self._seeded_caches(prefill_kv, batch)
+
+    def _seeded_caches(self, prefill_kv: Sequence, batch: int) -> KVCache:
         cfg = self.cfg
         total = cfg.total_length
         if cfg.kv_cache_dtype == "compute":
@@ -643,10 +649,11 @@ class MakeAScene(nn.Module):
         """img_token [B, 1] generated at image position ``step``; writes its
         k/v at prefix + step into ``caches`` (in place) and returns the
         logits [B, vocab] for position step + 1."""
-        cfg = self.cfg
-        x = self.embed_image(img_token, past_length=step)
-        index = torch.full((1,), cfg.prefix_length + step, dtype=torch.int32,
-                           device=x.device)
-        for layer, (k_cache, v_cache) in zip(self.transformer.layers, caches):
-            x = layer.decode(x, k_cache, v_cache, index)
-        return self._logits(self._final_ln(x))[:, 0]
+        with span("decode_step"):
+            x = self.embed_image(img_token, past_length=step)
+            index = torch.full((1,), self.cfg.prefix_length + step,
+                               dtype=torch.int32, device=x.device)
+            for layer, (k_cache, v_cache) in zip(self.transformer.layers,
+                                                 caches):
+                x = layer.decode(x, k_cache, v_cache, index)
+            return self._logits(self._final_ln(x))[:, 0]

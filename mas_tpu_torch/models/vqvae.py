@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from ..utils.config import VQModelConfig
+from ..utils.spans import span
 from .codebook import Codebook, lookup, quantize_eval
 from .layers import (AttnBlock, Downsample, GroupNormSwish, ResnetBlock,
                      SyncBatchNorm, Upsample, conv)
@@ -220,8 +221,9 @@ class VQModel(nn.Module):
 
     def decode_code(self, indices: torch.Tensor) -> torch.Tensor:
         """Token indices [B, h, w] -> NHWC fp32 image."""
-        return self.decode_latent(
-            lookup(indices, self.quantize.embedding.weight))
+        with span("vq_decode"):
+            return self.decode_latent(
+                lookup(indices, self.quantize.embedding.weight))
 
     def reconstruct(self, x: torch.Tensor,
                     quantize: bool = True) -> torch.Tensor:

@@ -31,6 +31,7 @@ from ..models.transformer import MakeAScene
 from ..models.vqvae import VQModel
 from ..parallel.collectives import mean_
 from ..utils.config import OptimizerConfig, TransformerConfig, VQModelConfig
+from ..utils.spans import span
 from ..utils.weights import init_random_
 
 
@@ -55,6 +56,10 @@ class Adam:
     def step(self, grads: Sequence[torch.Tensor]) -> bool:
         """Take one micro-step with ``grads`` (in ``params`` order);
         returns True when the parameters were updated."""
+        with span("adam"):
+            return self._step(grads)
+
+    def _step(self, grads: Sequence[torch.Tensor]) -> bool:
         grads = dict(zip(self.params, grads))
         if self.every_k > 1:
             n = self.mini_step

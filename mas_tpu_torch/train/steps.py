@@ -32,6 +32,11 @@ cross-entropy (``parallel.collectives.vocab_parallel_cross_entropy``),
 the same value on every rank of the model group.  Every rank draws from
 the same generator in the same order, so CFG dropout's one draw a step
 agrees across the grid.
+
+Program spans (``utils/spans.py``, off unless turned on): each train
+step runs inside ``train_step``, the transformer's loss inside
+``forward``, every stage's backward (``_grads``) inside ``backward`` and
+Adam inside ``adam``.
 """
 
 from __future__ import annotations
@@ -52,16 +57,29 @@ from ..models.vqvae import VQModel
 from ..parallel.collectives import (reduce_metrics,
                                     vocab_parallel_cross_entropy)
 from ..utils.config import SegLossConfig, VQGANLossConfig
+from ..utils.spans import span
 from .state import Adam, TransformerTrainState, VQTrainState
 
 
 def _grads(loss: torch.Tensor, model: torch.nn.Module) -> List[torch.Tensor]:
     """d loss / d parameter, in ``model.named_parameters()`` order; zeros
     for a parameter the loss does not reach."""
-    params = list(model.parameters())
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(params, grads)]
+    with span("backward"):
+        params = list(model.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(params, grads)]
+
+
+def _spanned(step: Callable) -> Callable:
+    """``step`` inside the ``train_step`` span, the root of the spans of
+    one step (``utils/spans.py``)."""
+
+    def spanned(*args, **kwargs) -> Dict:
+        with span("train_step"):
+            return step(*args, **kwargs)
+
+    return spanned
 
 
 def seg_loss_and_grads(model: VQModel, vq_state: CodebookState,
@@ -113,7 +131,7 @@ def make_seg_train_step(model: VQModel, opt: Adam,
             metrics["centroids"] = aux["emb_writeback"]
         return reduce_metrics(metrics)
 
-    return step
+    return _spanned(step)
 
 
 def make_seg_eval_step(model: VQModel) -> Callable:
@@ -221,7 +239,7 @@ def make_img_train_step(model: VQModel, disc: PatchDiscriminator, opt: Adam,
             metrics["centroids"] = aux["emb_writeback"]
         return reduce_metrics(metrics)
 
-    return step
+    return _spanned(step)
 
 
 def transformer_loss(model: MakeAScene, text: torch.Tensor,
@@ -229,11 +247,13 @@ def transformer_loss(model: MakeAScene, text: torch.Tensor,
     """Mean cross-entropy of the fp32 image-position logits against the
     image tokens (``mas_tpu/train/steps.py:266-270``); vocab-parallel on a
     tensor-parallel model."""
-    logits = model(text, seg, img)
-    logits, target = logits.reshape(-1, logits.shape[-1]), img.reshape(-1)
-    if model.shard[1] > 1:
-        return vocab_parallel_cross_entropy(logits, target)
-    return F.cross_entropy(logits, target.long())
+    with span("forward"):
+        logits = model(text, seg, img)
+        logits, target = (logits.reshape(-1, logits.shape[-1]),
+                          img.reshape(-1))
+        if model.shard[1] > 1:
+            return vocab_parallel_cross_entropy(logits, target)
+        return F.cross_entropy(logits, target.long())
 
 
 def transformer_loss_and_grads(model: MakeAScene, text: torch.Tensor,
@@ -268,4 +288,4 @@ def make_transformer_train_step(model: MakeAScene, opt: Adam,
         state.step += 1
         return reduce_metrics(dict(loss=loss, uncond=drop))
 
-    return step
+    return _spanned(step)
