@@ -51,13 +51,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      (``kv_cache_dtype`` "compute"), the ``model`` section of
      ``configs/img_512.json`` (seeded random weights) and the sampling
      keys of ``configs/sample_256.json``, built in memory
-     (``sample_512_raw``); exact launch counts (B1 24, B9 24 x 1023, B2 =
-     B3 = B10 = 0), teacher-forced logits through the kernels against the
-     twins, end-to-end s and img/s at batch 4 and 64;
+     (``sample_512_raw``); exact launch counts (B1 24, B9 24 x 2: phase
+     18; B2 = B3 = B10 = 0), teacher-forced logits through the kernels
+     against the twins, end-to-end s and img/s at batch 4 and 64;
   9. serve 256^2 images over the packed int4 cache (``configs/
      sample_256.json`` with ``kv_cache_layout: "packed"``) at batch 4:
-     exact counts (B10 = B2 = 24 x 255, B3 = 0), and greedy tokens equal to
-     the lane cache's on the same weights;
+     exact counts (B10 = B2 = 24 x 2, B3 = 0: phase 18), and greedy tokens
+     equal to the lane cache's on the same weights;
  10. the producer-fused LayerNorm harness of ``benchmarks/ln_producer.py``
      at its shape (rows 16 x 1408, d 1024, bf16, 20 chained steps of
      ``x + LN(a + b) @ W``): parity, then the plain and the B11 path,
@@ -175,6 +175,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      the packed and dense micro-steps' ms, one batch's host-to-device
      copy as an fp32 mask and as packed labels from pageable and pinned
      memory, and the cached loop's batches/s dense and packed.
+ 18. the decode step replayed from a CUDA graph (``models/
+     decode_graph.py``): ``configs/sample_256.json`` over the int4 lane
+     cache, the packed int4 cache and with ``num_kv_heads: 4``, and the
+     512^2 float-cache configuration of phase 8, each at full width and
+     depth with seeded random weights at batch 4, through ``sample_tokens``
+     at top-k 1 with the graph and with the step's body run eagerly, in
+     turns: equal tokens, every step's logits bitwise equal, one eager
+     step and one capture a run with every other step replayed
+     (engagement 254/255 at 256^2, 1022/1023 at 512^2).  Prints the host
+     seconds of each run.  Phases 4, 8, 9 and 14 hold the same engagement,
+     and their exact decode-kernel counts are the launches of one step
+     times the eager steps plus the captures (a replay counts none);
+     phase 16's ranks decode eagerly (gloo's all-reduces cannot be
+     captured).
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -2136,15 +2150,42 @@ def wrappers() -> dict:
 
 
 def reset_counts() -> None:
+    from mas_tpu_torch.models.decode_graph import DecodeGraph
+
     for fns in wrappers().values():
         for fn in fns:
             fn.launches = 0
+    DecodeGraph.captures = DecodeGraph.replays = DecodeGraph.eager = 0
 
 
 def read_counts() -> dict:
-    """Launches since ``reset_counts``, per kernel id."""
+    """Launches since ``reset_counts``, per kernel id: a decode step's
+    launches count at its capture or eager run, none at a replay."""
     return {k: sum(fn.launches for fn in fns)
             for k, fns in wrappers().items()}
+
+
+def read_steps() -> dict:
+    """Decode steps since ``reset_counts`` by how they ran
+    (``models/decode_graph.py``)."""
+    from mas_tpu_torch.models.decode_graph import DecodeGraph
+
+    return dict(captures=DecodeGraph.captures, replays=DecodeGraph.replays,
+                eager=DecodeGraph.eager)
+
+
+def counted_steps(runs: int, steps: int, what: str) -> int:
+    """The decode steps whose launches the wrappers counted in ``runs``
+    sampling runs of ``steps`` steps since ``reset_counts``: in each run
+    step 0 runs eagerly and step 1 captures the graph that steps 1 to
+    ``steps`` - 1 replay (engagement: replays / steps = (steps - 1) /
+    steps); raise unless they ran so.  A decode kernel's exact count is
+    its launches a step times eager steps plus captures."""
+    got = read_steps()
+    want = dict(captures=runs, replays=runs * (steps - 1), eager=runs)
+    require(got == want, f"{what}: decode steps ran as {got}, expected "
+            f"{want}")
+    return got["eager"] + got["captures"]
 
 
 def phase_kernels(gen) -> list:
@@ -2208,13 +2249,14 @@ def phase_slice(gen) -> dict:
     imgs, secs = run_slice(raw, transformer, vq, text, seg, seed=1)
     counts = read_counts()
     print(f"slice: images {tuple(imgs.shape)} in {secs:.2f} s (first run, "
-          f"includes kernel JIT); launches {counts}")
+          f"includes kernel JIT); launches {counts}; decode steps "
+          f"{read_steps()}")
     require(tuple(imgs.shape) == (4, 256, 256, 3), f"image shape "
             f"{tuple(imgs.shape)}")
     require(bool(torch.isfinite(imgs).all()), "images are finite")
-    steps = cfg.image_length - 1
-    floors = {"B1": cfg.num_layers, "B2": cfg.num_layers * steps,
-              "B3": cfg.num_layers * steps, "B4": n_gns}
+    stepped = counted_steps(1, cfg.image_length - 1, "slice")
+    floors = {"B1": cfg.num_layers, "B2": cfg.num_layers * stepped,
+              "B3": cfg.num_layers * stepped, "B4": n_gns}
     for kid, floor in floors.items():
         require(counts[kid] >= floor, f"{kid} launched {counts[kid]} times "
                 f"on the serving path, expected >= {floor}")
@@ -2861,8 +2903,8 @@ def phase_serve_512(gen, smi: str, checkpoint: str) -> dict:
     require(tuple(imgs.shape) == (4, 512, 512, 3), f"image shape "
             f"{tuple(imgs.shape)}")
     require(bool(torch.isfinite(imgs).all()), "images are finite")
-    steps = cfg.image_length - 1
-    want = {"B1": cfg.num_layers, "B9": cfg.num_layers * steps, "B2": 0,
+    stepped = counted_steps(1, cfg.image_length - 1, "serve 512^2")
+    want = {"B1": cfg.num_layers, "B9": cfg.num_layers * stepped, "B2": 0,
             "B3": 0, "B10": 0}
     for kid, n in want.items():
         require(counts[kid] == n, f"{kid} launched {counts[kid]} times on "
@@ -2914,8 +2956,9 @@ def phase_packed(gen, smi: str) -> dict:
     require(tuple(imgs.shape) == (4, 256, 256, 3)
             and bool(torch.isfinite(imgs).all()), "packed: images")
     steps = cfg.image_length - 1
-    want = {"B1": cfg.num_layers, "B10": cfg.num_layers * steps,
-            "B2": cfg.num_layers * steps, "B3": 0, "B9": 0}
+    stepped = counted_steps(1, steps, "packed")
+    want = {"B1": cfg.num_layers, "B10": cfg.num_layers * stepped,
+            "B2": cfg.num_layers * stepped, "B3": 0, "B9": 0}
     for kid, n in want.items():
         require(counts[kid] == n, f"{kid} launched {counts[kid]} times on "
                 f"the packed path, expected {n}")
@@ -4268,10 +4311,11 @@ def serve_variant(gen, smi: str, what: str, raw: dict, batches) -> dict:
         res = vq.cfg.resolution
         require(tuple(imgs.shape) == (batch, res, res, 3)
                 and bool(torch.isfinite(imgs).all()), f"{what}: images")
+        stepped = layers * counted_steps(1, steps, f"{what} batch {batch}")
         want = {k: 0 for k in counts}
         want.update(B1=layers, B4=n_gns * -(-batch // 32))
-        want.update({"B2": layers * steps, "B3": layers * steps}
-                    if quantized else {"B9": layers * steps})
+        want.update({"B2": stepped, "B3": stepped}
+                    if quantized else {"B9": stepped})
         exact_counts(counts, want, f"{what} batch {batch}")
         print(f"{what} batch {batch}: images {tuple(imgs.shape)} in "
               f"{secs:.3f} s ({batch / secs:.3f} img/s"
@@ -4961,7 +5005,8 @@ def tp_serve(raw: dict, clock: dict, logits_path: str) -> dict:
     c0 = clock["ms"]
     with mock.patch.object(sampler, "sample_tokens", capture):
         imgs, secs = run_slice(raw, transformer, vq, text, seg, seed=1)
-    out = dict(counts=read_counts(), secs=secs, coll_ms=clock["ms"] - c0)
+    out = dict(counts=read_counts(), steps=read_steps(), secs=secs,
+               coll_ms=clock["ms"] - c0)
     out["n_gns"] = count_gns(vq.decoder)
     out["tokens"] = tokens["t"].cpu().tolist()
     out["images"] = (None if imgs is None else
@@ -5197,6 +5242,9 @@ def phase_tensor_parallel(smi: str, tmp: str) -> dict:
     require(s0["tokens"] == s1["tokens"], "tp: the ranks sampled other "
             "tokens")
     for r, srv in enumerate((s0, s1)):
+        # gloo's all-reduces cannot be captured: every step runs eagerly
+        require(srv["steps"] == dict(captures=0, replays=0, eager=steps),
+                f"tp serving rank {r}: decode steps ran as {srv['steps']}")
         # model rank 0 alone decodes the images (B4)
         exact_counts(srv["counts"],
                      dict(B1=tcfg.num_layers, B2=tcfg.num_layers * steps,
@@ -5447,6 +5495,127 @@ def phase_scenes(smi: str, tmp: str) -> dict:
     return counts
 
 
+# --- phase 18: the decode step replayed from a CUDA graph --------------------
+
+def graph_raws() -> list:
+    """Phase 18's serving configurations at full width and depth: 256^2
+    over the int4 lane cache, the packed int4 cache and GQA-4's int4 lane
+    cache, and 512^2 over the float cache (B9)."""
+    with open(CONFIG) as f:
+        raw = json.load(f)
+    t = raw["transformer"]
+    return [("256^2 int4 lane", raw),
+            ("256^2 int4 packed",
+             dict(raw, transformer=dict(t, kv_cache_layout="packed"))),
+            ("256^2 GQA-4 int4 lane",
+             dict(raw, transformer=dict(t, num_kv_heads=4))),
+            ("512^2 float (B9)", sample_512_raw())]
+
+
+@contextlib.contextmanager
+def eager_decode(model):
+    """``model.decode_step`` as ``decode_body`` run eagerly on the current
+    stream, its position in a device tensor of its own: the step without
+    the graph."""
+    pos = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+
+    def step(tok, s, caches):
+        pos.fill_(s)
+        return model.decode_body(tok, pos, caches)
+
+    with mock.patch.object(model, "decode_step", step):
+        yield
+
+
+def greedy_run(model, text, seg) -> tuple:
+    """``sample_tokens`` at top-k 1 with guidance 3.0: (tokens, every
+    step's logits [steps, 2B, V], host seconds, decode steps as they
+    ran)."""
+    from mas_tpu_torch.models.sampler import sample_tokens
+
+    kept = []
+    inner = model.decode_step
+
+    def keep(*args):
+        kept.append(inner(*args))
+        return kept[-1]
+
+    reset_counts()
+    with mock.patch.object(model, "decode_step", keep):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = sample_tokens(model, text, seg,
+                             torch.Generator(device=DEVICE).manual_seed(0),
+                             guidance_scale=3.0, top_k=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return toks, torch.stack(kept), secs, read_steps()
+
+
+def phase_decode_graph(smi: str) -> dict:
+    """Each of ``graph_raws``' configurations at batch 4 (seeded random
+    weights, phase 4's captions): ``sample_tokens`` at top-k 1 with the
+    decode step replayed from its CUDA graph and with the step's body run
+    eagerly, in turns (graph, eager, graph, eager); the tokens must be
+    equal and every step's logits bitwise equal (the same kernels on the
+    same values in the same order), and each graph run must have run step
+    0 eagerly and captured one graph that the other steps replay.  Prints
+    the engagement (replays / steps), the host seconds of each run and the
+    B2/B3/B9/B10 launches the wrappers counted.  Returns the launch counts
+    of the first graph run of each configuration."""
+    from mas_tpu_torch.cli import load_transformer, prompt_tokens
+    from mas_tpu_torch.utils.config import TransformerConfig
+
+    t0 = time.perf_counter()
+    total = {}
+    for what, raw in graph_raws():
+        tcfg = TransformerConfig.from_dict(raw["transformer"])
+        gen = torch.Generator(device=DEVICE).manual_seed(18)
+        model = load_transformer(tcfg, None, DEVICE, gen)
+        text, seg = (torch.from_numpy(a).to(DEVICE) for a in prompt_tokens(
+            raw, tcfg, raw["train"]["batch_size"]))
+        steps = tcfg.image_length - 1
+        runs = []
+        for graphed in (True, False, True, False):
+            with (contextlib.nullcontext() if graphed
+                  else eager_decode(model)):
+                runs.append(greedy_run(model, text, seg))
+            if graphed and len(runs) == 1:
+                counts = read_counts()
+                total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        (tg, lg, sg, stg), (te, le, se, ste) = runs[0], runs[1]
+        diff = float((lg - le).abs().max())
+        print(f"decode graph, {what}, batch 4, {steps} steps, top-k 1: "
+              f"tokens equal {torch.equal(tg, te)}, logits bitwise equal "
+              f"{torch.equal(lg, le)} (max |d| {diff:.3e} of max |logit| "
+              f"{float(le.abs().max()):.3e}); graph run steps {stg}, "
+              f"engagement {stg['replays']}/{steps}; eager run steps {ste}; "
+              f"host s graph {runs[0][2]:.3f}, {runs[2][2]:.3f}, eager "
+              f"{runs[1][2]:.3f}, {runs[3][2]:.3f}; launches counted in the "
+              f"graph run "
+              f"{ {k: v for k, v in counts.items() if v} } [{smi}]")
+        want = dict(captures=1, replays=steps - 1, eager=1)
+        require(stg == want and runs[2][3] == want,
+                f"{what}: graph runs' decode steps {stg}, {runs[2][3]}, "
+                f"expected {want}")
+        require(ste == runs[3][3] == dict(captures=0, replays=0, eager=0),
+                f"{what}: the eager runs went through the graph: {ste}")
+        require(torch.equal(tg, te) and torch.equal(runs[2][0], te),
+                f"{what}: graph and eager tokens differ")
+        require(torch.equal(lg, le) and torch.equal(runs[2][1], le),
+                f"{what}: graph and eager logits differ (max |d| {diff})")
+        read = "B9" if tcfg.kv_cache_dtype == "compute" else "B2"
+        require(counts[read] == 2 * tcfg.num_layers,
+                f"{what}: {read} counted {counts[read]} launches in the "
+                f"graph run, expected {2 * tcfg.num_layers} (step 0 and the "
+                f"capture)")
+        del model, runs, lg, le
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 18 (decode graph) took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main(argv) -> int:
     modes = {"--decode-times": decode_times, "--norm-times": norm_times,
              "--vq-times": vq_times, "--vq-paths": vq_paths,
@@ -5489,6 +5658,7 @@ def main(argv) -> int:
         paths.append(phase_parallel(smi, os.path.join(tmp, "parallel")))
         paths.append(phase_tensor_parallel(smi, os.path.join(tmp, "tp")))
         paths.append(phase_scenes(smi, os.path.join(tmp, "scenes")))
+        paths.append(phase_decode_graph(smi))
     for row in rows:
         row["launches"] = sum(counts[row["id"]] for counts in paths)
         require(row["launches"] > 0, f"{row['id']} launched on no path")

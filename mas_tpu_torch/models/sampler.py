@@ -16,8 +16,10 @@ Counterpart of ``mas_tpu/models/sampler.py`` (default branch of
     values, with the exact ``torch.topk`` (the JAX ``approx=False`` path);
     random draws come from an explicit ``torch.Generator``.
 
-The decode loop is a Python loop; capturing a step in a CUDA graph is
-later work (ROADMAP A5).  Program spans (``utils/spans.py``, off unless
+The decode loop is a Python loop; on the card each step from step 1 on is
+one replay of a CUDA graph of ``MakeAScene.decode_body``
+(``models/decode_graph.py``), and the sampling head between steps runs
+eagerly.  Program spans (``utils/spans.py``, off unless
 turned on) mark one ``sample_images`` call (``sample``), and in it the
 prefill, cache seeding, each decode step, each sampling head and each VQ
 decode chunk.

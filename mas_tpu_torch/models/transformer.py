@@ -48,6 +48,8 @@ kind (``allocate_caches``):
     over strided views of the packed buffer (``ops/decode_cache.py``).
 With ``layernorm_impl: "pallas"`` every LayerNorm of at least 4096 rows is
 B7 (``ops/layer_norm.py``).  CPU tensors take the kernels' plain twins.
+On the card every decode step of a batch but the first is replayed from a
+CUDA graph (``models/decode_graph.py``).
 
 Parameters use the reference ``state_dict`` keys
 (``transformer.layers.{i}.attn.qkv`` ...), the layout the JAX package's
@@ -98,6 +100,7 @@ from ..parallel.collectives import (copy_to_model, max_over_model,
 from ..parallel.sharding import check_shardable, kv_heads_of, shard_state
 from ..utils.config import TransformerConfig
 from ..utils.spans import span
+from .decode_graph import DecodeGraph
 from .vqvae import compute_dtype
 
 # per layer: (k, v) float or lane caches, or (packed cache, None), as the
@@ -493,6 +496,7 @@ class MakeAScene(nn.Module):
             check_shardable(cfg, size)
         self.cfg = cfg
         self.shard = (index, size)
+        self._decode_graph = DecodeGraph()
         self.dtype = compute_dtype(cfg.compute_dtype)
         d = cfg.hidden_dim
         emb = functools.partial(Embed, compute_dtype=self.dtype)
@@ -527,9 +531,8 @@ class MakeAScene(nn.Module):
 
     # --- embeddings ---------------------------------------------------------
 
-    def _pos(self, n: int, offset: int = 0) -> torch.Tensor:
-        return torch.arange(offset, offset + n,
-                            device=self.text_pos_embeddings.weight.device)
+    def _pos(self, n: int) -> torch.Tensor:
+        return torch.arange(n, device=self.text_pos_embeddings.weight.device)
 
     def embed_text(self, text_tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -547,9 +550,13 @@ class MakeAScene(nn.Module):
                 + self.seg_col_embeddings(pos % n))
 
     def embed_image(self, img_tokens: torch.Tensor,
-                    past_length: int = 0) -> torch.Tensor:
+                    pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Image tokens at image positions ``pos`` (a device tensor;
+        default 0, 1, ...): the row and column embeddings of pos // n and
+        pos % n."""
         n = self.cfg.image_tokens_per_dim
-        pos = self._pos(img_tokens.shape[-1], past_length)
+        if pos is None:
+            pos = self._pos(img_tokens.shape[-1])
         return (self.image_token_embedding(img_tokens.long())
                 + self.image_row_embeddings(pos // n)
                 + self.image_col_embeddings(pos % n))
@@ -648,12 +655,24 @@ class MakeAScene(nn.Module):
                     caches: KVCache) -> torch.Tensor:
         """img_token [B, 1] generated at image position ``step``; writes its
         k/v at prefix + step into ``caches`` (in place) and returns the
-        logits [B, vocab] for position step + 1."""
+        logits [B, vocab] for position step + 1, which later steps do not
+        overwrite.  ``decode_body`` runs through ``models/decode_graph.py``:
+        replayed from a CUDA graph from step 1 on the card, eagerly on the
+        CPU and under tensor parallelism."""
         with span("decode_step"):
-            x = self.embed_image(img_token, past_length=step)
-            index = torch.full((1,), self.cfg.prefix_length + step,
-                               dtype=torch.int32, device=x.device)
-            for layer, (k_cache, v_cache) in zip(self.transformer.layers,
-                                                 caches):
-                x = layer.decode(x, k_cache, v_cache, index)
-            return self._logits(self._final_ln(x))[:, 0]
+            return self._decode_graph.run(self.decode_body, img_token, step,
+                                          caches, self.shard[1] > 1)
+
+    def decode_body(self, img_token: torch.Tensor, pos: torch.Tensor,
+                    caches: KVCache) -> torch.Tensor:
+        """The decode step at the image position held in ``pos`` (a
+        1-element int32 tensor on the model's device): the embeddings of
+        pos // n and pos % n and the cache index prefix + pos are computed
+        there, so the step reads no host value of the position and a CUDA
+        graph can replay it."""
+        x = self.embed_image(img_token, pos)
+        index = pos + self.cfg.prefix_length
+        for layer, (k_cache, v_cache) in zip(self.transformer.layers,
+                                             caches):
+            x = layer.decode(x, k_cache, v_cache, index)
+        return self._logits(self._final_ln(x))[:, 0]
