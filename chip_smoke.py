@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      print each kernel's registers and fail if a tensor-core, decode,
      cache-write, LayerNorm, GroupNorm or VQ kernel spills, or a bf16
      flash kernel or B5's bf16 kernel has no tensor-core instruction;
-  3. hold each hand-written kernel (B1-B11) against its plain PyTorch
+  3. hold each hand-written kernel (B1-B12) against its plain PyTorch
      twin on the card at the main paths' shapes (the attention kernels
      also at head dims 32 to 512, padded and odd ones included, the decode
      reads over the edges of their split, the cache writes bit for bit at
@@ -189,6 +189,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      times the eager steps plus the captures (a replay counts none);
      phase 16's ranks decode eagerly (gloo's all-reduces cannot be
      captured).
+ 19. LFM2-8B-A1B's hybrid block as the stage-2 transformer
+     (``perfbench/configs/lfm2_8b_a1b_256.json``: 18 short-conv and 6 GQA
+     layers, 32 experts top-4, int4 lane cache) at its published widths,
+     seeded weights, batch 4, through ``sample_tokens`` with the graph and
+     eagerly in turns, as phase 18 (equal tokens, bitwise logits, 254/255
+     replays), with exact B1/B2/B3/B12 counts and the routed pairs the
+     device counters hold.  Phase 3 holds B12 against its twin at a decode
+     step's 768 rows and a prefill chunk of 65,536 tokens, and times it
+     beside one cuBLAS product a projection and expert.
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -215,6 +224,11 @@ for B5 (VQ argmin) at the tokenization and seg training shapes, and
 
 profiles the two paths that B4 and B5 carry outside training:
 tokenization of 8 x 512^2 images and the VQ decode of 4 256^2 images, and
+
+    python3 chip_smoke.py --hybrid
+
+runs the build's checks, phase 3's B12 check, B2 and B3 at the LFM2
+cell's shapes and phase 19 alone, and
 
     python3 chip_smoke.py --mha-outputs DIR
 
@@ -419,7 +433,7 @@ def phase_build() -> None:
 # kernels that must not spill registers to local memory
 NO_SPILL_KERNELS = ("_bf16", "decode_quant_kernel", "decode_float_kernel",
                     "kv_write_", "layer_norm_", "gn_swish_bwd_kernel",
-                    "gn_swish_fwd_kernel", "vq_argmin_")
+                    "gn_swish_fwd_kernel", "vq_argmin_", "moe_swiglu_")
 
 
 def spill_check(log: str) -> None:
@@ -444,10 +458,11 @@ def spill_check(log: str) -> None:
     require(not bad, f"register spills in {bad}")
 
 
-# the bf16 flash kernels and B5's bf16 kernel must run their products on
-# the tensor cores
+# the bf16 flash kernels, B5's bf16 kernel and B12 must run their products
+# on the tensor cores
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel_bf16", "flash_bwd_dkv_kernel_bf16",
-                       "flash_bwd_dq_kernel_bf16", "vq_argmin_mma_kernel")
+                       "flash_bwd_dq_kernel_bf16", "vq_argmin_mma_kernel",
+                       "moe_swiglu_kernel")
 
 
 def sass_check(lib, nvcc: str) -> None:
@@ -723,43 +738,60 @@ def b2_gqa_times(gen, rows: int, g: int, scale_dtype) -> dict:
     return out
 
 
+# the LFM2 cell's grouped read: 768 guided rows, 32 query heads over 8 kv
+# heads of 64, int4, fp32 scales
+B2_LFM2 = (768, 32, 4, 64, 4, torch.float32)
+
+
+def _held_grouped_read(gen, rows, h, g, d, bits, sd, t=640) -> float:
+    """B2 over q [rows, h, 1, d] (bf16 and fp32) and int``bits`` caches of
+    h / g kv heads with ``sd`` scales, at indices over the split's and the
+    tiles' edges, against its plain twin (``check_b2``'s tolerances);
+    returns the largest bf16 error."""
+    from mas_tpu_torch.ops import quant
+
+    kv, err = h // g, 0.0
+    q = _gqa_q(gen, rows, h, kv, d)
+    kc, vc = _quant_caches(gen, bits, rows, kv, t, d, sd)
+    for index in (0, 6, 7, 8, 127, 383, 511, t - 1):
+        idx = torch.tensor([index], dtype=torch.int32, device="cuda")
+        o = quant.decode_attention_quant(q, kc, vc, idx)
+        p = quant.decode_attention_quant_plain(q, kc, vc, idx)
+        q32 = q.float()
+        o32 = quant.decode_attention_quant(q32, kc, vc, idx)
+        p32 = quant.decode_attention_quant_plain(q32, kc, vc, idx)
+        torch.cuda.synchronize()
+        what = (f"B2 q [{rows},{h},1,{d}] g {g} int{bits} {sd} scales "
+                f"index {index}")
+        require(close(o, p, 1e-2, 1e-2), f"{what}: max err {max_err(o, p)}")
+        require(close(o32, p32, 1e-5, 1e-5), f"{what} fp32: max err "
+                f"{max_err(o32, p32)}")
+        err = max(err, max_err(o, p))
+    print(f"B2 grouped q [{rows},{h},1,{d}] over [{rows},{kv},{t},{d}] g {g} "
+          f"int{bits} {sd} scales, bf16 and fp32 q, 8 indices: ok")
+    return err
+
+
 def check_b2_grouped(gen) -> dict:
     """Grouped-query and bf16-scale reads of B2: q [rows, 16, 1, d] bf16
     (and fp32) against int4 and int8 caches of 16 / g kv heads, fp32 and
     bf16 scales, T = 640, at indices over the split's and the tiles'
-    edges, for B2_GROUPS; and bf16 scales at g = 1.  Same tolerances as
+    edges, for B2_GROUPS; bf16 scales at g = 1; and the LFM2 cell's read
+    (B2_LFM2: q [768, 32, 1, 64] over int4 [768, 8, 640, 64]).  Same tolerances as
     ``check_b2``: the twin reads the same scales (bf16 widened to fp32).
     Times GQA-4 int4 at 128 and 8 rows, index 511, with fp32 and bf16
     scales (``b2_gqa_times``)."""
     from mas_tpu_torch.ops import quant
 
-    h, t = 16, 640
+    t = 640
     err, out = 0.0, {}
-    cases = [(rows, g, d, bits, sd) for rows, g, d in B2_GROUPS
+    cases = [(rows, 16, g, d, bits, sd) for rows, g, d in B2_GROUPS
              for bits in (4, 8) for sd in (torch.float32, torch.bfloat16)]
-    cases += [(rows, 1, 64, bits, torch.bfloat16) for rows in (128, 8)
+    cases += [(rows, 16, 1, 64, bits, torch.bfloat16) for rows in (128, 8)
               for bits in (4, 8)]
-    for rows, g, d, bits, sd in cases:
-        kv = h // g
-        q = _gqa_q(gen, rows, h, kv, d)
-        kc, vc = _quant_caches(gen, bits, rows, kv, t, d, sd)
-        for index in (0, 6, 7, 8, 127, 383, 511, 639):
-            idx = torch.tensor([index], dtype=torch.int32, device="cuda")
-            o = quant.decode_attention_quant(q, kc, vc, idx)
-            p = quant.decode_attention_quant_plain(q, kc, vc, idx)
-            q32 = q.float()
-            o32 = quant.decode_attention_quant(q32, kc, vc, idx)
-            p32 = quant.decode_attention_quant_plain(q32, kc, vc, idx)
-            torch.cuda.synchronize()
-            what = (f"B2 q [{rows},{h},1,{d}] g {g} int{bits} {sd} scales "
-                    f"index {index}")
-            require(close(o, p, 1e-2, 1e-2), f"{what}: max err "
-                    f"{max_err(o, p)}")
-            require(close(o32, p32, 1e-5, 1e-5), f"{what} fp32: max err "
-                    f"{max_err(o32, p32)}")
-            err = max(err, max_err(o, p))
-        print(f"B2 grouped [{rows},{kv},{t},{d}] g {g} int{bits} {sd} "
-              "scales, bf16 and fp32 q, 8 indices: ok")
+    cases.append(B2_LFM2)
+    for case in cases:
+        err = max(err, _held_grouped_read(gen, *case, t))
     for rows in (128, 8):
         for sd in (torch.float32, torch.bfloat16):
             res = b2_gqa_times(gen, rows, 4, sd)
@@ -1087,6 +1119,7 @@ def check_b3(gen) -> dict:
         _held_writes(tp, 8, 64, bits, h=8)
     print("B3, B10 at a tensor-parallel rank's shape [8,8,64] (8 of 16 "
           "heads), int4/int8: bitwise equal to their twins")
+    check_b3_lfm2(tp)
     bf16_cases = [(rows, kv, d, bits) for rows in (128, 8) for kv in (16, 4)
                   for d in (64, 33, 256, 320) for bits in (4, 8)]
     own = torch.Generator(device="cuda").manual_seed(3)   # see check_b2
@@ -1121,6 +1154,14 @@ def check_b3(gen) -> dict:
                 out[kid]["rows8_host_ms"] = res[kid]["host_ms"]
     _WRITE_ROWS.update(out)
     return out["B3"]
+
+
+def check_b3_lfm2(gen) -> None:
+    """B3 (and B10) at the LFM2 cell's write, new k/v [768, 8, 64] into
+    int4 caches with fp32 scales, bitwise equal to their twins."""
+    _held_writes(gen, 768, 64, 4, h=8)
+    print("B3, B10 at the LFM2 cell's shape [768,8,64] int4: bitwise equal "
+          "to their twins")
 
 
 # B10's row of the kernel table, measured by check_b3 beside B3's
@@ -2100,6 +2141,109 @@ def check_b11(gen) -> dict:
     return out
 
 
+HYBRID_CONFIG = os.path.join(ROOT, "perfbench", "configs",
+                             "lfm2_8b_a1b_256.json")
+
+
+def _routed_inputs(gen, tokens, e=32, d=2048, f=1792, k=4):
+    """x [tokens, d] bf16, one MoE layer's experts at LFM2-8B-A1B's widths
+    (N(0, 0.02), bf16), and a routing of sigmoid scores of N(0, 1) logits
+    with an N(0, 0.02) bias, as the model routes."""
+    from mas_tpu_torch.ops import moe
+
+    x = torch.randn(tokens, d, device=DEVICE, generator=gen).bfloat16()
+    w1, w3, w2 = ((0.02 * torch.randn(shape, device=DEVICE, generator=gen)
+                   ).bfloat16() for shape in ((e, f, d), (e, f, d), (e, d, f)))
+    logits = torch.randn(tokens, e, device=DEVICE, generator=gen)
+    bias = 0.02 * torch.randn(e, device=DEVICE, generator=gen)
+    idx, w = moe.route(logits, bias, k, True, 1.0)
+    return x, w1, w3, w2, idx, w.contiguous(), moe.group(idx, e)
+
+
+def _cublas_experts(x, w1, w3, w2, groups, w, k):
+    """The same function as one cuBLAS product a projection and expert
+    (host offsets, so not capturable): the yardstick."""
+    t, d = x.shape
+    y = torch.empty(t * k, d, dtype=torch.float32, device=x.device)
+    bounds = groups.offsets.tolist()
+    flat = w.reshape(-1)
+    for e, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        pairs = groups.order[lo:hi].long()
+        xs = x[pairs // k]
+        h = F.silu(xs @ w1[e].t()) * (xs @ w3[e].t())
+        y[pairs] = (h @ w2[e].t()).float() * flat[pairs, None]
+    return y.view(t, k, d).sum(dim=1)
+
+
+def check_b12(gen) -> dict:
+    """The grouped SwiGLU expert product at LFM2-8B-A1B's widths (32
+    experts of 2048 -> 1792 -> 2048, top-4): a decode step's 768 rows
+    (guided b384: every expert touched, the weights' 705 MB read once) and
+    one prefill chunk of 65,536 tokens, against the plain twin on the card
+    (fp32 products of the same bf16 values; the twin rounds the hidden
+    activation to bf16 as the kernel stores it, and a sum that lands on
+    the other side of a rounding boundary moves one value by a bf16 ulp:
+    max err <= 2^-8 max |y|); the counters the up launch adds equal
+    ``count_routed``'s.  Timed one call at a time, back to back and
+    replayed from a CUDA graph (the decode shape, as the step replays it,
+    with and without the counters), beside one cuBLAS product a projection
+    and expert."""
+    from mas_tpu_torch.ops import moe
+
+    out, err = {}, 0.0
+    for tokens in (768, 65536):
+        x, w1, w3, w2, idx, w, groups = _routed_inputs(gen, tokens)
+        k, e = idx.shape[1], w1.shape[0]
+        routed = torch.zeros(e + 3, dtype=torch.int32, device=DEVICE)
+        kernel = lambda: moe.expert_swiglu(x, w1, w3, w2, groups, w, k)
+        counted = lambda: moe.expert_swiglu(x, w1, w3, w2, groups, w, k,
+                                            routed)
+        got = counted()
+        want = torch.zeros_like(routed)
+        moe.count_routed(want, groups.offsets)
+        plain = moe.expert_swiglu_plain(x, w1, w3, w2, groups, w, k)
+        torch.cuda.synchronize()
+        e_abs = max_err(got, plain)
+        scale = float(plain.abs().max())
+        err = max(err, e_abs / scale)
+        print(f"B12 {tokens} tokens x top-{k}: max err {e_abs:.3e} of max "
+              f"|y| {scale:.3e}; bitwise equal from call to call "
+              f"{torch.equal(got, kernel())}")
+        require(e_abs <= 2.0 ** -8 * scale, f"B12 {tokens} tokens: max err "
+                f"{e_abs}")
+        require(torch.equal(got, kernel()), f"B12 {tokens} tokens: two "
+                "calls differ")
+        require(torch.equal(routed, want), f"B12 {tokens} tokens: counters "
+                f"{routed.tolist()} against {want.tolist()}")
+        active = int((groups.counts > 0).sum())
+        pairs = tokens * k
+        d, f = x.shape[1], w1.shape[1]
+        b = bound(active * 3 * d * f * 2 + pairs * d * (2 + 4),
+                  6.0 * d * f * pairs, torch.bfloat16)
+        lib = lambda: _cublas_experts(x, w1, w3, w2, groups, w, k)
+        row = dict(ms=timed_ms(kernel), run_ms=run_ms(kernel),
+                   plain_ms=timed_ms(lambda: moe.expert_swiglu_plain(
+                       x, w1, w3, w2, groups, w, k), reps=5),
+                   library_ms=timed_ms(lib, reps=5), **b)
+        if tokens == 768:
+            row["graph_ms"] = graph_ms(kernel, calls=5)
+            row["graph_counted_ms"] = graph_ms(counted, calls=5)
+            out.update(row)
+        best = min(row["ms"], row["run_ms"], row.get("graph_ms", math.inf))
+        print(f"B12 {tokens} tokens ({active} experts with pairs): one call "
+              f"{row['ms']:.4f} ms, back to back {row['run_ms']:.4f} ms"
+              + (f", graph {row['graph_ms']:.4f} ms, with the counters "
+                 f"{row['graph_counted_ms']:.4f} ms" if "graph_ms" in row
+                 else "")
+              + f"; plain {row['plain_ms']:.4f} ms; cuBLAS per expert "
+              f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {100 * row['bound_ms'] / best:.1f}% of "
+              f"it")
+        del x, w1, w3, w2
+    out["max_abs_err"] = err
+    return out
+
+
 KERNELS = (
     # id, name, route, source, replaces, check
     ("B1", "B1 flash_attention", "cuda", "mas_tpu_torch/csrc/flash_fwd.cu",
@@ -2127,6 +2271,8 @@ KERNELS = (
      "mas_tpu/ops/decode_cache.py:111", check_b10),
     ("B11", "B11 add_stats", "triton", "mas_tpu_torch/ops/ln_producer.py",
      "benchmarks/ln_producer.py:49", check_b11),
+    ("B12", "B12 expert_swiglu", "cuda", "mas_tpu_torch/csrc/moe_swiglu.cu",
+     "none (port-only: LFM2-MoE's routed experts)", check_b12),
 )
 
 
@@ -2134,8 +2280,8 @@ def wrappers() -> dict:
     """The launch-counting wrappers of each kernel, keyed by its id in
     KERNELS order (B7's forward and backward are two wrappers)."""
     from mas_tpu_torch.ops import (attention, decode_attention, decode_cache,
-                                   gn_swish, layer_norm, ln_producer, quant,
-                                   vq)
+                                   gn_swish, layer_norm, ln_producer, moe,
+                                   quant, vq)
 
     return {"B1": (attention.flash_attention,),
             "B2": (quant.decode_attention_quant,),
@@ -2146,7 +2292,8 @@ def wrappers() -> dict:
             "B8": (gn_swish.gn_swish_bwd,),
             "B9": (decode_attention.decode_attention_float,),
             "B10": (decode_cache.write_packed_kv,),
-            "B11": (ln_producer.add_stats,)}
+            "B11": (ln_producer.add_stats,),
+            "B12": (moe.expert_swiglu,)}
 
 
 def reset_counts() -> None:
@@ -5616,6 +5763,95 @@ def phase_decode_graph(smi: str) -> dict:
     return total
 
 
+# --- phase 19: LFM2-8B-A1B's hybrid block ------------------------------------
+
+def hybrid_model(raw: dict, seed: int):
+    """``MakeAScene`` with the hybrid block of ``perfbench/configs/
+    lfm2_8b_a1b_256.json`` at its published widths on the card, its
+    weights drawn tensor by tensor as the benchmark's ``param_spec`` gives
+    them."""
+    from mas_tpu_torch.models.transformer import MakeAScene
+    from mas_tpu_torch.utils.config import (HybridBlockConfig,
+                                            TransformerConfig)
+    from perfbench.reference import lfm2_moe
+
+    tcfg = TransformerConfig.from_dict(raw["transformer"])
+    with torch.device(DEVICE):
+        model = MakeAScene(tcfg, block=HybridBlockConfig.from_dict(
+            raw["block"])).eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    state = model.state_dict()
+    g = lfm2_moe.Geometry.of(raw["transformer"], raw["block"])
+    with torch.no_grad():
+        for name, shape, mean, std, _ in lfm2_moe.param_spec(g):
+            state[name].copy_(torch.randn(shape, generator=gen,
+                                          device=DEVICE) * std + mean)
+    return model, tcfg
+
+
+def phase_hybrid(smi: str) -> dict:
+    """LFM2-8B-A1B's block as the stage-2 transformer (``models/
+    hybrid.py``: 18 short-conv and 6 GQA layers, 2 dense and 22 MoE
+    feed-forwards of 32 experts, top-4) at its published widths, seeded
+    weights, batch 4 (8 guided rows): ``sample_tokens`` at top-k 1 with the
+    decode step replayed from its graph and run eagerly, in turns, as
+    phase 18: equal tokens, every step's logits bitwise equal, 1 eager
+    step, 1 capture and 254 replays a run; exact counts (B1 = 6, B2 = B3 =
+    6 x 2, B12 = 22 x 3: the prefill's one chunk, step 0 and the capture).
+    Prints the host seconds of each run and the routed pairs the device
+    counters hold."""
+    with open(HYBRID_CONFIG) as f:
+        raw = json.load(f)
+    t0 = time.perf_counter()
+    model, tcfg = hybrid_model(raw, 19)
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    text = torch.randint(1, tcfg.text_vocab_size - tcfg.text_length,
+                         (4, tcfg.text_length), device=DEVICE, generator=gen)
+    seg = torch.randint(0, tcfg.seg_vocab_size, (4, tcfg.seg_length),
+                        device=DEVICE, generator=gen)
+    steps = tcfg.image_length - 1
+    before = model.routed_pairs().clone()
+    runs = []
+    for graphed in (True, False, True, False):
+        with (contextlib.nullcontext() if graphed else eager_decode(model)):
+            runs.append(greedy_run(model, text, seg))
+        if graphed and len(runs) == 1:
+            counts = read_counts()
+            routed = (model.routed_pairs() - before).cpu()
+    (tg, lg, _, stg), (te, le, _, ste) = runs[0], runs[1]
+    diff = float((lg - le).abs().max())
+    decode = routed[:, 1, :-3].float()
+    load = float((decode.max(1).values / decode.mean(1)).mean())
+    print(f"hybrid block, batch 4, {steps} steps, top-k 1: tokens equal "
+          f"{torch.equal(tg, te)}, logits bitwise equal {torch.equal(lg, le)}"
+          f" (max |d| {diff:.3e}); graph run steps {stg}, engagement "
+          f"{stg['replays']}/{steps}; host s graph {runs[0][2]:.3f}, "
+          f"{runs[2][2]:.3f}, eager {runs[1][2]:.3f}, {runs[3][2]:.3f}; "
+          f"launches counted {({k: v for k, v in counts.items() if v})}; "
+          f"decode pairs a MoE layer {int(decode.sum(1)[0])}, max / mean "
+          f"over experts {load:.3f} [{smi}]")
+    want = dict(captures=1, replays=steps - 1, eager=1)
+    require(stg == want and runs[2][3] == want,
+            f"hybrid: graph runs' decode steps {stg}, {runs[2][3]}")
+    require(ste == runs[3][3] == dict(captures=0, replays=0, eager=0),
+            f"hybrid: the eager runs went through the graph: {ste}")
+    require(torch.equal(tg, te) and torch.equal(runs[2][0], te),
+            "hybrid: graph and eager tokens differ")
+    require(torch.equal(lg, le) and torch.equal(runs[2][1], le),
+            f"hybrid: graph and eager logits differ (max |d| {diff})")
+    moes, attn = len(model.transformer.moe_layers()), 6
+    require(counts["B12"] == 3 * moes and counts["B1"] == attn
+            and counts["B2"] == counts["B3"] == 2 * attn,
+            f"hybrid: launches {counts}")
+    require(int(decode.sum(1).min()) == 8 * steps * 4,
+            f"hybrid: decode pairs a layer {decode.sum(1).tolist()}")
+    del model, runs, lg, le
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 19 (hybrid block) took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main(argv) -> int:
     modes = {"--decode-times": decode_times, "--norm-times": norm_times,
              "--vq-times": vq_times, "--vq-paths": vq_paths,
@@ -5626,6 +5862,17 @@ def main(argv) -> int:
     if argv[:1] == ["--tp-worker"]:
         # one rank of phase 16, started by launch_ranks
         return tp_worker(argv[1])
+    if argv[:1] == ["--hybrid"]:
+        # the build's checks, B12, the LFM2 cell's B2 and B3 shapes and
+        # phase 19 alone
+        smi = phase_device()
+        phase_build()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        check_b12(gen)
+        _held_grouped_read(gen, *B2_LFM2)
+        check_b3_lfm2(gen)
+        phase_hybrid(smi)
+        return 0
     if argv[:1] and argv[0] in modes:
         # the decode reads and writes, B4, B7 and B8, B5, or the paths of
         # B4 and B5, of the mas_tpu_torch under argv[1] alone
@@ -5659,8 +5906,9 @@ def main(argv) -> int:
         paths.append(phase_tensor_parallel(smi, os.path.join(tmp, "tp")))
         paths.append(phase_scenes(smi, os.path.join(tmp, "scenes")))
         paths.append(phase_decode_graph(smi))
+        paths.append(phase_hybrid(smi))
     for row in rows:
-        row["launches"] = sum(counts[row["id"]] for counts in paths)
+        row["launches"] = sum(counts.get(row["id"], 0) for counts in paths)
         require(row["launches"] > 0, f"{row['id']} launched on no path")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -170,6 +170,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mas_gn_swish_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f,
                                      i, i, p]
     lib.mas_gn_swish_bwd.restype = i
+    # a w0 w1 out weight order offsets routed, pairs n k topk experts up,
+    # stream
+    lib.mas_moe_swiglu.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.mas_moe_swiglu.restype = i
     lib.mas_cuda_error_string.argtypes = [i]
     lib.mas_cuda_error_string.restype = ctypes.c_char_p
 

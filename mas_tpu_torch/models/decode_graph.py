@@ -36,8 +36,9 @@ Eager, by what the code can observe:
   * a capture already running on the current stream (the caller's own
     graph): the body joins it.
 Every cache kind the step takes (int8/int4 lane, packed, float, grouped
-query heads, rudalle_relax's masked statistics on the float cache)
-launches from device values alone, so none of them falls back.
+query heads, rudalle_relax's masked statistics on the float cache, the
+hybrid block's conv states beside its lane caches) launches from device
+values alone, so none of them falls back.
 
 Counters, in the kernel wrappers' idiom (``.launches``), over every
 model: ``DecodeGraph.captures``, ``.replays`` and ``.eager`` (steps run
@@ -64,7 +65,7 @@ def _cache_key(cache):
         return cache.layout()
     if isinstance(cache, PackedQuantCache):
         return tuple(half.layout() for half in cache.views())
-    data = cache.data                                   # FloatCache
+    data = cache.data                      # FloatCache, hybrid.ConvState
     return (data.data_ptr(), data.shape, data.stride(), data.dtype)
 
 

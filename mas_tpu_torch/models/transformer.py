@@ -98,16 +98,18 @@ from ..ops.quant import QuantCache
 from ..parallel.collectives import (copy_to_model, max_over_model,
                                     reduce_from_model)
 from ..parallel.sharding import check_shardable, kv_heads_of, shard_state
-from ..utils.config import TransformerConfig
+from ..utils.config import ConfigError, HybridBlockConfig, TransformerConfig
 from ..utils.spans import span
+from . import hybrid
 from .decode_graph import DecodeGraph
 from .vqvae import compute_dtype
 
 # per layer: (k, v) float or lane caches, or (packed cache, None), as the
-# JAX package's caches are
+# JAX package's caches are; a hybrid conv layer's (conv state, None)
 LayerCache = Union[Tuple[FloatCache, FloatCache],
                    Tuple[QuantCache, QuantCache],
-                   Tuple[PackedQuantCache, None]]
+                   Tuple[PackedQuantCache, None],
+                   Tuple["hybrid.ConvState", None]]
 KVCache = List[LayerCache]
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -486,15 +488,25 @@ class MakeAScene(nn.Module):
     otherwise they are cast to the compute dtype once (serving).
     ``shard``: (model index, model size) of a tensor-parallel rank
     (``parallel.distributed.model_shard``); its logits are its slice of
-    the vocabulary."""
+    the vocabulary.  ``block``: LFM2-MoE's hybrid layers
+    (``models/hybrid.py``) in place of the Make-A-Scene block, with a
+    final RMSNorm and a Linear head."""
 
     def __init__(self, cfg: TransformerConfig, fp32_params: bool = False,
-                 shard: Tuple[int, int] = (0, 1)):
+                 shard: Tuple[int, int] = (0, 1),
+                 block: Optional[HybridBlockConfig] = None):
         super().__init__()
         index, size = shard
+        if block is not None:
+            block.check(cfg)
+            if size > 1:
+                raise ConfigError(
+                    f"mesh.model {size}: the hybrid block does not split "
+                    f"over model ranks (ROADMAP M2)")
         if size > 1:
             check_shardable(cfg, size)
         self.cfg = cfg
+        self.block = block
         self.shard = (index, size)
         self._decode_graph = DecodeGraph()
         self.dtype = compute_dtype(cfg.compute_dtype)
@@ -508,14 +520,19 @@ class MakeAScene(nn.Module):
         self.seg_col_embeddings = emb(cfg.seg_tokens_per_dim, d)
         self.image_row_embeddings = emb(cfg.image_tokens_per_dim, d)
         self.image_col_embeddings = emb(cfg.image_tokens_per_dim, d)
-        self.transformer = _Stack(cfg, index, size)
-        self.to_logits = nn.Sequential(
-            LayerNorm(d, cfg.layernorm_impl),
-            Dense(d, cfg.image_vocab_size // size, self.dtype,
-                  "column" if size > 1 else ""))
+        if block is not None:
+            self.transformer = hybrid.HybridStack(cfg, block)
+            self.to_logits = Dense(d, cfg.image_vocab_size, self.dtype)
+        else:
+            self.transformer = _Stack(cfg, index, size)
+            self.to_logits = nn.Sequential(
+                LayerNorm(d, cfg.layernorm_impl),
+                Dense(d, cfg.image_vocab_size // size, self.dtype,
+                      "column" if size > 1 else ""))
         if not fp32_params:
+            cast = (nn.Linear, nn.Embedding) + hybrid.COMPUTE_MODULES
             for m in self.modules():
-                if isinstance(m, (nn.Linear, nn.Embedding)):
+                if isinstance(m, cast):
                     m.to(self.dtype)
 
     @classmethod
@@ -620,36 +637,55 @@ class MakeAScene(nn.Module):
         k/v: float caches in the compute dtype (``kv_cache_dtype:
         "compute"``), else the quantized prefix in lane caches (scales in
         ``kv_scale_dtype``) or, with ``kv_cache_layout: "packed"``, in one
-        packed cache per layer.  They are allocated once and written in
-        place by ``decode_step``."""
+        packed cache per layer; the hybrid block's conv layers take a copy
+        of their ring of v (``hybrid.ConvState``).  They are allocated once
+        and written in place by ``decode_step``."""
         with span("cache_seed"):
             return self._seeded_caches(prefill_kv, batch)
 
     def _seeded_caches(self, prefill_kv: Sequence, batch: int) -> KVCache:
+        states = {}
+        if self.block is not None:
+            # a conv layer's seed is its ring of v (``hybrid.ShortConv``)
+            with span("state_seed"):
+                states = {i: (hybrid.ConvState(seed.clone()), None)
+                          for i, seed in enumerate(prefill_kv)
+                          if isinstance(seed, torch.Tensor)}
+        return [states[i] if i in states else self._seeded_pair(*seed, batch)
+                for i, seed in enumerate(prefill_kv)]
+
+    def _seeded_pair(self, k: torch.Tensor, v: torch.Tensor, batch: int):
+        """One layer's full-length caches seeded with its prefix k, v [B,
+        KV, prefix, hd]."""
         cfg = self.cfg
         total = cfg.total_length
         if cfg.kv_cache_dtype == "compute":
-            return [(FloatCache.seeded(k, total), FloatCache.seeded(v, total))
-                    for k, v in prefill_kv]
+            return FloatCache.seeded(k, total), FloatCache.seeded(v, total)
         bits = 4 if cfg.kv_cache_dtype == "int4" else 8
         if cfg.kv_cache_layout == "packed":
-            return [(decode_cache.seed_packed_cache(k, v, total, bits), None)
-                    for k, v in prefill_kv]
+            return decode_cache.seed_packed_cache(k, v, total, bits), None
         device = self.text_pos_embeddings.weight.device
         scale_dtype = (torch.bfloat16 if cfg.kv_scale_dtype == "bfloat16"
                        else torch.float32)
-        caches = []
-        for k, v in prefill_kv:
-            pair = []
-            for t in (k, v):
-                c = QuantCache.empty(batch, t.shape[1], cfg.total_length,
-                                     cfg.head_dim, bits, device, scale_dtype)
-                seeded = quant.quantize_kv(t, bits, scale_dtype)
-                c.q[:, :, :t.shape[2]] = seeded.q
-                c.scale[:, :, :t.shape[2]] = seeded.scale
-                pair.append(c)
-            caches.append(tuple(pair))
-        return caches
+        pair = []
+        for t in (k, v):
+            c = QuantCache.empty(batch, t.shape[1], total, cfg.head_dim,
+                                 bits, device, scale_dtype)
+            seeded = quant.quantize_kv(t, bits, scale_dtype)
+            c.q[:, :, :t.shape[2]] = seeded.q
+            c.scale[:, :, :t.shape[2]] = seeded.scale
+            pair.append(c)
+        return tuple(pair)
+
+    def routed_pairs(self) -> Optional[torch.Tensor]:
+        """The MoE layers' device counters stacked, [layers, 2, E + 3] int32
+        (``models/hybrid.py``): per phase (full sequence, decode step) the
+        pairs routed to each expert, then, summed over calls, the experts
+        with a pair, the calls and the most pairs an expert had; None
+        without MoE layers."""
+        moes = ([] if self.block is None
+                else self.transformer.moe_layers())
+        return torch.stack([m.routed for m in moes]) if moes else None
 
     def decode_step(self, img_token: torch.Tensor, step: int,
                     caches: KVCache) -> torch.Tensor:

@@ -274,7 +274,14 @@ def make_transformer_train_step(model: MakeAScene, opt: Adam,
     probability ``uncond_p``, from step ``start_uncond`` on, the *whole
     batch's* text tokens become 0 (pad, remapped by the model), as the
     reference's one host-side ``random()`` per step.  The draw and the
-    choice stay on the device.  ``metrics``: ``loss`` and ``uncond``."""
+    choice stay on the device.  ``metrics``: ``loss`` and ``uncond``.
+
+    The hybrid block (``MakeAScene(..., block=...)``) is served only: its
+    training is ROADMAP M2, and it is refused here."""
+    if getattr(model, "block", None) is not None:
+        raise NotImplementedError(
+            "training the hybrid (LFM2-MoE) block is not ported to "
+            "mas_tpu_torch: B12 has no backward (ROADMAP M2)")
 
     def step(state: TransformerTrainState, text: torch.Tensor,
              seg: torch.Tensor, img: torch.Tensor,

@@ -405,6 +405,89 @@ class TransformerConfig(_Base):
         return self.prefix_length if self.prefix_bidirectional else 0
 
 
+LFM2_LAYER_TYPES = ("conv", "full_attention")
+
+
+@dataclass(frozen=True)
+class HybridBlockConfig(_Base):
+    """Port-only: LFM2-MoE's hybrid block (LiquidAI's ``lfm2_moe``
+    ``config.json``, key for key) as the stage-2 transformer's layers, read
+    from a config's ``block`` section beside ``transformer``.  The JAX
+    package has no such block; ``TransformerConfig`` still gives the width
+    (``hidden_dim``), the depth, the query and kv heads, the token
+    interface, the compute dtype and the decode cache.
+
+    ``layer_types``: one of ``LFM2_LAYER_TYPES`` a layer (gated short
+    convolution of ``conv_L_cache`` taps, or GQA with q/k RMSNorm and
+    RoPE at ``rope_theta``); the first ``num_dense_layers`` layers take a
+    SwiGLU feed-forward of ``intermediate_size``, the rest ``num_experts``
+    SwiGLU experts of ``moe_intermediate_size``, ``num_experts_per_tok`` a
+    token, chosen by sigmoid scores plus ``expert_bias``
+    (``use_expert_bias``), weighted by the scores alone, normalized over
+    the chosen (``norm_topk_prob``) and scaled by
+    ``routed_scaling_factor``.  RMSNorm everywhere at ``norm_eps``."""
+
+    layer_types: Tuple[str, ...] = ()
+    intermediate_size: int = 7168
+    moe_intermediate_size: int = 1792
+    num_experts: int = 32
+    num_experts_per_tok: int = 4
+    num_dense_layers: int = 2
+    use_expert_bias: bool = True
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    conv_L_cache: int = 3
+    conv_bias: bool = False
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-5
+
+    def __post_init__(self):
+        if isinstance(self.layer_types, list):
+            object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        bad = sorted(set(self.layer_types) - set(LFM2_LAYER_TYPES))
+        if not self.layer_types or bad:
+            raise ConfigError(
+                f"layer_types must be a non-empty list of "
+                f"{LFM2_LAYER_TYPES}, got {list(self.layer_types)}")
+        if not 0 < self.num_experts_per_tok <= self.num_experts:
+            raise ConfigError(
+                f"num_experts_per_tok ({self.num_experts_per_tok}) must be "
+                f"in 1..num_experts ({self.num_experts})")
+        if not 0 <= self.num_dense_layers <= len(self.layer_types):
+            raise ConfigError("num_dense_layers must be in 0..layers")
+        if self.conv_L_cache < 1:
+            raise ConfigError("conv_L_cache must be >= 1")
+        if self.conv_bias:
+            raise _not_ported("conv_bias", "M2")
+
+    def check(self, t: "TransformerConfig") -> None:
+        """Raise ``ConfigError`` unless the transformer section carries
+        this block: as many layers, a lane or float cache, none of the
+        Make-A-Scene block's variants."""
+        if len(self.layer_types) != t.num_layers:
+            raise ConfigError(
+                f"layer_types has {len(self.layer_types)} entries, "
+                f"num_layers is {t.num_layers}")
+        for name, off in (("rudalle_relax", False),
+                          ("cogview_layernorm_prescale", False),
+                          ("ln_matmul_fold", False), ("remat", False)):
+            if getattr(t, name) != off:
+                raise ConfigError(f"{name} is a Make-A-Scene block variant; "
+                                  f"the hybrid block takes it {off}")
+        if t.kv_cache_layout == "packed":
+            raise ConfigError("the hybrid block's attention layers take a "
+                              "lane or float cache, not 'packed'")
+
+    @property
+    def attention_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i, k in enumerate(self.layer_types)
+                     if k == "full_attention")
+
+    @property
+    def moe_layers(self) -> Tuple[int, ...]:
+        return tuple(range(self.num_dense_layers, len(self.layer_types)))
+
+
 @dataclass(frozen=True)
 class SegLossConfig(_Base):
     """Weighted-BCE seg loss (``losses/seg.py``)."""

@@ -1,6 +1,7 @@
 """Program spans: named, nested ranges of the host's time at the port's
-layer boundaries (the sampling call, prefill, decode step, sampling head,
-VQ decode; the train step, its forward, backward and Adam step).
+layer boundaries (the sampling call, prefill, cache seeding and, in it,
+the hybrid block's conv states, decode step, sampling head, VQ decode;
+the train step, its forward, backward and Adam step).
 
 Spans are off unless ``enable(True)`` turns them on; nothing in the port
 turns them on, and no config field, flag or environment variable does.

@@ -17,14 +17,8 @@ through the Pallas kernels in interpret mode): teacher-forced prefill and
 decode logits within 1e-4, and greedy guided sampling token-equal to JAX,
 for the float cache and the packed int8 and int4 caches; packed and lane
 caches give equal tokens in the port.  Also: the packed ``ConfigError``s
-are the JAX package's.
-
-The decode step's body, which reads the position from a device tensor so
-that a CUDA graph can replay it (``MakeAScene.decode_body``), against the
-step as it was with a host position: logits and caches bitwise at every
-step over lane, packed, float, MQA (bf16 scales) and rudalle_relax float
-caches; on the CPU every step runs eagerly and ``sample_tokens`` draws the
-same tokens; the graph's key follows the caches.
+are the JAX package's.  The decode step's device-position body is held in
+``test_torch_port_decode_body.py``.
 """
 
 import os
@@ -255,123 +249,6 @@ def test_packed_and_lane_caches_give_equal_tokens(bits):
                           guidance_scale=3.0, top_k=1)
             for m in (packed, lane)]
     assert torch.equal(toks[0], toks[1])
-
-
-# --- the decode step's device-position body ---------------------------------
-
-STEP_CACHES = {
-    "lane-int4": dict(kv_cache_dtype="int4"),
-    "lane-int8-bf16": dict(kv_cache_dtype="int8", compute_dtype="bfloat16"),
-    "packed-int4": dict(kv_cache_dtype="int4", kv_cache_layout="packed"),
-    "float": dict(kv_cache_dtype="compute"),
-    "mqa-lane-int4-bf16-scales": dict(kv_cache_dtype="int4",
-                                      num_kv_heads=1,
-                                      kv_scale_dtype="bfloat16"),
-    "rudalle-float": dict(kv_cache_dtype="compute", rudalle_relax=True,
-                          cogview_layernorm_prescale=True)}
-
-
-def _int_step(model, img_token, step, caches):
-    """The decode step as it was before its body read the position from a
-    device tensor: positions from ``arange`` at a host offset, the cache
-    index from ``torch.full``."""
-    cfg = model.cfg
-    n = cfg.image_tokens_per_dim
-    pos = torch.arange(step, step + 1)
-    x = (model.image_token_embedding(img_token.long())
-         + model.image_row_embeddings(pos // n)
-         + model.image_col_embeddings(pos % n))
-    index = torch.full((1,), cfg.prefix_length + step, dtype=torch.int32)
-    for layer, (k_cache, v_cache) in zip(model.transformer.layers, caches):
-        x = layer.decode(x, k_cache, v_cache, index)
-    return model._logits(model._final_ln(x))[:, 0]
-
-
-def _cache_tensors(caches) -> list:
-    out = []
-    for pair in caches:
-        for c in pair:
-            if isinstance(c, quant.QuantCache):
-                out += [c.q, c.scale]
-            elif isinstance(c, decode_cache.PackedQuantCache):
-                out += [c.kv, c.scale]
-            elif c is not None:
-                out.append(c.data)
-    return out
-
-
-def _step_model(cache, seed):
-    torch.manual_seed(seed)
-    fields = {k: v for k, v in SLICE.items() if k != "decode_attention_impl"}
-    model = MakeAScene(TransformerConfig(**fields, **STEP_CACHES[cache]))
-    text, seg, img = (torch.from_numpy(a)
-                      for a in _tokens(model.cfg, seed=seed + 1))
-    return model.eval(), text, seg, img
-
-
-@pytest.mark.parametrize("cache", list(STEP_CACHES))
-def test_device_position_body_is_bitwise_the_int_step(cache):
-    """``decode_body`` with one persistent step tensor set in place before
-    each call, as a graph replay sees it, gives the int-step path's logits
-    and caches bit for bit at every step."""
-    model, text, seg, img = _step_model(cache, seed=51)
-    text2, seg2 = torch.cat([text, torch.zeros_like(text)]), \
-        torch.cat([seg, seg])
-    img2 = torch.cat([img, img])
-    pos = torch.zeros(1, dtype=torch.int32)
-    with torch.inference_mode():
-        _, kvs = model.prefill(text2, seg2)
-        got_caches = model.allocate_caches(kvs, 4)
-        want_caches = model.allocate_caches(kvs, 4)
-        for step in range(model.cfg.image_length - 1):
-            tok = img2[:, step:step + 1]
-            pos.fill_(step)
-            got = model.decode_body(tok, pos, got_caches)
-            want = _int_step(model, tok, step, want_caches)
-            assert torch.equal(got, want), f"step {step}"
-            assert all(torch.equal(a, b) for a, b in zip(
-                _cache_tensors(got_caches), _cache_tensors(want_caches))), \
-                f"caches at step {step}"
-
-
-@pytest.mark.parametrize("cache", list(STEP_CACHES))
-def test_decode_step_on_cpu_is_eager_and_samples_as_before(cache):
-    """On the CPU no step is captured or replayed, and ``sample_tokens``
-    draws the tokens that the int-step path draws from the same seed."""
-    from mas_tpu_torch.models.decode_graph import DecodeGraph
-
-    model, text, seg, _ = _step_model(cache, seed=61)
-    before = (DecodeGraph.captures, DecodeGraph.replays, DecodeGraph.eager)
-    got = sample_tokens(model, text, seg, torch.Generator().manual_seed(5),
-                        guidance_scale=3.0, top_k=8)
-    assert (DecodeGraph.captures, DecodeGraph.replays) == before[:2]
-    assert DecodeGraph.eager == before[2] + model.cfg.image_length - 1
-    model.decode_step = lambda tok, step, caches: _int_step(model, tok, step,
-                                                            caches)
-    want = sample_tokens(model, text, seg, torch.Generator().manual_seed(5),
-                         guidance_scale=3.0, top_k=8)
-    assert torch.equal(got, want)
-
-
-@pytest.mark.parametrize("cache", list(STEP_CACHES))
-def test_decode_graph_key_follows_the_caches(cache):
-    """The key a graph is held to: equal for the same caches and token
-    shape, changed by new caches or another batch."""
-    import copy
-
-    from mas_tpu_torch.models.decode_graph import DecodeGraph, _key
-
-    model, text, seg, _ = _step_model(cache, seed=71)
-    tok = torch.zeros(4, 1, dtype=torch.long)
-    with torch.inference_mode():
-        _, kvs = model.prefill(torch.cat([text, text]), torch.cat([seg, seg]))
-        a, b = model.allocate_caches(kvs, 4), model.allocate_caches(kvs, 4)
-    assert _key(tok, a) == _key(tok, a)
-    assert _key(tok, a) != _key(tok, b)
-    assert _key(tok, a) != _key(tok[:2], a)
-    copied = copy.deepcopy(model)
-    assert isinstance(copied._decode_graph, DecodeGraph)
-    assert copied._decode_graph is not model._decode_graph
 
 
 # --- config -----------------------------------------------------------------
