@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      print each kernel's registers and fail if a tensor-core, decode,
      cache-write, LayerNorm, GroupNorm or VQ kernel spills, or a bf16
      flash kernel or B5's bf16 kernel has no tensor-core instruction;
-  3. hold each hand-written kernel (B1-B12) against its plain PyTorch
+  3. hold each hand-written kernel (B1-B13) against its plain PyTorch
      twin on the card at the main paths' shapes (the attention kernels
      also at head dims 32 to 512, padded and odd ones included, the decode
      reads over the edges of their split, the cache writes bit for bit at
@@ -197,7 +197,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      replays), with exact B1/B2/B3/B12 counts and the routed pairs the
      device counters hold.  Phase 3 holds B12 against its twin at a decode
      step's 768 rows and a prefill chunk of 65,536 tokens, and times it
-     beside one cuBLAS product a projection and expert.
+     beside one cuBLAS product a projection and expert.  Phase 3 also
+     holds B13 (Adam's update) over transformer_512's 398 parameter
+     tensors and at edge sizes against its twin (3 updates: mu, nu bitwise,
+     p within an ulp) and times it beside PyTorch's fused Adam; every
+     training phase (5, 7, 11, 13-17) requires B13's exact launches, its
+     launch plan's count times the Adam updates.
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -229,6 +234,11 @@ tokenization of 8 x 512^2 images and the VQ decode of 4 256^2 images, and
 
 runs the build's checks, phase 3's B12 check, B2 and B3 at the LFM2
 cell's shapes and phase 19 alone, and
+
+    python3 chip_smoke.py --adam-times DIR
+
+holds and times B13 (Adam's update) of the tree under DIR, as phase 3
+does, and
 
     python3 chip_smoke.py --mha-outputs DIR
 
@@ -433,7 +443,8 @@ def phase_build() -> None:
 # kernels that must not spill registers to local memory
 NO_SPILL_KERNELS = ("_bf16", "decode_quant_kernel", "decode_float_kernel",
                     "kv_write_", "layer_norm_", "gn_swish_bwd_kernel",
-                    "gn_swish_fwd_kernel", "vq_argmin_", "moe_swiglu_")
+                    "gn_swish_fwd_kernel", "vq_argmin_", "moe_swiglu_",
+                    "adam_update_kernel")
 
 
 def spill_check(log: str) -> None:
@@ -2244,6 +2255,153 @@ def check_b12(gen) -> dict:
     return out
 
 
+# transformer_512's optimizer: lr, b1, b2, eps (configs/transformer_512.json)
+ADAM = (4.5e-6, 0.9, 0.95, 1e-8)
+
+
+def transformer_512_shapes() -> list:
+    """The shapes of transformer_512's 398 parameters, in model order."""
+    from mas_tpu_torch.models.transformer import MakeAScene
+    from mas_tpu_torch.utils.config import TransformerConfig
+
+    with open(TRANSFORMER_CONFIG) as f:
+        tcfg = TransformerConfig.from_dict(json.load(f)["transformer"])
+    with torch.device("meta"):
+        model = MakeAScene(tcfg, fp32_params=True)
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def f32_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance of two fp32 tensors in units in the last place
+    (steps of the float order; +0 and -0 one apart)."""
+    def key(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF) - 1, i)
+    return int((key(a) - key(b)).abs().max()) if a.numel() else 0
+
+
+def _adam_views(gen, numel: int, offset: int) -> tuple:
+    """p, mu, nu of ``numel`` elements, each a contiguous view at
+    ``offset`` elements into its own buffer (offset 1: 4-byte aligned,
+    which takes B13's element loads)."""
+    p, mu, nu = (torch.randn(numel + offset, generator=gen,
+                             device=DEVICE)[offset:] for _ in range(3))
+    return p, mu, nu.abs_()
+
+
+def check_b13(gen) -> dict:
+    """Adam's update (B13) over transformer_512's 398 parameter tensors,
+    3 updates from seeded values (each tensor's gradients at its own
+    scale, 1e-4 to 1, moments from zero), against its plain twin on the
+    card on copies of the same tensors: mu and nu bitwise equal, p bitwise
+    equal or within one ulp (the largest gap printed); then at edge sizes
+    (1, 3, 5, 4001 and 16,908,288 elements, 4001 also at an unaligned
+    address) the same.  Timed one call, 20 back to back and 20 replayed
+    from a CUDA graph (which also shows that the launches can be
+    captured), beside the twin and PyTorch's fused Adam step over the same
+    tensors (``torch.optim.Adam(fused=True)``: the same update up to where
+    it rounds, as a yardstick; the port never calls it), against the bound
+    of 28 bytes a parameter (p, g, mu, nu read; p, mu, nu written)."""
+    from mas_tpu_torch.ops import adam
+
+    lr, b1, b2, eps = ADAM
+    cpu = torch.Generator().manual_seed(13)
+
+    def held(sets, what):
+        """sets: [(p, mu, nu)]; 3 updates through B13 and the twin;
+        returns (the largest p gap in ulps and in value, launches an
+        update)."""
+        twin = [[t.clone() for t in ts] for ts in sets]
+        scales = 10.0 ** -(4 * torch.rand(len(sets), generator=cpu))
+        ulps, err, launches = 0, 0.0, None
+        for count in (1, 2, 3):
+            grads = [torch.randn(ts[0].shape, generator=gen, device=DEVICE)
+                     * float(s) for ts, s in zip(sets, scales)]
+            bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
+            n0 = adam.adam_update.launches
+            adam.adam_update([ts[0] for ts in sets], grads,
+                             [ts[1] for ts in sets], [ts[2] for ts in sets],
+                             lr, b1, b2, eps, bc1, bc2)
+            launches = adam.adam_update.launches - n0
+            adam.adam_update_plain([ts[0] for ts in twin], grads,
+                                   [ts[1] for ts in twin],
+                                   [ts[2] for ts in twin],
+                                   lr, b1, b2, eps, bc1, bc2)
+            torch.cuda.synchronize()
+            for k, (ts, tw) in enumerate(zip(sets, twin)):
+                for j, name in ((1, "mu"), (2, "nu")):
+                    require(torch.equal(ts[j], tw[j]),
+                            f"B13 {what}: {name} of tensor {k} differs from "
+                            f"the twin at update {count}")
+                ulps = max(ulps, f32_ulps(ts[0], tw[0]))
+                err = max(err, max_err(ts[0], tw[0]))
+        require(ulps <= 1, f"B13 {what}: p {ulps} ulps from the twin")
+        return ulps, err, launches
+
+    shapes = transformer_512_shapes()
+    sets = [(torch.randn(s, generator=gen, device=DEVICE) * 0.02,
+             torch.zeros(s, device=DEVICE), torch.zeros(s, device=DEVICE))
+            for s in shapes]
+    ulps, err, launches = held(sets, "transformer_512")
+    n = sum(math.prod(s) for s in shapes)
+    print(f"B13 transformer_512 ({len(shapes)} tensors, {n:,} parameters):"
+          f" mu and nu bitwise equal to the twin over 3 updates, p within "
+          f"{ulps} ulp (max |d| {err:.3e}); {launches} launches an update")
+    edges = [_adam_views(gen, e, 0) for e in (1, 3, 5, 4001, 16_908_288)]
+    edges += [_adam_views(gen, 4001, 1), _adam_views(gen, 4097, 4)]
+    e_ulps, e_err, _ = held(edges, "edge sizes")
+    print(f"B13 edge sizes (1, 3, 5, 4001, 16,908,288; 4001 unaligned, 4097 "
+          f"at 16 bytes): mu and nu bitwise equal, p within {e_ulps} ulp")
+    del edges
+
+    args = ([ts[0] for ts in sets],
+            [torch.randn(ts[0].shape, generator=gen, device=DEVICE) * 1e-2
+             for ts in sets],
+            [ts[1] for ts in sets], [ts[2] for ts in sets],
+            lr, b1, b2, eps, 1 - b1 ** 4, 1 - b2 ** 4)
+    kernel = lambda: adam.adam_update(*args)
+    plain = lambda: adam.adam_update_plain(*args)
+    fused = torch.optim.Adam([t.clone() for t in args[0]], lr=lr,
+                             betas=(b1, b2), eps=eps, fused=True)
+    for p, g in zip(fused.param_groups[0]["params"], args[1]):
+        p.grad = g
+    b = bound(28.0 * n, 10.0 * n, torch.float32)
+    row = dict(ms=timed_ms(kernel), run_ms=run_ms(kernel),
+               graph_ms=graph_ms(kernel), plain_ms=timed_ms(plain, reps=3),
+               library_ms=timed_ms(fused.step, reps=5),
+               launches_per_update=launches, max_abs_err=max(err, e_err),
+               max_ulps=max(ulps, e_ulps), **b)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        kernel()
+    row["host_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    best = min(row["ms"], row["run_ms"], row["graph_ms"])
+    print(f"B13 transformer_512 update: one call {row['ms']:.4f} ms, back to "
+          f"back {row['run_ms']:.4f} ms, graph {row['graph_ms']:.4f} ms, host "
+          f"{row['host_ms']:.4f} ms a call; plain {row['plain_ms']:.4f} ms; "
+          f"torch fused Adam {row['library_ms']:.4f} ms; bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+          f"{100 * row['bound_ms'] / best:.1f}% of it")
+    del sets, args, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def adam_times() -> dict:
+    """``check_b13`` from seed 0, for ``--adam-times``."""
+    return check_b13(torch.Generator(device=DEVICE).manual_seed(0))
+
+
+def adam_launches(params, updates: int = 1) -> int:
+    """B13's launches in ``updates`` Adam updates of ``params`` (an
+    iterable of tensors): the launches of their plan."""
+    from mas_tpu_torch.ops import adam
+
+    return updates * len(adam.launch_plan([p.numel() for p in params]))
+
+
 KERNELS = (
     # id, name, route, source, replaces, check
     ("B1", "B1 flash_attention", "cuda", "mas_tpu_torch/csrc/flash_fwd.cu",
@@ -2273,15 +2431,18 @@ KERNELS = (
      "benchmarks/ln_producer.py:49", check_b11),
     ("B12", "B12 expert_swiglu", "cuda", "mas_tpu_torch/csrc/moe_swiglu.cu",
      "none (port-only: LFM2-MoE's routed experts)", check_b12),
+    ("B13", "B13 adam_update", "cuda", "mas_tpu_torch/csrc/adam.cu",
+     "none (optax.adam, mas_tpu/train/state.py:35, fused by XLA)",
+     check_b13),
 )
 
 
 def wrappers() -> dict:
     """The launch-counting wrappers of each kernel, keyed by its id in
     KERNELS order (B7's forward and backward are two wrappers)."""
-    from mas_tpu_torch.ops import (attention, decode_attention, decode_cache,
-                                   gn_swish, layer_norm, ln_producer, moe,
-                                   quant, vq)
+    from mas_tpu_torch.ops import (adam, attention, decode_attention,
+                                   decode_cache, gn_swish, layer_norm,
+                                   ln_producer, moe, quant, vq)
 
     return {"B1": (attention.flash_attention,),
             "B2": (quant.decode_attention_quant,),
@@ -2293,7 +2454,7 @@ def wrappers() -> dict:
             "B9": (decode_attention.decode_attention_float,),
             "B10": (decode_cache.write_packed_kv,),
             "B11": (ln_producer.add_stats,),
-            "B12": (moe.expert_swiglu,)}
+            "B12": (moe.expert_swiglu,), "B13": (adam.adam_update,)}
 
 
 def reset_counts() -> None:
@@ -2633,6 +2794,9 @@ def seg_run(smi: str, tmp: str, batches: list, what: str) -> tuple:
     for name, floor in floors.items():
         require(counts[name] >= floor, f"{name} launched "
                 f"{counts[name]} times in training, expected >= {floor}")
+    b13 = adam_launches(state.model.parameters(), state.opt.count)
+    require(counts["B13"] == b13, f"B13 launched {counts['B13']} times in "
+            f"training, expected {b13} ({state.opt.count} Adam updates)")
 
     step_ms = {r["counter"]: 1e3 * (r["t"] - prev["t"])
                for prev, r in zip(record, record[1:])}
@@ -2900,9 +3064,11 @@ def phase_train_transformer(smi: str, tmp: str):
     require(uncond == [False, True],
             f"uncond with uncond_p 1.0 from step {steps_a + 1}: {uncond}")
     n_layers, n_ln = tcfg.num_layers, 4 * tcfg.num_layers + 2
-    want_a = dict(B1=n_layers * steps_a, B6=n_layers * steps_a, B7=0)
+    b13 = adam_launches(state.model.parameters())
+    want_a = dict(B1=n_layers * steps_a, B6=n_layers * steps_a, B7=0,
+                  B13=b13 * steps_a)
     want_b = dict(B1=n_layers * steps_b, B6=n_layers * steps_b,
-                  B7=2 * n_ln * steps_b)
+                  B7=2 * n_ln * steps_b, B13=b13 * steps_b)
     for want, got, what in ((want_a, counts_a, "as configured"),
                             (want_b, counts_b, "with B7")):
         for kid, n in want.items():
@@ -3372,7 +3538,12 @@ def phase_train_image(smi: str, tmp: str) -> dict:
     for kid, floor in floors.items():
         require(counts[kid] >= floor, f"{kid} launched {counts[kid]} times "
                 f"in image training, expected >= {floor}")
-    others = {k: v for k, v in counts.items() if k not in floors and v}
+    b13 = (adam_launches(state.model.parameters(), state.opt.count)
+           + adam_launches(state.disc.parameters(), state.disc_opt.count))
+    require(counts["B13"] == b13, f"B13 launched {counts['B13']} times in "
+            f"image training, expected {b13}")
+    others = {k: v for k, v in counts.items()
+              if k not in floors and k != "B13" and v}
     require(not others, f"other kernels launched in image training: "
             f"{others}")
 
@@ -4285,6 +4456,7 @@ def tokenize_and_train(smi: str, shards: str, img_dir, tmp: str):
     from mas_tpu_torch.breakdown import summary
     from mas_tpu_torch.cli import data_iter, load_vq
     from mas_tpu_torch.data.tokenizer import HashWordTokenizer
+    from mas_tpu_torch.models.transformer import MakeAScene
     from mas_tpu_torch.models.vqvae import VQModel
     from mas_tpu_torch.train.loop import tokenize_batches
     from mas_tpu_torch.utils.config import (TrainConfig, TransformerConfig,
@@ -4323,9 +4495,13 @@ def tokenize_and_train(smi: str, shards: str, img_dir, tmp: str):
     require(len(log) == steps and lines[-1] == f"trained to step {steps}"
             and all(math.isfinite(v) for v in losses),
             f"transformer on shards: {lines[-1]!r}, losses {losses}")
+    with torch.device("meta"):
+        b13 = adam_launches(MakeAScene(tcfg, fp32_params=True).parameters(),
+                            steps // max(train_cfg.optimizer.accumulate_grad,
+                                         1))
     exact_counts(counts, dict(B1=tcfg.num_layers * steps,
                               B6=tcfg.num_layers * steps, B4=gns * steps,
-                              B5=2 * steps), "tokenize and train")
+                              B5=2 * steps, B13=b13), "tokenize and train")
     print(f"transformer step with the real loader (CLI loop, steps 2-"
           f"{steps}, profiler on): host {res['host_ms']:.1f} ms, device "
           f"busy {res['device_busy_ms']:.1f} ms, idle share "
@@ -4541,7 +4717,8 @@ def train_variant(smi: str, tmp: str, what: str, fields: dict) -> dict:
     require(len(losses) == steps and all(map(math.isfinite, losses)),
             f"{what}: losses {losses}")
     want = {k: 0 for k in counts}
-    want.update(B1=tcfg.num_layers * steps, B6=tcfg.num_layers * steps)
+    want.update(B1=tcfg.num_layers * steps, B6=tcfg.num_layers * steps,
+                B13=adam_launches(state.model.parameters(), steps))
     exact_counts(counts, want, f"train {what}")
     print(f"train_transformer {what}: {steps} steps in "
           f"{time.perf_counter() - t0:.2f} s (first run, checkpoint "
@@ -4772,7 +4949,10 @@ def rank_worker(spec_path: str) -> int:
         res = dict(rc=rc, counts=counts, record=record,
                    digests=digests(state), writes=list(writes),
                    backend=dist.get_backend(), world=dist.get_world_size(),
-                   n_gns=count_gns(state.model))
+                   n_gns=count_gns(state.model),
+                   b13=sum(adam_launches(o.params.values(), o.count)
+                           for o in (state.opt, getattr(state, "disc_opt",
+                                                        None)) if o))
         if name == "seg":
             with open(config) as f:
                 raw = json.load(f)
@@ -4968,6 +5148,9 @@ def phase_parallel(smi: str, tmp: str) -> dict:
                     and res["world"] == PAR_WORLD,
                     f"{name} rank {r}: {res['backend']} x {res['world']}")
             require(len(res["record"]) == steps, f"{name}: steps")
+            require(res["b13"] > 0 and res["counts"]["B13"] == res["b13"],
+                    f"{name} rank {r}: B13 launched {res['counts']['B13']} "
+                    f"times, expected {res['b13']}")
         require(r0["writes"] == [steps] and r1["writes"] == [],
                 f"{name}: checkpoint writes {r0['writes']} / "
                 f"{r1['writes']}: rank 0 alone writes")
@@ -5038,7 +5221,7 @@ def phase_parallel(smi: str, tmp: str) -> dict:
         if name == "transformer":
             for r, res in enumerate((r0, r1)):
                 n = PAR_TRANSFORMER_LAYERS * steps
-                exact_counts(res["counts"], dict(B1=n, B6=n),
+                exact_counts(res["counts"], dict(B1=n, B6=n, B13=res["b13"]),
                              f"transformer rank {r}")
         rank_ms, share = step_ms(r0["record"])
         one_ms, _ = step_ms(ref["record"])
@@ -5233,6 +5416,7 @@ def tp_worker(spec_path: str) -> int:
     del first, grads
     g = grid()
     res = dict(rc=rc, counts=counts, record=record, writes=list(writes),
+               b13=adam_launches(state.opt.params.values(), state.opt.count),
                replicated={k: v for k, v in digests(state).items()
                            if split_dim(k[len("model."):]) is None},
                backend=dist.get_backend(), world=dist.get_world_size(),
@@ -5322,7 +5506,8 @@ def phase_tensor_parallel(smi: str, tmp: str) -> dict:
                 f"tp rank {r}: {res['backend']} x {res['world']}, grid "
                 f"{res['grid']}")
         require(len(res["record"]) == TP_STEPS, f"tp rank {r}: steps")
-        exact_counts(res["counts"], dict(B1=24 * TP_STEPS, B6=24 * TP_STEPS),
+        exact_counts(res["counts"], dict(B1=24 * TP_STEPS, B6=24 * TP_STEPS,
+                                         B13=res["b13"]),
                      f"tp transformer rank {r}")
     require(r0["writes"] == [TP_STEPS] and r1["writes"] == [],
             f"tp: checkpoint writes {r0['writes']} / {r1['writes']}")
@@ -5855,7 +6040,7 @@ def phase_hybrid(smi: str) -> dict:
 def main(argv) -> int:
     modes = {"--decode-times": decode_times, "--norm-times": norm_times,
              "--vq-times": vq_times, "--vq-paths": vq_paths,
-             "--mha-outputs": mha_outputs}
+             "--mha-outputs": mha_outputs, "--adam-times": adam_times}
     if argv[:1] == ["--rank-worker"]:
         # one rank of phase 15, started by launch_ranks
         return rank_worker(argv[1])

@@ -174,6 +174,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     # stream
     lib.mas_moe_swiglu.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.mas_moe_swiglu.restype = i
+    # pointers [4, total] (p, g, mu, nu), total first count, numels
+    # tile_starts, 1 - b1 b1 1 - b2 b2 bc1 bc2 eps -lr, device, stream
+    lib.mas_adam_update.argtypes = [p, i, i, i, ctypes.POINTER(ll),
+                                    ctypes.POINTER(i)] + [f] * 8 + [i, p]
+    lib.mas_adam_update.restype = i
     lib.mas_cuda_error_string.argtypes = [i]
     lib.mas_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,2 +1,2 @@
 """Operators of the PyTorch port: plain tensor code and the wrappers of
-the hand-written kernels (B1-B11)."""
+the hand-written kernels (B1-B13)."""

@@ -5,7 +5,9 @@ optimizer, as ``mas_tpu/train/state.py``.
 moments) behind ``optax.MultiSteps``: with ``accumulate_grad`` k > 1 each
 micro-step folds its gradient into a running mean, and every k-th
 micro-step applies one Adam update with that mean; the parameters do not
-change in between.  Updates are in place.
+change in between.  Updates are in place: ``ops/adam.py::adam_update``,
+kernel B13 on the card (a few launches over all the tensors), the eager
+loop it replaced on the CPU.
 
 Under data parallelism the gradient that Adam applies is first averaged
 over the data group (``parallel.collectives.mean_``): with accumulation
@@ -29,6 +31,7 @@ from ..losses.discriminator import PatchDiscriminator
 from ..models.codebook import CodebookState, codebook_init_state
 from ..models.transformer import MakeAScene
 from ..models.vqvae import VQModel
+from ..ops.adam import adam_update
 from ..parallel.collectives import mean_
 from ..utils.config import OptimizerConfig, TransformerConfig, VQModelConfig
 from ..utils.spans import span
@@ -74,12 +77,12 @@ class Adam:
         self.count += 1
         bc1 = 1 - self.b1 ** self.count
         bc2 = 1 - self.b2 ** self.count
-        for k, p in self.params.items():
-            g, mu, nu = grads[k], self.mu[k], self.nu[k]
-            mu.copy_((1 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1 - self.b2) * g.square() + self.b2 * nu)
-            p.add_((mu / bc1) / ((nu / bc2).sqrt() + self.eps),
-                   alpha=-self.lr)
+        names = list(self.params)
+        # contiguous: a conv weight's gradient comes back channels_last
+        adam_update([self.params[k] for k in names],
+                    [grads[k].contiguous() for k in names],
+                    [self.mu[k] for k in names], [self.nu[k] for k in names],
+                    self.lr, self.b1, self.b2, self.eps, bc1, bc2)
         if self.every_k > 1:
             for acc in self.acc.values():
                 acc.zero_()
