@@ -3197,7 +3197,7 @@ def sample_512_raw(transformer_checkpoint=None) -> dict:
 def phase_serve_512(gen, smi: str, checkpoint: str) -> dict:
     """512^2 sampling over the float cache with the transformer that phase
     7 trained; returns the launch counts of one batch-4 run."""
-    from mas_tpu_torch.ops.decode_attention import FloatCache
+    from mas_tpu_torch.models.decode_state import FloatState
 
     raw = sample_512_raw(checkpoint)
     transformer, vq, text, seg = load_pipeline(raw, gen)
@@ -3227,11 +3227,12 @@ def phase_serve_512(gen, smi: str, checkpoint: str) -> dict:
 
     with torch.inference_mode():
         _, kvs = transformer.prefill(text[:1], seg[:1])
-        cache = transformer.allocate_caches(kvs, 1)[0][0]
-    require(isinstance(cache, FloatCache)
-            and cache.data.dtype == torch.bfloat16
-            and tuple(cache.data.shape) == (1, 16, 1408, 64),
-            "the float cache is bf16 [B, 16, 1408, 64]")
+        state = transformer.allocate_caches(kvs, 1)[0]
+    require(isinstance(state, FloatState)
+            and all(t.dtype == torch.bfloat16
+                    and tuple(t.shape) == (1, 16, 1408, 64)
+                    for t in state.tensors()),
+            "the float caches are bf16 [B, 16, 1408, 64]")
     teacher_forced_check(transformer, text, seg, gen, margin_ulps=4)
 
     print(f"e2e 512^2 batch 4: {secs4:.3f} s, {4 / secs4:.4f} img/s "

@@ -15,8 +15,10 @@ holds.  A graph holds no host state of the step: the sampling head stays
 outside it, drawing from its explicit ``torch.Generator``.
 
 B2, B3, B10 and B9 bake the caches' addresses into their launches, so a
-graph is keyed on the caches' layout records (``QuantCache.layout``) and
-captured anew when they change; it is also captured anew at step 1 of
+graph is keyed on the token's shape, dtype and device and on the address,
+shape, strides, dtype and device of every tensor of every layer's decode
+state (``tensors()``, ``models/decode_state.py``), and captured anew when
+they change; it is also captured anew at step 1 of
 every batch, since the Python that the step runs may differ from one
 batch to the next (a kernel function patched for its plain twin, a
 parameter's storage replaced).  The captures share one memory pool, and
@@ -52,26 +54,12 @@ from typing import Callable, Optional
 
 import torch
 
-from ..ops.decode_cache import PackedQuantCache
-from ..ops.quant import QuantCache
-
-
-def _cache_key(cache):
-    """What a graph bakes in of one cache: its layout record (addresses
-    included)."""
-    if cache is None:
-        return None
-    if isinstance(cache, QuantCache):
-        return cache.layout()
-    if isinstance(cache, PackedQuantCache):
-        return tuple(half.layout() for half in cache.views())
-    data = cache.data                      # FloatCache, hybrid.ConvState
-    return (data.data_ptr(), data.shape, data.stride(), data.dtype)
-
 
 def _key(img_token: torch.Tensor, caches) -> tuple:
+    """What a graph bakes in of the step's token and states."""
     return (img_token.shape, img_token.dtype, img_token.device,
-            tuple(_cache_key(c) for pair in caches for c in pair))
+            tuple((t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
+                  for state in caches for t in state.tensors()))
 
 
 class DecodeGraph:

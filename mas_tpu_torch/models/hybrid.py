@@ -25,14 +25,14 @@ x [B, T, D] (kept in fp32):
 After the last layer a final RMSNorm (``transformer.final_ln``) and the
 Linear head onto the image codes (``to_logits``).
 
-Decode state, one entry a layer in ``allocate_caches``' list: an
-attention layer's k (after its norm and RoPE) and v in lane caches of
-the configuration's dtype (B3 writes, B2 reads, grouped by kv head); a
-conv layer's ``ConvState``: v of every row at its last positions in a
-ring of K slots, fp32, seeded from the prefill and written in place by
-each step.  The step reads its position from the device (the RoPE tables
-and the ring's slots are gathered at the cache index), so
-``DecodeGraph`` can replay it.
+Decode state, one a layer (``HybridStack.decode_states``): an attention
+layer's k (after its norm and RoPE) and v in the state that
+``models/decode_state.py`` chooses (lane caches: B3 writes, B2 reads,
+grouped by kv head); a conv layer's ``ConvState``: v of every row at its
+last positions in a ring of K slots, fp32, seeded from the prefill and
+written in place by each step.  The step reads its position from the
+device (the RoPE tables and the ring's slots are gathered at the cache
+index), so ``DecodeGraph`` can replay it.
 
 Counters: each MoE layer accumulates, on the device, the pairs routed to
 each expert, the experts with at least one pair, its calls and the most
@@ -51,9 +51,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops import attention, decode_attention, decode_cache, moe, quant
-from ..ops.quant import QuantCache
+from ..ops import attention, moe
 from ..utils.config import HybridBlockConfig, TransformerConfig
+from ..utils.spans import span
+from .decode_state import kv_state
 from .vqvae import compute_dtype
 
 # a full-sequence call (prefill, training forward) routes in row 0 of a
@@ -70,6 +71,9 @@ class ConvState:
     reads slots t - K + 1 .. t, so running it twice at one position (the
     warm-up before a capture) leaves the same state."""
     data: torch.Tensor
+
+    def tensors(self):
+        return (self.data,)
 
 
 class Linear(nn.Linear):
@@ -206,23 +210,16 @@ class Attention(nn.Module):
         y = self.out_proj(ctx.transpose(1, 2).reshape(b, t, -1))
         return y, (k, v)
 
-    def decode(self, h, k_cache, v_cache, index):
-        """h [B, 1, D]: this token's k, v written at ``index`` (the RoPE
-        tables gathered there on the device), then the read over positions
-        <= index (B3 and B2 on quantized caches, B9 on float ones)."""
+    def decode(self, h, state, index):
+        """h [B, 1, D]: this token's k, v written at ``index`` of the
+        layer's state (the RoPE tables gathered there on the device), then
+        the read over positions <= index."""
         b = h.shape[0]
         at = index.long()
         q, k, v = self._qkv(h, self.cos.index_select(0, at),
                             self.sin.index_select(0, at))
-        q = q.transpose(1, 2)                              # [B, H, 1, d]
-        k, v = k[:, 0], v[:, 0]                            # [B, KV, d]
-        if isinstance(k_cache, QuantCache):
-            decode_cache.write_quant_kv(k_cache, v_cache, k, v, index)
-            ctx = quant.decode_attention_quant(q, k_cache, v_cache, index)
-        else:
-            decode_attention.write_float_kv(k_cache, v_cache, k, v, index)
-            ctx = decode_attention.decode_attention_float(q, k_cache,
-                                                          v_cache, index)
+        state.write(k[:, 0], v[:, 0], index)               # [B, KV, d]
+        ctx = state.read(q.transpose(1, 2), index)         # [B, H, 1, d]
         return self.out_proj(ctx.reshape(b, 1, -1))
 
 
@@ -326,13 +323,13 @@ class HybridLayer(nn.Module):
             y, seed = self.self_attn(h, prefix_length)
         return self._ffn(x + y.float(), SEQUENCE), seed
 
-    def decode(self, x, k_cache, v_cache, index):
-        """x [B, 1, D]; ``k_cache`` is the conv state (``v_cache`` None)
-        or the attention layer's k cache."""
+    def decode(self, x, state, index):
+        """x [B, 1, D]; ``state``: the conv state or the attention layer's
+        decode state."""
         x = x.float()
         h = self.operator_norm(x)
-        y = (self.conv.decode(h, k_cache, index) if self.is_conv
-             else self.self_attn.decode(h, k_cache, v_cache, index))
+        y = (self.conv.decode(h, state, index) if self.is_conv
+             else self.self_attn.decode(h, state, index))
         return self._ffn(x + y.float(), DECODE)
 
 
@@ -341,9 +338,19 @@ class HybridStack(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, block: HybridBlockConfig):
         super().__init__()
+        self.cfg = cfg
         self.layers = nn.ModuleList(
             [HybridLayer(cfg, block, i) for i in range(cfg.num_layers)])
         self.final_ln = RMSNorm(cfg.hidden_dim, block.norm_eps)
+
+    def decode_states(self, seeds, batch: int) -> list:
+        """Each layer's decode state from its prefill seed: a copy of a
+        conv layer's ring of v, or an attention layer's (k, v)."""
+        with span("state_seed"):
+            rings = {i: ConvState(seed.clone()) for i, seed in
+                     enumerate(seeds) if self.layers[i].is_conv}
+        return [rings[i] if i in rings else kv_state(self.cfg, *seed, batch)
+                for i, seed in enumerate(seeds)]
 
     def moe_layers(self):
         return [layer.feed_forward for layer in self.layers

@@ -38,14 +38,8 @@ Kernels: the full-sequence attention (``forward`` and ``prefill``) is B1,
 with B6 as its backward, through ``ops/attention.py::
 FlashAttentionFunction`` (the fused projection, no copy) or
 ``FlashAttentionQKVFunction`` (grouped-query and rudalle_relax).  Each
-decode step writes the new token's k/v and reads the cache, by the cache's
-kind (``allocate_caches``):
-  * float (``kv_cache_dtype: "compute"``): an in-place ``index_copy_``,
-    then B9 (``ops/decode_attention.py``);
-  * int8/int4 lane caches: B3 (``ops/decode_cache.py``), then B2
-    (``ops/quant.py``);
-  * int8/int4 packed cache (``kv_cache_layout: "packed"``): B10, then B2
-    over strided views of the packed buffer (``ops/decode_cache.py``).
+decode step writes the new token's k/v into its layer's state and reads it
+back; ``models/decode_state.py`` chooses the state's kind and its kernels.
 With ``layernorm_impl: "pallas"`` every LayerNorm of at least 4096 rows is
 B7 (``ops/layer_norm.py``).  CPU tensors take the kernels' plain twins.
 On the card every decode step of a batch but the first is replayed from a
@@ -83,18 +77,15 @@ hidden activations) span the group.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 from torch.utils import checkpoint
 
-from ..ops import attention, decode_attention, decode_cache, quant
-from ..ops.decode_attention import FloatCache
-from ..ops.decode_cache import PackedQuantCache
+from ..ops import attention, decode_attention
 from ..ops.norms import folded_ln_dense, layer_norm
-from ..ops.quant import QuantCache
 from ..parallel.collectives import (copy_to_model, max_over_model,
                                     reduce_from_model)
 from ..parallel.sharding import check_shardable, kv_heads_of, shard_state
@@ -102,15 +93,8 @@ from ..utils.config import ConfigError, HybridBlockConfig, TransformerConfig
 from ..utils.spans import span
 from . import hybrid
 from .decode_graph import DecodeGraph
+from .decode_state import kv_state
 from .vqvae import compute_dtype
-
-# per layer: (k, v) float or lane caches, or (packed cache, None), as the
-# JAX package's caches are; a hybrid conv layer's (conv state, None)
-LayerCache = Union[Tuple[FloatCache, FloatCache],
-                   Tuple[QuantCache, QuantCache],
-                   Tuple[PackedQuantCache, None],
-                   Tuple["hybrid.ConvState", None]]
-KVCache = List[LayerCache]
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
          torch.ops.aten.bmm.default)
@@ -258,8 +242,7 @@ def rudalle_attention(q, k, v, prefix_length: int,
         qs, k, vs, prefix_length).float()
 
 
-def rudalle_decode_attention(q, k_cache: FloatCache, v_cache: FloatCache,
-                             index: torch.Tensor,
+def rudalle_decode_attention(q, k_cache, v_cache, index: torch.Tensor,
                              shards: int = 1) -> torch.Tensor:
     """rudalle_relax for one token over float caches
     (``mas_tpu/models/transformer.py::_rudalle_decode_attention``): sigma
@@ -364,29 +347,21 @@ class SelfAttention(nn.Module):
                 v.repeat_interleave(g, dim=1), prefix_length)
         return self.out_proj(self._context(ctx)), (k, v)
 
-    def decode(self, x: torch.Tensor, k_cache, v_cache,
+    def decode(self, x: torch.Tensor, state,
                index: torch.Tensor) -> torch.Tensor:
-        """x [B, 1, D]; writes this token's k/v at ``index`` in place, then
-        attends over positions <= index.  The caches are a float pair, a
-        lane-quantized pair, or one packed cache with ``v_cache`` None
-        (``mas_tpu/models/transformer.py::SelfAttention.decode``), of
-        kv_heads heads."""
+        """x [B, 1, D]; writes this token's k/v at ``index`` of the layer's
+        state (``models/decode_state.py``, kv_heads heads) in place, then
+        attends over positions <= index
+        (``mas_tpu/models/transformer.py::SelfAttention.decode``);
+        rudalle_relax reads its float caches through
+        ``rudalle_decode_attention``."""
         _, (q, k, v) = self._qkv(x)
-        k, v = k[:, :, 0], v[:, :, 0]
-        if isinstance(k_cache, PackedQuantCache):
-            decode_cache.write_packed_kv(k_cache, k, v, index)
-            ctx = decode_cache.decode_attention_packed(q, k_cache, index)
-        elif isinstance(k_cache, QuantCache):
-            decode_cache.write_quant_kv(k_cache, v_cache, k, v, index)
-            ctx = quant.decode_attention_quant(q, k_cache, v_cache, index)
+        state.write(k[:, :, 0], v[:, :, 0], index)
+        if self.cfg.rudalle_relax:
+            ctx = rudalle_decode_attention(q, state.k, state.v, index,
+                                           self.shards)
         else:
-            decode_attention.write_float_kv(k_cache, v_cache, k, v, index)
-            if self.cfg.rudalle_relax:
-                ctx = rudalle_decode_attention(q, k_cache, v_cache, index,
-                                               self.shards)
-            else:
-                ctx = decode_attention.decode_attention_float(
-                    q, k_cache, v_cache, index)
+            ctx = state.read(q, index)
         return self.out_proj(self._context(ctx))
 
 
@@ -462,9 +437,8 @@ class TransformerLayer(nn.Module):
             a, kv = self.attn(self.ln_in(t), prefix_length)
         return self._post_attn(x, a), kv
 
-    def decode(self, x, k_cache, v_cache, index):
-        a = self.attn.decode(self.ln_in(self._prescaled(x)), k_cache,
-                             v_cache, index)
+    def decode(self, x, state, index):
+        a = self.attn.decode(self.ln_in(self._prescaled(x)), state, index)
         return self._post_attn(x, a)
 
 
@@ -474,10 +448,15 @@ class _Stack(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, index: int, size: int):
         super().__init__()
+        self.cfg = cfg
         self.layers = nn.ModuleList(
             [TransformerLayer(cfg, index, size)
              for _ in range(cfg.num_layers)])
         self.final_ln = LayerNorm(cfg.hidden_dim, cfg.layernorm_impl)
+
+    def decode_states(self, prefill_kv: Sequence, batch: int) -> list:
+        """Each layer's decode state seeded with its prefill (k, v)."""
+        return [kv_state(self.cfg, k, v, batch) for k, v in prefill_kv]
 
 
 class MakeAScene(nn.Module):
@@ -631,51 +610,13 @@ class MakeAScene(nn.Module):
                 self.embed_prefix(text_tokens, seg_tokens), keep_kv=True)
             return self._logits(h[:, -1:, :])[:, 0], kvs
 
-    def allocate_caches(self, prefill_kv: Sequence, batch: int) -> KVCache:
-        """Full-length caches of this rank's kv heads seeded with the
-        prefill's
-        k/v: float caches in the compute dtype (``kv_cache_dtype:
-        "compute"``), else the quantized prefix in lane caches (scales in
-        ``kv_scale_dtype``) or, with ``kv_cache_layout: "packed"``, in one
-        packed cache per layer; the hybrid block's conv layers take a copy
-        of their ring of v (``hybrid.ConvState``).  They are allocated once
-        and written in place by ``decode_step``."""
+    def allocate_caches(self, prefill_kv: Sequence, batch: int) -> list:
+        """One decode state a layer, of this rank's kv heads, seeded with
+        the prefill's k/v (``models/decode_state.py``; a hybrid conv
+        layer's ``hybrid.ConvState``): allocated once at full length and
+        written in place by ``decode_step``."""
         with span("cache_seed"):
-            return self._seeded_caches(prefill_kv, batch)
-
-    def _seeded_caches(self, prefill_kv: Sequence, batch: int) -> KVCache:
-        states = {}
-        if self.block is not None:
-            # a conv layer's seed is its ring of v (``hybrid.ShortConv``)
-            with span("state_seed"):
-                states = {i: (hybrid.ConvState(seed.clone()), None)
-                          for i, seed in enumerate(prefill_kv)
-                          if isinstance(seed, torch.Tensor)}
-        return [states[i] if i in states else self._seeded_pair(*seed, batch)
-                for i, seed in enumerate(prefill_kv)]
-
-    def _seeded_pair(self, k: torch.Tensor, v: torch.Tensor, batch: int):
-        """One layer's full-length caches seeded with its prefix k, v [B,
-        KV, prefix, hd]."""
-        cfg = self.cfg
-        total = cfg.total_length
-        if cfg.kv_cache_dtype == "compute":
-            return FloatCache.seeded(k, total), FloatCache.seeded(v, total)
-        bits = 4 if cfg.kv_cache_dtype == "int4" else 8
-        if cfg.kv_cache_layout == "packed":
-            return decode_cache.seed_packed_cache(k, v, total, bits), None
-        device = self.text_pos_embeddings.weight.device
-        scale_dtype = (torch.bfloat16 if cfg.kv_scale_dtype == "bfloat16"
-                       else torch.float32)
-        pair = []
-        for t in (k, v):
-            c = QuantCache.empty(batch, t.shape[1], total, cfg.head_dim,
-                                 bits, device, scale_dtype)
-            seeded = quant.quantize_kv(t, bits, scale_dtype)
-            c.q[:, :, :t.shape[2]] = seeded.q
-            c.scale[:, :, :t.shape[2]] = seeded.scale
-            pair.append(c)
-        return tuple(pair)
+            return self.transformer.decode_states(prefill_kv, batch)
 
     def routed_pairs(self) -> Optional[torch.Tensor]:
         """The MoE layers' device counters stacked, [layers, 2, E + 3] int32
@@ -688,7 +629,7 @@ class MakeAScene(nn.Module):
         return torch.stack([m.routed for m in moes]) if moes else None
 
     def decode_step(self, img_token: torch.Tensor, step: int,
-                    caches: KVCache) -> torch.Tensor:
+                    caches: list) -> torch.Tensor:
         """img_token [B, 1] generated at image position ``step``; writes its
         k/v at prefix + step into ``caches`` (in place) and returns the
         logits [B, vocab] for position step + 1, which later steps do not
@@ -700,7 +641,7 @@ class MakeAScene(nn.Module):
                                           caches, self.shard[1] > 1)
 
     def decode_body(self, img_token: torch.Tensor, pos: torch.Tensor,
-                    caches: KVCache) -> torch.Tensor:
+                    caches: list) -> torch.Tensor:
         """The decode step at the image position held in ``pos`` (a
         1-element int32 tensor on the model's device): the embeddings of
         pos // n and pos % n and the cache index prefix + pos are computed
@@ -708,7 +649,6 @@ class MakeAScene(nn.Module):
         graph can replay it."""
         x = self.embed_image(img_token, pos)
         index = pos + self.cfg.prefix_length
-        for layer, (k_cache, v_cache) in zip(self.transformer.layers,
-                                             caches):
-            x = layer.decode(x, k_cache, v_cache, index)
+        for layer, state in zip(self.transformer.layers, caches):
+            x = layer.decode(x, state, index)
         return self._logits(self._final_ln(x))[:, 0]

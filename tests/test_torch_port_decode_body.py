@@ -3,7 +3,10 @@ that a CUDA graph can replay it (``MakeAScene.decode_body``), against the
 step as it was with a host position, on the CPU: logits and caches
 bitwise at every step over lane, packed, float, MQA (bf16 scales) and
 rudalle_relax float caches; every step runs eagerly and ``sample_tokens``
-draws the same tokens; the graph's key follows the caches.
+draws the same tokens; the graph's key follows the caches.  Each accepted
+cache configuration gives its decode state kind
+(``models/decode_state.py``), and a hybrid model's key follows its conv
+states.
 
 The slice is ``test_torch_port_decode_variants.py``'s (2 layers, 2 heads
 of 64, text 48 + seg 4^2 + image 8^2 = 128 tokens).  One model and one
@@ -19,11 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from mas_tpu_torch.models import decode_state
 from mas_tpu_torch.models.decode_graph import DecodeGraph, _key
 from mas_tpu_torch.models.sampler import sample_tokens
 from mas_tpu_torch.models.transformer import MakeAScene
-from mas_tpu_torch.ops import decode_cache, quant
-from mas_tpu_torch.utils.config import TransformerConfig
+from mas_tpu_torch.utils.config import HybridBlockConfig, TransformerConfig
 
 SLICE = dict(num_layers=2, hidden_dim=128, num_attn_heads=2,
              image_vocab_size=96, seg_vocab_size=32, text_vocab_size=88,
@@ -86,22 +89,13 @@ def _int_step(model, img_token, step, caches):
          + model.image_row_embeddings(pos // n)
          + model.image_col_embeddings(pos % n))
     index = torch.full((1,), cfg.prefix_length + step, dtype=torch.int32)
-    for layer, (k_cache, v_cache) in zip(model.transformer.layers, caches):
-        x = layer.decode(x, k_cache, v_cache, index)
+    for layer, state in zip(model.transformer.layers, caches):
+        x = layer.decode(x, state, index)
     return model._logits(model._final_ln(x))[:, 0]
 
 
 def _cache_tensors(caches) -> list:
-    out = []
-    for pair in caches:
-        for c in pair:
-            if isinstance(c, quant.QuantCache):
-                out += [c.q, c.scale]
-            elif isinstance(c, decode_cache.PackedQuantCache):
-                out += [c.kv, c.scale]
-            elif c is not None:
-                out.append(c.data)
-    return out
+    return [t for state in caches for t in state.tensors()]
 
 
 @pytest.mark.parametrize("cache", list(STEP_CACHES))
@@ -162,3 +156,86 @@ def test_decode_graph_key_follows_the_caches(cache):
     copied = copy.deepcopy(model)
     assert isinstance(copied._decode_graph, DecodeGraph)
     assert copied._decode_graph is not model._decode_graph
+
+
+# (kv_cache_dtype, kv_cache_layout, kv_scale_dtype, compute_dtype) -> the
+# state kind and its buffers' dtypes
+KINDS = {
+    ("compute", "lane", "float32", "float32"):
+        (decode_state.FloatState, [torch.float32] * 2),
+    ("compute", "lane", "float32", "bfloat16"):
+        (decode_state.FloatState, [torch.bfloat16] * 2),
+    ("int8", "lane", "float32", "float32"):
+        (decode_state.LaneState, [torch.int8, torch.float32] * 2),
+    ("int4", "lane", "float32", "float32"):
+        (decode_state.LaneState, [torch.uint8, torch.float32] * 2),
+    ("int8", "lane", "bfloat16", "float32"):
+        (decode_state.LaneState, [torch.int8, torch.bfloat16] * 2),
+    ("int4", "lane", "bfloat16", "bfloat16"):
+        (decode_state.LaneState, [torch.uint8, torch.bfloat16] * 2),
+    ("int8", "lane_aliased", "float32", "float32"):
+        (decode_state.LaneState, [torch.int8, torch.float32] * 2),
+    ("int4", "lane_aliased", "float32", "float32"):
+        (decode_state.LaneState, [torch.uint8, torch.float32] * 2),
+    ("int8", "packed", "float32", "float32"):
+        (decode_state.PackedState, [torch.int8, torch.float32]),
+    ("int4", "packed", "float32", "float32"):
+        (decode_state.PackedState, [torch.uint8, torch.float32])}
+
+
+@pytest.mark.parametrize("knobs", list(KINDS), ids="-".join)
+def test_cache_configuration_chooses_its_state(knobs):
+    """``allocate_caches`` gives one state a layer, of the kind and buffer
+    dtypes the configuration names (``lane_aliased`` is the lane kind),
+    every buffer ``total_length`` positions long, the prefix seeded."""
+    dtype, layout, scales, compute = knobs
+    kind, dtypes = KINDS[knobs]
+    torch.manual_seed(53)
+    model = MakeAScene(TransformerConfig(
+        **SLICE, kv_cache_dtype=dtype, kv_cache_layout=layout,
+        kv_scale_dtype=scales, compute_dtype=compute)).eval()
+    text, seg, _ = _tokens(model.cfg, seed=54)
+    with torch.inference_mode():
+        _, kvs = model.prefill(text, seg)
+        caches = model.allocate_caches(kvs, text.shape[0])
+    cfg = model.cfg
+    assert len(caches) == cfg.num_layers
+    for state in caches:
+        assert type(state) is kind
+        tensors = state.tensors()
+        assert [t.dtype for t in tensors] == dtypes
+        for t in tensors:
+            assert t.shape[:3] == (2, 2, cfg.total_length) or \
+                t.shape[1:] == (2, 2, cfg.total_length)     # packed scales
+        assert tensors[0][:, :, :cfg.prefix_length].any()
+        assert not tensors[0][:, :, cfg.prefix_length:].any()
+
+
+@pytest.mark.parametrize("cache", ["int4", "compute"])
+def test_hybrid_graph_key_follows_the_states(cache):
+    """A hybrid model's key holds every conv state's buffer: unchanged
+    across decode steps, changed when one conv state's buffer is
+    replaced."""
+    torch.manual_seed(55)
+    cfg = TransformerConfig(
+        num_layers=3, hidden_dim=64, num_attn_heads=4, num_kv_heads=2,
+        image_vocab_size=96, seg_vocab_size=32, text_vocab_size=88,
+        image_tokens_per_dim=8, seg_tokens_per_dim=4, text_length=16,
+        kv_cache_dtype=cache)
+    model = MakeAScene(cfg, block=HybridBlockConfig(
+        layer_types=["conv", "full_attention", "conv"], intermediate_size=64,
+        moe_intermediate_size=32, num_experts=4, num_experts_per_tok=2,
+        num_dense_layers=1)).eval()
+    text, seg, img = _tokens(cfg, seed=56)
+    pos = torch.zeros(1, dtype=torch.int32)
+    with torch.inference_mode():
+        _, seeds = model.prefill(text, seg)
+        caches = model.allocate_caches(seeds, text.shape[0])
+        key = _key(img[:, :1], caches)
+        for step in range(3):
+            pos.fill_(step)
+            model.decode_body(img[:, step:step + 1], pos, caches)
+            assert _key(img[:, step + 1:step + 2], caches) == key
+    assert [type(s).__name__ for s in caches][::2] == ["ConvState"] * 2
+    caches[2].data = caches[2].data.clone()
+    assert _key(img[:, :1], caches) != key

@@ -18,7 +18,9 @@ decode logits within 1e-4, and greedy guided sampling token-equal to JAX,
 for the float cache and the packed int8 and int4 caches; packed and lane
 caches give equal tokens in the port.  Also: the packed ``ConfigError``s
 are the JAX package's.  The decode step's device-position body is held in
-``test_torch_port_decode_body.py``.
+``test_torch_port_decode_body.py``.  Torch runs one thread here: the tests
+run in several worker processes on a few cores, where more threads a
+process slow these small operations down.
 """
 
 import os
@@ -58,6 +60,14 @@ CACHES = {"compute": dict(kv_cache_dtype="compute"),
           "packed-int4": dict(kv_cache_dtype="int4",
                               kv_cache_layout="packed")}
 B, H, T, D = 2, 3, 128, 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _rng(seed):

@@ -205,19 +205,13 @@ def _int_step(model, img_token, step, caches):
          + model.image_row_embeddings(pos // n)
          + model.image_col_embeddings(pos % n))
     index = torch.full((1,), cfg.prefix_length + step, dtype=torch.int32)
-    for layer, (a, b) in zip(model.transformer.layers, caches):
-        x = layer.decode(x, a, b, index)
+    for layer, state in zip(model.transformer.layers, caches):
+        x = layer.decode(x, state, index)
     return model._logits(model._final_ln(x))[:, 0]
 
 
 def _state(caches):
-    out = []
-    for a, b in caches:
-        if isinstance(a, hybrid.ConvState):
-            out.append(a.data)
-        else:
-            out += [a.q, a.scale, b.q, b.scale]
-    return out
+    return [t for state in caches for t in state.tensors()]
 
 
 def test_device_position_body_is_bitwise_the_int_step():
@@ -263,9 +257,9 @@ def test_sampling_counts_the_routed_pairs_and_seeds_conv_states():
     with torch.inference_mode():
         _, seeds = model.prefill(text, seg)
         caches = model.allocate_caches(seeds, 2)
-    kinds = [type(a).__name__ for a, _ in caches]
-    assert kinds == ["ConvState", "ConvState", "QuantCache", "ConvState"]
-    assert caches[0][0].data.shape == (2, 3, 64)
+    kinds = [type(state).__name__ for state in caches]
+    assert kinds == ["ConvState", "ConvState", "LaneState", "ConvState"]
+    assert caches[0].data.shape == (2, 3, 64)
 
 
 def test_state_seed_span_sits_in_cache_seed():

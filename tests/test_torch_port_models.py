@@ -188,7 +188,7 @@ def test_teacher_forced_decode_matches_jax(cache, atol):
     # the caches hold the same quantized prefix + 8 tokens
     upto = cfg.prefix_length + 8
     jk = jcaches[0][0]
-    got_vals = caches[0][0].values()[:, :, :upto].numpy()
+    got_vals = caches[0].k.values()[:, :, :upto].numpy()
     ref_vals = np.asarray(jk.q.astype(jnp.int8))[..., :upto].transpose(
         0, 1, 3, 2)
     agree = np.mean(got_vals == ref_vals)

@@ -180,7 +180,7 @@ def test_gqa_teacher_forced_decode_matches_jax(kv_heads, cache, scales,
                                      kv_cache_dtype=cache,
                                      kv_scale_dtype=scales)
     caches, jcaches = _teacher_forced(jmodel, variables, model, atol)
-    k = caches[0][0]
+    k = caches[0].k
     if cache == "compute":
         assert k.data.shape[:2] == (4, kv_heads)
         return
