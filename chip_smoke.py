@@ -26,9 +26,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. run the serving path at full width — ``configs/sample_256.json``
      (24 layers, hidden 1024, int4 cache, guidance 3.0, top-k 64), seeded
      random weights, its 4 captions — through ``sample_images``, check the
-     images and that every kernel of that path was launched; then check
-     teacher-forced logits through the kernels against the plain twins on
-     the card, and print end-to-end img/s at batch 4 and 64;
+     images and that every kernel of that path was launched, and that
+     every LayerNorm took B7 (``layer_norm.calls``: 98 a pass in the
+     prefill, at step 0 and at the graph's capture, 294 in all, none
+     upcast; B7 launched 294 times); then check teacher-forced logits
+     through the kernels against the plain twins and the upcast
+     LayerNorm on the card, and print end-to-end img/s at batch 4 and 64;
   5. train VQ-SEG at full width — ``configs/seg_256.json`` with
      codebook.init_steps 4 and samples_per_image 256 — for 16 micro-steps
      through ``run_pretrain_segmentation``: pass-through, reservoir
@@ -52,8 +55,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``configs/img_512.json`` (seeded random weights) and the sampling
      keys of ``configs/sample_256.json``, built in memory
      (``sample_512_raw``); exact launch counts (B1 24, B9 24 x 2: phase
-     18; B2 = B3 = B10 = 0), teacher-forced logits through the kernels
-     against the twins, end-to-end s and img/s at batch 4 and 64;
+     18; B2 = B3 = B10 = 0; B7 98 x 3), teacher-forced logits through the
+     kernels against the twins, end-to-end s and img/s at batch 4 and 64;
   9. serve 256^2 images over the packed int4 cache (``configs/
      sample_256.json`` with ``kv_cache_layout: "packed"``) at batch 4:
      exact counts (B10 = B2 = 24 x 2, B3 = 0: phase 18), and greedy tokens
@@ -218,8 +221,9 @@ call.
     python3 chip_smoke.py --norm-times DIR
 
 does the same for B4 (GroupNorm+swish forward), B7 (LayerNorm forward +
-backward, with ``F.layer_norm`` beside it) and B8 (GroupNorm+swish
-backward), and
+backward, with ``F.layer_norm`` beside it; the forward alone at the
+serving shapes, with the three-launch upcast chain beside it) and B8
+(GroupNorm+swish backward), and
 
     python3 chip_smoke.py --vq-times DIR
 
@@ -1689,6 +1693,9 @@ def check_b6(gen) -> dict:
 
 
 LN_TRAIN = (11264, 1024)   # the train step's B * T rows, hidden 1024
+# B7's forward in serving: a decode step's guided rows at batch 384 and 64,
+# then their prefills' rows (x 384 prefix tokens)
+LN_SERVE = ((768, 1024), (128, 1024), (49152, 1024), (294912, 1024))
 
 
 def _ln_inputs(gen, n, d, dtype):
@@ -1729,6 +1736,29 @@ def b7_times(gen) -> dict:
            "library_graph_ms": graph_ms(library),
            **bound(5 * n * d * 2, 20 * n * d, torch.bfloat16)}
     out["bound_share"] = out["bound_ms"] / out["graph_ms"]
+    del x, g, lib_in
+    out["serve"] = {f"{n}x{d}": b7_serve_times(gen, n, d)
+                    for n, d in LN_SERVE}
+    return out
+
+
+def b7_serve_times(gen, n: int, d: int) -> dict:
+    """B7's forward alone at a serving shape [n, d] bf16 (``LN_SERVE``):
+    replayed from a CUDA graph, back to back and one call, beside its
+    bound (x read and y written once) and the chain it replaces on the
+    serving path, timed the same three ways: the fp32 upcast,
+    ``F.layer_norm`` in fp32, the rounding to bf16 (three launches)."""
+    from mas_tpu_torch.ops import layer_norm as ln
+
+    x, _, s, b = _ln_inputs(gen, n, d, torch.bfloat16)
+    fwd = lambda: ln.layer_norm_fwd(x, s, b)
+    chain = lambda: F.layer_norm(x.float(), (d,), s, b, 1e-5).to(
+        torch.bfloat16)
+    out = {"graph_ms": graph_ms(fwd), "b2b_ms": run_ms(fwd),
+           "ms": timed_ms(fwd), "chain_graph_ms": graph_ms(chain),
+           "chain_b2b_ms": run_ms(chain), "chain_ms": timed_ms(chain),
+           **bound(2 * n * d * 2, 10 * n * d, torch.bfloat16)}
+    out["bound_share"] = out["bound_ms"] / out["graph_ms"]
     return out
 
 
@@ -1750,7 +1780,10 @@ def check_b7(gen) -> dict:
     sums over the rows, whose rounding grows like sqrt(rows): atol 1e-4 *
     sqrt(rows), rtol 1e-5, as for B8.  Two calls must give equal bits (no
     atomics on the sums), also after the pair was replayed from a CUDA
-    graph (the backward's ticket counters).  Timed by ``b7_times``."""
+    graph (the backward's ticket counters).  The forward alone, bf16, at
+    the serving shapes ``LN_SERVE`` (decode rows at batch 384 and 64, their
+    prefills' rows): against the twin, two calls and a call after graph
+    replays bitwise equal.  Timed by ``b7_times``."""
     from mas_tpu_torch.ops import layer_norm as ln
 
     out, err = {}, 0.0
@@ -1795,6 +1828,24 @@ def check_b7(gen) -> dict:
     torch.cuda.synchronize()
     require(all(torch.equal(a_, b_) for a_, b_ in zip(first, after)),
             "B7: a call after graph replays differs from one before")
+    del x, g, first, after
+    for n, d in LN_SERVE:
+        x, _, s, b = _ln_inputs(gen, n, d, torch.bfloat16)
+        y = ln.layer_norm_fwd(x, s, b)
+        py = ln.layer_norm_fwd_plain(x, s, b)
+        again = ln.layer_norm_fwd(x, s, b)
+        graph_ms(lambda: ln.layer_norm_fwd(x, s, b), calls=3, reps=2)
+        after = ln.layer_norm_fwd(x, s, b)
+        torch.cuda.synchronize()
+        what = f"B7 fwd [{n},{d}] bf16"
+        require(close(y, py, 1e-2, 1e-2),
+                f"{what}: max err {max_err(y, py):.3e}")
+        require(torch.equal(y, again) and torch.equal(y, after),
+                f"{what}: two calls, or a call after graph replays, differ")
+        err = max(err, max_err(y, py))
+        print(f"{what}: max err {max_err(y, py):.3e}; two calls and a call "
+              f"after graph replays bitwise equal")
+        del x, y, py, again, after
     res = b7_times(gen)
     print(f"B7 bf16 {list(LN_TRAIN)} fwd + bwd: one call {res['ms']:.4f} ms, "
           f"back to back {res['b2b_ms']:.4f} ms, graph {res['graph_ms']:.4f} "
@@ -1806,6 +1857,13 @@ def check_b7(gen) -> dict:
           f"F.layer_norm one call {res['library_ms']:.4f} ms, back to back "
           f"{res['library_b2b_ms']:.4f} ms, graph "
           f"{res['library_graph_ms']:.4f} ms; plain {res['plain_ms']:.4f} ms")
+    for shape, t in res["serve"].items():
+        print(f"B7 fwd bf16 [{shape}]: graph {t['graph_ms']:.5f} ms "
+              f"({100 * t['bound_share']:.1f}% of the bound "
+              f"{t['bound_ms']:.5f} ms), back to back {t['b2b_ms']:.5f}, one "
+              f"call {t['ms']:.5f}; upcast chain graph "
+              f"{t['chain_graph_ms']:.5f}, back to back "
+              f"{t['chain_b2b_ms']:.5f}, one call {t['chain_ms']:.5f}")
     out.update(res)
     out["max_abs_err"] = err
     return out
@@ -2459,11 +2517,32 @@ def wrappers() -> dict:
 
 def reset_counts() -> None:
     from mas_tpu_torch.models.decode_graph import DecodeGraph
+    from mas_tpu_torch.ops import norms
 
     for fns in wrappers().values():
         for fn in fns:
             fn.launches = 0
     DecodeGraph.captures = DecodeGraph.replays = DecodeGraph.eager = 0
+    norms.layer_norm.calls = dict.fromkeys(norms.LN_ROUTES, 0)
+
+
+def ln_per_pass(cfg, decode: bool) -> int:
+    """LayerNorm calls in one pass of the Make-A-Scene transformer
+    (``models/transformer.py``): a layer's ln_in and ln_out unless
+    ``ln_matmul_fold`` folds them into the next product (a decode step's
+    ln_in never), and its two sandwich norms; then ``final_ln`` and the
+    ``to_logits`` LN."""
+    fold = cfg.ln_matmul_fold
+    per_layer = (2 * cfg.cogview_sandwich_layernorm + (not fold)
+                 + (decode or not fold))
+    return per_layer * cfg.num_layers + 2
+
+
+def b7_serving(cfg, stepped: int) -> int:
+    """B7's launches in a sampling run on the card, where every LayerNorm
+    takes it (``ops/norms.py::ln_route``): the prefill's and those of the
+    ``stepped`` decode steps that ran eagerly or were captured."""
+    return ln_per_pass(cfg, False) + ln_per_pass(cfg, True) * stepped
 
 
 def read_counts() -> dict:
@@ -2568,6 +2647,17 @@ def phase_slice(gen) -> dict:
     for kid, floor in floors.items():
         require(counts[kid] >= floor, f"{kid} launched {counts[kid]} times "
                 f"on the serving path, expected >= {floor}")
+    from mas_tpu_torch.ops import norms
+
+    lns = b7_serving(cfg, stepped)
+    print(f"slice: LayerNorm calls by route {norms.layer_norm.calls} "
+          f"({ln_per_pass(cfg, False)} a pass: the prefill, step 0 and the "
+          f"capture)")
+    require(counts["B7"] == lns
+            and norms.layer_norm.calls == dict(b7=lns, upcast=0),
+            f"slice: B7 launched {counts['B7']} times, LayerNorm calls by "
+            f"route {norms.layer_norm.calls}, expected {lns} B7 calls and "
+            f"launches, none upcast")
 
     teacher_forced_check(transformer, text, seg, gen)
 
@@ -2621,8 +2711,9 @@ def teacher_forced_check(transformer, text, seg, gen, steps: int = 16,
     """Prefill + ``steps`` decode steps over the same forced tokens, once
     through the kernels and once through the plain twins on the card (bf16
     model; every decode kernel is patched, whichever cache the model
-    allocates).  Tolerance: the two differ only inside attention and the
-    cache write, by bf16 rounding of the attention output (2^-8 relative),
+    allocates, and every LayerNorm takes the fp32 upcast chain in place of
+    B7).  Tolerance: the two differ inside attention, the cache write and
+    the LayerNorms, by bf16 rounding of their outputs (2^-8 relative),
     which 24 bf16 layers carry on: max |d logit| <= 0.1 * max |logit| and
     top-1 agreement >= 90%.  With ``margin_ulps`` the top-1 agreement
     counts only the positions whose twin logits put the top choice more
@@ -2630,7 +2721,8 @@ def teacher_forced_check(transformer, text, seg, gen, steps: int = 16,
     trained for a few steps has near-uniform logits (loss ~ ln 8192), and
     bf16 rounding then flips near-ties, not decisions."""
     from mas_tpu_torch.ops import (attention, decode_attention, decode_cache,
-                                   quant)
+                                   norms, quant)
+    from mas_tpu_torch.ops import layer_norm as ln
 
     cfg = transformer.cfg
     text2 = torch.cat([text, torch.zeros_like(text)])
@@ -2662,7 +2754,12 @@ def teacher_forced_check(transformer, text, seg, gen, steps: int = 16,
                 (decode_attention, "decode_attention_float",
                  decode_attention.decode_attention_float_plain)):
             stack.enter_context(mock.patch.object(mod, name, plain))
+        stack.enter_context(mock.patch.object(norms, "ln_route",
+                                              lambda *_: "upcast"))
+        b7 = ln.layer_norm_fwd.launches
         ref = run()
+    require(ln.layer_norm_fwd.launches == b7, "teacher-forced: the "
+            "reference ran B7")
     diff = (kern - ref).abs()
     scale = float(ref.abs().max())
     margin = margin_ulps * 2.0 ** (math.floor(math.log2(scale)) - 7)
@@ -3218,7 +3315,7 @@ def phase_serve_512(gen, smi: str, checkpoint: str) -> dict:
     require(bool(torch.isfinite(imgs).all()), "images are finite")
     stepped = counted_steps(1, cfg.image_length - 1, "serve 512^2")
     want = {"B1": cfg.num_layers, "B9": cfg.num_layers * stepped, "B2": 0,
-            "B3": 0, "B10": 0}
+            "B3": 0, "B10": 0, "B7": b7_serving(cfg, stepped)}
     for kid, n in want.items():
         require(counts[kid] == n, f"{kid} launched {counts[kid]} times on "
                 f"the 512^2 float-cache path, expected {n}")
@@ -3272,7 +3369,8 @@ def phase_packed(gen, smi: str) -> dict:
     steps = cfg.image_length - 1
     stepped = counted_steps(1, steps, "packed")
     want = {"B1": cfg.num_layers, "B10": cfg.num_layers * stepped,
-            "B2": cfg.num_layers * stepped, "B3": 0, "B9": 0}
+            "B2": cfg.num_layers * stepped, "B3": 0, "B9": 0,
+            "B7": b7_serving(cfg, stepped)}
     for kid, n in want.items():
         require(counts[kid] == n, f"{kid} launched {counts[kid]} times on "
                 f"the packed path, expected {n}")
@@ -4635,9 +4733,11 @@ def serve_variant(gen, smi: str, what: str, raw: dict, batches) -> dict:
         res = vq.cfg.resolution
         require(tuple(imgs.shape) == (batch, res, res, 3)
                 and bool(torch.isfinite(imgs).all()), f"{what}: images")
-        stepped = layers * counted_steps(1, steps, f"{what} batch {batch}")
+        ran = counted_steps(1, steps, f"{what} batch {batch}")
+        stepped = layers * ran
         want = {k: 0 for k in counts}
-        want.update(B1=layers, B4=n_gns * -(-batch // 32))
+        want.update(B1=layers, B4=n_gns * -(-batch // 32),
+                    B7=b7_serving(cfg, ran))
         want.update({"B2": stepped, "B3": stepped}
                     if quantized else {"B9": stepped})
         exact_counts(counts, want, f"{what} batch {batch}")
@@ -5582,7 +5682,8 @@ def phase_tensor_parallel(smi: str, tmp: str) -> dict:
         exact_counts(srv["counts"],
                      dict(B1=tcfg.num_layers, B2=tcfg.num_layers * steps,
                           B3=tcfg.num_layers * steps,
-                          B4=srv["n_gns"] if r == 0 else 0),
+                          B4=srv["n_gns"] if r == 0 else 0,
+                          B7=b7_serving(tcfg, steps)),
                      f"tp serving rank {r}")
     require(s0["images"] == [[4, 256, 256, 3], True] and s1["images"] is None,
             f"tp images {s0['images']} / {s1['images']}")
@@ -5942,6 +6043,10 @@ def phase_decode_graph(smi: str) -> dict:
                 f"{what}: {read} counted {counts[read]} launches in the "
                 f"graph run, expected {2 * tcfg.num_layers} (step 0 and the "
                 f"capture)")
+        require(counts["B7"] == b7_serving(tcfg, 2),
+                f"{what}: B7 counted {counts['B7']} launches in the graph "
+                f"run, expected {b7_serving(tcfg, 2)} (every LayerNorm of "
+                f"the prefill, step 0 and the capture)")
         del model, runs, lg, le
         gc.collect()
         torch.cuda.empty_cache()

@@ -17,6 +17,11 @@
 // bf16 the forward reads and writes 23 MB each, the backward reads x and g
 // and writes dx (69 MB), with ~10 flops per element in between.  The step
 // that calls it waits for the host, so each launch's host time counts too.
+// The forward also serves every LayerNorm of sampling: a decode step's
+// [768, 1024] (3 MB, shorter than a launch) and a prefill's [294912,
+// 1024].  There, two warps a row took 5% less time at the largest shape
+// and one warp a row 1% more; four warps a row were the fastest at the
+// decode rows, so every row count keeps the geometry below.
 //
 // What the design does about it:
 // - A row sits in registers, at most 32 values a thread: up to d = 32 E

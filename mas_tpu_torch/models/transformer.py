@@ -40,8 +40,10 @@ FlashAttentionFunction`` (the fused projection, no copy) or
 ``FlashAttentionQKVFunction`` (grouped-query and rudalle_relax).  Each
 decode step writes the new token's k/v into its layer's state and reads it
 back; ``models/decode_state.py`` chooses the state's kind and its kernels.
-With ``layernorm_impl: "pallas"`` every LayerNorm of at least 4096 rows is
-B7 (``ops/layer_norm.py``).  CPU tensors take the kernels' plain twins.
+Every LayerNorm on the card with autograd off is B7's forward, one launch
+(``ops/norms.py::ln_route``); with autograd on, ``layernorm_impl:
+"pallas"`` takes B7 both ways at 4096 rows and more.  CPU tensors take
+the kernels' plain twins.
 On the card every decode step of a batch but the first is replayed from a
 CUDA graph (``models/decode_graph.py``).
 

@@ -4,7 +4,11 @@
 B7 replaces ``mas_tpu/ops/pallas/layer_norm.py::_fwd_kernel`` and
 ``_bwd_kernel`` (launched by ``_ln_fwd_pallas`` / ``_ln_bwd_pallas``
 under ``ln_pallas``), the opt-in ``layernorm_impl: "pallas"`` LayerNorm of
-the transformer.  Same semantics: fp32 statistics whatever the input
+the transformer.  Which calls take it is ``ops/norms.py::ln_route``'s
+rule: ``LayerNormFunction`` serves every LayerNorm on the card with
+autograd off (each prefill and decode step of ``sample_images``, at any
+row count), where it runs the forward alone; with autograd on,
+``layernorm_impl: "pallas"`` takes both at 4096 rows and more.  Same semantics: fp32 statistics whatever the input
 dtype, biased variance, eps inside the rsqrt; the forward returns
 (x - mean) * rstd * scale + bias in x's dtype, the backward recomputes
 mean and rstd from x (nothing is saved but x) and returns
@@ -17,7 +21,9 @@ all rows in fp32.
 What bounds both on the H100: bytes.  At the train step's [11264, 1024]
 bf16 the forward reads and writes 23 MB each, the backward reads x and g
 and writes dx, with ~10 flops per element in between.  The training step
-waits for the host, so each launch's host time counts as well.
+waits for the host, so each launch's host time counts as well.  In
+serving, a decode step's [768, 1024] moves 3 MB, less than a launch
+costs, and a prefill's [294912, 1024] 1.2 GB.
 
 B7 is ``csrc/layer_norm.cu``: one launch each way, a row in registers (a
 warp, four or eight warps a row by d), and a backward whose blocks each
@@ -40,7 +46,7 @@ import functools
 import torch
 
 from .. import _build
-from .norms import f32_param
+from .norms import B7_MAX_D, f32_param
 
 _TICKETS = {}   # (device, stream) -> the backward's ticket counters
 
@@ -80,8 +86,8 @@ def _check(x, scale, bias=None, g=None):
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     d = x.shape[1]
-    if d > 8192:
-        raise ValueError(f"layer_norm kernel takes d <= 8192, got {d}")
+    if d > B7_MAX_D:
+        raise ValueError(f"layer_norm kernel takes d <= {B7_MAX_D}, got {d}")
     dev = x.get_device()   # an int: cheaper to compare than device objects
     for name, p in (("scale", scale), ("bias", bias)):
         if p is None:

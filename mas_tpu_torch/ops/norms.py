@@ -4,11 +4,13 @@ and ``folded_ln_dense``, a LayerNorm folded into the next matrix product.
 Statistics are fp32 whatever the input dtype, and the variance is the
 two-pass mean of squared deviations.  ``group_norm_swish`` goes through
 ``ops/gn_swish.py::GNSwishFunction``: kernels B4 (forward) and B8
-(backward) for CUDA tensors; ``layer_norm(impl='pallas')`` through
-``ops/layer_norm.py::LayerNormFunction``: kernel B7.
+(backward) for CUDA tensors; ``layer_norm`` through kernel B7
+(``ops/layer_norm.py``) on the routes ``ln_route`` gives.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.nn import functional as F
@@ -59,13 +61,44 @@ def group_norm_swish(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return GNSwishFunction.apply(x, scale, bias, num_groups, eps)
 
 
-def ln_kernel_shape(x: torch.Tensor) -> bool:
+# B7's widest row (``csrc/layer_norm.cu``: eight warps of up to eight
+# 16-byte vectors a thread)
+B7_MAX_D = 8192
+
+# layer_norm's routes: B7 through ``LayerNormFunction`` (one launch
+# forward), the fp32 upcast chain (three)
+LN_ROUTES = ("b7", "upcast")
+
+
+def ln_kernel_shape(shape) -> bool:
     """The JAX package's rule for its fused LayerNorm
     (``mas_tpu/ops/pallas/layer_norm.py::_supported``): at least 4096 rows
-    and a last axis that is a multiple of 128; smaller calls, such as the
-    decode step's [B, 1, D], cost more in dispatch than they save."""
-    d = x.shape[-1]
-    return x.dim() >= 2 and d % 128 == 0 and x.numel() // d >= 4096
+    and a last axis that is a multiple of 128."""
+    d = shape[-1]
+    return len(shape) >= 2 and d % 128 == 0 and math.prod(shape) // d >= 4096
+
+
+def ln_route(device_type: str, grad_enabled: bool, impl: str, shape,
+             dtype: torch.dtype) -> str:
+    """The route of a LayerNorm over the last axis of a ``shape`` tensor
+    (one of ``LN_ROUTES``), from what the call observes.
+
+    On the card with autograd recording nothing (``sample_images``'
+    inference mode, a decode step's capture, evaluation under
+    ``no_grad``), B7 at any row count, whatever ``impl`` says: its forward
+    reads x once, keeps the fp32 two-pass statistics and affine and rounds
+    once, the upcast chain's arithmetic in one launch.  Every other call
+    keeps the rule it had: B7 for ``impl='pallas'`` and shapes that meet
+    ``ln_kernel_shape``, else the upcast chain.  That rule stays for the
+    training step because B7 there made no measured difference to a step
+    paced by the host (CHANGES.md, B7's CUDA redesign), and CPU calls keep
+    it so that they compute what the JAX package does."""
+    if device_type == "cuda" and not grad_enabled:
+        kernel = (shape[-1] <= B7_MAX_D
+                  and dtype in (torch.bfloat16, torch.float32))
+    else:
+        kernel = impl == "pallas" and ln_kernel_shape(shape)
+    return "b7" if kernel else "upcast"
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -73,21 +106,29 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """LayerNorm over the last axis, fp32 statistics and affine, rounded
     once to x's dtype — as the JAX path.
 
-    ``impl='pallas'`` (``TransformerConfig.layernorm_impl``) takes kernel
-    B7 through ``ops/layer_norm.py::LayerNormFunction`` for shapes that
-    meet ``ln_kernel_shape``, as the JAX package takes its Pallas
-    LayerNorm.  Every other call is PyTorch's fused layer norm on the fp32
-    upcast: three launches.  Written out as fp32 tensor ops it cost ~10
-    launches per call, which bound the decode step on the host
+    The route is ``ln_route``'s, counted in ``layer_norm.calls`` (eager
+    calls and a decode step's capture; a graph's replay counts none):
+    ``"b7"`` is ``ops/layer_norm.py::LayerNormFunction``, one launch
+    forward (autograd off records nothing), as the JAX package takes its
+    Pallas LayerNorm with ``impl='pallas'`` (``TransformerConfig.
+    layernorm_impl``); ``"upcast"`` is PyTorch's fused layer norm on the
+    fp32 upcast: three launches.  Written out as fp32 tensor ops it cost
+    ~10 launches per call, which bound the decode step on the host
     (PERF.md)."""
     if impl not in ("jnp", "pallas"):
         raise ValueError(f"impl must be jnp/pallas, got {impl!r}")
-    if impl == "pallas" and ln_kernel_shape(x):
+    route = ln_route(x.device.type, torch.is_grad_enabled(), impl, x.shape,
+                     x.dtype)
+    layer_norm.calls[route] += 1
+    if route == "b7":
         from .layer_norm import LayerNormFunction
 
         return LayerNormFunction.apply(x, scale, bias, eps)
     return F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(),
                         eps).to(x.dtype)
+
+
+layer_norm.calls = dict.fromkeys(LN_ROUTES, 0)
 
 
 def folded_ln_dense(x: torch.Tensor, ln_scale: torch.Tensor,
