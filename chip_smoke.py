@@ -206,6 +206,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      p within an ulp) and times it beside PyTorch's fused Adam; every
      training phase (5, 7, 11, 13-17) requires B13's exact launches, its
      launch plan's count times the Adam updates.
+ 20. Granite-4.0-H-Small's hybrid block as the stage-2 transformer
+     (``perfbench/configs/granite_4h_small_256.json``: 9 Mamba2 layers and
+     1 NoPE GQA layer, 72 experts top-10 and a shared expert, int4 lane
+     cache) at its published widths, seeded weights, batch 4, through
+     ``sample_tokens`` with the graph and eagerly in turns, as phase 19
+     (equal tokens, bitwise logits, 254/255 replays), with exact
+     B1/B2/B3/B12/B14 counts.  Phase 3 holds B14 (the Mamba2 decode
+     step's state update) against its twin at a b256 step's 512 rows
+     (state bitwise, y to the order of its sum) and times it; and, at the
+     Granite cell's shapes, B12 (72 experts of 4096 -> 768, top-10 by a
+     softmax over the chosen logits: 512 decode rows and a prefill call of
+     26,214 tokens), grouped B2 (q [512, 32, 1, 128] over int4 [512, 8,
+     640, 128]) and B3 (new k/v [512, 8, 128]) against their twins.
 Each path's launch counts are zeroed just before it and read just after.
 The line before the last is a JSON object with one entry per kernel
 (``launches`` summed over the paths); the last line is ``{"ok": true,
@@ -236,8 +249,13 @@ tokenization of 8 x 512^2 images and the VQ decode of 4 256^2 images, and
 
     python3 chip_smoke.py --hybrid
 
-runs the build's checks, phase 3's B12 check, B2 and B3 at the LFM2
+runs the build's checks, phase 3's B12, B2 and B3 checks at the LFM2
 cell's shapes and phase 19 alone, and
+
+    python3 chip_smoke.py --granite
+
+runs the build's checks, phase 3's B14 check, its B12, B2 and B3 checks
+at the Granite cell's shapes and phase 20 alone, and
 
     python3 chip_smoke.py --adam-times DIR
 
@@ -448,7 +466,7 @@ def phase_build() -> None:
 NO_SPILL_KERNELS = ("_bf16", "decode_quant_kernel", "decode_float_kernel",
                     "kv_write_", "layer_norm_", "gn_swish_bwd_kernel",
                     "gn_swish_fwd_kernel", "vq_argmin_", "moe_swiglu_",
-                    "adam_update_kernel")
+                    "adam_update_kernel", "ssm_update_kernel")
 
 
 def spill_check(log: str) -> None:
@@ -756,6 +774,9 @@ def b2_gqa_times(gen, rows: int, g: int, scale_dtype) -> dict:
 # the LFM2 cell's grouped read: 768 guided rows, 32 query heads over 8 kv
 # heads of 64, int4, fp32 scales
 B2_LFM2 = (768, 32, 4, 64, 4, torch.float32)
+# the Granite cell's: 512 guided rows, 32 query heads over 8 kv heads of
+# 128, int4, fp32 scales
+B2_GRANITE = (512, 32, 4, 128, 4, torch.float32)
 
 
 def _held_grouped_read(gen, rows, h, g, d, bits, sd, t=640) -> float:
@@ -791,8 +812,10 @@ def check_b2_grouped(gen) -> dict:
     """Grouped-query and bf16-scale reads of B2: q [rows, 16, 1, d] bf16
     (and fp32) against int4 and int8 caches of 16 / g kv heads, fp32 and
     bf16 scales, T = 640, at indices over the split's and the tiles'
-    edges, for B2_GROUPS; bf16 scales at g = 1; and the LFM2 cell's read
-    (B2_LFM2: q [768, 32, 1, 64] over int4 [768, 8, 640, 64]).  Same tolerances as
+    edges, for B2_GROUPS; bf16 scales at g = 1; and the LFM2 and Granite
+    cells' reads (B2_LFM2: q [768, 32, 1, 64] over int4 [768, 8, 640, 64];
+    B2_GRANITE: q [512, 32, 1, 128] over int4 [512, 8, 640, 128]).  Same
+    tolerances as
     ``check_b2``: the twin reads the same scales (bf16 widened to fp32).
     Times GQA-4 int4 at 128 and 8 rows, index 511, with fp32 and bf16
     scales (``b2_gqa_times``)."""
@@ -804,7 +827,7 @@ def check_b2_grouped(gen) -> dict:
              for bits in (4, 8) for sd in (torch.float32, torch.bfloat16)]
     cases += [(rows, 16, 1, 64, bits, torch.bfloat16) for rows in (128, 8)
               for bits in (4, 8)]
-    cases.append(B2_LFM2)
+    cases += [B2_LFM2, B2_GRANITE]
     for case in cases:
         err = max(err, _held_grouped_read(gen, *case, t))
     for rows in (128, 8):
@@ -1135,6 +1158,7 @@ def check_b3(gen) -> dict:
     print("B3, B10 at a tensor-parallel rank's shape [8,8,64] (8 of 16 "
           "heads), int4/int8: bitwise equal to their twins")
     check_b3_lfm2(tp)
+    check_b3_granite(tp)
     bf16_cases = [(rows, kv, d, bits) for rows in (128, 8) for kv in (16, 4)
                   for d in (64, 33, 256, 320) for bits in (4, 8)]
     own = torch.Generator(device="cuda").manual_seed(3)   # see check_b2
@@ -1177,6 +1201,14 @@ def check_b3_lfm2(gen) -> None:
     _held_writes(gen, 768, 64, 4, h=8)
     print("B3, B10 at the LFM2 cell's shape [768,8,64] int4: bitwise equal "
           "to their twins")
+
+
+def check_b3_granite(gen) -> None:
+    """B3 (and B10) at the Granite cell's write, new k/v [512, 8, 128] into
+    int4 caches with fp32 scales, bitwise equal to their twins."""
+    _held_writes(gen, 512, 128, 4, h=8)
+    print("B3, B10 at the Granite cell's shape [512,8,128] int4: bitwise "
+          "equal to their twins")
 
 
 # B10's row of the kernel table, measured by check_b3 beside B3's
@@ -2214,18 +2246,28 @@ HYBRID_CONFIG = os.path.join(ROOT, "perfbench", "configs",
                              "lfm2_8b_a1b_256.json")
 
 
-def _routed_inputs(gen, tokens, e=32, d=2048, f=1792, k=4):
-    """x [tokens, d] bf16, one MoE layer's experts at LFM2-8B-A1B's widths
-    (N(0, 0.02), bf16), and a routing of sigmoid scores of N(0, 1) logits
-    with an N(0, 0.02) bias, as the model routes."""
+# B12's widths: (experts, D, F, top-k, router score) of LFM2-8B-A1B and of
+# Granite-4.0-H-Small
+B12_LFM2 = (32, 2048, 1792, 4, "sigmoid")
+B12_GRANITE = (72, 4096, 768, 10, "softmax")
+
+
+def _routed_inputs(gen, tokens, e=32, d=2048, f=1792, k=4, score="sigmoid"):
+    """x [tokens, d] bf16, one MoE layer's experts (N(0, 0.02), bf16), and
+    a routing of N(0, 1) logits as the model routes: sigmoid scores with
+    an N(0, 0.02) bias (LFM2), or the k largest logits weighted by a
+    softmax over them (Granite)."""
     from mas_tpu_torch.ops import moe
 
     x = torch.randn(tokens, d, device=DEVICE, generator=gen).bfloat16()
     w1, w3, w2 = ((0.02 * torch.randn(shape, device=DEVICE, generator=gen)
                    ).bfloat16() for shape in ((e, f, d), (e, f, d), (e, d, f)))
     logits = torch.randn(tokens, e, device=DEVICE, generator=gen)
-    bias = 0.02 * torch.randn(e, device=DEVICE, generator=gen)
-    idx, w = moe.route(logits, bias, k, True, 1.0)
+    if score == "softmax":
+        idx, w = moe.route(logits, None, k, False, 1.0, "softmax")
+    else:
+        bias = 0.02 * torch.randn(e, device=DEVICE, generator=gen)
+        idx, w = moe.route(logits, bias, k, True, 1.0)
     return x, w1, w3, w2, idx, w.contiguous(), moe.group(idx, e)
 
 
@@ -2244,25 +2286,24 @@ def _cublas_experts(x, w1, w3, w2, groups, w, k):
     return y.view(t, k, d).sum(dim=1)
 
 
-def check_b12(gen) -> dict:
-    """The grouped SwiGLU expert product at LFM2-8B-A1B's widths (32
-    experts of 2048 -> 1792 -> 2048, top-4): a decode step's 768 rows
-    (guided b384: every expert touched, the weights' 705 MB read once) and
-    one prefill chunk of 65,536 tokens, against the plain twin on the card
-    (fp32 products of the same bf16 values; the twin rounds the hidden
-    activation to bf16 as the kernel stores it, and a sum that lands on
-    the other side of a rounding boundary moves one value by a bf16 ulp:
-    max err <= 2^-8 max |y|); the counters the up launch adds equal
-    ``count_routed``'s.  Timed one call at a time, back to back and
-    replayed from a CUDA graph (the decode shape, as the step replays it,
-    with and without the counters), beside one cuBLAS product a projection
-    and expert."""
+def _b12_shapes(gen, widths, token_counts, what: str) -> dict:
+    """B12 at ``widths`` (``B12_LFM2``, ``B12_GRANITE``) and each count of
+    tokens against its plain twin on the card (fp32 products of the same
+    bf16 values; the twin rounds the hidden activation to bf16 as the
+    kernel stores it, and a sum that lands on the other side of a rounding
+    boundary moves one value by a bf16 ulp: max err <= 2^-8 max |y|); the
+    counters the up launch adds equal ``count_routed``'s.  Timed one call
+    at a time, back to back and, at the first count (a decode step),
+    replayed from a CUDA graph with and without the counters, beside one
+    cuBLAS product a projection and expert.  Returns the first count's
+    row with ``max_abs_err`` and, under ``rows``, every count's."""
     from mas_tpu_torch.ops import moe
 
-    out, err = {}, 0.0
-    for tokens in (768, 65536):
-        x, w1, w3, w2, idx, w, groups = _routed_inputs(gen, tokens)
-        k, e = idx.shape[1], w1.shape[0]
+    e, d, f, k, score = widths
+    out, err = {"rows": {}}, 0.0
+    for tokens in token_counts:
+        x, w1, w3, w2, idx, w, groups = _routed_inputs(gen, tokens, e, d, f,
+                                                       k, score)
         routed = torch.zeros(e + 3, dtype=torch.int32, device=DEVICE)
         kernel = lambda: moe.expert_swiglu(x, w1, w3, w2, groups, w, k)
         counted = lambda: moe.expert_swiglu(x, w1, w3, w2, groups, w, k,
@@ -2275,31 +2316,30 @@ def check_b12(gen) -> dict:
         e_abs = max_err(got, plain)
         scale = float(plain.abs().max())
         err = max(err, e_abs / scale)
-        print(f"B12 {tokens} tokens x top-{k}: max err {e_abs:.3e} of max "
-              f"|y| {scale:.3e}; bitwise equal from call to call "
-              f"{torch.equal(got, kernel())}")
-        require(e_abs <= 2.0 ** -8 * scale, f"B12 {tokens} tokens: max err "
-                f"{e_abs}")
-        require(torch.equal(got, kernel()), f"B12 {tokens} tokens: two "
-                "calls differ")
-        require(torch.equal(routed, want), f"B12 {tokens} tokens: counters "
+        shape = f"B12 {what} {tokens} tokens x top-{k} of {e} ({d} -> {f})"
+        print(f"{shape}: max err {e_abs:.3e} of max |y| {scale:.3e}; "
+              f"bitwise equal from call to call {torch.equal(got, kernel())}")
+        require(e_abs <= 2.0 ** -8 * scale, f"{shape}: max err {e_abs}")
+        require(torch.equal(got, kernel()), f"{shape}: two calls differ")
+        require(torch.equal(routed, want), f"{shape}: counters "
                 f"{routed.tolist()} against {want.tolist()}")
         active = int((groups.counts > 0).sum())
         pairs = tokens * k
-        d, f = x.shape[1], w1.shape[1]
         b = bound(active * 3 * d * f * 2 + pairs * d * (2 + 4),
                   6.0 * d * f * pairs, torch.bfloat16)
         lib = lambda: _cublas_experts(x, w1, w3, w2, groups, w, k)
         row = dict(ms=timed_ms(kernel), run_ms=run_ms(kernel),
                    plain_ms=timed_ms(lambda: moe.expert_swiglu_plain(
                        x, w1, w3, w2, groups, w, k), reps=5),
-                   library_ms=timed_ms(lib, reps=5), **b)
-        if tokens == 768:
+                   library_ms=timed_ms(lib, reps=5), max_abs_err=e_abs / scale,
+                   **b)
+        if tokens == token_counts[0]:
             row["graph_ms"] = graph_ms(kernel, calls=5)
             row["graph_counted_ms"] = graph_ms(counted, calls=5)
             out.update(row)
+        out["rows"][tokens] = row
         best = min(row["ms"], row["run_ms"], row.get("graph_ms", math.inf))
-        print(f"B12 {tokens} tokens ({active} experts with pairs): one call "
+        print(f"{shape} ({active} experts with pairs): one call "
               f"{row['ms']:.4f} ms, back to back {row['run_ms']:.4f} ms"
               + (f", graph {row['graph_ms']:.4f} ms, with the counters "
                  f"{row['graph_counted_ms']:.4f} ms" if "graph_ms" in row
@@ -2308,8 +2348,39 @@ def check_b12(gen) -> dict:
               f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}), {100 * row['bound_ms'] / best:.1f}% of "
               f"it")
-        del x, w1, w3, w2
+        del x, w1, w3, w2, plain
     out["max_abs_err"] = err
+    return out
+
+
+def check_b12_granite(gen) -> dict:
+    """B12 at Granite-4.0-H-Small's widths (72 experts of 4096 -> 768 ->
+    4096, the top 10 logits weighted by a softmax over them): a b256
+    decode step's 512 rows and one prefill call of 26,214 tokens (the
+    262,144 pairs of ``models/hybrid.MOE_PAIRS`` at top-10)."""
+    from mas_tpu_torch.models import hybrid
+
+    return _b12_shapes(gen, B12_GRANITE,
+                       (512, hybrid.MOE_PAIRS // B12_GRANITE[3]), "granite")
+
+
+def check_b12_lfm2(gen) -> dict:
+    """B12 at LFM2-8B-A1B's widths: a b384 decode step's 768 rows and one
+    prefill chunk of 65,536 tokens."""
+    return _b12_shapes(gen, B12_LFM2, (768, 65536), "lfm2")
+
+
+def check_b12(gen) -> dict:
+    """The grouped SwiGLU expert product at LFM2-8B-A1B's widths (32
+    experts of 2048 -> 1792 -> 2048, top-4 by sigmoid scores and a bias): a
+    decode step's 768 rows (guided b384: every expert touched, the
+    weights' 705 MB read once) and one prefill chunk of 65,536 tokens;
+    then at Granite's (``check_b12_granite``), whose row goes under
+    ``granite``.  ``_b12_shapes`` holds each against the plain twin."""
+    out = check_b12_lfm2(gen)
+    out["granite"] = check_b12_granite(gen)
+    out["max_abs_err"] = max(out["max_abs_err"],
+                             out["granite"]["max_abs_err"])
     return out
 
 
@@ -2460,6 +2531,73 @@ def adam_launches(params, updates: int = 1) -> int:
     return updates * len(adam.launch_plan([p.numel() for p in params]))
 
 
+GRANITE_CONFIG = os.path.join(ROOT, "perfbench", "configs",
+                              "granite_4h_small_256.json")
+# a Granite b256 decode step's Mamba2 state: rows, heads, head dim, state
+B14_SHAPE = (512, 128, 64, 128)
+
+
+def _ssm_inputs(gen, rows, h, p, n):
+    """A state [rows, h, p, n] of N(0, 1), x, B, C of N(0, 1), Δ as the
+    model's softplus(dt + dt_bias) makes it (~0.01), A in [-16, -1], D of
+    N(1, 0.1), all fp32."""
+    state = torch.randn(rows, h, p, n, device=DEVICE, generator=gen)
+    xbc = torch.randn(rows, h * p + 2 * n, device=DEVICE, generator=gen)
+    dt = F.softplus(torch.randn(rows, h, device=DEVICE, generator=gen)
+                    - 4.6)
+    a = -1.0 - 15.0 * torch.rand(h, device=DEVICE, generator=gen)
+    d = 1.0 + 0.1 * torch.randn(h, device=DEVICE, generator=gen)
+    return state, xbc, dt, a, d
+
+
+def check_b14(gen) -> dict:
+    """The Mamba2 decode step's state update (B14) at a Granite b256
+    step's shape (512 rows of 128 heads x 64 x 128: 2 GiB of fp32 state),
+    against its plain twin on the card from the same state: the states
+    bitwise equal (the same three roundings an element; at most 2 ulps
+    allowed, printed), y within 1e-5 of max |y| (a sum over 128 in another
+    order); two kernel calls from one state bitwise equal.  Timed one call,
+    back to back and replayed from a CUDA graph, beside the twin; the
+    state is 2 GiB, so every call reads it from HBM."""
+    from mas_tpu_torch.ops import ssm
+
+    rows, h, p, n = B14_SHAPE
+    state, xbc, dt, a, d = _ssm_inputs(gen, rows, h, p, n)
+    got_s, plain_s = state.clone(), state.clone()
+    got = ssm.ssm_update(got_s, xbc, dt, a, d)
+    plain = ssm.ssm_update_plain(plain_s, xbc, dt, a, d)
+    torch.cuda.synchronize()
+    ulps = f32_ulps(got_s, plain_s)
+    err, scale = max_err(got, plain), float(plain.abs().max())
+    again_s = state.clone()
+    again = ssm.ssm_update(again_s, xbc, dt, a, d)
+    same = torch.equal(again, got) and torch.equal(again_s, got_s)
+    print(f"B14 {rows} rows x {h} heads x {p} x {n}: state {ulps} ulps "
+          f"from the twin's (bitwise {torch.equal(got_s, plain_s)}), y max "
+          f"err {err:.3e} of max |y| {scale:.3e}; bitwise from call to call "
+          f"{same}")
+    require(ulps <= 2, f"B14: state {ulps} ulps from the twin's")
+    require(err <= 1e-5 * scale, f"B14: y max err {err} of {scale}")
+    require(same, "B14: two calls from one state differ")
+    del plain_s, again_s, plain, again
+    elems = rows * h * p * n
+    b = bound(4.0 * (2 * elems + rows * (h * p + 2 * n + h + h * p)),
+              5.0 * elems, torch.float32)
+    kernel = lambda: ssm.ssm_update(got_s, xbc, dt, a, d)
+    row = dict(ms=timed_ms(kernel), run_ms=run_ms(kernel, calls=5),
+               graph_ms=graph_ms(kernel, calls=5),
+               plain_ms=timed_ms(lambda: ssm.ssm_update_plain(
+                   state, xbc, dt, a, d), reps=3, warmup=1),
+               library_ms=None, max_abs_err=err / scale, **b)
+    best = min(row["ms"], row["run_ms"], row["graph_ms"])
+    print(f"B14: one call {row['ms']:.4f} ms, back to back "
+          f"{row['run_ms']:.4f} ms, graph {row['graph_ms']:.4f} ms; plain "
+          f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}), {100 * row['bound_ms'] / best:.1f}% of it")
+    del state, got_s
+    return row
+
+
 KERNELS = (
     # id, name, route, source, replaces, check
     ("B1", "B1 flash_attention", "cuda", "mas_tpu_torch/csrc/flash_fwd.cu",
@@ -2492,6 +2630,8 @@ KERNELS = (
     ("B13", "B13 adam_update", "cuda", "mas_tpu_torch/csrc/adam.cu",
      "none (optax.adam, mas_tpu/train/state.py:35, fused by XLA)",
      check_b13),
+    ("B14", "B14 ssm_update", "cuda", "mas_tpu_torch/csrc/ssm_update.cu",
+     "none (port-only: Granite 4.0-H's Mamba2 decode step)", check_b14),
 )
 
 
@@ -2500,7 +2640,7 @@ def wrappers() -> dict:
     KERNELS order (B7's forward and backward are two wrappers)."""
     from mas_tpu_torch.ops import (adam, attention, decode_attention,
                                    decode_cache, gn_swish, layer_norm,
-                                   ln_producer, moe, quant, vq)
+                                   ln_producer, moe, quant, ssm, vq)
 
     return {"B1": (attention.flash_attention,),
             "B2": (quant.decode_attention_quant,),
@@ -2512,7 +2652,8 @@ def wrappers() -> dict:
             "B9": (decode_attention.decode_attention_float,),
             "B10": (decode_cache.write_packed_kv,),
             "B11": (ln_producer.add_stats,),
-            "B12": (moe.expert_swiglu,), "B13": (adam.adam_update,)}
+            "B12": (moe.expert_swiglu,), "B13": (adam.adam_update,),
+            "B14": (ssm.ssm_update,)}
 
 
 def reset_counts() -> None:
@@ -6143,6 +6284,101 @@ def phase_hybrid(smi: str) -> dict:
     return counts
 
 
+# --- phase 20: Granite-4.0-H-Small's hybrid block ---------------------------
+
+def granite_model(raw: dict, seed: int):
+    """``MakeAScene`` with the Granite block of ``perfbench/configs/
+    granite_4h_small_256.json`` at its published widths on the card, its
+    weights drawn tensor by tensor as the benchmark's ``param_spec``
+    gives them."""
+    from mas_tpu_torch.models.transformer import MakeAScene
+    from mas_tpu_torch.utils.config import (GraniteBlockConfig,
+                                            TransformerConfig)
+    from perfbench.reference import granite_hybrid
+
+    tcfg = TransformerConfig.from_dict(raw["transformer"])
+    with torch.device(DEVICE):
+        model = MakeAScene(tcfg, block=GraniteBlockConfig.from_dict(
+            raw["block"])).eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    state = model.state_dict()
+    g = granite_hybrid.Geometry.of(raw["transformer"], raw["block"])
+    with torch.no_grad():
+        for name, shape, mean, std, role in granite_hybrid.param_spec(g):
+            state[name].copy_(granite_hybrid.draw(shape, mean, std, role,
+                                                  gen, DEVICE))
+    return model, tcfg
+
+
+def phase_granite(smi: str) -> dict:
+    """Granite-4.0-H-Small's block as the stage-2 transformer (``models/
+    hybrid.py``: 9 Mamba2 layers and 1 NoPE GQA layer, each with 72
+    experts top-10 and a shared expert) at its published widths, seeded
+    weights, batch 4 (8 guided rows): ``sample_tokens`` at top-k 1 with the
+    decode step replayed from its graph and run eagerly, in turns, as
+    phase 19: equal tokens, every step's logits bitwise equal (B14 advances
+    the states in place, so a step run twice would show here), 1 eager
+    step, 1 capture and 254 replays a run; exact counts (B1 = 1, B2 = B3 =
+    2, B12 = 10 x 3: the prefill's one call, step 0 and the capture; B14 =
+    9 x 2: step 0 and the capture).  Prints the host seconds of each run
+    and the routed pairs the device counters hold."""
+    with open(GRANITE_CONFIG) as f:
+        raw = json.load(f)
+    t0 = time.perf_counter()
+    model, tcfg = granite_model(raw, 20)
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    text = torch.randint(1, tcfg.text_vocab_size - tcfg.text_length,
+                         (4, tcfg.text_length), device=DEVICE, generator=gen)
+    seg = torch.randint(0, tcfg.seg_vocab_size, (4, tcfg.seg_length),
+                        device=DEVICE, generator=gen)
+    steps = tcfg.image_length - 1
+    before = model.routed_pairs().clone()
+    runs = []
+    for graphed in (True, False, True, False):
+        with (contextlib.nullcontext() if graphed else eager_decode(model)):
+            runs.append(greedy_run(model, text, seg))
+        if graphed and len(runs) == 1:
+            counts = read_counts()
+            routed = (model.routed_pairs() - before).cpu()
+    (tg, lg, _, stg), (te, le, _, ste) = runs[0], runs[1]
+    diff = float((lg - le).abs().max())
+    decode = routed[:, 1, :-3].float()
+    load = float((decode.max(1).values / decode.mean(1)).mean())
+    print(f"granite block, batch 4, {steps} steps, top-k 1: tokens equal "
+          f"{torch.equal(tg, te)}, logits bitwise equal {torch.equal(lg, le)}"
+          f" (max |d| {diff:.3e} of max |logit| {float(le.abs().max()):.3e})"
+          f"; graph run steps {stg}, engagement {stg['replays']}/{steps}; "
+          f"host s graph {runs[0][2]:.3f}, {runs[2][2]:.3f}, eager "
+          f"{runs[1][2]:.3f}, {runs[3][2]:.3f}; launches counted "
+          f"{({k: v for k, v in counts.items() if v})}; decode pairs a layer "
+          f"{int(decode.sum(1)[0])}, max / mean over experts {load:.3f} "
+          f"[{smi}]")
+    want = dict(captures=1, replays=steps - 1, eager=1)
+    require(stg == want and runs[2][3] == want,
+            f"granite: graph runs' decode steps {stg}, {runs[2][3]}")
+    require(ste == runs[3][3] == dict(captures=0, replays=0, eager=0),
+            f"granite: the eager runs went through the graph: {ste}")
+    require(torch.equal(tg, te) and torch.equal(runs[2][0], te),
+            "granite: graph and eager tokens differ")
+    require(torch.equal(lg, le) and torch.equal(runs[2][1], le),
+            f"granite: graph and eager logits differ (max |d| {diff})")
+    layers = tcfg.num_layers
+    mambas = sum(kind == "mamba" for kind in raw["block"]["layer_types"])
+    attn = layers - mambas
+    require(counts["B12"] == 3 * layers and counts["B14"] == 2 * mambas
+            and counts["B1"] == attn
+            and counts["B2"] == counts["B3"] == 2 * attn,
+            f"granite: launches {counts}")
+    k = raw["block"]["num_experts_per_tok"]
+    require(int(decode.sum(1).min()) == 8 * steps * k,
+            f"granite: decode pairs a layer {decode.sum(1).tolist()}")
+    del model, runs, lg, le
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 20 (granite block) took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main(argv) -> int:
     modes = {"--decode-times": decode_times, "--norm-times": norm_times,
              "--vq-times": vq_times, "--vq-paths": vq_paths,
@@ -6159,10 +6395,22 @@ def main(argv) -> int:
         smi = phase_device()
         phase_build()
         gen = torch.Generator(device="cuda").manual_seed(0)
-        check_b12(gen)
+        check_b12_lfm2(gen)
         _held_grouped_read(gen, *B2_LFM2)
         check_b3_lfm2(gen)
         phase_hybrid(smi)
+        return 0
+    if argv[:1] == ["--granite"]:
+        # the build's checks, B14, the Granite cell's B12, B2 and B3
+        # shapes, and phase 20 alone
+        smi = phase_device()
+        phase_build()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        check_b14(gen)
+        check_b12_granite(gen)
+        _held_grouped_read(gen, *B2_GRANITE)
+        check_b3_granite(gen)
+        phase_granite(smi)
         return 0
     if argv[:1] and argv[0] in modes:
         # the decode reads and writes, B4, B7 and B8, B5, or the paths of
@@ -6198,6 +6446,7 @@ def main(argv) -> int:
         paths.append(phase_scenes(smi, os.path.join(tmp, "scenes")))
         paths.append(phase_decode_graph(smi))
         paths.append(phase_hybrid(smi))
+        paths.append(phase_granite(smi))
     for row in rows:
         row["launches"] = sum(counts.get(row["id"], 0) for counts in paths)
         require(row["launches"] > 0, f"{row['id']} launched on no path")

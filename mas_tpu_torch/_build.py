@@ -179,6 +179,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mas_adam_update.argtypes = [p, i, i, i, ctypes.POINTER(ll),
                                     ctypes.POINTER(i)] + [f] * 8 + [i, p]
     lib.mas_adam_update.restype = i
+    # state xbc dt a d y, rows heads head_dim state_dim, stream
+    lib.mas_ssm_update.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.mas_ssm_update.restype = i
     lib.mas_cuda_error_string.argtypes = [i]
     lib.mas_cuda_error_string.restype = ctypes.c_char_p
 

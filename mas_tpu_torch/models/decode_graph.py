@@ -136,7 +136,9 @@ class DecodeGraph:
         if not self.warm or self.stream.device != device:
             # the first use of a stream sets up its library state (cuBLAS's
             # workspace), which must not come from the graph's pool; the
-            # step writes the same k/v at the same position again
+            # step writes the same k/v at the same position again (a
+            # Mamba2 state would advance twice: step 0 warms the stream,
+            # so a sampling run never comes here)
             DecodeGraph.eager += 1
             self._on_side(device, lambda: body(img_token, pos, caches))
         if self.pool is None:

@@ -6,7 +6,8 @@ and written in place by every decode step: ``write(k, v, index)`` stores
 the token's k/v at ``index``, ``read(q, index)`` attends over positions
 <= index, and ``tensors()`` are the buffers that the step writes and
 reads, whose addresses a CUDA graph bakes in (``models/decode_graph.py``
-keys on them; the hybrid block's ``ConvState`` has them too).  The kinds:
+keys on them; the hybrid block's ``ConvState`` and the Granite block's
+``MambaState`` have them too).  The kinds:
   * float (``kv_cache_dtype: "compute"``): an in-place ``index_copy_``,
     then B9 (``ops/decode_attention.py``);
   * int8/int4 lane caches (``kv_cache_layout`` "lane" or "lane_aliased",
@@ -73,6 +74,21 @@ class PackedState:
 
     def tensors(self):
         return self.cache.kv, self.cache.scale
+
+
+@dataclass
+class MambaState:
+    """A Mamba2 layer's decode state (``models/hybrid.py::Mamba2``): the
+    SSM state [B, H, P, N] fp32, which each step advances in place
+    (``ops/ssm.py::ssm_update``, B14), and the conv's ring of its last K
+    inputs [B, K, channels] fp32, input of position p in slot p % K.  Both
+    are the prefill's own buffers, taken over without a copy: at the
+    serving batch the states are GBs a layer."""
+    ssm: torch.Tensor
+    conv: torch.Tensor
+
+    def tensors(self):
+        return self.ssm, self.conv
 
 
 def kv_state(cfg: TransformerConfig, k: torch.Tensor, v: torch.Tensor,

@@ -79,7 +79,7 @@ hidden activations) span the group.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -91,7 +91,8 @@ from ..ops.norms import folded_ln_dense, layer_norm
 from ..parallel.collectives import (copy_to_model, max_over_model,
                                     reduce_from_model)
 from ..parallel.sharding import check_shardable, kv_heads_of, shard_state
-from ..utils.config import ConfigError, HybridBlockConfig, TransformerConfig
+from ..utils.config import (ConfigError, GraniteBlockConfig,
+                            HybridBlockConfig, TransformerConfig)
 from ..utils.spans import span
 from . import hybrid
 from .decode_graph import DecodeGraph
@@ -469,13 +470,16 @@ class MakeAScene(nn.Module):
     otherwise they are cast to the compute dtype once (serving).
     ``shard``: (model index, model size) of a tensor-parallel rank
     (``parallel.distributed.model_shard``); its logits are its slice of
-    the vocabulary.  ``block``: LFM2-MoE's hybrid layers
-    (``models/hybrid.py``) in place of the Make-A-Scene block, with a
-    final RMSNorm and a Linear head."""
+    the vocabulary.  ``block``: LFM2-MoE's or Granite 4.0-H's hybrid
+    layers (``models/hybrid.py``) in place of the Make-A-Scene block, with
+    a final RMSNorm and a Linear head; Granite's summed embeddings are
+    multiplied by its ``embedding_multiplier`` and its logits divided by
+    its ``logits_scaling``."""
 
     def __init__(self, cfg: TransformerConfig, fp32_params: bool = False,
                  shard: Tuple[int, int] = (0, 1),
-                 block: Optional[HybridBlockConfig] = None):
+                 block: Union[HybridBlockConfig, GraniteBlockConfig,
+                              None] = None):
         super().__init__()
         index, size = shard
         if block is not None:
@@ -488,6 +492,9 @@ class MakeAScene(nn.Module):
             check_shardable(cfg, size)
         self.cfg = cfg
         self.block = block
+        # Granite's multipliers at the stack's two ends
+        self.mup = ((block.embedding_multiplier, block.logits_scaling)
+                    if isinstance(block, GraniteBlockConfig) else None)
         self.shard = (index, size)
         self._decode_graph = DecodeGraph()
         self.dtype = compute_dtype(cfg.compute_dtype)
@@ -564,7 +571,12 @@ class MakeAScene(nn.Module):
                           self.embed_seg(seg_tokens)], dim=1)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        return self.to_logits(h).float()
+        logits = self.to_logits(h).float()
+        return logits if self.mup is None else logits / self.mup[1]
+
+    def _scaled(self, x: torch.Tensor) -> torch.Tensor:
+        """The summed embeddings into the first layer."""
+        return x if self.mup is None else x.float() * self.mup[0]
 
     def _final_ln(self, x: torch.Tensor) -> torch.Tensor:
         """The final LN; rudalle_relax first divides by the detached
@@ -582,6 +594,7 @@ class MakeAScene(nn.Module):
             checkpoint.create_selective_checkpoint_contexts, _save_dots)
             if cfg.remat_policy == "dots" else checkpoint.noop_context_fn)
         kvs = []
+        x = self._scaled(x)
         for layer in self.transformer.layers:
             if remat:
                 x, kv = checkpoint.checkpoint(
@@ -615,8 +628,9 @@ class MakeAScene(nn.Module):
     def allocate_caches(self, prefill_kv: Sequence, batch: int) -> list:
         """One decode state a layer, of this rank's kv heads, seeded with
         the prefill's k/v (``models/decode_state.py``; a hybrid conv
-        layer's ``hybrid.ConvState``): allocated once at full length and
-        written in place by ``decode_step``."""
+        layer's ``hybrid.ConvState``, a Mamba2 layer's ``MambaState``):
+        allocated once at full length and written in place by
+        ``decode_step``."""
         with span("cache_seed"):
             return self.transformer.decode_states(prefill_kv, batch)
 
@@ -649,7 +663,7 @@ class MakeAScene(nn.Module):
         pos // n and pos % n and the cache index prefix + pos are computed
         there, so the step reads no host value of the position and a CUDA
         graph can replay it."""
-        x = self.embed_image(img_token, pos)
+        x = self._scaled(self.embed_image(img_token, pos))
         index = pos + self.cfg.prefix_length
         for layer, state in zip(self.transformer.layers, caches):
             x = layer.decode(x, state, index)

@@ -10,6 +10,8 @@ experts in torch.
 Routing (``route``, ``group``): sigmoid scores ``s``; the ``k`` experts
 with the largest ``s + bias`` (the bias only chooses); weights ``s`` of
 the chosen, over their sum + 1e-6 where ``normalize``, times ``scale``.
+Granite's router (``score`` "softmax") takes the ``k`` largest logits and
+a softmax over them.
 The (token, slot) pairs are then ordered by expert, stably (pair order
 within an expert), by a sort and a binary search on the device: no host
 value, no ``nonzero`` or ``bincount``, so a CUDA graph can capture the
@@ -57,9 +59,14 @@ class Groups(NamedTuple):
 
 
 def route(logits: torch.Tensor, bias: Optional[torch.Tensor], k: int,
-          normalize: bool, scale: float):
+          normalize: bool, scale: float, score: str = "sigmoid"):
     """Router logits [T, E] (fp32) -> (chosen experts [T, k] int64,
-    their weights [T, k] fp32)."""
+    their weights [T, k] fp32).  ``score`` "softmax": the k largest
+    logits, weighted by a softmax over those k (Granite's router; no bias,
+    the weights sum to 1 and ``normalize`` adds nothing)."""
+    if score == "softmax":
+        top = torch.topk(logits.float(), k, dim=-1)
+        return top.indices, torch.softmax(top.values, dim=-1) * scale
     s = torch.sigmoid(logits.float())
     chooser = s if bias is None else s + bias.float()
     idx = torch.topk(chooser, k, dim=-1).indices

@@ -464,19 +464,7 @@ class HybridBlockConfig(_Base):
         """Raise ``ConfigError`` unless the transformer section carries
         this block: as many layers, a lane or float cache, none of the
         Make-A-Scene block's variants."""
-        if len(self.layer_types) != t.num_layers:
-            raise ConfigError(
-                f"layer_types has {len(self.layer_types)} entries, "
-                f"num_layers is {t.num_layers}")
-        for name, off in (("rudalle_relax", False),
-                          ("cogview_layernorm_prescale", False),
-                          ("ln_matmul_fold", False), ("remat", False)):
-            if getattr(t, name) != off:
-                raise ConfigError(f"{name} is a Make-A-Scene block variant; "
-                                  f"the hybrid block takes it {off}")
-        if t.kv_cache_layout == "packed":
-            raise ConfigError("the hybrid block's attention layers take a "
-                              "lane or float cache, not 'packed'")
+        _check_hybrid(self.layer_types, t)
 
     @property
     def attention_layers(self) -> Tuple[int, ...]:
@@ -486,6 +474,129 @@ class HybridBlockConfig(_Base):
     @property
     def moe_layers(self) -> Tuple[int, ...]:
         return tuple(range(self.num_dense_layers, len(self.layer_types)))
+
+
+def _check_hybrid(layer_types, t: "TransformerConfig") -> None:
+    """What a hybrid block asks of the transformer section: a layer type
+    a layer, a lane or float cache, none of the Make-A-Scene block's
+    variants."""
+    if len(layer_types) != t.num_layers:
+        raise ConfigError(f"layer_types has {len(layer_types)} entries, "
+                          f"num_layers is {t.num_layers}")
+    for name, off in (("rudalle_relax", False),
+                      ("cogview_layernorm_prescale", False),
+                      ("ln_matmul_fold", False), ("remat", False)):
+        if getattr(t, name) != off:
+            raise ConfigError(f"{name} is a Make-A-Scene block variant; "
+                              f"the hybrid block takes it {off}")
+    if t.kv_cache_layout == "packed":
+        raise ConfigError("the hybrid block's attention layers take a "
+                          "lane or float cache, not 'packed'")
+
+
+GRANITE_LAYER_TYPES = ("mamba", "attention")
+
+
+@dataclass(frozen=True)
+class GraniteBlockConfig(_Base):
+    """Port-only: Granite 4.0-H's hybrid block (IBM's ``granitemoehybrid``
+    ``config.json``, key for key) as the stage-2 transformer's layers, read
+    from a config's ``block`` section beside ``transformer``, which gives
+    the width, depth, heads, token interface, compute dtype and decode
+    cache as for ``HybridBlockConfig``.
+
+    ``layer_types``: one of ``GRANITE_LAYER_TYPES`` a layer: a Mamba2
+    mixer (``mamba_n_heads`` heads of ``mamba_d_head``, one group of B and
+    C of ``mamba_d_state``, a causal depthwise conv of ``mamba_d_conv``
+    taps with a bias, the state scanned in chunks of ``mamba_chunk_size``
+    over a prefill), or GQA without positions (``position_embedding_type``
+    "nope") scaled by ``attention_multiplier``.  Every layer's
+    feed-forward: ``num_local_experts`` SwiGLU experts of
+    ``intermediate_size``, the ``num_experts_per_tok`` largest router
+    logits chosen and weighted by a softmax over them, plus a shared
+    SwiGLU expert of ``shared_intermediate_size``.  Both branches' outputs
+    are scaled by ``residual_multiplier`` before their residual add; the
+    summed embeddings by ``embedding_multiplier``; the head's logits
+    divided by ``logits_scaling``.  RMSNorm everywhere at
+    ``rms_norm_eps``."""
+
+    layer_types: Tuple[str, ...] = ()
+    intermediate_size: int = 768
+    shared_intermediate_size: int = 1536
+    num_local_experts: int = 72
+    num_experts_per_tok: int = 10
+    mamba_n_heads: int = 128
+    mamba_d_head: int = 64
+    mamba_d_state: int = 128
+    mamba_n_groups: int = 1
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_chunk_size: int = 256
+    mamba_conv_bias: bool = True
+    mamba_proj_bias: bool = False
+    attention_bias: bool = False
+    attention_multiplier: float = 0.0078125
+    embedding_multiplier: float = 12.0
+    residual_multiplier: float = 0.22
+    logits_scaling: float = 16.0
+    position_embedding_type: str = "nope"
+    rms_norm_eps: float = 1e-5
+
+    def __post_init__(self):
+        if isinstance(self.layer_types, list):
+            object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        bad = sorted(set(self.layer_types) - set(GRANITE_LAYER_TYPES))
+        if not self.layer_types or bad:
+            raise ConfigError(
+                f"layer_types must be a non-empty list of "
+                f"{GRANITE_LAYER_TYPES}, got {list(self.layer_types)}")
+        if self.position_embedding_type != "nope":
+            raise ConfigError(
+                f"position_embedding_type {self.position_embedding_type!r}: "
+                f"the Granite block is ported without positions ('nope')")
+        if self.mamba_n_groups != 1:
+            raise ConfigError(f"mamba_n_groups {self.mamba_n_groups}: the "
+                              f"Mamba2 mixer is ported for one group")
+        if not self.mamba_conv_bias:
+            raise ConfigError("mamba_conv_bias false: the Mamba2 conv is "
+                              "ported with its bias")
+        if self.mamba_proj_bias or self.attention_bias:
+            raise ConfigError("mamba_proj_bias / attention_bias: the "
+                              "Granite block's projections take no bias")
+        if not 0 < self.num_experts_per_tok <= self.num_local_experts:
+            raise ConfigError(
+                f"num_experts_per_tok ({self.num_experts_per_tok}) must be "
+                f"in 1..num_local_experts ({self.num_local_experts})")
+        if self.mamba_d_conv < 1 or self.mamba_chunk_size < 1:
+            raise ConfigError("mamba_d_conv and mamba_chunk_size must be "
+                              ">= 1")
+
+    def check(self, t: "TransformerConfig") -> None:
+        """Raise ``ConfigError`` unless the transformer section carries
+        this block: as many layers, a Mamba2 inner width of
+        ``mamba_expand`` x ``hidden_dim``, a lane or float cache, none of
+        the Make-A-Scene block's variants."""
+        _check_hybrid(self.layer_types, t)
+        inner = self.mamba_n_heads * self.mamba_d_head
+        if inner != self.mamba_expand * t.hidden_dim:
+            raise ConfigError(
+                f"mamba_n_heads x mamba_d_head = {inner} must be "
+                f"mamba_expand x hidden_dim = "
+                f"{self.mamba_expand * t.hidden_dim}")
+
+    @property
+    def attention_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i, k in enumerate(self.layer_types)
+                     if k == "attention")
+
+    @property
+    def mamba_inner(self) -> int:
+        return self.mamba_n_heads * self.mamba_d_head
+
+    @property
+    def conv_channels(self) -> int:
+        """The conv's channels: x, then B and C of the one group."""
+        return self.mamba_inner + 2 * self.mamba_d_state
 
 
 @dataclass(frozen=True)
